@@ -1,0 +1,140 @@
+"""PyTorch port, models: DINOv2 forward (with the position-embedding resize),
+the serving transformations of Gemma-2 and the bridge, the embedding
+lookup and the seeded init, each against the JAX package on the tiny
+presets, with JAX params carried over by params.from_jax."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from vlm_bridge_tpu.configs import BridgeConfig, DinoV2Config, Gemma2Config, VLMConfig
+from vlm_bridge_tpu.models import bridge as jb
+from vlm_bridge_tpu.models import dinov2 as jd
+from vlm_bridge_tpu.models import full_model as jfm
+from vlm_bridge_tpu.models import gemma2 as jg
+from vlm_bridge_tpu_torch.models import bridge as tb
+from vlm_bridge_tpu_torch.models import dinov2 as td
+from vlm_bridge_tpu_torch.models import full_model as tfm
+from vlm_bridge_tpu_torch.models import gemma2 as tg
+from vlm_bridge_tpu_torch.ops import decode_kernels as tdk
+from vlm_bridge_tpu_torch.params.from_jax import from_jax
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("image_px", [42, 98])
+def test_dinov2_forward_resized_grid(image_px):
+    """Grid 3 (down) and 7 (up) against the native 5: the bicubic resize
+    must be jax.image's (A = -0.5)."""
+    cfg = DinoV2Config.tiny_test()
+    pj = jax.jit(lambda k: jd.init(k, cfg, dtype=jnp.float32))(jax.random.key(0))
+    px = np.random.default_rng(0).normal(0, 1, (2, image_px, image_px, 3)).astype(np.float32)
+    want = jax.jit(lambda p, x: jd.forward(p, cfg, x))(pj, jnp.asarray(px))
+    got = td.forward(from_jax(_np_tree(pj)), cfg, torch.from_numpy(px))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+    grid = image_px // cfg.patch_size
+    np.testing.assert_allclose(
+        td.interpolate_pos_embed(torch.from_numpy(np.array(pj["pos_embed"])), cfg, grid).numpy(),
+        np.asarray(jd.interpolate_pos_embed(pj["pos_embed"], cfg, grid)), atol=1e-6)
+
+
+def test_dinov2_rejects_non_square():
+    cfg = DinoV2Config.tiny_test()
+    params = td.init(cfg, generator=torch.Generator().manual_seed(0), dtype=torch.float32)
+    with pytest.raises(ValueError, match="square"):
+        td.forward(params, cfg, torch.zeros(1, 42, 56, 3))
+
+
+def test_gemma2_quantize_stack_embed():
+    cfg = Gemma2Config.tiny_test()
+    pj = jax.jit(lambda k: jg.init(k, cfg, dtype=jnp.float32))(jax.random.key(1))
+    qj = jax.jit(jg.quantize_params)(pj)
+    qt = tg.quantize_params(from_jax(_np_tree(pj)))
+    for name in ("0", "3"):
+        for sub, key in (("attn", "qkv"), ("attn", "o"), ("mlp", "gate"), ("mlp", "down")):
+            np.testing.assert_array_equal(qt["layers"][name][sub][key]["w_int8"].numpy(),
+                                          np.asarray(qj["layers"][name][sub][key]["w_int8"]))
+    np.testing.assert_array_equal(qt["embedding"]["w_int8"].numpy(),
+                                  np.asarray(qj["embedding"]["w_int8"]))
+    ids = np.array([[2, 5, 511], [0, 1, 7]])
+    for p_t, p_j in ((qt, qj), (from_jax(_np_tree(pj)), pj)):
+        np.testing.assert_allclose(tg.embed(p_t, torch.from_numpy(ids)).numpy(),
+                                   np.asarray(jg.embed(p_j, jnp.asarray(ids))), atol=1e-6)
+    st = tg.stack_decode_params(qt, cfg)
+    H, F, QHD = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads * cfg.head_dim
+    NQKV = QHD + 2 * cfg.num_kv_heads * cfg.head_dim
+    assert st["wqkv"].shape == (cfg.num_layers, NQKV // 32, H // 16, 32, 16)
+    gu = tdk.from_fragments(st["wgu"][2])
+    assert gu.shape == (H, 2 * F)
+    np.testing.assert_array_equal(gu[:, F:].numpy(),
+                                  np.asarray(qj["layers"]["2"]["mlp"]["up"]["w_int8"]))
+    assert not tg.supports_fused_decode(qt, cfg, 51)  # tiny window (8) binds
+    assert tg.fused_cache_rows(51) == 64
+
+
+def test_fragment_order_round_trips_and_matches_mma_layout():
+    w = torch.arange(64 * 96, dtype=torch.int32).reshape(64, 96)
+    wf = tdk.to_fragments(w)
+    assert wf.shape == (3, 4, 32, 16)
+    assert torch.equal(tdk.from_fragments(wf), w)
+    # lane 9 (g = 2, t = 1) of columns 32..63, rows 16..31: n8 tile j = 1,
+    # bytes for rows 16 + (2, 3, 10, 11) of column 32 + 8 + 2
+    assert wf[1, 1, 9, 4:8].tolist() == [w[r, 42].item() for r in (18, 19, 26, 27)]
+
+
+def test_bridge_quantize_and_stack():
+    cfg = BridgeConfig.tiny_test()
+    pj = jax.jit(lambda k: jb.init(k, cfg, dtype=jnp.float32))(jax.random.key(2))
+    qj = jax.jit(jb.quantize_decode_params)(pj)
+    qt = tb.quantize_decode_params(from_jax(_np_tree(pj)))
+    assert tb.supports_fused_decode(qt) and not tb.supports_fused_decode(from_jax(_np_tree(pj)))
+    np.testing.assert_array_equal(qt["blocks"]["1"]["self"]["qkv"]["w_int8"].numpy(),
+                                  np.asarray(qj["blocks"]["1"]["self"]["qkv"]["w_int8"]))
+    st = tb.stack_bridge_decode_params(qt, cfg)
+    ld, F = cfg.language_dim, cfg.language_dim * cfg.ffn_mult
+    assert tdk.from_fragments(st["wqkv"][0]).shape == (ld, 3 * ld)
+    np.testing.assert_array_equal(tdk.from_fragments(st["fc2"][1]).numpy(),
+                                  np.asarray(qj["blocks"]["1"]["ffn"]["fc2"]["w_int8"]))
+    assert st["lns"].shape == (cfg.num_blocks, 6, ld)
+    assert st["qkv_bias"].shape == (cfg.num_blocks, 3 * ld)
+
+
+def test_seeded_init_matches_jax_shapes_and_distributions():
+    cfg = VLMConfig.tiny_test()
+    gen = torch.Generator().manual_seed(0)
+    pt = tfm.init(cfg, generator=gen, frozen_dtype=torch.float32)
+    pj = jax.eval_shape(lambda k: jfm.init(k, cfg, frozen_dtype=jnp.float32), jax.random.key(0))
+    flat_t = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(pt)[0]}
+    flat_j = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(pj)[0]}
+    assert flat_t.keys() == flat_j.keys()
+    for k, v in flat_j.items():
+        assert tuple(flat_t[k].shape) == v.shape, k
+    fc1 = pt["bridge"]["blocks"]["0"]["ffn"]["fc1"]
+    bound = (6.0 / sum(fc1.shape)) ** 0.5
+    assert fc1.abs().max() <= bound and fc1.abs().max() > 0.9 * bound
+    emb = pt["lm"]["embedding"]
+    assert abs(float(emb.std()) - 0.02) < 2e-3
+    # the same seed gives the same weights
+    again = tfm.init(cfg, generator=torch.Generator().manual_seed(0), frozen_dtype=torch.float32)
+    assert torch.equal(again["lm"]["embedding"], emb)
+
+
+def test_encode_image_and_bf16_from_jax():
+    cfg = VLMConfig.tiny_test()
+    pj = jax.jit(lambda k: jfm.init(k, cfg))(jax.random.key(3))  # bf16 frozen towers
+    pt = from_jax(_np_tree(pj))
+    assert pt["vision"]["pos_embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(pt["vision"]["pos_embed"].float().numpy(),
+                                  np.asarray(pj["vision"]["pos_embed"], np.float32))
+    px = np.random.default_rng(1).normal(0, 1, (2, 70, 70, 3)).astype(np.float32)
+    want = jax.jit(lambda p, x: jfm.encode_image(p, cfg, x))(
+        jax.tree.map(lambda a: a.astype(jnp.float32), pj), jnp.asarray(px))
+    got = tfm.encode_image({k: jax.tree.map(lambda a: a.float(), v) for k, v in pt.items()},
+                           cfg, torch.from_numpy(px))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)

@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
+
+The sources are compiled with nvcc for sm_90a into a library with a plain C
+interface, loaded with ctypes (a few seconds per build, against minutes for
+an extension that includes PyTorch's headers). The build runs at first use,
+into `build/` at the repository root, keyed by a hash of the sources, so a
+changed source rebuilds and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points and their argument types (pointers and the stream as void*)
+SIGNATURES = {
+    "vbt_int8_matmul_t_argmax": [_P] * 6 + [_I] * 3 + [_P],
+    "vbt_fused_stack_step": [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P],
+    "vbt_fused_bridge_step": [_P] * 31 + [_I] * 9 + [_F] + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build in this process (None: loaded, not built)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels can only be built on "
+                       "a machine with the CUDA toolkit")
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256()
+        for p in _sources():
+            digest.update(p.name.encode())
+            digest.update(p.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        out = BUILD_DIR / f"libvbt_kernels-{digest.hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            os.replace(tmp, out)
+            build_seconds = time.perf_counter() - t0
+        handle = ctypes.CDLL(str(out))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+        return _lib
+
+
+def call(name: str, *args) -> None:
+    """Run one C entry point on the current stream; raise on a CUDA error."""
+    fn = getattr(lib(), name)
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
+    """Refuse what the kernels do not take: device, dtype, shape, layout."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")

@@ -1,0 +1,80 @@
+"""Shared CLI plumbing (port of vlm_bridge_tpu.tools.loading): model flags
+and their resolution (preset -> seeded random init on the device -> int8
+quantization -> tokenizer). HF snapshots and bridge checkpoints are not
+ported yet and raise."""
+
+from __future__ import annotations
+
+import torch
+
+from vlm_bridge_tpu.configs import TrainingConfig, VLMConfig
+
+PRESETS = {"default": VLMConfig.default, "tiny": VLMConfig.tiny_test,
+           "tiny_ref": VLMConfig.tiny_ref, "gemma2_9b": VLMConfig.gemma2_9b,
+           "gemma2_27b": VLMConfig.gemma2_27b,
+           # tiny widths with a sliding window that never binds at caption
+           # lengths, so the fused int8 decode serves it (the JAX package's
+           # TrainingConfig preset of the same purpose)
+           "tiny_wide": lambda: TrainingConfig(model_preset="tiny_test_wide").model_config()}
+
+
+def add_model_args(ap) -> None:
+    """Attach the common model/weights/device argument set."""
+    ap.add_argument("--checkpoint", default=None, help="bridge checkpoint (not ported yet)")
+    ap.add_argument("--hf-vision-path", default=None, help="HF DINOv2 snapshot (not ported yet)")
+    ap.add_argument("--hf-lm-path", default=None, help="HF Gemma-2 snapshot (not ported yet)")
+    ap.add_argument("--tokenizer-path", default=None)
+    ap.add_argument("--preset", default="default", choices=sorted(PRESETS))
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"],
+                    help="frozen-weight dtype of the random init")
+    ap.add_argument("--quantize", default=None,
+                    help="int8-quantize weight groups: comma list of "
+                         "embedding,mlp,attn,bridge")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="device to build and run the model on (no fallback)")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the random init")
+
+
+def resolve_device(name: str) -> torch.device:
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda requested but torch.cuda.is_available() is False")
+    return torch.device(name)
+
+
+def load_from_args(args):
+    """(cfg, params, tokenizer) resolved from the common argument set."""
+    from vlm_bridge_tpu.data.tokenizer import get_tokenizer
+    from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
+
+    for flag in ("checkpoint", "hf_vision_path", "hf_lm_path"):
+        if getattr(args, flag, None):
+            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet")
+    device = resolve_device(args.device)
+    cfg = PRESETS[args.preset]()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
+    params = full_model.init(cfg, generator=gen, frozen_dtype=dtype, device=device)
+    if args.quantize:
+        parts = args.quantize.split(",")
+        lm_parts = tuple(p for p in parts if p != "bridge")
+        if lm_parts:
+            params["lm"] = gemma2.quantize_params(params["lm"], parts=lm_parts)
+        if "bridge" in parts:
+            params["bridge"] = bridge.quantize_decode_params(params["bridge"])
+    return cfg, params, get_tokenizer(args.tokenizer_path)
+
+
+def prestack_decode_params(params, cfg, gen):
+    """Stack the int8 decoder weights ONCE for serving and drop the
+    per-layer copies. No-op unless the fused stack decode serves this
+    generation config."""
+    from vlm_bridge_tpu_torch.models import gemma2
+
+    lm = params["lm"]
+    if ("stacked_decode" in lm or gen.exact or not gen.kv_quant
+            or not gemma2.supports_fused_decode(lm, cfg.lm, gen.max_length + 1)):
+        return params
+    lm = {k: v for k, v in lm.items() if k != "layers"}
+    lm["stacked_decode"] = gemma2.stack_decode_params(params["lm"], cfg.lm)
+    return {**params, "lm": lm}
