@@ -27,6 +27,7 @@ from vlm_bridge_tpu_torch.inference import generate as TG
 from vlm_bridge_tpu_torch.models import bridge as tb
 from vlm_bridge_tpu_torch.models import gemma2 as tg
 from vlm_bridge_tpu_torch.ops import decode_kernels as tdk
+from vlm_bridge_tpu_torch.params.from_jax import config_from_jax as P
 from vlm_bridge_tpu_torch.params.from_jax import from_jax
 
 STEPS = 3
@@ -56,12 +57,12 @@ def test_fused_stack_step_plain_matches_jax(monkeypatch):
     qj = _lm_params(cfg, 0)
     stacked_j = jg.stack_decode_params(qj, cfg)
     qt = _to_torch(qj)
-    stacked_t = tg.stack_decode_params(qt, cfg)
+    stacked_t = tg.stack_decode_params(qt, P(cfg))
     B, L = 4, 16
     rng = np.random.default_rng(2)
     c_jnp = jg.KVCache.zeros(cfg, B, L, jnp.int8)
     c_pallas = jg.StackedKVCache.zeros(cfg, B, L)
-    c_port = tg.StackedKVCache.zeros(cfg, B, L)
+    c_port = tg.StackedKVCache.zeros(P(cfg), B, L)
     monkeypatch.setattr(jdk, "INTERPRET", True)
     # one compile for all steps (position traced)
     pallas_step = jax.jit(lambda tok, c, t: jg.decode_step_stacked(qj, cfg, stacked_j, tok, c, t))
@@ -70,7 +71,7 @@ def test_fused_stack_step_plain_matches_jax(monkeypatch):
         tok = rng.normal(0, 1, (B, 1, cfg.hidden_size)).astype(np.float32)
         h_jnp, c_jnp = jnp_step(jnp.asarray(tok), c_jnp, jnp.int32(t))
         h_pal, c_pallas = pallas_step(jnp.asarray(tok), c_pallas, jnp.int32(t))
-        h_port, c_port = tg.decode_step_stacked(qt, cfg, stacked_t, torch.from_numpy(tok),
+        h_port, c_port = tg.decode_step_stacked(qt, P(cfg), stacked_t, torch.from_numpy(tok),
                                                 c_port, t)
         scale = float(np.abs(np.asarray(h_jnp)).max())
         np.testing.assert_allclose(h_port.numpy(), np.asarray(h_jnp), atol=1e-3 * scale,
@@ -90,7 +91,7 @@ def test_fused_stack_step_plain_matches_jax(monkeypatch):
 def test_fused_stack_step_wrapper_routes_cpu_to_plain():
     cfg = _lm_cfg()
     qt = _to_torch(_lm_params(cfg, 0))
-    stacked = tg.stack_decode_params(qt, cfg)
+    stacked = tg.stack_decode_params(qt, P(cfg))
     x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (2, cfg.hidden_size))
                          .astype(np.float32))
     cos, sin = torch.ones(cfg.head_dim), torch.zeros(cfg.head_dim)
@@ -98,7 +99,7 @@ def test_fused_stack_step_wrapper_routes_cpu_to_plain():
               attn_scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps)
     outs = []
     for fn in (tdk.fused_stack_step, tdk.fused_stack_step_plain):
-        c = tg.StackedKVCache.zeros(cfg, 2, 8)
+        c = tg.StackedKVCache.zeros(P(cfg), 2, 8)
         outs.append((fn(0, x, stacked, *c, cos, sin, **kw), c))
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=0)
     torch.testing.assert_close(outs[0][1].k, outs[1][1].k, rtol=0, atol=0)
@@ -115,7 +116,7 @@ def _bridge_setup():
 def test_fused_bridge_step_plain_matches_jax(monkeypatch):
     cfg, _, qj, qt = _bridge_setup()
     bst_j = jb.stack_bridge_decode_params(qj, cfg)
-    bst_t = tb.stack_bridge_decode_params(qt, cfg)
+    bst_t = tb.stack_bridge_decode_params(qt, P(cfg))
     B, Sv, L = 3, 5, 16
     Hs, Ds = cfg.num_heads_self, cfg.language_dim // cfg.num_heads_self
     rng = np.random.default_rng(4)
@@ -129,7 +130,7 @@ def test_fused_bridge_step_plain_matches_jax(monkeypatch):
         cross_v_scale=jnp.transpose(c_jnp.cross_v_scale, (0, 3, 1, 2)),
         self_k=jnp.zeros((cfg.num_blocks, Hs, B, 64, Ds), jnp.float32),
         self_v=jnp.zeros((cfg.num_blocks, Hs, B, 64, Ds), jnp.float32))
-    c_port = TG._build_cross_cache(qt, cfg, torch.from_numpy(vision), L, torch.float32,
+    c_port = TG._build_cross_cache(qt, P(cfg), torch.from_numpy(vision), L, torch.float32,
                                    kv_quant=True)
     np.testing.assert_array_equal(c_port.cross_k.numpy(),
                                   np.asarray(c_jnp.cross_k).transpose(0, 1, 3, 2, 4))
@@ -167,12 +168,12 @@ def test_bridge_decode_step_plain_path_matches_jax(quantized_bridge):
     rng = np.random.default_rng(5)
     vision = rng.normal(0, 1, (B, Sv, cfg.vision_dim)).astype(np.float32)
     c_j = JG._build_cross_cache(pj, cfg, jnp.asarray(vision), L, jnp.float32, kv_quant=True)
-    c_t = TG._build_cross_cache(pt, cfg, torch.from_numpy(vision), L, torch.float32,
+    c_t = TG._build_cross_cache(pt, P(cfg), torch.from_numpy(vision), L, torch.float32,
                                 kv_quant=True)
     jnp_step = jax.jit(lambda e, c, t: JG._bridge_decode_step(pj, cfg, c, e, t))
     for t in range(STEPS):
         emb = rng.normal(0, 1, (B, 1, cfg.language_dim)).astype(np.float32)
         x_j, c_j = jnp_step(jnp.asarray(emb), c_j, jnp.int32(t))
-        x_t, c_t = TG._bridge_decode_step(pt, cfg, c_t, torch.from_numpy(emb), t)
+        x_t, c_t = TG._bridge_decode_step(pt, P(cfg), c_t, torch.from_numpy(emb), t)
         scale = float(np.abs(np.asarray(x_j)).max())
         np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), atol=1e-4 * scale, rtol=0)

@@ -25,6 +25,7 @@ from vlm_bridge_tpu.models import gemma2 as jg
 from vlm_bridge_tpu.ops import decode_kernels as jdk
 from vlm_bridge_tpu.ops import quant as jq
 from vlm_bridge_tpu_torch.inference import generate as TG
+from vlm_bridge_tpu_torch.params.from_jax import config_from_jax as P
 from vlm_bridge_tpu_torch.params.from_jax import from_jax
 
 MAX_NEW = 8
@@ -54,7 +55,7 @@ def slice_setup():
 
 def _port(cfg, qt, pixels, **kw):
     gen = TG.GenerationConfig(max_length=MAX_NEW, greedy=True, kv_quant=True, **kw)
-    toks, lens = TG.generate_tokens(qt, cfg, pixel_values=torch.from_numpy(pixels), gen=gen,
+    toks, lens = TG.generate_tokens(qt, P(cfg), pixel_values=torch.from_numpy(pixels), gen=gen,
                                     activation_dtype=torch.float32)
     return toks.numpy(), lens.numpy()
 
@@ -98,7 +99,7 @@ def test_force_plain_and_unported_modes_raise(slice_setup):
                 TG.GenerationConfig(greedy=True, kv_quant=False),
                 TG.GenerationConfig(greedy=True, kv_quant=True, exact=True)):
         with pytest.raises(NotImplementedError):
-            TG.generate_tokens(qt, cfg, pixel_values=px, gen=gen)
+            TG.generate_tokens(qt, P(cfg), pixel_values=px, gen=gen)
 
 
 def test_caption_cli_on_cpu(tmp_path, capsys):

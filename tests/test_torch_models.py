@@ -19,6 +19,7 @@ from vlm_bridge_tpu_torch.models import dinov2 as td
 from vlm_bridge_tpu_torch.models import full_model as tfm
 from vlm_bridge_tpu_torch.models import gemma2 as tg
 from vlm_bridge_tpu_torch.ops import decode_kernels as tdk
+from vlm_bridge_tpu_torch.params.from_jax import config_from_jax as P
 from vlm_bridge_tpu_torch.params.from_jax import from_jax
 
 
@@ -34,19 +35,19 @@ def test_dinov2_forward_resized_grid(image_px):
     pj = jax.jit(lambda k: jd.init(k, cfg, dtype=jnp.float32))(jax.random.key(0))
     px = np.random.default_rng(0).normal(0, 1, (2, image_px, image_px, 3)).astype(np.float32)
     want = jax.jit(lambda p, x: jd.forward(p, cfg, x))(pj, jnp.asarray(px))
-    got = td.forward(from_jax(_np_tree(pj)), cfg, torch.from_numpy(px))
+    got = td.forward(from_jax(_np_tree(pj)), P(cfg), torch.from_numpy(px))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
     grid = image_px // cfg.patch_size
     np.testing.assert_allclose(
-        td.interpolate_pos_embed(torch.from_numpy(np.array(pj["pos_embed"])), cfg, grid).numpy(),
+        td.interpolate_pos_embed(torch.from_numpy(np.array(pj["pos_embed"])), P(cfg), grid).numpy(),
         np.asarray(jd.interpolate_pos_embed(pj["pos_embed"], cfg, grid)), atol=1e-6)
 
 
 def test_dinov2_rejects_non_square():
     cfg = DinoV2Config.tiny_test()
-    params = td.init(cfg, generator=torch.Generator().manual_seed(0), dtype=torch.float32)
+    params = td.init(P(cfg), generator=torch.Generator().manual_seed(0), dtype=torch.float32)
     with pytest.raises(ValueError, match="square"):
-        td.forward(params, cfg, torch.zeros(1, 42, 56, 3))
+        td.forward(params, P(cfg), torch.zeros(1, 42, 56, 3))
 
 
 def test_gemma2_quantize_stack_embed():
@@ -64,7 +65,7 @@ def test_gemma2_quantize_stack_embed():
     for p_t, p_j in ((qt, qj), (from_jax(_np_tree(pj)), pj)):
         np.testing.assert_allclose(tg.embed(p_t, torch.from_numpy(ids)).numpy(),
                                    np.asarray(jg.embed(p_j, jnp.asarray(ids))), atol=1e-6)
-    st = tg.stack_decode_params(qt, cfg)
+    st = tg.stack_decode_params(qt, P(cfg))
     H, F, QHD = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads * cfg.head_dim
     NQKV = QHD + 2 * cfg.num_kv_heads * cfg.head_dim
     assert st["wqkv"].shape == (cfg.num_layers, NQKV // 32, H // 16, 32, 16)
@@ -72,7 +73,7 @@ def test_gemma2_quantize_stack_embed():
     assert gu.shape == (H, 2 * F)
     np.testing.assert_array_equal(gu[:, F:].numpy(),
                                   np.asarray(qj["layers"]["2"]["mlp"]["up"]["w_int8"]))
-    assert not tg.supports_fused_decode(qt, cfg, 51)  # tiny window (8) binds
+    assert not tg.supports_fused_decode(qt, P(cfg), 51)  # tiny window (8) binds
     assert tg.fused_cache_rows(51) == 64
 
 
@@ -94,7 +95,7 @@ def test_bridge_quantize_and_stack():
     assert tb.supports_fused_decode(qt) and not tb.supports_fused_decode(from_jax(_np_tree(pj)))
     np.testing.assert_array_equal(qt["blocks"]["1"]["self"]["qkv"]["w_int8"].numpy(),
                                   np.asarray(qj["blocks"]["1"]["self"]["qkv"]["w_int8"]))
-    st = tb.stack_bridge_decode_params(qt, cfg)
+    st = tb.stack_bridge_decode_params(qt, P(cfg))
     ld, F = cfg.language_dim, cfg.language_dim * cfg.ffn_mult
     assert tdk.from_fragments(st["wqkv"][0]).shape == (ld, 3 * ld)
     np.testing.assert_array_equal(tdk.from_fragments(st["fc2"][1]).numpy(),
@@ -106,7 +107,7 @@ def test_bridge_quantize_and_stack():
 def test_seeded_init_matches_jax_shapes_and_distributions():
     cfg = VLMConfig.tiny_test()
     gen = torch.Generator().manual_seed(0)
-    pt = tfm.init(cfg, generator=gen, frozen_dtype=torch.float32)
+    pt = tfm.init(P(cfg), generator=gen, frozen_dtype=torch.float32)
     pj = jax.eval_shape(lambda k: jfm.init(k, cfg, frozen_dtype=jnp.float32), jax.random.key(0))
     flat_t = {jax.tree_util.keystr(k): v for k, v in
               jax.tree_util.tree_flatten_with_path(pt)[0]}
@@ -121,7 +122,7 @@ def test_seeded_init_matches_jax_shapes_and_distributions():
     emb = pt["lm"]["embedding"]
     assert abs(float(emb.std()) - 0.02) < 2e-3
     # the same seed gives the same weights
-    again = tfm.init(cfg, generator=torch.Generator().manual_seed(0), frozen_dtype=torch.float32)
+    again = tfm.init(P(cfg), generator=torch.Generator().manual_seed(0), frozen_dtype=torch.float32)
     assert torch.equal(again["lm"]["embedding"], emb)
 
 

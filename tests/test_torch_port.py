@@ -1,13 +1,18 @@
-"""PyTorch port hygiene: the port and chip_smoke.py import no JAX, the smoke
-script refuses to run without a GPU, and every kernel wrapper given CPU
-tensors returns its plain version's result without counting a launch."""
+"""PyTorch port hygiene: the port and chip_smoke.py import no JAX and nothing
+of the JAX package, the port's own copies of the configs and the tokenizer
+equal the JAX package's, the smoke script refuses to run without a GPU, and
+every kernel wrapper given CPU tensors returns its plain version's result
+without counting a launch."""
 
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -37,6 +42,111 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+def _port_files():
+    return (sorted((REPO / "vlm_bridge_tpu_torch").rglob("*.py"))
+            + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_train_torch.py"])
+
+
+def test_no_import_of_jax_or_the_jax_package():
+    """An ast walk over every source file of the port, chip_smoke.py and the
+    port's profiling script: no
+    import names `jax` or `vlm_bridge_tpu` (`vlm_bridge_tpu_torch` is the
+    port itself), at module level or inside a function."""
+    banned = ("jax", "vlm_bridge_tpu", "flax", "optax")
+    files = _port_files()
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path}:{node.lineno} imports {name}"
+
+
+PRESETS = [(cls, preset)
+           for cls, presets in (
+               ("DinoV2Config", ("large", "base", "giant", "tiny_test")),
+               ("Gemma2Config", ("gemma2_2b", "gemma2_9b", "gemma2_27b", "tiny_test")),
+               ("BridgeConfig", ("default", "tiny_test")),
+               ("VLMConfig", ("default", "gemma2_9b", "gemma2_27b", "tiny_test", "tiny_ref")))
+           for preset in presets]
+
+
+@pytest.mark.parametrize("cls,preset", PRESETS, ids=[f"{c}.{p}" for c, p in PRESETS])
+def test_config_presets_equal_the_jax_package(cls, preset):
+    from vlm_bridge_tpu import configs as jcfg
+    from vlm_bridge_tpu_torch import configs as tcfg
+    from vlm_bridge_tpu_torch.params.from_jax import config_from_jax
+
+    want, got = getattr(getattr(jcfg, cls), preset)(), getattr(getattr(tcfg, cls), preset)()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    assert config_from_jax(want) == got and type(config_from_jax(want)) is type(got)
+    # every preset of the JAX class is listed above
+    listed = {p for c, p in PRESETS if c == cls}
+    statics = {n for n, v in vars(getattr(jcfg, cls)).items() if isinstance(v, staticmethod)}
+    assert statics == listed
+    for prop in ("head_dim", "native_grid", "swiglu_hidden", "attn_scale", "num_vision_tokens"):
+        if hasattr(want, prop):
+            assert getattr(got, prop) == getattr(want, prop)
+    if cls == "Gemma2Config":
+        assert [got.layer_is_sliding(i) for i in range(4)] == [want.layer_is_sliding(i)
+                                                               for i in range(4)]
+
+
+@pytest.mark.parametrize("preset", ["default", "tiny_test", "tiny_test_wide", "gemma2_9b",
+                                    "gemma2_27b"])
+def test_training_config_equal_the_jax_package(preset, tmp_path):
+    from vlm_bridge_tpu import configs as jcfg
+    from vlm_bridge_tpu_torch import configs as tcfg
+
+    assert dataclasses.asdict(tcfg.TrainingConfig()) == dataclasses.asdict(jcfg.TrainingConfig())
+    kw = dict(model_preset=preset, batch_size=3, pad_to_buckets=(32, 64), scheduler_type="linear")
+    want, got = jcfg.TrainingConfig(**kw), tcfg.TrainingConfig(**kw)
+    assert dataclasses.asdict(got.model_config()) == dataclasses.asdict(want.model_config())
+    # one YAML file serves both packages, in both directions
+    want.to_yaml(tmp_path / "jax.yaml")
+    got.to_yaml(tmp_path / "port.yaml")
+    assert (tmp_path / "jax.yaml").read_text() == (tmp_path / "port.yaml").read_text()
+    assert dataclasses.asdict(tcfg.TrainingConfig.from_yaml(tmp_path / "jax.yaml")) == \
+        dataclasses.asdict(jcfg.TrainingConfig.from_yaml(tmp_path / "port.yaml")) == \
+        dataclasses.asdict(want)
+    assert tcfg.TrainingConfig.from_yaml(tmp_path / "missing.yaml") == tcfg.TrainingConfig()
+    with pytest.raises(ValueError, match="model_preset"):
+        tcfg.TrainingConfig(model_preset="nope").model_config()
+    for path in sorted((REPO / "config").glob("*.yaml")):
+        assert dataclasses.asdict(tcfg.TrainingConfig.from_yaml(path)) == \
+            dataclasses.asdict(jcfg.TrainingConfig.from_yaml(path))
+
+
+def test_tokenizer_copy_equals_the_jax_package():
+    from vlm_bridge_tpu.data import tokenizer as jtok
+    from vlm_bridge_tpu_torch.data import tokenizer as ttok
+
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("_"))  # noqa: E731
+    assert public(ttok) == public(jtok)
+    a, b = jtok.get_tokenizer(None), ttok.get_tokenizer(None)
+    assert type(a).__name__ == type(b).__name__ == "ByteTokenizer"
+    texts = ["a cat on a mat", "", "naïve café ☕", "x" * 300]
+    for text in texts:
+        for max_length in (None, 16):
+            ids = b.encode(text, max_length=max_length)
+            assert ids == a.encode(text, max_length=max_length)
+            assert b.decode(ids) == a.decode(ids)
+    for kw in (dict(max_length=40), dict(max_length=512, buckets=(64, 128, 512)),
+               dict(max_length=40, append_eos=False)):
+        ja, jm = jtok.batch_encode(a, texts, **kw)
+        ta, tm = ttok.batch_encode(b, texts, **kw)
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(tm, jm)
+    assert (b.pad_token_id, b.eos_token_id, b.bos_token_id, b.vocab_size) == \
+        (a.pad_token_id, a.eos_token_id, a.bos_token_id, a.vocab_size)
+
+
 def test_chip_smoke_refuses_without_gpu():
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
@@ -46,7 +156,7 @@ def test_chip_smoke_refuses_without_gpu():
 
 
 def test_wrappers_on_cpu_take_plain_path_and_count_nothing():
-    from vlm_bridge_tpu.configs import BridgeConfig, Gemma2Config
+    from vlm_bridge_tpu_torch.configs import BridgeConfig, Gemma2Config
     from vlm_bridge_tpu_torch.inference.generate import _build_cross_cache
     from vlm_bridge_tpu_torch.models import bridge, gemma2
     from vlm_bridge_tpu_torch.ops import decode_kernels as dk
@@ -89,17 +199,45 @@ def test_wrappers_on_cpu_take_plain_path_and_count_nothing():
     assert [fn.launches for fn in counted] == before
 
 
+def test_flash_wrappers_on_cpu_take_plain_path_and_count_nothing(monkeypatch):
+    from vlm_bridge_tpu_torch.ops import cuda_lib
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(cuda_lib, "lib", lambda: pytest.fail("a CPU tensor built the kernels"))
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [fn.launches for fn in counted]
+    g = torch.Generator().manual_seed(0)
+    q, do = torch.randn(2, 5, 4, 64, generator=g), torch.randn(2, 5, 4, 64, generator=g)
+    k, v = torch.randn(2, 7, 2, 64, generator=g), torch.randn(2, 7, 2, 64, generator=g)
+    lens = torch.tensor([7, 3], dtype=torch.int32)
+    kw = dict(scale=0.125, is_causal=True, logit_softcap=50.0, sliding_window=4)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens, **kw)
+    out_p, lse_p = fa.flash_attention_plain(q, k, v, lens, **kw)
+    assert torch.equal(out, out_p) and torch.equal(lse, lse_p)
+    dq_p, dk_p, dv_p = fa.flash_attention_bwd_plain(q, k, v, lens, out, lse, do, **kw)
+    assert torch.equal(fa.flash_attention_bwd_dq(q, k, v, lens, out, lse, do, **kw), dq_p)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lens, out, lse, do, **kw)
+    assert torch.equal(dk, dk_p) and torch.equal(dv, dv_p)
+    assert [fn.launches for fn in counted] == before
+
+
 def test_kernel_sources_ship_and_name_what_they_replace():
     csrc = REPO / "vlm_bridge_tpu_torch" / "csrc"
     replaced = {"stack_step.cu": "decode_kernels.py:fused_stack_step",
                 "bridge_step.cu": "decode_kernels.py:fused_bridge_step",
-                "int8_argmax.cu": "quant.py:int8_matmul_t_argmax"}
+                "int8_argmax.cu": "quant.py:int8_matmul_t_argmax",
+                "flash_attention.cu": "flash_attention.py:_flash_fwd"}
     for name, target in replaced.items():
         text = (csrc / name).read_text()
         assert f"Replaces: vlm_bridge_tpu/ops/{target}" in text
         assert "Bound:" in text
+    assert "flash_attention.py:_flash_bwd" in (csrc / "flash_attention.cu").read_text()
     from vlm_bridge_tpu_torch.ops import cuda_lib
 
     assert {p.name for p in cuda_lib._sources()} >= set(replaced) | {"i8_gemm.cu",
                                                                      "common.cuh"}
     assert np.isin(["-gencode", "arch=compute_90a,code=sm_90a"], cuda_lib.NVCC_FLAGS).all()
+    for entry in ("vbt_flash_attention_fwd", "vbt_flash_attention_bwd_dq",
+                  "vbt_flash_attention_bwd_dkv"):
+        assert entry in cuda_lib.SIGNATURES
+        assert f'extern "C" int {entry}(' in (csrc / "flash_attention.cu").read_text()

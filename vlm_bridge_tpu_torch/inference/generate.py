@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from vlm_bridge_tpu.configs import BridgeConfig, VLMConfig
+from vlm_bridge_tpu_torch.configs import BridgeConfig, VLMConfig
 from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
 from vlm_bridge_tpu_torch.ops import decode_kernels, quant
 from vlm_bridge_tpu_torch.ops.attention import decode_attention

@@ -1,17 +1,24 @@
-"""Bridge-Lite adapter, serving slice (port of vlm_bridge_tpu.models.bridge).
+"""Bridge-Lite adapter (port of vlm_bridge_tpu.models.bridge).
 
-Ported: Xavier `init`, the int8 serving transformation
-`quantize_decode_params`, `supports_fused_decode` and the block stacking for
-ops.decode_kernels.fused_bridge_step (in this port's own layout). The
-training forward is not ported yet.
+Ported: Xavier `init`, the training `forward` (pre-LN cross attention over
+the vision tokens, non-causal or causal text self attention, exact-GELU FFN;
+dropout on each attention output and on the FFN's activation and output),
+the int8 serving transformation `quantize_decode_params`,
+`supports_fused_decode` and the block stacking for
+ops.decode_kernels.fused_bridge_step (in this port's own layout).
+`debug_forward` is not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from vlm_bridge_tpu.configs import BridgeConfig
+from vlm_bridge_tpu_torch.configs import BridgeConfig
+from vlm_bridge_tpu_torch.ops.attention import dot_product_attention
 from vlm_bridge_tpu_torch.ops.decode_kernels import to_fragments
+from vlm_bridge_tpu_torch.ops.layers import gelu_exact, layer_norm, linear
 from vlm_bridge_tpu_torch.ops.quant import is_quantized, quantize_int8
 
 
@@ -120,3 +127,87 @@ def stack_bridge_decode_params(params: dict, cfg: BridgeConfig) -> dict:
         out[f"{prefix}_scale"] = stk(lambda bp: bp[sub][key]["scale"].float())
         out[f"{prefix}_bias"] = stk(lambda bp: bias(bp).float())
     return out
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             train: bool) -> torch.Tensor:
+    """Inverted dropout from an explicit generator on x's device. The bits
+    are torch's, not jax.random's: the two packages agree in distribution."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _w(w, dtype):
+    """int8 dicts pass through to `linear`; tensors are cast to the
+    activation dtype (the f32 master copy is cast inside the forward, so its
+    gradient arrives in f32)."""
+    return w if isinstance(w, dict) else w.to(dtype)
+
+
+def _mha(proj: dict, q_in, kv_in, num_heads: int, dtype, key_mask=None,
+         is_causal: bool = False) -> torch.Tensor:
+    """Projection + attention core of cross and self attention. key_mask:
+    optional [B, S] (1 = attendable key), a right-padding prefix mask by the
+    loader's contract, so the per-row lengths go along for the flash
+    kernels."""
+    B, T, _ = q_in.shape
+    S = kv_in.shape[1]
+    if "qkv" in proj:  # fused self-attention weights of the serving form
+        d_model = q_in.shape[-1]
+        bias = torch.cat([proj["q_bias"], proj["k_bias"], proj["v_bias"]]).to(dtype)
+        q, k, v = linear(q_in, proj["qkv"], bias).chunk(3, dim=-1)
+    else:
+        d_model = (proj["q"]["w_int8"] if isinstance(proj["q"], dict) else proj["q"]).shape[1]
+        q = linear(q_in, _w(proj["q"], dtype), proj["q_bias"].to(dtype))
+        k = linear(kv_in, _w(proj["k"], dtype), proj["k_bias"].to(dtype))
+        v = linear(kv_in, _w(proj["v"], dtype), proj["v_bias"].to(dtype))
+    D = d_model // num_heads
+    q = q.reshape(B, T, num_heads, D)
+    k = k.reshape(B, S, num_heads, D)
+    v = v.reshape(B, S, num_heads, D)
+    mask = None
+    kv_lengths = None
+    if key_mask is not None:
+        mask = key_mask[:, None, :].bool()
+        kv_lengths = key_mask.sum(dim=-1).to(torch.int32)
+    out = dot_product_attention(q, k, v, scale=D ** -0.5, mask=mask, is_causal=is_causal,
+                                kv_lengths=kv_lengths)
+    return linear(out.reshape(B, T, d_model), _w(proj["o"], dtype), proj["o_bias"].to(dtype))
+
+
+def forward(params: dict, cfg: BridgeConfig, text_embeddings: torch.Tensor,
+            vision_features: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+            train: bool = False, text_mask: Optional[torch.Tensor] = None,
+            causal: bool = False) -> torch.Tensor:
+    """Enhanced text embeddings [B, T, language_dim] from text_embeddings
+    [B, T, language_dim] and vision_features [B, S, vision_dim].
+
+    Vision attends as global context (no mask). text_mask: optional [B, T]
+    pad mask on the self-attention KEYS. causal: causal-mask the text self
+    attention (TrainingConfig.bridge_causal). generator takes the place of
+    the JAX function's `rng`: dropout runs only with train=True and a
+    generator, and draws from it in the order cross, self, FFN activation,
+    FFN output of each block."""
+    dtype = text_embeddings.dtype
+    x = text_embeddings
+    vision = vision_features.to(dtype)
+    eps = cfg.layer_norm_eps
+    drop = lambda h: _dropout(h, cfg.dropout, generator, train)  # noqa: E731
+
+    for b in range(cfg.num_blocks):
+        bp = params["blocks"][str(b)]
+        h = layer_norm(x, bp["ln_cross"]["scale"], bp["ln_cross"]["bias"], eps)
+        x = x + drop(_mha(bp["cross"], h, vision, cfg.num_heads_cross, dtype))
+
+        h = layer_norm(x, bp["ln_self"]["scale"], bp["ln_self"]["bias"], eps)
+        x = x + drop(_mha(bp["self"], h, h, cfg.num_heads_self, dtype,
+                          key_mask=text_mask, is_causal=causal))
+
+        h = layer_norm(x, bp["ln_ffn"]["scale"], bp["ln_ffn"]["bias"], eps)
+        h = linear(h, _w(bp["ffn"]["fc1"], dtype), bp["ffn"]["fc1_bias"].to(dtype))
+        h = drop(gelu_exact(h))
+        h = drop(linear(h, _w(bp["ffn"]["fc2"], dtype), bp["ffn"]["fc2_bias"].to(dtype)))
+        x = x + h
+    return x

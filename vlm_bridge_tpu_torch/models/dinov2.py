@@ -2,8 +2,9 @@
 
 Patch embedding as reshape + matmul over NHWC pixels, CLS token, position
 embeddings bicubically resized to the input grid, then pre-LN transformer
-layers with LayerScale and a final LayerNorm. Attention is a plain product
-and softmax (S = 257 at 224 px). The int8 vision tower and the SwiGLU
+layers with LayerScale and a final LayerNorm. Attention is the plain product
+and softmax of ops.attention._attention_reference (S = 257 at 224 px; the
+tower is frozen and has no backward). The int8 vision tower and the SwiGLU
 (giant) FFN are not ported yet.
 """
 
@@ -11,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from vlm_bridge_tpu.configs import DinoV2Config
-from vlm_bridge_tpu_torch.ops.attention import dot_product_attention
+from vlm_bridge_tpu_torch.configs import DinoV2Config
+from vlm_bridge_tpu_torch.ops.attention import _attention_reference
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, layer_norm, linear
 
 
@@ -97,7 +98,8 @@ def _attention(lp: dict, cfg: DinoV2Config, x: torch.Tensor) -> torch.Tensor:
     qkv = linear(x, lp["attn"]["qkv"], lp["attn"]["qkv_bias"])
     q, k, v = (qkv[..., :h].reshape(B, T, H, D), qkv[..., h:2 * h].reshape(B, T, H, D),
                qkv[..., 2 * h:].reshape(B, T, H, D))
-    out = dot_product_attention(q, k, v, scale=D ** -0.5)
+    # the plain path, not the flash kernel's D = 64 instantiation
+    out = _attention_reference(q, k, v, scale=D ** -0.5)
     return linear(out.reshape(B, T, h), lp["attn"]["o"], lp["attn"]["o_bias"])
 
 

@@ -1,8 +1,10 @@
-"""Attention (port of vlm_bridge_tpu.ops.attention, plain paths only).
+"""Attention (port of vlm_bridge_tpu.ops.attention).
 
-The ViT runs a plain product and softmax (the JAX package dispatches its
-flash kernel only at S >= 1024, and the ViT has S = 257). Decode attention
-folds the int8 cache scales into the algebra as the JAX function does.
+`dot_product_attention` is the one entry point of the bridge and Gemma-2:
+shapes the flash kernels take go to ops.flash_attention, everything else to
+the plain `_attention_reference`. The ViT calls `_attention_reference`
+itself. Decode attention folds the int8 cache scales into the algebra as
+the JAX function does.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from vlm_bridge_tpu_torch.ops import flash_attention as fa
 
 _NEG_INF = -2.3819763e38  # XLA's min bf16-representable f32 fill
 
@@ -81,15 +85,38 @@ def dot_product_attention(q, k, v, *, scale: Optional[float] = None,
                           sliding_window: Optional[int] = None,
                           q_positions=None, kv_positions=None,
                           kv_lengths=None) -> torch.Tensor:
-    """Multi-head scaled dot-product attention, plain path. kv_lengths is
-    accepted for signature parity and ignored (the mask is exact)."""
-    del kv_lengths
+    """Multi-head scaled dot-product attention (arguments as in the JAX
+    package: q [B, T, H, D], k/v [B, S, KH, D], mask True = attend).
+
+    The gate is by what the call states, never by a failure. A head dim the
+    kernels are built for, no explicit positions, and a mask that is absent
+    or restated as `kv_lengths` (a right-padding prefix mask, by the
+    callers' contract) go to the flash function: on CUDA tensors its
+    kernels, which take bf16 and raise on another dtype or if they cannot
+    build or launch; on CPU tensors the kernels' plain versions through the
+    same autograd function. Everything else (another head dim, a dense mask,
+    explicit positions) takes `_attention_reference`, which applies `mask`
+    exactly and ignores `kv_lengths`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if flash_supported(q, mask=mask, q_positions=q_positions, kv_positions=kv_positions,
+                       kv_lengths=kv_lengths):
+        return fa.flash_attention(q, k, v, scale=scale, is_causal=is_causal,
+                                  logit_softcap=logit_softcap, sliding_window=sliding_window,
+                                  kv_lengths=kv_lengths)
     return _attention_reference(
         q, k, v, scale=scale, mask=mask, is_causal=is_causal,
         logit_softcap=logit_softcap, sliding_window=sliding_window,
         q_positions=q_positions, kv_positions=kv_positions)
+
+
+def flash_supported(q, *, mask, q_positions, kv_positions, kv_lengths) -> bool:
+    """The shape gate of `dot_product_attention` (see there)."""
+    if q.shape[-1] not in fa.HEAD_DIMS:
+        return False
+    if q_positions is not None or kv_positions is not None:
+        return False
+    return mask is None or kv_lengths is not None
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float,

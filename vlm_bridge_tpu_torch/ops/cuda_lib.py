@@ -1,10 +1,15 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
 The sources are compiled with nvcc for sm_90a into a library with a plain C
-interface, loaded with ctypes (a few seconds per build, against minutes for
-an extension that includes PyTorch's headers). The build runs at first use,
-into `build/` at the repository root, keyed by a hash of the sources, so a
-changed source rebuilds and an unchanged one is loaded as it is.
+interface, loaded with ctypes (seconds per source, against minutes for an
+extension that includes PyTorch's headers). One nvcc runs per source, all
+started together, and a last call links the objects. The build runs at
+first use, into `build/` at the repository root, keyed by a hash of the
+sources, so a changed source rebuilds and an unchanged one is loaded as it
+is. `build_log` keeps what `-Xptxas -v` printed (registers, shared memory
+and spills per kernel). `VBT_NVCC_FLAGS` in the environment adds compiler flags
+(for instance `-DFA_DKV_FUSED_MAX_D=0`, to time a kernel's variants against
+each other); they are part of the key.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as void*)
@@ -32,11 +37,15 @@ SIGNATURES = {
     "vbt_int8_matmul_t_argmax": [_P] * 6 + [_I] * 3 + [_P],
     "vbt_fused_stack_step": [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P],
     "vbt_fused_bridge_step": [_P] * 31 + [_I] * 9 + [_F] + [_P],
+    "vbt_flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],
+    "vbt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 8 + [_F] * 2 + [_P],
+    "vbt_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_P],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build in this process (None: loaded, not built)
+build_log = ""        # the compilers' output of that build
 
 
 def _sources():
@@ -56,7 +65,7 @@ def _nvcc() -> str:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is not None:
             return _lib
@@ -64,21 +73,30 @@ def lib() -> ctypes.CDLL:
         for p in _sources():
             digest.update(p.name.encode())
             digest.update(p.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        flags = NVCC_FLAGS + os.environ.get("VBT_NVCC_FLAGS", "").split()
+        digest.update(" ".join(flags).encode())
         out = BUILD_DIR / f"libvbt_kernels-{digest.hexdigest()[:16]}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-            os.replace(tmp, out)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+                objs, procs = [], []
+                for src in sorted(CSRC.glob("*.cu")):
+                    objs.append(str(Path(work) / (src.stem + ".o")))
+                    procs.append(subprocess.Popen(
+                        [_nvcc(), *flags, "-c", "-o", objs[-1], str(src)],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                logs = [proc.communicate()[0] for proc in procs]
+                build_log = "".join(logs)
+                if any(proc.returncode != 0 for proc in procs):
+                    raise RuntimeError(f"nvcc failed:\n{build_log}")
+                tmp = str(Path(work) / "lib.so")
+                res = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                                     capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+                os.replace(tmp, out)
             build_seconds = time.perf_counter() - t0
         handle = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():

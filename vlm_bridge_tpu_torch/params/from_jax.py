@@ -6,9 +6,17 @@ torch tensors, so both packages compute the same function. Both store
 linear weights [in, out], int8 weights as {"w_int8", "scale"} and the
 DINOv2 patch kernel HWIO, so no array is re-laid out. bfloat16 arrays
 (numpy's ml_dtypes extension type) are widened through f32 exactly.
+
+`from_jax` gives frozen tensors (requires_grad False): the vision and lm
+subtrees of a train step, or a whole tree for serving. `bridge_from_jax`
+turns a JAX TrainState's `bridge_params` into the port's f32 master copy,
+whose leaves require grad. `config_from_jax` turns one of the JAX package's
+config dataclasses into the port's class of the same name.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -30,3 +38,21 @@ def from_jax(tree, device=None):
                              "gemma2.stack_decode_params")
         return {k: from_jax(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def bridge_from_jax(tree, device=None):
+    """A JAX TrainState's bridge parameters (nested dicts of numpy arrays)
+    -> the port's trainable bridge: f32 leaves with requires_grad=True."""
+    if isinstance(tree, dict):
+        return {k: bridge_from_jax(v, device) for k, v in tree.items()}
+    return _tensor(tree, device).float().requires_grad_(True)
+
+
+def config_from_jax(cfg):
+    """A config dataclass of the JAX package -> the port's class of the same
+    name with the same field values (nested configs included)."""
+    from vlm_bridge_tpu_torch import configs
+
+    values = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return getattr(configs, type(cfg).__name__)(**{
+        k: config_from_jax(v) if dataclasses.is_dataclass(v) else v for k, v in values.items()})

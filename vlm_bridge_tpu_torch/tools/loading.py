@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from vlm_bridge_tpu.configs import TrainingConfig, VLMConfig
+from vlm_bridge_tpu_torch.configs import TrainingConfig, VLMConfig
 
 PRESETS = {"default": VLMConfig.default, "tiny": VLMConfig.tiny_test,
            "tiny_ref": VLMConfig.tiny_ref, "gemma2_9b": VLMConfig.gemma2_9b,
@@ -43,7 +43,7 @@ def resolve_device(name: str) -> torch.device:
 
 def load_from_args(args):
     """(cfg, params, tokenizer) resolved from the common argument set."""
-    from vlm_bridge_tpu.data.tokenizer import get_tokenizer
+    from vlm_bridge_tpu_torch.data.tokenizer import get_tokenizer
     from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
 
     for flag in ("checkpoint", "hf_vision_path", "hf_lm_path"):

@@ -1,0 +1,213 @@
+"""Training and evaluation steps (port of vlm_bridge_tpu.training.train_step).
+
+Left-shifted CE (pad-masked), global-norm gradient clip 0.3, AdamW over the
+bridge parameters only, cosine / linear / constant learning rate stepped per
+optimizer step, and the gradient norm before the clip as a metric.
+
+What differs from the JAX package, and why:
+- the step runs eagerly; nothing is traced or donated. The bridge's f32
+  master copy and the optimizer state are updated IN PLACE (the returned
+  TrainState holds the same tensors), which saves a copy of both;
+- `TrainState.step` is a host integer, so reading it costs no device sync;
+- the optimizer arithmetic is optax's: `clip_by_global_norm` scales by
+  max_norm / norm only when norm >= max_norm (no epsilon), AdamW is
+  -lr (m^ / (sqrt(v^) + eps) + wd p) with the schedule read at the optimizer
+  step count from 0, and accumulation is `optax.MultiSteps`: a running mean
+  of k microbatch gradients, no update on the k - 1 steps between, one
+  schedule step per k. torch.optim.AdamW does the update algebra; the clip
+  and the accumulation are written here;
+- dropout takes a torch.Generator on the batch's device in place of a key.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from vlm_bridge_tpu_torch.configs import TrainingConfig, VLMConfig
+from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
+from vlm_bridge_tpu_torch.models import full_model
+
+
+class TrainState(NamedTuple):
+    step: int              # global step, counts microbatches
+    bridge_params: dict    # f32 master copy; leaves require grad
+    opt_state: dict        # BridgeOptimizer.init's
+
+
+def tree_leaves(tree) -> list:
+    """Tensors of a nested dict in sorted-key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def make_schedule(tc: TrainingConfig, steps_per_epoch: int) -> Callable[[int], float]:
+    """Learning rate as a function of the OPTIMIZER step over the full run.
+    steps_per_epoch counts microbatches; under gradient accumulation the
+    schedule advances once per effective batch, so the horizon divides by k."""
+    accum = max(1, tc.gradient_accumulation_steps)
+    total = max(1, tc.num_epochs * steps_per_epoch // accum)
+    lr, end = tc.learning_rate, tc.min_lr
+    if not tc.use_scheduler or tc.scheduler_type == "constant":
+        return lambda count: lr
+    if tc.scheduler_type == "cosine":
+        alpha = end / lr
+
+        def cosine(count: int) -> float:
+            frac = min(count, total) / total
+            return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+        return cosine
+    if tc.scheduler_type == "linear":
+        return lambda count: (lr - end) * (1.0 - min(max(count, 0), total) / total) + end
+    raise ValueError(f"unknown scheduler_type: {tc.scheduler_type}")
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, f32, on their device."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+class BridgeOptimizer:
+    """clip(gradient_clip_val) -> AdamW(b1 .9, b2 .999, eps 1e-8, wd) with the
+    schedule, wrapped in k-step accumulation when
+    gradient_accumulation_steps > 1 (the JAX package's optax chain)."""
+
+    def __init__(self, tc: TrainingConfig, steps_per_epoch: int):
+        self.schedule = make_schedule(tc, steps_per_epoch)
+        self.clip = tc.gradient_clip_val
+        self.weight_decay = tc.weight_decay
+        self.every_k = max(1, tc.gradient_accumulation_steps)
+
+    def init(self, bridge_params: dict) -> dict:
+        leaves = tree_leaves(bridge_params)
+        adamw = torch.optim.AdamW(leaves, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=self.weight_decay)
+        acc = [torch.zeros_like(p) for p in leaves] if self.every_k > 1 else None
+        return {"adamw": adamw, "count": 0, "mini_step": 0, "acc": acc}
+
+    @torch.no_grad()
+    def update(self, grads, state: dict, leaves) -> None:
+        """One microbatch's gradients: accumulate, and on every k-th call clip
+        and apply AdamW to `leaves` in place."""
+        if self.every_k > 1:
+            acc, n = state["acc"], state["mini_step"]
+            for a, g in zip(acc, grads):
+                a.add_((g - a) / (n + 1))  # running mean, as optax.MultiSteps keeps it
+            state["mini_step"] = (n + 1) % self.every_k
+            if state["mini_step"] != 0:
+                return
+            grads = [a.clone() for a in acc]
+            for a in acc:
+                a.zero_()
+        norm = global_norm(grads)
+        scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
+        adamw = state["adamw"]
+        adamw.param_groups[0]["lr"] = self.schedule(state["count"])
+        for p, g in zip(leaves, grads):
+            p.grad = g * scale
+        adamw.step()
+        adamw.zero_grad(set_to_none=True)
+        state["count"] += 1
+
+
+def make_optimizer(tc: TrainingConfig, steps_per_epoch: int) -> BridgeOptimizer:
+    return BridgeOptimizer(tc, steps_per_epoch)
+
+
+def init_train_state(params: dict, tc: TrainingConfig,
+                     steps_per_epoch: int) -> Tuple[TrainState, BridgeOptimizer]:
+    """The bridge subtree becomes the f32 master copy (leaves that require
+    grad; f32 leaves keep their storage)."""
+    opt = make_optimizer(tc, steps_per_epoch)
+    bridge = tree_map(lambda p: p.detach().float().requires_grad_(True),
+                      full_model.trainable_params(params))
+    return TrainState(step=0, bridge_params=bridge, opt_state=opt.init(bridge)), opt
+
+
+def _prep_pixels(pixel_values: torch.Tensor, activation_dtype) -> torch.Tensor:
+    if pixel_values.dtype == torch.uint8:
+        return normalize_on_device(pixel_values, dtype=activation_dtype)
+    return pixel_values.to(activation_dtype)
+
+
+def _loss(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_params: dict, batch: dict,
+          activation_dtype, **kw):
+    pixels = _prep_pixels(batch["pixel_values"], activation_dtype)
+    input_ids, attn_mask = batch["input_ids"], batch["attn_mask"]
+    labels = full_model.shift_labels(input_ids, attn_mask, mask_pad=tc.mask_pad_loss)
+    # the cast sits inside the differentiated function, so the gradient
+    # arrives in f32 on the master copy
+    params = {**frozen, "bridge": tree_map(lambda p: p.to(activation_dtype), bridge_params)}
+    return full_model.forward(
+        params, cfg, pixels, input_ids, attn_mask, labels=labels,
+        mask_pad_loss=tc.mask_pad_loss, bridge_causal=tc.bridge_causal,
+        loss_chunk=tc.loss_chunk_size, **kw)
+
+
+def loss_and_grads(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_params: dict,
+                   batch: dict, generator, activation_dtype=torch.bfloat16):
+    """Training loss, aux and the gradients of the bridge leaves (the order
+    of `tree_leaves`); nothing is updated."""
+    loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype,
+                      generator=generator, train=True, remat_lm=tc.remat_lm,
+                      loss_remat=tc.loss_remat)
+    grads = torch.autograd.grad(loss, tree_leaves(bridge_params))
+    return loss.detach(), aux, grads
+
+
+def make_train_step(cfg: VLMConfig, tc: TrainingConfig, opt: BridgeOptimizer, schedule, *,
+                    activation_dtype=torch.bfloat16):
+    """Build the train step: (state, frozen, batch, generator) -> (state, metrics).
+
+    frozen: the vision and lm subtrees, requires_grad False. generator: the
+    dropout source on the batch's device (it advances from step to step;
+    None trains without dropout). The metrics are 0-dim tensors on the
+    device, apart from the learning rate, so a step forces no sync."""
+
+    def step_fn(state: TrainState, frozen: dict, batch: dict, generator):
+        loss, aux, grads = loss_and_grads(cfg, tc, frozen, state.bridge_params, batch,
+                                          generator, activation_dtype)
+        grad_norm = global_norm(grads)
+        opt.update(grads, state.opt_state, tree_leaves(state.bridge_params))
+        metrics = {
+            "loss": loss,
+            "grad_norm_before_clip": grad_norm,
+            # state.step counts microbatches; the schedule advances once per
+            # optimizer step
+            "learning_rate": schedule(state.step // max(1, tc.gradient_accumulation_steps)),
+            "token_count": aux["token_count"],
+        }
+        return TrainState(state.step + 1, state.bridge_params, state.opt_state), metrics
+
+    return step_fn
+
+
+def make_eval_step(cfg: VLMConfig, tc: TrainingConfig, *, activation_dtype=torch.bfloat16):
+    """Validation step: loss, token count and mean sequence length."""
+
+    @torch.no_grad()
+    def step_fn(frozen: dict, bridge_params: dict, batch: dict):
+        loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype,
+                          remat_lm=False)
+        return {
+            "loss": loss,
+            "token_count": aux["token_count"],
+            "avg_sequence_length": batch["attn_mask"].sum(dim=1).float().mean(),
+        }
+
+    return step_fn
+
+
+def split_frozen(params: dict) -> dict:
+    """The non-trainable subtree (vision + lm)."""
+    return {k: v for k, v in params.items() if k != "bridge"}
