@@ -1,25 +1,39 @@
-"""Run the PyTorch port once on one GPU: the int8 greedy caption-serving path
-and the bridge train step, every kernel held against its plain version.
+"""Run the PyTorch port once on one GPU: the int8 greedy caption-serving path,
+the sampled per-layer int8 decode path and the bridge train step, every
+kernel held against its plain version.
 
     python3 chip_smoke.py
 
 1. Refuses to run without CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from vlm_bridge_tpu_torch/csrc (one nvcc per
-   source, sm_90a) and prints what ptxas reports for the flash kernels.
+   source, sm_90a) and prints what ptxas reports for the flash kernels and
+   the int8 product kernel.
 3. One phase per kernel: the kernel and its plain PyTorch version on the
    same seeded inputs at the main paths' shapes, their max abs error
-   against the stated tolerance, both times, the least time the card could
-   take (bytes over 3.35 TB/s or operations over the tensor-core peak,
-   whichever is larger) and, where one PyTorch call computes the same
-   function, that call's time. The three flash-attention kernels also run
-   at the ViT shape, with a binding window and T != S, with an empty row,
-   and with logits several times the soft-cap.
+   against the stated tolerance, both times (device time: the host queues
+   the runs behind a spin kernel), the least time the card could take (bytes
+   over 3.35 TB/s or operations over the tensor-core peak, whichever is
+   larger) and, where one PyTorch call computes the same function, that
+   call's time. The int8 linear kernels walk through the layers' weights,
+   call after call, so that none finds its weights in the L2. The three
+   flash-attention kernels also run at the ViT shape, with a binding window
+   and T != S, with an empty row, and with logits several times the soft-cap.
 4. The serving path: VLMConfig.default() at full width, seeded random
    weights made on the device, --quantize embedding,mlp,attn,bridge with the
    int8 KV cache; 64 seeded uint8 images -> normalize_on_device ->
    generate_tokens (greedy, 50 tokens, no early stop). Checks that every
    decode kernel ran on every step, that the ids and lengths are well
-   formed, and that each row's first token equals the plain path's.
+   formed, and that each row's first token equals the plain path's. Then
+   the same fused stack with the sampled head, 50 tokens, timed.
+4b. The sampled per-layer path: the same int8 weights as per-layer dicts (not
+   stacked), bf16 KV cache, temperature 0.7, top-p 0.9, a seeded CUDA
+   generator, 64 x 50 tokens. Checks the four int8 kernels' launch counts
+   (60 / 26 / 2 / 1 a token), that the fused path's kernels stay idle, that a
+   second run with the same seed repeats token for token, and, greedy over a
+   few tokens, that the first step's logits agree with the plain path's
+   (both paths round to bf16 between ops, so a near-tie may flip a row's
+   token: it prints how many rows agree); a short profiled window gives the
+   launches per token and the device's busy share.
 5. The train path: the same model in bf16 with the f32 bridge, 8 seeded
    images x 256 tokens with ragged lengths, TrainingConfig() defaults. The
    first step's loss and bridge gradients through the kernels against the
@@ -34,6 +48,7 @@ and the bridge train step, every kernel held against its plain version.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -63,6 +78,14 @@ FLASH_TOL, FLASH_FLOOR, LSE_TOL = 1.6e-2, 1e-2, 1e-5
 # 28 attention calls whose bf16 roundings differ as above. Ten times what
 # the step shows (1.9e-5, 1.95e-4, 1 - 0.999977).
 LOSS_RTOL, GNORM_RTOL, GRAD_COS_MIN = 2e-4, 2e-3, 0.9998
+# The int8 linear kernels against their plain versions on the same bf16 x:
+# both accumulate in f32 and round the result (int8_mlp / int8_ffn also the
+# hidden) to bf16, in another summation order, so a value may land one bf16
+# step away. Each output row is held to I8_TOL = one bf16 step (2^-7) of its
+# own max|ref|. int8_matmul_t writes f32 logits with no rounding: LOGIT_TOL x
+# the row's max|ref| covers the summation order.
+I8_TOL, LOGIT_TOL = 2.0 ** -7, 1e-5
+GREEDY_CHECK_TOKENS, PROFILE_TOKENS = 6, 5
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -88,10 +111,15 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` runs after one warm-up."""
+    """Mean device time of fn() over `iters` runs after one warm-up. The
+    device first spins for some 10 ms, so the host has queued the runs by
+    the time they start: the events then bracket device work, not the
+    host's issuing (a wrapper of a 10 us kernel takes longer to call than the
+    kernel to run)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -223,6 +251,127 @@ def phase_bridge(params, cfg, dev, gen, t=20):
     bd = bound(nbytes(*bst.values(), *cross) + live + 2 * nbytes(x), 2.0 * BATCH * n_w)
     print(f"[fused_bridge_step] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+
+
+def rows_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Max abs error; every row held to tol x its own max|ref|."""
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1).clamp_min(1e-30)
+    err, worst = float(diff.max()), float((diff / scale).max())
+    print(f"[{name}] max_abs_err={err:.6g} worst row error / row max={worst:.6g} (limit {tol:.3g})")
+    if not worst <= tol:
+        raise AssertionError(f"{name}: row error {worst} x the row's max, above {tol}")
+    return err
+
+
+def cycle(items):
+    """A closure's next argument set, round robin: successive timed calls read
+    other layers' weights, as the decode loop does, so none finds its weights
+    in the 50 MB L2."""
+    state = {"i": -1}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % len(items)
+        return items[state["i"]]
+
+    return nxt
+
+
+def phase_int8_linear(params, cfg, dev, gen):
+    """int8_matmul, int8_mlp and int8_ffn at the shapes the per-layer decode
+    gives them (M = BATCH rows of bf16), on the model's own weights."""
+    from vlm_bridge_tpu_torch.ops import quant
+
+    layers = [params["lm"]["layers"][str(i)] for i in range(cfg.lm.num_layers)]
+    blocks = [params["bridge"]["blocks"][str(b)] for b in range(cfg.bridge.num_blocks)]
+
+    def x_of(width, mul=1.0):
+        return (torch.randn(BATCH, width, generator=gen, device=dev) * mul).to(torch.bfloat16)
+
+    def wbytes(*qs):
+        return sum(nbytes(q["w_int8"], q["scale"]) for q in qs)
+
+    def n_w(*qs):
+        return sum(q["w_int8"].numel() for q in qs)
+
+    res = {}
+    # ---- int8_matmul: Gemma's fused qkv and o, the bridge's fused self qkv
+    mm_shapes = {"gemma_qkv": [lp["attn"]["qkv"] for lp in layers],
+                 "gemma_o": [lp["attn"]["o"] for lp in layers],
+                 "bridge_self_qkv": [bp["self"]["qkv"] for bp in blocks]}
+    by_shape, worst = {}, 0.0
+    for sname, ws in mm_shapes.items():
+        I, O = ws[0]["w_int8"].shape
+        x = x_of(I)
+        got, want = quant.int8_matmul(x, ws[0]), quant.int8_matmul_plain(x, ws[0])
+        torch.cuda.synchronize()
+        worst = max(worst, rows_close(f"int8_matmul {sname} {I}x{O}", got, want, I8_TOL))
+        nxt = cycle(ws)
+        ms = time_ms(lambda: quant.int8_matmul(x, nxt()), 52)
+        plain_ms = time_ms(lambda: quant.int8_matmul_plain(x, nxt()), 4)
+        wd = (ws[0]["w_int8"].float() * ws[0]["scale"]).to(torch.bfloat16)
+        deq_ms = time_ms(lambda: torch.matmul(x, wd), 50)
+        del wd
+        bd = bound(wbytes(ws[0]) + nbytes(x, got), 2.0 * BATCH * n_w(ws[0]))
+        print(f"[int8_matmul] {sname} {I}x{O}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; torch.matmul on a "
+              f"bf16 copy made beforehand {deq_ms:.4f} ms (not the same function)")
+        by_shape[sname] = {"ms": ms, "plain_ms": plain_ms, **bd, "dequantized_matmul_ms": deq_ms}
+    # the headline numbers are the fused qkv's: 26 of a token's 60 calls
+    res["int8_matmul"] = {"max_abs_err": worst, **{k: by_shape["gemma_qkv"][k] for k in
+                                                   ("ms", "plain_ms", "bound_ms", "bound_by")},
+                          "library_ms": None, "by_shape": by_shape}
+
+    # ---- int8_mlp: Gemma's GeGLU MLP
+    mlps = [(lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"]) for lp in layers]
+    x = x_of(cfg.lm.hidden_size)
+    got, want = quant.int8_mlp(x, *mlps[0]), quant.int8_mlp_plain(x, *mlps[0])
+    torch.cuda.synchronize()
+    err = rows_close("int8_mlp", got, want, I8_TOL)
+    nxt = cycle(mlps)
+    ms = time_ms(lambda: quant.int8_mlp(x, *nxt()), 52)
+    plain_ms = time_ms(lambda: quant.int8_mlp_plain(x, *nxt()), 4)
+    bd = bound(wbytes(*mlps[0]) + nbytes(x, got), 2.0 * BATCH * n_w(*mlps[0]))
+    print(f"[int8_mlp] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    res["int8_mlp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+                       "library_ms": None}
+
+    # ---- int8_ffn: the bridge's biased FFN
+    ffns = [(bp["ffn"]["fc1"], bp["ffn"]["fc1_bias"], bp["ffn"]["fc2"], bp["ffn"]["fc2_bias"])
+            for bp in blocks]
+    x = x_of(cfg.bridge.language_dim)
+    got, want = quant.int8_ffn(x, *ffns[0]), quant.int8_ffn_plain(x, *ffns[0])
+    torch.cuda.synchronize()
+    err = rows_close("int8_ffn", got, want, I8_TOL)
+    nxt = cycle(ffns)
+    ms = time_ms(lambda: quant.int8_ffn(x, *nxt()), 50)
+    plain_ms = time_ms(lambda: quant.int8_ffn_plain(x, *nxt()), 4)
+    f = ffns[0]
+    bd = bound(wbytes(f[0], f[2]) + nbytes(f[1], f[3], x, got), 2.0 * BATCH * n_w(f[0], f[2]))
+    print(f"[int8_ffn] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    res["int8_ffn"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+                       "library_ms": None}
+    return res
+
+
+def phase_logits_head(params, dev, gen):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    E = params["lm"]["embedding"]
+    V, H = E["w_int8"].shape
+    x = torch.randn(BATCH, H, generator=gen, device=dev).to(torch.bfloat16)
+    got, want = quant.int8_matmul_t(x, E), quant.int8_matmul_t_plain(x, E)
+    torch.cuda.synchronize()
+    err = rows_close("int8_matmul_t", got, want, LOGIT_TOL)
+    ms = time_ms(lambda: quant.int8_matmul_t(x, E), 50)
+    plain_ms = time_ms(lambda: quant.int8_matmul_t_plain(x, E), 3)
+    # table, scales and x read once, the f32 logits written once
+    bd = bound(nbytes(E["w_int8"], E["scale"], x, got), 2.0 * BATCH * V * H)
+    print(f"[int8_matmul_t] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
@@ -462,6 +611,60 @@ def plain_flash(fa):
         fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = saved
 
 
+DECODE_KERNELS = {"decode_kernels": ("fused_stack_step", "fused_bridge_step"),
+                  "quant": ("int8_matmul_t_argmax", "int8_matmul", "int8_mlp", "int8_ffn",
+                            "int8_matmul_t")}
+
+
+def decode_modules() -> dict:
+    from vlm_bridge_tpu_torch.ops import decode_kernels, quant
+
+    return {"decode_kernels": decode_kernels, "quant": quant}
+
+
+def decode_wrappers() -> dict:
+    """name -> wrapper of every decode kernel (each carries .launches)."""
+    mods = decode_modules()
+    return {n: getattr(mods[m], n) for m, names in DECODE_KERNELS.items() for n in names}
+
+
+@contextlib.contextmanager
+def plain_decode():
+    """Within this block every decode kernel's wrapper is its plain version:
+    the reference a whole generation is compared with on the card. The
+    package itself has no such switch."""
+    mods, saved = decode_modules(), decode_wrappers()
+    for m, names in DECODE_KERNELS.items():
+        for n in names:
+            setattr(mods[m], n, getattr(mods[m], n + "_plain"))
+    try:
+        yield
+    finally:
+        for m, names in DECODE_KERNELS.items():
+            for n in names:
+                setattr(mods[m], n, saved[n])
+
+
+@contextlib.contextmanager
+def record_decode_hidden():
+    """Within this block gemma2.decode_step keeps a copy of the final hidden
+    states it returns; yields the list (one [B, H] tensor per token)."""
+    from vlm_bridge_tpu_torch.models import gemma2
+
+    step, seen = gemma2.decode_step, []
+
+    def recording(*args, **kwargs):
+        hidden, cache = step(*args, **kwargs)
+        seen.append(hidden[:, 0].clone())
+        return hidden, cache
+
+    gemma2.decode_step = recording
+    try:
+        yield seen
+    finally:
+        gemma2.decode_step = step
+
+
 def run_train(params, cfg, dev, card):
     """The bridge train step at full width: kernels against plain versions on
     step 0, then a warm-up step, TRAIN_STEPS timed steps and one eval step.
@@ -569,16 +772,10 @@ def run_train(params, cfg, dev, card):
 
 def run_serve(params, cfg, dev, card, gcfg):
     """The int8 greedy serving path; returns the decode kernels' launch counts."""
-    from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
-    from vlm_bridge_tpu_torch.inference.generate import (
-        GenerationConfig, _eos_lengths, generate_tokens)
+    from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
     from vlm_bridge_tpu_torch.ops import decode_kernels, quant
 
-    pix_gen = torch.Generator(device=dev)
-    pix_gen.manual_seed(SEED + 1)
-    pixels_u8 = torch.randint(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
-                              generator=pix_gen, device=dev, dtype=torch.uint8)
-    pixels = normalize_on_device(pixels_u8, dtype=torch.bfloat16)
+    pixels = seeded_pixels(cfg, dev)
     # warm-up (cuBLAS handles, allocator) on 2 tokens, then the counted run
     generate_tokens(params, cfg, pixel_values=pixels,
                     gen=GenerationConfig(max_length=2, greedy=True, kv_quant=True))
@@ -597,23 +794,16 @@ def run_serve(params, cfg, dev, card, gcfg):
         if n != NEW_TOKENS:
             raise AssertionError(f"{name} launched {n} times, expected {NEW_TOKENS}")
 
-    toks_c, lens_c = toks.cpu(), lens.cpu()
-    if tuple(toks_c.shape) != (BATCH, NEW_TOKENS + 1):
-        raise AssertionError(f"tokens shape {tuple(toks_c.shape)}")
-    if not ((toks_c >= 0) & (toks_c < cfg.lm.vocab_size)).all():
-        raise AssertionError("token ids out of range")
-    if not (toks_c[:, 0] == cfg.lm.bos_token_id).all():
-        raise AssertionError("first column is not BOS")
-    if not torch.equal(lens_c, _eos_lengths(toks_c, cfg.lm.eos_token_id)):
-        raise AssertionError("lengths disagree with the first EOS")
+    toks_c = check_tokens(toks, lens, cfg, NEW_TOKENS)
     print(f"main path: {BATCH} captions x {NEW_TOKENS} tokens in {dt:.3f} s = "
           f"{BATCH / dt:.2f} captions/s (encode + decode) on {card}")
 
     t0 = time.perf_counter()
-    ref, _ = generate_tokens(params, cfg, pixel_values=pixels,
-                             gen=GenerationConfig(max_length=NEW_TOKENS, greedy=True,
-                                                  kv_quant=True, force_plain=True))
+    with plain_decode():
+        ref, _ = generate_tokens(params, cfg, pixel_values=pixels, gen=gcfg)
     torch.cuda.synchronize()
+    if any(fn.launches != NEW_TOKENS for fn in counters):
+        raise AssertionError("the plain path launched a decode kernel")
     ref = ref.cpu()
     first_eq = bool((ref[:, 1] == toks_c[:, 1]).all())
     share = float((ref[:, 1:] == toks_c[:, 1:]).float().mean())
@@ -621,7 +811,177 @@ def run_serve(params, cfg, dev, card, gcfg):
           f"equal in every row: {first_eq}; share of all tokens equal: {share:.4f}")
     if not first_eq:
         raise AssertionError("first generated tokens differ from the plain path")
+
+    # the same fused stack with the sampled head: f32 logits, soft-cap, top-p
+    wrappers = decode_wrappers()
+    sampled = GenerationConfig(max_length=NEW_TOKENS, kv_quant=True)
+
+    def run_sampled(n_tokens):
+        sgen = torch.Generator(device=dev)
+        sgen.manual_seed(SEED + 6)
+        out = generate_tokens(params, cfg, pixel_values=pixels, generator=sgen,
+                              gen=dataclasses.replace(sampled, max_length=n_tokens))
+        torch.cuda.synchronize()
+        return out
+
+    run_sampled(2)  # warm-up of the sampler's ops
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks, lens = run_sampled(NEW_TOKENS)
+    dt = time.perf_counter() - t0
+    check_tokens(toks, lens, cfg, NEW_TOKENS)
+    got = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    want = dict.fromkeys(("fused_stack_step", "fused_bridge_step", "int8_matmul_t"), NEW_TOKENS)
+    print(f"fused stack + sampled head: launches {got}; {BATCH} captions x {NEW_TOKENS} tokens "
+          f"in {dt:.3f} s = {BATCH / dt:.2f} captions/s (temperature 0.7, top-p 0.9, int8 KV "
+          f"cache) on {card}")
+    if got != want:
+        raise AssertionError(f"fused sampled path launches {got}, expected {want}")
     return launches
+
+
+def run_sample(params, cfg, dev, card):
+    """The sampled per-layer int8 path (per-layer dicts, bf16 KV cache);
+    returns the four int8 kernels' launch counts of the counted run."""
+    from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
+
+    pixels = seeded_pixels(cfg, dev)
+    gcfg = GenerationConfig(max_length=NEW_TOKENS, temperature=0.7, top_p=0.9, topk_window=128,
+                            greedy=False, kv_quant=False, early_stop=False)
+    wrappers = decode_wrappers()
+
+    def sampled(n_tokens=NEW_TOKENS, seed=SEED + 7):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        out = generate_tokens(params, cfg, pixel_values=pixels, generator=g,
+                              gen=dataclasses.replace(gcfg, max_length=n_tokens))
+        torch.cuda.synchronize()
+        return out
+
+    sampled(2)  # warm-up
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks, lens = sampled()
+    dt = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    print(f"sampled per-layer path launches: {launches}")
+    per_token = {"int8_matmul": 2 * cfg.lm.num_layers + 4 * cfg.bridge.num_blocks,
+                 "int8_mlp": cfg.lm.num_layers, "int8_ffn": cfg.bridge.num_blocks,
+                 "int8_matmul_t": 1, "fused_stack_step": 0, "fused_bridge_step": 0,
+                 "int8_matmul_t_argmax": 0}
+    for name, n in per_token.items():
+        if launches[name] != n * NEW_TOKENS:
+            raise AssertionError(f"{name} launched {launches[name]} times, expected "
+                                 f"{n} x {NEW_TOKENS}")
+    toks_c = check_tokens(toks, lens, cfg, NEW_TOKENS)
+    print(f"sampled per-layer path: {BATCH} captions x {NEW_TOKENS} tokens in {dt:.3f} s = "
+          f"{BATCH / dt:.2f} captions/s (encode + decode; temperature 0.7, top-p 0.9, "
+          f"bf16 KV cache) on {card}")
+    again, _ = sampled()
+    other, _ = sampled(seed=SEED + 8)
+    same = bool(torch.equal(again.cpu(), toks_c))
+    print(f"same seed, same tokens: {same}; another seed differs: "
+          f"{not torch.equal(other.cpu(), toks_c)}")
+    if not same or torch.equal(other.cpu(), toks_c):
+        raise AssertionError("sampling does not follow its seed")
+
+    # greedy over a few tokens: kernels against their plain versions. Both
+    # paths round every projection's output to bf16 (the activation dtype
+    # between the layers' ops), so f32 sums taken in another order flip a
+    # rounding here and there and the paths drift apart by bf16 steps: with
+    # random weights, whose top logits are near-ties, a row's argmax may then
+    # differ. What is held is the first step's logits, path against path.
+    from vlm_bridge_tpu_torch.ops import quant
+
+    ggen = dataclasses.replace(gcfg, greedy=True, max_length=GREEDY_CHECK_TOKENS)
+    with record_decode_hidden() as hidden_k:
+        got, _ = generate_tokens(params, cfg, pixel_values=pixels, gen=ggen)
+    before = {n: fn.launches for n, fn in wrappers.items()}
+    with plain_decode(), record_decode_hidden() as hidden_p:
+        ref, _ = generate_tokens(params, cfg, pixel_values=pixels, gen=ggen)
+    torch.cuda.synchronize()
+    if {n: fn.launches for n, fn in wrappers.items()} != before:
+        raise AssertionError("the plain per-layer path launched a kernel")
+    got, ref = got.cpu(), ref.cpu()
+    rows_eq = int((got[:, 1] == ref[:, 1]).sum())
+    share = float((got[:, 1:] == ref[:, 1:]).float().mean())
+    table = params["lm"]["embedding"]
+    logits_k = quant.int8_matmul_t_plain(hidden_k[0], table)
+    logits_p = quant.int8_matmul_t_plain(hidden_p[0], table)
+    err = float((logits_k - logits_p).abs().max())
+    tol = HIDDEN_TOL * float(logits_p.abs().max())
+    top2 = torch.topk(logits_p, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    differ = (got[:, 1] != ref[:, 1]).to(gap.device)
+    print(f"per-layer greedy, {GREEDY_CHECK_TOKENS} tokens, kernels vs plain versions: first "
+          f"tokens equal in {rows_eq} of {BATCH} rows; share of all tokens equal: {share:.4f}; "
+          f"first-step logits max_abs_err={err:.6g} tol={tol:.6g}; smallest top-2 gap of the "
+          f"plain path's logits {float(gap.min()):.6g}, largest gap in a row that differs "
+          f"{float(gap[differ].max()) if bool(differ.any()) else 0.0:.6g}")
+    if not err <= tol:
+        raise AssertionError("per-layer greedy: first-step logits differ from the plain path")
+    if bool(differ.any()) and float(gap[differ].max()) > 2 * err + 1e-3:
+        raise AssertionError("per-layer greedy: a first token differs where the plain path's "
+                             "logits are no near-tie")
+
+    decode_profile(lambda: sampled(PROFILE_TOKENS), lambda: sampled(2 * PROFILE_TOKENS), card)
+    return {n: launches[n] for n in ("int8_matmul", "int8_mlp", "int8_ffn", "int8_matmul_t")}
+
+
+def decode_profile(short, long, card):
+    """Kernel launches and device-busy time per token of the sampled path:
+    two profiled generations of PROFILE_TOKENS and twice as many tokens;
+    their difference leaves the encode and the set-up out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [(e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall, sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+    w1, b1, n1 = window(short)
+    w2, b2, n2 = window(long)
+    if n2 <= n1:
+        print("sampled per-layer path profile: the profiler recorded no device time")
+        return
+    wall, busy, n = ((b - a) / PROFILE_TOKENS for a, b in ((w1, w2), (b1, b2), (n1, n2)))
+    print(f"sampled per-layer path, per token (torch profiler on, which slows the host): "
+          f"{n:.0f} kernel launches, device busy {busy:.3f} ms of {wall:.3f} ms = "
+          f"{100 * busy / wall:.1f} % (on {card})")
+
+
+def seeded_pixels(cfg, dev):
+    from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
+
+    pix_gen = torch.Generator(device=dev)
+    pix_gen.manual_seed(SEED + 1)
+    pixels_u8 = torch.randint(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
+                              generator=pix_gen, device=dev, dtype=torch.uint8)
+    return normalize_on_device(pixels_u8, dtype=torch.bfloat16)
+
+
+def check_tokens(toks, lens, cfg, n_tokens):
+    """Shape, id range, BOS column and lengths of a generation; returns the
+    tokens on the CPU."""
+    from vlm_bridge_tpu_torch.inference.generate import _eos_lengths
+
+    toks_c, lens_c = toks.cpu(), lens.cpu()
+    if tuple(toks_c.shape) != (BATCH, n_tokens + 1):
+        raise AssertionError(f"tokens shape {tuple(toks_c.shape)}")
+    if not ((toks_c >= 0) & (toks_c < cfg.lm.vocab_size)).all():
+        raise AssertionError("token ids out of range")
+    if not (toks_c[:, 0] == cfg.lm.bos_token_id).all():
+        raise AssertionError("first column is not BOS")
+    if not torch.equal(lens_c, _eos_lengths(toks_c, cfg.lm.eos_token_id)):
+        raise AssertionError("lengths disagree with the first EOS")
+    return toks_c
 
 
 def main() -> int:
@@ -649,9 +1009,10 @@ def main() -> int:
           f"(nvcc {'ran' if cuda_lib.build_seconds is not None else 'not needed'})", flush=True)
     log = cuda_lib.build_log.splitlines()
     for i, line in enumerate(log):  # ptxas -v: registers, shared memory and spills per kernel
-        if "Compiling entry function" in line and "fa_" in line:
+        tag = next((t for t in ("fa_", "i8l_product") if t in line), None)
+        if "Compiling entry function" in line and tag:
             mangled = line.split("'")[1]   # ...fa_fwd_kernelILi256ELi64EEvNS_8FaParamsE
-            name = mangled[mangled.index("fa_"):].split("Ev")[0]
+            name = mangled[mangled.index(tag):].split("Ev")[0].split("EPK")[0]
             print(f"ptxas: {name} |",
                   " ".join(x.strip() for x in log[i + 1:i + 4] if "bytes" in x or "registers" in x))
 
@@ -668,11 +1029,11 @@ def main() -> int:
     # the int8 serving recipe, quantized from the same weights
     t0 = time.perf_counter()
     with torch.no_grad():
-        served = dict(params)
-        served["lm"] = gemma2.quantize_params(params["lm"], ("embedding", "mlp", "attn"))
-        served["bridge"] = bridge.quantize_decode_params(params["bridge"])
+        per_layer = dict(params)   # int8 per-layer dicts: what the per-layer path reads
+        per_layer["lm"] = gemma2.quantize_params(params["lm"], ("embedding", "mlp", "attn"))
+        per_layer["bridge"] = bridge.quantize_decode_params(params["bridge"])
     gcfg = GenerationConfig(max_length=NEW_TOKENS, greedy=True, kv_quant=True, early_stop=False)
-    served = prestack_decode_params(served, cfg, gcfg)
+    served = prestack_decode_params(per_layer, cfg, gcfg)
     if "stacked_decode" not in served["lm"]:
         raise AssertionError("the int8 stack decode does not serve VLMConfig.default()")
     torch.cuda.synchronize()
@@ -686,6 +1047,15 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
 
+    i8_gen = torch.Generator(device=dev)
+    i8_gen.manual_seed(SEED + 9)
+    with torch.no_grad():
+        results.update(phase_int8_linear(per_layer, cfg, dev, i8_gen))
+        results["int8_matmul_t"] = phase_logits_head(per_layer, dev, i8_gen)
+        launches.update(run_sample(per_layer, cfg, dev, card))
+    del per_layer
+    torch.cuda.empty_cache()
+
     flash_gen = torch.Generator(device=dev)
     flash_gen.manual_seed(SEED + 5)
     with torch.no_grad():
@@ -693,7 +1063,12 @@ def main() -> int:
     launches.update(run_train(params, cfg, dev, card))
 
     fa_src, fa_py = "flash_attention.cu", "vlm_bridge_tpu/ops/flash_attention.py"
-    sources = {"int8_matmul_t_argmax": ("int8_argmax.cu", "vlm_bridge_tpu/ops/quant.py:169"),
+    qpy = "vlm_bridge_tpu/ops/quant.py"
+    sources = {"int8_matmul_t_argmax": ("int8_argmax.cu", f"{qpy}:169"),
+               "int8_matmul": ("int8_linear.cu", f"{qpy}:74"),
+               "int8_matmul_t": ("int8_argmax.cu", f"{qpy}:133"),
+               "int8_mlp": ("int8_linear.cu", f"{qpy}:536"),
+               "int8_ffn": ("int8_linear.cu", f"{qpy}:597"),
                "fused_stack_step": ("stack_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:707"),
                "fused_bridge_step": ("bridge_step.cu",
                                      "vlm_bridge_tpu/ops/decode_kernels.py:1228"),

@@ -1,6 +1,7 @@
 """PyTorch port kernels on the card: each CUDA kernel against its plain
-version at small widths (the decode steps, the greedy head, and the three
-flash-attention kernels with their autograd function and shape gate).
+version at small widths (the decode steps, the greedy head, the three
+flash-attention kernels with their autograd function and shape gate, and
+the four int8 linear functions with `linear`'s dispatch).
 These need an NVIDIA GPU with nvcc (sm_90a) and
 skip elsewhere; run them on the card with
 
@@ -237,3 +238,154 @@ def test_head_product_keeps_the_f32_accumulator(dev):
     capped = gemma2.logits_from_hidden(
         {"embedding": table}, Gemma2Config(vocab_size=4096, hidden_size=256), hidden)
     assert float(capped.abs().max()) <= 30.0
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul / int8_mlp / int8_ffn / int8_matmul_t
+# ---------------------------------------------------------------------------
+
+# Kernel against plain version on the same bf16 x: both accumulate in f32 and
+# round the result (and the hidden) to bf16, in another summation order, so a
+# value may land one bf16 step (2^-8 relative) away; held row by row to
+# I8_TOL = two steps of the row's max|ref|. The f32 logits carry no output
+# rounding: LOGIT_TOL x the row's max|ref|.
+I8_TOL, LOGIT_TOL = 2.0 ** -7, 1e-5
+
+I8_SHAPES = [
+    # M, H, F: rows, hidden, FFN width
+    (5, 80, 208),        # one ragged row tile, ragged K chunk, ragged column tile
+    (64, 256, 1024),     # the decode batch, whole tiles
+    (130, 144, 80),      # three row tiles, the last ragged
+]
+
+
+def _i8_case(dev, M, H, F, seed=10):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    q = lambda i, o: quant.quantize_int8(mk(i, o) * 0.05, axis=0)  # noqa: E731
+    return {"x": mk(M, H).to(torch.bfloat16), "gate": q(H, F), "up": q(H, F), "down": q(F, H),
+            "b1": mk(F) * 0.1, "b2": mk(H) * 0.1}
+
+
+def _rows_close(got, want, tol):
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1).clamp_min(1e-30)
+    assert float((diff / scale).max()) <= tol, float((diff / scale).max())
+
+
+@pytest.mark.parametrize("M,H,F", I8_SHAPES, ids=[f"M{m}_H{h}_F{f}" for m, h, f in I8_SHAPES])
+def test_int8_linear_kernels_match_plain(dev, M, H, F):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    c = _i8_case(dev, M, H, F)
+    x = c["x"]
+    runs = (
+        (quant.int8_matmul, quant.int8_matmul_plain, (x, c["gate"])),
+        (quant.int8_mlp, quant.int8_mlp_plain, (x, c["gate"], c["up"], c["down"])),
+        (quant.int8_ffn, quant.int8_ffn_plain, (x, c["gate"], c["b1"], c["down"], c["b2"])),
+    )
+    for fn, plain, args in runs:
+        n = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1 and got.dtype == torch.bfloat16
+        _rows_close(got, plain(*args), I8_TOL)
+        assert torch.equal(got, fn(*args))    # fixed-order reduce: the same bits again
+
+
+@pytest.mark.parametrize("M,V,H", [(5, 1000, 128), (64, 4096, 256), (70, 130, 64)])
+def test_int8_matmul_t_kernel_matches_plain(dev, M, V, H):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16)
+    table = quant.quantize_int8(torch.randn(V, H, generator=g, device=dev) * 0.05, axis=1)
+    n = quant.int8_matmul_t.launches
+    got = quant.int8_matmul_t(x, table)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_t.launches == n + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, V)
+    _rows_close(got, quant.int8_matmul_t_plain(x, table), LOGIT_TOL)
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """f32 x on the card raises (nothing gives way to the plain version
+    there); so do widths the loads cannot align and an f64 bias."""
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.configs import Gemma2Config
+    from vlm_bridge_tpu_torch.ops import quant
+
+    c = _i8_case(dev, 4, 64, 128)
+    xf = c["x"].float()
+    for call in (lambda: quant.int8_matmul(xf, c["gate"]),
+                 lambda: quant.int8_mlp(xf, c["gate"], c["up"], c["down"]),
+                 lambda: quant.int8_ffn(xf, c["gate"], c["b1"], c["down"], c["b2"]),
+                 lambda: quant.int8_matmul_t(xf, quant.quantize_int8(
+                     torch.randn(256, 64, device=dev), axis=1))):
+        with pytest.raises(ValueError, match="bfloat16"):
+            call()
+    odd = quant.quantize_int8(torch.randn(64, 72, device=dev), axis=0)   # 72 % 16 != 0
+    with pytest.raises(ValueError, match="multiple"):
+        quant.int8_matmul(c["x"], odd)
+    with pytest.raises(ValueError, match="float32"):
+        quant.int8_ffn(c["x"], c["gate"], c["b1"].double(), c["down"], c["b2"])
+    # an int8 table under f32 hidden states on the card raises too
+    cfg = Gemma2Config(vocab_size=256, hidden_size=64)
+    table = quant.quantize_int8(torch.randn(256, 64, device=dev), axis=1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gemma2.logits_from_hidden({"embedding": table}, cfg, xf[None])
+
+
+def test_linear_on_a_cuda_dict_launches_the_kernel(dev):
+    from vlm_bridge_tpu_torch.ops import quant
+    from vlm_bridge_tpu_torch.ops.layers import linear
+
+    c = _i8_case(dev, 6, 64, 128)
+    x = c["x"].reshape(2, 3, 64)
+    n = quant.int8_matmul.launches
+    got = linear(x, c["gate"], c["b1"])
+    assert quant.int8_matmul.launches == n + 1
+    assert tuple(got.shape) == (2, 3, 128) and got.dtype == torch.bfloat16
+    want = quant.int8_matmul_plain(c["x"], c["gate"]) + c["b1"].to(torch.bfloat16)
+    _rows_close(got.reshape(6, 128), want, I8_TOL)
+    with pytest.raises(ValueError, match="bfloat16"):
+        linear(x.float(), c["gate"])
+
+
+def test_per_layer_decode_step_runs_the_kernels(dev):
+    """gemma2.decode_step and logits_from_hidden on int8 dicts on the card:
+    one int8_matmul for qkv and one for o per layer, one int8_mlp per layer,
+    one int8_matmul_t; hidden states agree with the same step through the
+    plain versions."""
+    from vlm_bridge_tpu_torch.configs import Gemma2Config
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.ops import quant
+
+    cfg = Gemma2Config(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=3,
+                       num_heads=4, num_kv_heads=2, head_dim=64, query_pre_attn_scalar=64.0,
+                       sliding_window=4)
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = gemma2.quantize_params(gemma2.init(cfg, generator=g, device=dev))
+    counted = (quant.int8_matmul, quant.int8_mlp, quant.int8_matmul_t)
+    names = ("int8_matmul", "int8_mlp", "int8_matmul_t")
+    ck, cp = (gemma2.KVCache.zeros(cfg, 5, 8, device=dev) for _ in range(2))
+    with torch.no_grad():
+        for t in range(6):
+            e = (torch.randn(5, 1, 256, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+            before = [fn.launches for fn in counted]
+            hk, ck = gemma2.decode_step(q, cfg, e, ck, position=t)
+            lk = gemma2.logits_from_hidden(q, cfg, hk)
+            assert [fn.launches - n for fn, n in zip(counted, before)] == [6, 3, 1]
+            saved = [getattr(quant, n) for n in names]
+            try:
+                for n in names:
+                    setattr(quant, n, getattr(quant, n + "_plain"))
+                hp, cp = gemma2.decode_step(q, cfg, e, cp, position=t)
+                lp = gemma2.logits_from_hidden(q, cfg, hp)
+            finally:
+                for n, fn in zip(names, saved):
+                    setattr(quant, n, fn)
+            _close(hk, hp)
+            _close(lk, lp)

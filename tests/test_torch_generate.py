@@ -91,15 +91,30 @@ def test_first_tokens_match_jax_interpret_kernels(slice_setup, monkeypatch):
 
 
 def test_force_plain_and_unported_modes_raise(slice_setup):
+    """The package has no switch to its plain versions (a CPU tensor is what
+    selects them); modes that are not ported raise, and so does a path that
+    needs per-layer weights when only stacked ones are there."""
+    from vlm_bridge_tpu_torch.tools.loading import prestack_decode_params
+
     cfg, q, qt, pixels = slice_setup
-    np.testing.assert_array_equal(_port(cfg, qt, pixels[:2], force_plain=True)[0],
-                                  _port(cfg, qt, pixels[:2])[0])
+    assert not hasattr(TG.GenerationConfig(), "force_plain")
     px = torch.from_numpy(pixels[:1])
-    for gen in (TG.GenerationConfig(greedy=False, kv_quant=True),
-                TG.GenerationConfig(greedy=True, kv_quant=False),
-                TG.GenerationConfig(greedy=True, kv_quant=True, exact=True)):
+    for gen in (TG.GenerationConfig(greedy=True, kv_quant=True, exact=True),
+                TG.GenerationConfig(greedy=True, kv_quant=True, mlp_int4=True),
+                TG.GenerationConfig(greedy=True, kv_quant=True, bridge_causal=True)):
         with pytest.raises(NotImplementedError):
             TG.generate_tokens(qt, P(cfg), pixel_values=px, gen=gen)
+    fused = TG.GenerationConfig(max_length=MAX_NEW, greedy=True, kv_quant=True)
+    stacked = prestack_decode_params(qt, P(cfg), fused)
+    assert "layers" not in stacked["lm"] and "layers" in qt["lm"]
+    np.testing.assert_array_equal(
+        TG.generate_tokens(stacked, P(cfg), pixel_values=px, gen=fused,
+                           activation_dtype=torch.float32)[0].numpy(),
+        _port(cfg, qt, pixels[:1])[0])
+    for gen in (dataclasses.replace(fused, force_jnp=True),
+                dataclasses.replace(fused, kv_quant=False)):
+        with pytest.raises(ValueError, match="per-layer weights"):
+            TG.generate_tokens(stacked, P(cfg), pixel_values=px, gen=gen)
 
 
 def test_caption_cli_on_cpu(tmp_path, capsys):

@@ -133,8 +133,9 @@ def test_int8_matmul_t():
     x = r.normal(0, 1, (5, 64)).astype(np.float32)
     wj = jq.quantize_int8(jnp.asarray(r.normal(0, 0.05, (300, 64)), jnp.float32), axis=1)
     wt = {k: _t(v) for k, v in wj.items()}
-    _close(tq.int8_matmul_t(_t(x), wt, chunk=128), jq.int8_matmul_t(jnp.asarray(x), wj),
-           atol=1e-4)
+    want = jq.int8_matmul_t(jnp.asarray(x), wj)
+    _close(tq.int8_matmul_t_plain(_t(x), wt, chunk=128), want, atol=1e-4)
+    _close(tq.int8_matmul_t(_t(x), wt), want, atol=1e-4)   # CPU: the plain version
 
 
 def _head_inputs(V=1000, H=128, M=6):

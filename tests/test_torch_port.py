@@ -28,6 +28,7 @@ def _port_modules():
 def test_port_imports_without_jax():
     mods = _port_modules()
     assert "vlm_bridge_tpu_torch.ops.decode_kernels" in mods
+    assert {"vlm_bridge_tpu_torch.ops.sampling", "vlm_bridge_tpu_torch.inference.robust"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None\n"
             "import importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -44,7 +45,8 @@ def test_port_imports_without_jax():
 
 def _port_files():
     return (sorted((REPO / "vlm_bridge_tpu_torch").rglob("*.py"))
-            + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_train_torch.py"])
+            + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_train_torch.py",
+               REPO / "scripts" / "tune_int8_linear_torch.py"])
 
 
 def test_no_import_of_jax_or_the_jax_package():
@@ -55,6 +57,7 @@ def test_no_import_of_jax_or_the_jax_package():
     banned = ("jax", "vlm_bridge_tpu", "flax", "optax")
     files = _port_files()
     assert len(files) > 20
+    assert {"sampling.py", "robust.py"} <= {p.name for p in files}
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):
@@ -226,12 +229,17 @@ def test_kernel_sources_ship_and_name_what_they_replace():
     replaced = {"stack_step.cu": "decode_kernels.py:fused_stack_step",
                 "bridge_step.cu": "decode_kernels.py:fused_bridge_step",
                 "int8_argmax.cu": "quant.py:int8_matmul_t_argmax",
+                "int8_linear.cu": "quant.py:int8_matmul",
                 "flash_attention.cu": "flash_attention.py:_flash_fwd"}
     for name, target in replaced.items():
         text = (csrc / name).read_text()
         assert f"Replaces: vlm_bridge_tpu/ops/{target}" in text
         assert "Bound:" in text
     assert "flash_attention.py:_flash_bwd" in (csrc / "flash_attention.cu").read_text()
+    for target in ("quant.py:int8_mlp", "quant.py:int8_ffn"):
+        assert f"vlm_bridge_tpu/ops/{target}" in (csrc / "int8_linear.cu").read_text()
+    assert "Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t," in \
+        (csrc / "int8_argmax.cu").read_text()
     from vlm_bridge_tpu_torch.ops import cuda_lib
 
     assert {p.name for p in cuda_lib._sources()} >= set(replaced) | {"i8_gemm.cu",
@@ -241,3 +249,8 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                   "vbt_flash_attention_bwd_dkv"):
         assert entry in cuda_lib.SIGNATURES
         assert f'extern "C" int {entry}(' in (csrc / "flash_attention.cu").read_text()
+    for entry, src in (("vbt_int8_matmul", "int8_linear.cu"), ("vbt_int8_mlp", "int8_linear.cu"),
+                       ("vbt_int8_ffn", "int8_linear.cu"),
+                       ("vbt_int8_matmul_t", "int8_argmax.cu")):
+        assert entry in cuda_lib.SIGNATURES
+        assert f'extern "C" int {entry}(' in (csrc / src).read_text()

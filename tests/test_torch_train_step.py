@@ -93,10 +93,13 @@ def test_gemma2_logits_and_int8_mlp_gate():
     np.testing.assert_allclose(
         tg.logits_from_hidden(qt, ct, torch.from_numpy(hid)).numpy(),
         np.asarray(jg.logits_from_hidden(qj, cj, jnp.asarray(hid))), atol=2e-4, rtol=1e-4)
-    # the int8 MLP kernel is not ported: it raises, it does not fall to a plain product
+    # int8 MLP weights go through ops.quant.int8_mlp (CPU: its plain version), as
+    # the JAX forward goes through its int8_mlp
+    qj_mlp = jax.jit(lambda p: jg.quantize_params(p, ("mlp",)))(pj)
     q_mlp = tg.quantize_params(pt, ("mlp",))
-    with pytest.raises(NotImplementedError, match="int8_mlp"):
-        tg.forward_hidden(q_mlp, ct, torch.from_numpy(hid))
+    np.testing.assert_allclose(
+        tg.forward_hidden(q_mlp, ct, torch.from_numpy(hid)).numpy(),
+        np.asarray(jg.forward_hidden(qj_mlp, cj, jnp.asarray(hid))), atol=2e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -1,8 +1,14 @@
-// Greedy head: ids[m] = argmax_v (x[m] . E[v]) * scale[v], E int8 [V, H].
+// The tied int8 head, E int8 [V, H] with one scale per vocab row:
+//   greedy   ids[m] = argmax_v (x[m] . E[v]) * scale[v]
+//   logits   y[m, v] = (x[m] . E[v]) * scale[v], f32 (the sampled head)
 //
 // Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t_argmax, whose body is
 // _int8_mmt_argmax_kernel. Gemma's final softcap is monotonic, so it is
 // skipped; the [B, V] logits are never written to device memory.
+// Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t, whose body is
+// _int8_mmt_kernel: the same 64 x 128 tile product (`xet_tile`), each tile
+// scaled and written out as f32. Its bound adds the logits' bytes (65.5 MB
+// at M = 64) to the table's.
 //
 // Bound: streaming the 590 MB int8 table (V = 256000, H = 2304) once per
 // token; ~0.18 ms at 3.35 TB/s. One block per 128 vocab rows (2000 blocks)
@@ -32,17 +38,16 @@ constexpr int SMEM_MAIN = (BM * LDS + BV * LDS) * 2;
 constexpr int SMEM_C = BM * C_LD * 4;
 constexpr int SMEM = SMEM_MAIN > SMEM_C ? SMEM_MAIN : SMEM_C;
 
-__global__ void __launch_bounds__(256)
-argmax_block_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ E,
-                    const float* __restrict__ scale, float* __restrict__ bval,
-                    int* __restrict__ bidx, int M, int V, int H) {
-  __shared__ __align__(32) unsigned char raw[SMEM];
+// Cs[BM][C_LD] (f32, in `raw`) = X[m0 .. m0+63] . E[v0 .. v0+127]^T, rows
+// past M and vocab rows past V as zeros. 256 threads; ends on a barrier.
+__device__ __forceinline__ void xet_tile(const bf16* __restrict__ X,
+                                         const int8_t* __restrict__ E, unsigned char* raw,
+                                         int m0, int v0, int M, int V, int H) {
   bf16* Xs = reinterpret_cast<bf16*>(raw);        // [BM][LDS]
   bf16* Es = Xs + BM * LDS;                       // [BV][LDS]  (E rows, H contiguous)
   float* Cs = reinterpret_cast<float*>(raw);      // [BM][C_LD] after the main loop
 
-  const int v0 = blockIdx.x * BV, m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
 #pragma unroll
@@ -86,6 +91,17 @@ argmax_block_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ E,
     wmma::store_matrix_sync(&Cs[(wm * 16) * C_LD + wn * 64 + j * 16], acc[j], C_LD,
                             wmma::mem_row_major);
   __syncthreads();
+}
+
+__global__ void __launch_bounds__(256)
+argmax_block_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ E,
+                    const float* __restrict__ scale, float* __restrict__ bval,
+                    int* __restrict__ bidx, int M, int V, int H) {
+  __shared__ __align__(32) unsigned char raw[SMEM];
+  const int v0 = blockIdx.x * BV, m0 = blockIdx.y * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  xet_tile(X, E, raw, m0, v0, M, V, H);
+  const float* Cs = reinterpret_cast<const float*>(raw);
 
   // each warp reduces 8 batch rows; lane covers columns lane + 32 i
   for (int r = warp; r < BM; r += 8) {
@@ -111,6 +127,23 @@ argmax_block_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ E,
       bval[(size_t)blockIdx.x * M + m] = nan ? -INFINITY : best;
       bidx[(size_t)blockIdx.x * M + m] = arg;
     }
+  }
+}
+
+// y[m, v0 .. v0+127] = tile * scale: consecutive threads write consecutive
+// vocab columns of one batch row.
+__global__ void __launch_bounds__(256)
+logits_block_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ E,
+                    const float* __restrict__ scale, float* __restrict__ Y, int M, int V,
+                    int H) {
+  __shared__ __align__(32) unsigned char raw[SMEM];
+  const int v0 = blockIdx.x * BV, m0 = blockIdx.y * BM;
+  xet_tile(X, E, raw, m0, v0, M, V, H);
+  const float* Cs = reinterpret_cast<const float*>(raw);
+  for (int i = threadIdx.x; i < BM * BV; i += blockDim.x) {
+    const int r = i / BV, c = i % BV;
+    const int m = m0 + r, v = v0 + c;
+    if (m < M && v < V) Y[(size_t)m * V + v] = Cs[r * C_LD + c] * scale[v];
   }
 }
 
@@ -158,6 +191,17 @@ extern "C" int vbt_int8_matmul_t_argmax(const void* x, const void* E, const void
   VBT_CHECK_LAUNCH();
   argmax_reduce_kernel<<<M, 256, 0, st>>>((const float*)bval, (const int*)bidx, (int*)ids, M,
                                           nblk);
+  VBT_CHECK_LAUNCH();
+  return 0;
+}
+
+// y[M, V] f32 = (x[M, H] bf16 . E[V, H]^T int8) * scale[V]
+extern "C" int vbt_int8_matmul_t(const void* x, const void* E, const void* scale, void* y,
+                                 int M, int V, int H, void* stream_ptr) {
+  cudaStream_t st = (cudaStream_t)stream_ptr;
+  if (H % BK != 0) return (int)cudaErrorInvalidValue;
+  logits_block_kernel<<<dim3((V + BV - 1) / BV, (M + BM - 1) / BM), 256, 0, st>>>(
+      (const bf16*)x, (const int8_t*)E, (const float*)scale, (float*)y, M, V, H);
   VBT_CHECK_LAUNCH();
   return 0;
 }

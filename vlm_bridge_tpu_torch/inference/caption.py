@@ -2,9 +2,12 @@
 (port of vlm_bridge_tpu.inference.caption).
 
     vlm-caption-torch IMAGES --quantize embedding,mlp,attn,bridge [--device cuda]
+                      [--sample --temperature 0.7 --top-p 0.9]
 
-IMAGES is a file, a directory or a glob. The weights are a seeded random
-init until the HF and checkpoint loaders are ported.
+IMAGES is a file, a directory or a glob. Decoding is greedy unless --sample
+is given; the sampling stream is a generator seeded with --seed. --device cpu
+runs the kernels' plain versions. The weights are a seeded random init until
+the HF and checkpoint loaders are ported.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import json
 import sys
 import time
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -33,25 +36,21 @@ def collect_images(spec: str) -> List[Path]:
     return [m for m in matches if m.suffix.lower() in IMAGE_EXTS]
 
 
-def decode_captions(tokenizer, tokens: np.ndarray, lengths: np.ndarray) -> List[str]:
-    """Detokenize [B, L] id buffers up to each row's length (the tokenizer
-    strips BOS/EOS/pad)."""
-    return [tokenizer.decode([int(t) for t in row[: int(n)]])
-            for row, n in zip(np.asarray(tokens), np.asarray(lengths))]
-
-
 def caption_images(params, cfg, tokenizer, image_paths: List[Path], *, batch_size: int = 32,
-                   gen=None, activation_dtype=None, device=None) -> List[dict]:
-    """Caption a list of image files; returns [{"image", "caption"}...]."""
+                   gen=None, activation_dtype=None, device=None,
+                   generator: Optional[torch.Generator] = None) -> List[dict]:
+    """Caption a list of image files; returns [{"image", "caption"}...].
+    generator: the sampling stream (on `device`), advanced batch after batch."""
     from PIL import Image
 
     from vlm_bridge_tpu_torch.data.preprocess import (
         CROP_SIZE, RESIZE_EDGE, host_resize_crop, normalize_on_device, pad_to_batch)
     from vlm_bridge_tpu_torch.inference.generate import (
         GenerationConfig, generate_tokens, resolve_activation_dtype)
+    from vlm_bridge_tpu_torch.inference.robust import decode_captions
 
     if gen is None:
-        gen = GenerationConfig(max_length=50, greedy=True, early_stop=True, kv_quant=True)
+        gen = GenerationConfig(max_length=50, greedy=True, early_stop=True)
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
     results = []
     crop = cfg.image_size
@@ -65,8 +64,8 @@ def caption_images(params, cfg, tokenizer, image_paths: List[Path], *, batch_siz
         pixels_np = pad_to_batch(np.stack(arrs), batch_size)
         pixels = normalize_on_device(torch.from_numpy(pixels_np).to(device),
                                      dtype=activation_dtype)
-        toks, lens = generate_tokens(params, cfg, pixel_values=pixels, gen=gen,
-                                     activation_dtype=activation_dtype)
+        toks, lens = generate_tokens(params, cfg, pixel_values=pixels, generator=generator,
+                                     gen=gen, activation_dtype=activation_dtype)
         texts = decode_captions(tokenizer, toks.cpu().numpy()[: len(chunk)],
                                 lens.cpu().numpy()[: len(chunk)])
         results.extend({"image": str(p), "caption": t} for p, t in zip(chunk, texts))
@@ -85,6 +84,10 @@ def main(argv=None) -> int:
     ap.add_argument("images", help="image file, directory, or glob")
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--max-length", type=int, default=50)
+    ap.add_argument("--greedy", action="store_true", default=True)
+    ap.add_argument("--sample", dest="greedy", action="store_false")
+    ap.add_argument("--temperature", type=float, default=0.7)
+    ap.add_argument("--top-p", type=float, default=0.9)
     ap.add_argument("--output", default=None, help="write JSONL here (else stdout)")
     add_model_args(ap)
     args = ap.parse_args(argv)
@@ -94,13 +97,18 @@ def main(argv=None) -> int:
         print(f"no images found for {args.images!r}", file=sys.stderr)
         return 1
     cfg, params, tokenizer = load_from_args(args)
-    gen = GenerationConfig(max_length=args.max_length, greedy=True, early_stop=True,
+    # with a quantized LM the int8-KV fused stack decode is the serving recipe
+    gen = GenerationConfig(max_length=args.max_length, greedy=args.greedy,
+                           temperature=args.temperature, top_p=args.top_p, early_stop=True,
                            kv_quant=bool(args.quantize))
     params = prestack_decode_params(params, cfg, gen)
+    device = torch.device(args.device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(args.seed)
     t0 = time.time()
     results = caption_images(params, cfg, tokenizer, paths,
                              batch_size=min(args.batch_size, len(paths)), gen=gen,
-                             device=torch.device(args.device))
+                             device=device, generator=generator)
     dt = time.time() - t0
     out = open(args.output, "w") if args.output else sys.stdout
     try:

@@ -1,16 +1,24 @@
-"""Batched greedy caption generation, fast mode (port of
+"""Batched caption generation, fast mode (port of
 vlm_bridge_tpu.inference.generate).
 
 The image is encoded once and each bridge block's cross-attention K/V are
 computed once; then a Python loop over preallocated caches runs, per token:
 embed the last token -> both bridge blocks (causal self cache) -> every
-Gemma layer against the int8 KV cache -> the greedy int8 head. The caches
-are updated in place. On CUDA tensors the three per-token stages run the
-port's kernels (ops.decode_kernels, ops.quant.int8_matmul_t_argmax).
+Gemma layer against the KV cache -> the head (greedy argmax, or f32 logits
+and ops.sampling.sample_token). The caches are updated in place.
 
-Ported: the int8 serving recipe (int8 LM layers and embedding, int8 KV
-cache, greedy). Exact mode, sampling, the jnp-int8/bf16 LM decode and
-meshes are not ported yet and raise.
+Two decode paths, chosen by `_fused_decode_available` as in the JAX package:
+- fused: int8 LM layers, int8 KV cache (kv_quant) and cache rows inside the
+  sliding window -> one call per token through the whole decoder stack
+  (ops.decode_kernels.fused_stack_step) and, with an int8 bridge, one
+  through the bridge (fused_bridge_step);
+- per layer (the JAX package's jnp path; `force_jnp` pins it): float or
+  int8 weights, bf16 or int8 cache, any window. Int8 weights run
+  ops.quant's int8_matmul / int8_mlp / int8_ffn, an int8 table
+  int8_matmul_t or, greedy, int8_matmul_t_argmax.
+On CUDA tensors all of these launch the port's kernels.
+
+Exact mode, int4 MLP weights and meshes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,19 +33,27 @@ from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
 from vlm_bridge_tpu_torch.ops import decode_kernels, quant
 from vlm_bridge_tpu_torch.ops.attention import decode_attention
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, layer_norm, linear
+from vlm_bridge_tpu_torch.ops.sampling import sample_token
 
 
 @dataclass(frozen=True)
 class GenerationConfig:
     max_length: int = 50          # max new tokens
-    greedy: bool = False          # False (sampling) is not ported yet
+    temperature: float = 0.7
+    top_p: float = 0.9
+    greedy: bool = False
     exact: bool = False           # reference-parity mode: not ported yet
+    topk_window: int = 128
+    bypass_bridge: bool = False   # A/B debugging: feed raw Gemma embeddings,
+                                  # skipping the bridge
     early_stop: bool = False      # stop once every row has emitted EOS
-    kv_quant: bool = False        # int8 Gemma KV cache (required here)
-    force_plain: bool = False     # run the plain PyTorch versions of the
-                                  # decode kernels on any device: the
-                                  # reference path the kernels are compared
-                                  # with on the card
+    kv_quant: bool = False        # int8 Gemma KV cache and int8 cross cache
+    force_jnp: bool = False       # pin the per-layer decode path (the JAX
+                                  # package's jnp path) where the fused stack
+                                  # step would serve
+    bridge_causal: bool = False   # exact mode only: not ported yet
+    mlp_int4: bool = False        # int4 MLP weights: not ported yet
+    mlp_int4_group: Optional[int] = 128
 
 
 class BridgeCache(NamedTuple):
@@ -142,9 +158,8 @@ def _bridge_decode_step(bridge_params, cfg: BridgeConfig, cache: BridgeCache,
         h = layer_norm(x, bp["ln_ffn"]["scale"], bp["ln_ffn"]["bias"], eps)
         fp = bp["ffn"]
         if isinstance(fp["fc1"], dict):
-            g = linear(h.float(), fp["fc1"]) + fp["fc1_bias"].float()
-            y = linear(gelu_exact(g).to(dtype).float(), fp["fc2"]) + fp["fc2_bias"].float()
-            h = y.to(dtype)
+            h = quant.int8_ffn(h.reshape(B, ld), fp["fc1"], fp["fc1_bias"], fp["fc2"],
+                               fp["fc2_bias"]).reshape(B, 1, ld)
         else:
             h = linear(h, fp["fc1"].to(dtype), fp["fc1_bias"].to(dtype))
             h = linear(gelu_exact(h), fp["fc2"].to(dtype), fp["fc2_bias"].to(dtype))
@@ -152,29 +167,37 @@ def _bridge_decode_step(bridge_params, cfg: BridgeConfig, cache: BridgeCache,
     return x, cache
 
 
-def _check_supported(params, cfg: VLMConfig, gen: GenerationConfig) -> None:
+def _check_supported(gen: GenerationConfig) -> None:
     if gen.exact:
         raise NotImplementedError("exact generation mode is not ported yet")
-    if not gen.greedy:
-        raise NotImplementedError("sampled decoding is not ported yet (use greedy=True)")
-    if not gen.kv_quant:
-        raise NotImplementedError("only the int8 KV cache decode is ported (kv_quant=True)")
+    if gen.bridge_causal:
+        raise NotImplementedError("bridge_causal belongs to exact mode, which is not ported yet")
+    if gen.mlp_int4:
+        raise NotImplementedError("int4 MLP weights (mlp_int4) are not ported yet")
+
+
+def _fused_decode_available(params, cfg: VLMConfig, gen: GenerationConfig) -> bool:
+    """Whether the whole-stack decode step serves this call: int8 KV cache,
+    fully int8 layers (or weights stacked ahead of time) and cache rows that
+    fit every sliding window. gen.force_jnp pins the per-layer path."""
     lm = params["lm"]
-    if not quant.is_quantized(lm["embedding"]):
-        raise NotImplementedError("only the int8 greedy head is ported "
-                                  "(quantize the embedding)")
-    if "stacked_decode" not in lm and not gemma2.supports_fused_decode(
-            lm, cfg.lm, gen.max_length + 1):
-        raise NotImplementedError(
-            "only the fused int8 stack decode is ported: the LM layers must be "
-            "int8 (quantize mlp,attn) and the cache rows "
-            f"{gemma2.fused_cache_rows(gen.max_length + 1)} must fit "
-            f"sliding_window={cfg.lm.sliding_window}")
+    if gen.force_jnp:
+        if "layers" not in lm:
+            raise ValueError("force_jnp requested but params carry only pre-stacked decode "
+                             "weights (stacked_decode): the per-layer path needs per-layer "
+                             "weights")
+        return False
+    if not gen.kv_quant:
+        return False
+    if "stacked_decode" in lm:
+        return gemma2.fused_cache_rows(gen.max_length + 1) <= cfg.lm.sliding_window
+    return gemma2.supports_fused_decode(lm, cfg.lm, gen.max_length + 1)
 
 
 @torch.no_grad()
 def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: GenerationConfig,
-                   activation_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+                   activation_dtype, generator: Optional[torch.Generator],
+                   use_fused: bool, use_fused_bridge: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     B = vision.shape[0]
     L = gen.max_length + 1  # BOS + generated
     lm_cfg, br_cfg = cfg.lm, cfg.bridge
@@ -186,21 +209,23 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
             return {k: cast(v) for k, v in p.items()}
         return p.to(activation_dtype) if (p.dim() >= 2 and p.is_floating_point()) else p
 
-    bridge_params = cast(params["bridge"])
-    bridge_cache = _build_cross_cache(bridge_params, br_cfg, vision, L, activation_dtype,
-                                      kv_quant=gen.kv_quant)
-    use_fused_bridge = bridge.supports_fused_decode(bridge_params)
-    if use_fused_bridge:
-        bst = bridge.stack_bridge_decode_params(bridge_params, br_cfg)
-        bridge_step = (decode_kernels.fused_bridge_step_plain if gen.force_plain
-                       else decode_kernels.fused_bridge_step)
     lm = params["lm"]
-    stacked = lm.get("stacked_decode")
-    if stacked is None:
-        stacked = gemma2.stack_decode_params(lm, lm_cfg)
-    kv = gemma2.StackedKVCache.zeros(lm_cfg, B, L, device=dev)
-    head = (quant.int8_matmul_t_argmax_plain if gen.force_plain
-            else quant.int8_matmul_t_argmax)
+    if not gen.bypass_bridge:
+        # the (possibly f32 master) bridge weights are cast once, not per token
+        bridge_params = cast(params["bridge"])
+        bridge_cache = _build_cross_cache(bridge_params, br_cfg, vision, L, activation_dtype,
+                                          kv_quant=gen.kv_quant)
+        if use_fused_bridge:
+            bst = bridge.stack_bridge_decode_params(bridge_params, br_cfg)
+    if use_fused:
+        stacked = lm.get("stacked_decode")
+        if stacked is None:
+            stacked = gemma2.stack_decode_params(lm, lm_cfg)
+        kv = gemma2.StackedKVCache.zeros(lm_cfg, B, L, device=dev)
+    else:
+        kv = gemma2.KVCache.zeros(lm_cfg, B, L, device=dev,
+                                  dtype=torch.int8 if gen.kv_quant else activation_dtype)
+    greedy_head = gen.greedy and quant.is_quantized(lm["embedding"])
 
     bos = torch.full((B,), lm_cfg.bos_token_id, dtype=torch.int32, device=dev)
     toks = torch.full((B, gen.max_length), lm_cfg.pad_token_id, dtype=torch.int32, device=dev)
@@ -209,8 +234,10 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
         if gen.early_stop and bool(done.all()):
             break
         emb = gemma2.embed(lm, tok.long()[:, None]).to(activation_dtype)
-        if use_fused_bridge:
-            x = bridge_step(
+        if gen.bypass_bridge:
+            bridged = emb
+        elif use_fused_bridge:
+            x = decode_kernels.fused_bridge_step(
                 t, emb[:, 0].contiguous(), bst, bridge_cache.cross_k,
                 bridge_cache.cross_k_scale, bridge_cache.cross_v, bridge_cache.cross_v_scale,
                 bridge_cache.self_k, bridge_cache.self_v,
@@ -220,9 +247,21 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
         else:
             bridged, bridge_cache = _bridge_decode_step(bridge_params, br_cfg, bridge_cache,
                                                         emb, t)
-        hidden, kv = gemma2.decode_step_stacked(lm, lm_cfg, stacked, bridged, kv, t,
-                                                plain=gen.force_plain)
-        nxt = head(hidden[:, 0].contiguous(), lm["embedding"])
+        if use_fused:
+            hidden, kv = gemma2.decode_step_stacked(lm, lm_cfg, stacked, bridged, kv, t)
+        else:
+            hidden, kv = gemma2.decode_step(lm, lm_cfg, bridged, kv, position=t)
+        if greedy_head:
+            # the argmax is taken inside the int8 head: the [B, V] logits are
+            # never written (the final softcap is monotonic)
+            nxt = quant.int8_matmul_t_argmax(hidden[:, 0].contiguous(), lm["embedding"])
+        else:
+            logits = gemma2.logits_from_hidden(lm, lm_cfg, hidden)[:, 0]
+            # one generator, advanced token by token: the same seed gives the
+            # same tokens on one device
+            nxt = sample_token(generator, logits, temperature=gen.temperature,
+                               top_p=gen.top_p, greedy=gen.greedy,
+                               topk_window=gen.topk_window)
         nxt = torch.where(done, torch.full_like(nxt, lm_cfg.pad_token_id), nxt)
         done = done | (nxt == lm_cfg.eos_token_id)
         toks[:, t] = nxt
@@ -233,15 +272,30 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
 
 def generate_tokens(params, cfg: VLMConfig, *, pixel_values: Optional[torch.Tensor] = None,
                     vision_features: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
                     gen: GenerationConfig = GenerationConfig(),
                     activation_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Generate caption tokens greedily.
+    """Generate caption tokens.
 
     Returns (tokens [B, max_length+1] int32 incl. BOS, lengths [B] = index
     of the first EOS or the full length). Rows that emitted EOS are padded
-    with pad_token_id afterwards. Runs on the device of the inputs."""
+    with pad_token_id afterwards. Runs on the device of the inputs.
+    generator: the sampling stream, a torch.Generator on that device (None:
+    torch's global generator); greedy decoding draws nothing."""
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
-    _check_supported(params, cfg, gen)
+    _check_supported(gen)
+    use_fused = _fused_decode_available(params, cfg, gen)
+    use_fused_bridge = (use_fused and not gen.bypass_bridge
+                        and bridge.supports_fused_decode(params["bridge"]))
+    if "layers" not in params["lm"] and not use_fused:
+        raise ValueError(
+            "params['lm'] carries only pre-stacked decode weights (stacked_decode), which "
+            "serve only the fused stack decode, but that path cannot dispatch here "
+            f"(kv_quant={gen.kv_quant}, cache rows "
+            f"{gemma2.fused_cache_rows(gen.max_length + 1)} must fit "
+            f"sliding_window={cfg.lm.sliding_window}). Rebuild the params with per-layer "
+            "weights or use the fused serving recipe (int8 layers + int8 KV).")
     if vision_features is None:
         vision_features = full_model.encode_image(params, cfg, pixel_values)
-    return _generate_fast(params, cfg, vision_features, gen, activation_dtype)
+    return _generate_fast(params, cfg, vision_features, gen, activation_dtype, generator,
+                          use_fused, use_fused_bridge)

@@ -2,11 +2,14 @@
 
 Ported: random `init`, `embed`, the int8 serving transformation
 (`quantize_params` / `quantize_layer` / `quantize_embedding_part`), the KV
-quantizer, the whole-stack greedy decode step (`stack_decode_params`,
-`StackedKVCache`, `decode_step_stacked`) over ops.decode_kernels, and the
-full-sequence training forward (`forward_hidden` with per-layer
-recomputation, `logits_from_hidden`, `forward`) over float weights. Prefill,
-the int8 MLP kernel and the jnp-int8 per-layer decode are not ported yet.
+quantizer, the whole-stack decode step (`stack_decode_params`,
+`StackedKVCache`, `decode_step_stacked`) over ops.decode_kernels, the
+per-layer cache path (`KVCache`, `prefill`, `decode_step`; bf16 or int8
+cache, lockstep or ragged rows, sliding windows), and the full-sequence
+forward (`forward_hidden` with per-layer recomputation,
+`logits_from_hidden`, `forward`) over float or int8 weights: int8 dicts go
+through ops.quant (`int8_matmul` by way of `linear`, `int8_mlp`,
+`int8_matmul_t`). The caches are updated in place.
 """
 
 from __future__ import annotations
@@ -17,11 +20,45 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vlm_bridge_tpu_torch.configs import Gemma2Config
-from vlm_bridge_tpu_torch.ops import decode_kernels
-from vlm_bridge_tpu_torch.ops.attention import dot_product_attention
+from vlm_bridge_tpu_torch.ops import decode_kernels, quant
+from vlm_bridge_tpu_torch.ops.attention import decode_attention, dot_product_attention
 from vlm_bridge_tpu_torch.ops.layers import (apply_rope, gelu_tanh, linear, rms_norm, rope_table,
                                              softcap)
-from vlm_bridge_tpu_torch.ops.quant import int8_matmul_t, is_quantized, quantize_int8
+from vlm_bridge_tpu_torch.ops.quant import is_quantized, quantize_int8
+
+
+class KVCache(NamedTuple):
+    """Preallocated per-layer decode cache, updated in place.
+
+    dtype=torch.int8 stores K/V quantized per key vector (symmetric absmax
+    over D, scales in k_scale/v_scale [L, B, Smax, KH] f32); the scales fold
+    into the attention algebra (ops.attention.decode_attention), so no
+    dequantized copy of the cache exists."""
+
+    k: torch.Tensor  # [L, B, Smax, KH, D]
+    v: torch.Tensor
+    length: torch.Tensor  # [B] int32: valid positions per row (ragged prompts)
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def zeros(cfg: Gemma2Config, batch: int, max_len: int, dtype=torch.bfloat16,
+              device=None) -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+
+        def scale():
+            if dtype != torch.int8:
+                return None
+            return torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       length=torch.zeros(batch, dtype=torch.int32, device=device),
+                       k_scale=scale(), v_scale=scale())
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def fused_cache_rows(n_tokens: int) -> int:
@@ -96,23 +133,18 @@ def stack_decode_params(params: dict, cfg: Gemma2Config) -> dict:
 
 def decode_step_stacked(params: dict, cfg: Gemma2Config, stacked: dict,
                         token_embeds: torch.Tensor, cache: StackedKVCache,
-                        position: int, *, plain: bool = False
-                        ) -> Tuple[torch.Tensor, StackedKVCache]:
+                        position: int) -> Tuple[torch.Tensor, StackedKVCache]:
     """Lockstep decode step at `position` through the whole stack.
 
     token_embeds: [B, 1, H] raw (bridged) embeddings. The √H normalizer is
     cast to the activation dtype before the multiply, as in the JAX package.
-    plain=True pins the plain PyTorch stack step on any device (the
-    reference the kernel is compared with on the card).
     Returns (final-normed hidden [B, 1, H], cache updated in place)."""
     t = int(position)
     dev = token_embeds.device
     cos, sin = rope_table(torch.tensor([t], device=dev), cfg.head_dim, cfg.rope_theta)
     normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=token_embeds.dtype, device=dev)
     x = (token_embeds * normalizer)[:, 0].contiguous()
-    step = (decode_kernels.fused_stack_step_plain if plain
-            else decode_kernels.fused_stack_step)
-    x_out = step(
+    x_out = decode_kernels.fused_stack_step(
         t, x, stacked, cache.k, cache.v, cache.k_scale, cache.v_scale,
         cos[0].contiguous(), sin[0].contiguous(),
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -180,11 +212,12 @@ def _qkv_proj(attn: dict, x: torch.Tensor, cfg: Gemma2Config):
 
 
 def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, *,
-                     cos, sin, attn_mask, positions, kv_lengths=None) -> torch.Tensor:
+                     cos, sin, attn_mask, positions, kv_lengths=None, return_kv: bool = False):
     """positions=None means "queries are the trailing T of S positions", the
     convention the attention op and the flash kernels assume. kv_lengths:
     per-row valid key counts when attn_mask is a right-padding prefix mask
-    (it lets padded training shapes take the flash kernels)."""
+    (it lets padded training shapes take the flash kernels). return_kv=True
+    also returns the rotated k and the raw v, for cache fills."""
     B, T, H, D = x.shape[0], x.shape[1], cfg.num_heads, cfg.head_dim
     q, k, v = _qkv_proj(lp["attn"], x, cfg)
     q = apply_rope(q, cos, sin)
@@ -194,29 +227,35 @@ def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: in
         q, k, v, scale=cfg.attn_scale, mask=attn_mask, is_causal=True,
         logit_softcap=cfg.attn_logit_softcap, sliding_window=window,
         q_positions=positions, kv_positions=positions, kv_lengths=kv_lengths)
-    return linear(out.reshape(B, T, H * D), lp["attn"]["o"])
+    out = linear(out.reshape(B, T, H * D), lp["attn"]["o"])
+    return (out, k, v) if return_kv else out
 
 
 def _mlp_block(lp: dict, x: torch.Tensor) -> torch.Tensor:
-    if is_quantized(lp["mlp"]["gate"]):
-        raise NotImplementedError(
-            "the int8 GeGLU MLP kernel (int8_mlp) is not ported yet: ROADMAP.md, "
-            "kernels still to be ported, vlm_bridge_tpu/ops/quant.py:int8_mlp")
+    mlp = lp["mlp"]
+    if is_quantized(mlp["gate"]):
+        lead = x.shape[:-1]
+        y = quant.int8_mlp(x.reshape(-1, x.shape[-1]).contiguous(), mlp["gate"], mlp["up"],
+                           mlp["down"])
+        return y.reshape(*lead, y.shape[-1])
     gate = gelu_tanh(linear(x, lp["mlp"]["gate"]))
     up = linear(x, lp["mlp"]["up"])
     return linear(gate * up, lp["mlp"]["down"])
 
 
 def _layer(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, cos, sin,
-           attn_mask, positions, kv_lengths=None) -> torch.Tensor:
+           attn_mask, positions, kv_lengths=None, *, return_kv: bool = False):
     eps = cfg.rms_norm_eps
     h = rms_norm(x, lp["input_norm"], eps)
     h = _attention_block(lp, cfg, h, layer_idx, cos=cos, sin=sin, attn_mask=attn_mask,
-                         positions=positions, kv_lengths=kv_lengths)
+                         positions=positions, kv_lengths=kv_lengths, return_kv=return_kv)
+    if return_kv:
+        h, k, v = h
     x = x + rms_norm(h, lp["post_attn_norm"], eps)
     h = rms_norm(x, lp["pre_ffn_norm"], eps)
     h = _mlp_block(lp, h)
-    return x + rms_norm(h, lp["post_ffn_norm"], eps)
+    x = x + rms_norm(h, lp["post_ffn_norm"], eps)
+    return (x, k, v) if return_kv else x
 
 
 def forward_hidden(params: dict, cfg: Gemma2Config, inputs_embeds: torch.Tensor, *,
@@ -286,7 +325,7 @@ def logits_from_hidden(params: dict, cfg: Gemma2Config, hidden: torch.Tensor) ->
     E = params["embedding"]
     B, T, H = hidden.shape
     if isinstance(E, dict):
-        logits = int8_matmul_t(hidden.reshape(B * T, H), E).reshape(B, T, -1)
+        logits = quant.int8_matmul_t(hidden.reshape(B * T, H).contiguous(), E).reshape(B, T, -1)
     elif hidden.is_cuda and hidden.dtype != torch.float32:
         logits = _HeadProduct.apply(hidden.reshape(B * T, H), E.to(hidden.dtype))
         logits = logits.reshape(B, T, -1)
@@ -342,3 +381,119 @@ def quantize_params(params: dict, parts: Tuple[str, ...] = ("embedding", "mlp", 
         "final_norm": params["final_norm"],
         "layers": {name: quantize_layer(lp, parts) for name, lp in params["layers"].items()},
     }
+
+
+# ---------------------------------------------------------------------------
+# KV-cache prefill + per-layer decode
+# ---------------------------------------------------------------------------
+
+
+def prefill(params: dict, cfg: Gemma2Config, inputs_embeds: torch.Tensor, cache: KVCache, *,
+            attn_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompt through the decoder, filling the cache in place.
+
+    Returns (hidden [B, T, H], cache with its lengths set). Prompts occupy
+    positions [0, T); right padding goes through attn_mask: pad K/V are
+    written to the cache, but the per-row length = attn_mask.sum() keeps them
+    unattendable, and each row's next decode position continues from its own
+    true length."""
+    B, T, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    positions = torch.arange(T, device=dev)[None, :].expand(B, T)
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=inputs_embeds.dtype, device=dev)
+    x = inputs_embeds * normalizer
+
+    key_mask = kv_lengths = None
+    if attn_mask is not None:
+        key_mask = attn_mask[:, None, :].bool()
+        kv_lengths = attn_mask.sum(dim=-1).to(torch.int32)
+
+    for i in range(cfg.num_layers):
+        # the layer wiring of forward_hidden, also handing back each layer's
+        # rotated K and raw V for the cache
+        x, k, v = _layer(params["layers"][str(i)], cfg, x, i, cos, sin, key_mask, None,
+                         kv_lengths, return_kv=True)
+        if cache.quantized:
+            cache.k[i, :, :T], cache.k_scale[i, :, :T] = quantize_kv(k)
+            cache.v[i, :, :T], cache.v_scale[i, :, :T] = quantize_kv(v)
+        else:
+            cache.k[i, :, :T] = k.to(cache.k.dtype)
+            cache.v[i, :, :T] = v.to(cache.v.dtype)
+
+    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    lengths = (kv_lengths if kv_lengths is not None
+               else torch.full((B,), T, dtype=torch.int32, device=dev))
+    return hidden, cache._replace(length=lengths)
+
+
+def decode_step(params: dict, cfg: Gemma2Config, token_embeds: torch.Tensor, cache: KVCache, *,
+                position: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step, layer by layer. token_embeds: [B, 1, H] raw embedding
+    of the new token.
+
+    Returns (hidden [B, 1, H], cache with its lengths advanced; K/V written
+    in place). Each row's new token sits at its OWN position cache.length[b]
+    (rows may be ragged after a padded prefill), written with one indexed
+    store per layer.
+
+    position: optional int shared by every row (the no-prompt generation
+    loop, where all rows decode in lockstep): the write becomes a slice
+    store and no per-row index is read. cache.length must equal position in
+    every row; after a ragged prefill call decode_step without position=."""
+    B = token_embeds.shape[0]
+    dev = token_embeds.device
+    uniform = position is not None
+    if uniform:
+        pos = int(position)
+        positions = torch.tensor([[pos]], device=dev)
+        new_len = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
+    else:
+        positions = cache.length.long()[:, None]  # [B, 1]
+        new_len = cache.length + 1
+        rows = torch.arange(B, device=dev)
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=token_embeds.dtype, device=dev)
+    x = token_embeds * normalizer
+    window_start = torch.clamp(new_len - cfg.sliding_window, min=0)
+    H, D = cfg.num_heads, cfg.head_dim
+
+    def write(buf, val, layer):
+        # val: [B, ...] per-row payload (trailing dims match buf[3:])
+        if uniform:
+            buf[layer, :, pos] = val.to(buf.dtype)
+        else:
+            buf[layer, rows, positions[:, 0]] = val.to(buf.dtype)
+
+    for i in range(cfg.num_layers):
+        lp = params["layers"][str(i)]
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv_proj(lp["attn"], h, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        if cache.quantized:
+            kq, k_sc = quantize_kv(k[:, 0])
+            vq, v_sc = quantize_kv(v[:, 0])
+            write(cache.k, kq, i)
+            write(cache.v, vq, i)
+            write(cache.k_scale, k_sc, i)
+            write(cache.v_scale, v_sc, i)
+        else:
+            write(cache.k, k[:, 0], i)
+            write(cache.v, v[:, 0], i)
+
+        attn = decode_attention(
+            q, cache.k[i], cache.v[i], new_len,
+            scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcap,
+            window_start=window_start if cfg.layer_is_sliding(i) else None,
+            k_scale=None if cache.k_scale is None else cache.k_scale[i],
+            v_scale=None if cache.v_scale is None else cache.v_scale[i])
+        h = linear(attn.reshape(B, 1, H * D), lp["attn"]["o"])
+        x = x + rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
+        h = rms_norm(x, lp["pre_ffn_norm"], cfg.rms_norm_eps)
+        h = _mlp_block(lp, h)
+        x = x + rms_norm(h, lp["post_ffn_norm"], cfg.rms_norm_eps)
+
+    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return hidden, cache._replace(length=new_len)

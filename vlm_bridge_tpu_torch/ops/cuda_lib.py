@@ -35,6 +35,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as void*)
 SIGNATURES = {
     "vbt_int8_matmul_t_argmax": [_P] * 6 + [_I] * 3 + [_P],
+    "vbt_int8_matmul_t": [_P] * 4 + [_I] * 3 + [_P],
+    "vbt_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "vbt_int8_mlp": [_P] * 10 + [_I] * 5 + [_P],
+    "vbt_int8_ffn": [_P] * 10 + [_I] * 5 + [_P],
     "vbt_fused_stack_step": [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P],
     "vbt_fused_bridge_step": [_P] * 31 + [_I] * 9 + [_F] + [_P],
     "vbt_flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],

@@ -11,12 +11,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from vlm_bridge_tpu_torch.ops import quant
+
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ w (+ b). An int8 dict weight is dequantized per output channel
-    after an f32 product (the JAX jnp-int8 path's algebra)."""
+    """y = x @ w (+ b). An int8 dict weight goes through ops.quant.int8_matmul
+    over x flattened to [M, in] (its kernel on CUDA tensors, its plain
+    version on CPU tensors); the bias is added afterwards, in y's dtype."""
     if isinstance(w, dict):
-        y = (torch.matmul(x.float(), w["w_int8"].float()) * w["scale"]).to(x.dtype)
+        lead = x.shape[:-1]
+        y = quant.int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+        y = y.reshape(*lead, y.shape[-1])
     else:
         y = torch.matmul(x, w.to(x.dtype))
     if b is not None:

@@ -4,8 +4,11 @@ The input is the JAX tree as nested dicts of numpy arrays (for example
 `jax.tree.map(np.asarray, params)`); the output has the same keys with
 torch tensors, so both packages compute the same function. Both store
 linear weights [in, out], int8 weights as {"w_int8", "scale"} and the
-DINOv2 patch kernel HWIO, so no array is re-laid out. bfloat16 arrays
-(numpy's ml_dtypes extension type) are widened through f32 exactly.
+DINOv2 patch kernel HWIO, so no array is re-laid out: an int8 LM
+(per-layer `qkv`, `o`, `gate`, `up`, `down` dicts and the int8 table) and an
+int8 bridge come across with the same integers and scales, and both
+packages decode from them. bfloat16 arrays (numpy's ml_dtypes extension
+type) are widened through f32 exactly.
 
 `from_jax` gives frozen tensors (requires_grad False): the vision and lm
 subtrees of a train step, or a whole tree for serving. `bridge_from_jax`
