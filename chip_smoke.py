@@ -1,6 +1,7 @@
 """Run the PyTorch port once on one GPU: the int8 greedy caption-serving path,
-the sampled per-layer int8 decode path and the bridge train step, every
-kernel held against its plain version.
+the sampled per-layer int8 decode path, the int4 serving recipe through the
+batched eval harness and the bridge train step, every kernel held against
+its plain version.
 
     python3 chip_smoke.py
 
@@ -34,6 +35,18 @@ kernel held against its plain version.
    (both paths round to bf16 between ops, so a near-tie may flip a row's
    token: it prints how many rows agree); a short profiled window gives the
    launches per token and the device's busy share.
+4c. The int4 recipe: the table re-quantized to the int4 rows-packed layout
+   and the stack rebuilt with int4 MLP weights. Phases for the two int4
+   heads, `int4_mlp` (per channel and in groups of 128) and the stack step
+   with int4 MLP weights against their plain versions; the int4-against-int8
+   MLP probe (26 layers x 20 tokens, the three variants in turns); then
+   `vlm-eval-torch` itself (inference.evaluate.main) over a synthetic split
+   written with numpy alone (a manifest and the pixel cache's two files, so
+   no image is decoded), --quantize embedding4,mlp,attn,bridge --kv-int8
+   --mlp-int4 --no-early-stop, batch 64 x 50 tokens, 5 batches, and once
+   more with --sample over 2 batches. Checks the launch counts (stack step
+   and int4 head 50 a batch, the int8 heads 0), that BLEU / CIDEr are
+   finite, and that one batch's first tokens equal the plain path's.
 5. The train path: the same model in bf16 with the f32 bridge, 8 seeded
    images x 256 tokens with ragged lengths, TrainingConfig() defaults. The
    first step's loss and bridge gradients through the kernels against the
@@ -53,7 +66,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
@@ -85,6 +100,12 @@ LOSS_RTOL, GNORM_RTOL, GRAD_COS_MIN = 2e-4, 2e-3, 0.9998
 # own max|ref|. int8_matmul_t writes f32 logits with no rounding: LOGIT_TOL x
 # the row's max|ref| covers the summation order.
 I8_TOL, LOGIT_TOL = 2.0 ** -7, 1e-5
+# The int4 heads add each scale group's partial sum times its f32 scale (18
+# folds a logit at H = 2304) where the plain version multiplies by weights
+# dequantized in f32: a few more f32 roundings a logit than the int8 head.
+LOGIT4_TOL = 2e-5
+EVAL_BATCHES, EVAL_SAMPLED_BATCHES = 5, 2   # batches of the int4 path through vlm-eval-torch
+PROBE_TOKENS, PROBE_REPS, PROBE_BLOCK_F, INT4_GROUP = 20, 3, 512, 128
 GREEDY_CHECK_TOKENS, PROFILE_TOKENS = 6, 5
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
@@ -110,16 +131,16 @@ def card_line() -> str:
         return "unknown (nvidia-smi unavailable)"
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, spin_cycles: int = 20_000_000) -> float:
     """Mean device time of fn() over `iters` runs after one warm-up. The
-    device first spins for some 10 ms, so the host has queued the runs by
-    the time they start: the events then bracket device work, not the
-    host's issuing (a wrapper of a 10 us kernel takes longer to call than the
-    kernel to run)."""
+    device first spins for some 10 ms (spin_cycles), so the host has queued
+    the runs by the time they start: the events then bracket device work, not
+    the host's issuing (a wrapper of a 10 us kernel takes longer to call than
+    the kernel to run)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -169,7 +190,9 @@ def phase_argmax_head(params, dev, gen):
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
-def phase_stack(params, cfg, dev, gen, t=20):
+def phase_stack(params, cfg, dev, gen, t=20, name="fused_stack_step"):
+    """The stack step against its plain version, on int8 or int4 MLP weights
+    (whichever `params` carries stacked)."""
     from vlm_bridge_tpu_torch.models import gemma2
     from vlm_bridge_tpu_torch.ops import decode_kernels as dk
     from vlm_bridge_tpu_torch.ops.layers import rope_table
@@ -198,21 +221,23 @@ def phase_stack(params, cfg, dev, gen, t=20):
     got = dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw)
     want = dk.fused_stack_step_plain(t, x, stacked, *cp, cos, sin, **kw)
     torch.cuda.synchronize()
-    err = check_close("fused_stack_step", got, want)
+    err = check_close(name, got, want)
     codes = (ck[0][:, :, :, t].int() - cp[0][:, :, :, t].int()).abs()
     share = float((codes <= 1).float().mean())
-    print(f"[fused_stack_step] new K codes within 1: {share:.6f} (need >= 0.99)")
+    print(f"[{name}] new K codes within 1: {share:.6f} (need >= 0.99)")
     if share < 0.99:
         raise AssertionError("stack step K cache row disagrees")
     ms = time_ms(lambda: dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw), 10)
     plain_ms = time_ms(lambda: dk.fused_stack_step_plain(t, x, stacked, *cp, cos, sin, **kw), 3)
     # every stacked weight once, the t + 1 live cache rows, x in and out;
-    # 2 flops per int8 weight and batch row (the attention's share is small)
+    # 2 flops per weight and batch row (the attention's share is small); a
+    # byte of an int4 field holds two weights
     weights = [w for w in stacked.values()]
     live = sum(nbytes(c) for c in cache) * (t + 1) // S
-    n_w = sum(stacked[k].numel() for k in ("wqkv", "wo", "wgu", "wd"))
+    n_w = sum(stacked[k].numel() * (2 if k.endswith("4") else 1)
+              for k in ("wqkv", "wo", "wgu", "wd", "wgu4", "wd4") if k in stacked)
     bd = bound(nbytes(*weights) + live + 2 * nbytes(x), 2.0 * BATCH * n_w)
-    print(f"[fused_stack_step] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (S={S}, t={t}), "
+    print(f"[{name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (S={S}, t={t}), "
           f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
@@ -613,7 +638,8 @@ def plain_flash(fa):
 
 DECODE_KERNELS = {"decode_kernels": ("fused_stack_step", "fused_bridge_step"),
                   "quant": ("int8_matmul_t_argmax", "int8_matmul", "int8_mlp", "int8_ffn",
-                            "int8_matmul_t")}
+                            "int8_matmul_t", "int4_matmul_t_argmax", "int4_matmul_t",
+                            "int4_mlp")}
 
 
 def decode_modules() -> dict:
@@ -646,23 +672,24 @@ def plain_decode():
 
 
 @contextlib.contextmanager
-def record_decode_hidden():
-    """Within this block gemma2.decode_step keeps a copy of the final hidden
-    states it returns; yields the list (one [B, H] tensor per token)."""
+def record_decode_hidden(step_name="decode_step"):
+    """Within this block gemma2.decode_step (or decode_step_stacked) keeps a
+    copy of the final hidden states it returns; yields the list (one [B, H]
+    tensor per token)."""
     from vlm_bridge_tpu_torch.models import gemma2
 
-    step, seen = gemma2.decode_step, []
+    step, seen = getattr(gemma2, step_name), []
 
     def recording(*args, **kwargs):
         hidden, cache = step(*args, **kwargs)
         seen.append(hidden[:, 0].clone())
         return hidden, cache
 
-    gemma2.decode_step = recording
+    setattr(gemma2, step_name, recording)
     try:
         yield seen
     finally:
-        gemma2.decode_step = step
+        setattr(gemma2, step_name, step)
 
 
 def run_train(params, cfg, dev, card):
@@ -771,7 +798,8 @@ def run_train(params, cfg, dev, card):
 
 
 def run_serve(params, cfg, dev, card, gcfg):
-    """The int8 greedy serving path; returns the decode kernels' launch counts."""
+    """The int8 greedy serving path; returns the decode kernels' launch counts
+    and the counted run's captions per second."""
     from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
     from vlm_bridge_tpu_torch.ops import decode_kernels, quant
 
@@ -795,8 +823,9 @@ def run_serve(params, cfg, dev, card, gcfg):
             raise AssertionError(f"{name} launched {n} times, expected {NEW_TOKENS}")
 
     toks_c = check_tokens(toks, lens, cfg, NEW_TOKENS)
+    rate = BATCH / dt
     print(f"main path: {BATCH} captions x {NEW_TOKENS} tokens in {dt:.3f} s = "
-          f"{BATCH / dt:.2f} captions/s (encode + decode) on {card}")
+          f"{rate:.2f} captions/s (encode + decode) on {card}")
 
     t0 = time.perf_counter()
     with plain_decode():
@@ -838,7 +867,7 @@ def run_serve(params, cfg, dev, card, gcfg):
           f"cache) on {card}")
     if got != want:
         raise AssertionError(f"fused sampled path launches {got}, expected {want}")
-    return launches
+    return launches, rate
 
 
 def run_sample(params, cfg, dev, card):
@@ -904,30 +933,37 @@ def run_sample(params, cfg, dev, card):
     torch.cuda.synchronize()
     if {n: fn.launches for n, fn in wrappers.items()} != before:
         raise AssertionError("the plain per-layer path launched a kernel")
-    got, ref = got.cpu(), ref.cpu()
+    hold_first_step(f"per-layer greedy, {GREEDY_CHECK_TOKENS} tokens, kernels vs plain versions",
+                    got.cpu(), ref.cpu(),
+                    quant.int8_matmul_t_plain(hidden_k[0], params["lm"]["embedding"]),
+                    quant.int8_matmul_t_plain(hidden_p[0], params["lm"]["embedding"]))
+
+    decode_profile(lambda: sampled(PROFILE_TOKENS), lambda: sampled(2 * PROFILE_TOKENS), card)
+    return {n: launches[n] for n in ("int8_matmul", "int8_mlp", "int8_ffn", "int8_matmul_t")}
+
+
+def hold_first_step(name, got, ref, logits_k, logits_p):
+    """Kernels' path against plain path: prints how many first tokens and what
+    share of all tokens (got, ref: [B, 1 + n] on the CPU) are equal, and holds
+    the first step's logits, path against path, to HIDDEN_TOL x their largest
+    value; a row whose first token differs must be a near-tie of the plain
+    path's logits."""
     rows_eq = int((got[:, 1] == ref[:, 1]).sum())
     share = float((got[:, 1:] == ref[:, 1:]).float().mean())
-    table = params["lm"]["embedding"]
-    logits_k = quant.int8_matmul_t_plain(hidden_k[0], table)
-    logits_p = quant.int8_matmul_t_plain(hidden_p[0], table)
     err = float((logits_k - logits_p).abs().max())
     tol = HIDDEN_TOL * float(logits_p.abs().max())
     top2 = torch.topk(logits_p, 2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
     differ = (got[:, 1] != ref[:, 1]).to(gap.device)
-    print(f"per-layer greedy, {GREEDY_CHECK_TOKENS} tokens, kernels vs plain versions: first "
-          f"tokens equal in {rows_eq} of {BATCH} rows; share of all tokens equal: {share:.4f}; "
-          f"first-step logits max_abs_err={err:.6g} tol={tol:.6g}; smallest top-2 gap of the "
-          f"plain path's logits {float(gap.min()):.6g}, largest gap in a row that differs "
-          f"{float(gap[differ].max()) if bool(differ.any()) else 0.0:.6g}")
+    print(f"{name}: first tokens equal in {rows_eq} of {BATCH} rows; share of all tokens equal: "
+          f"{share:.4f}; first-step logits max_abs_err={err:.6g} tol={tol:.6g}; smallest top-2 "
+          f"gap of the plain path's logits {float(gap.min()):.6g}, largest gap in a row that "
+          f"differs {float(gap[differ].max()) if bool(differ.any()) else 0.0:.6g}")
     if not err <= tol:
-        raise AssertionError("per-layer greedy: first-step logits differ from the plain path")
+        raise AssertionError(f"{name}: first-step logits differ from the plain path")
     if bool(differ.any()) and float(gap[differ].max()) > 2 * err + 1e-3:
-        raise AssertionError("per-layer greedy: a first token differs where the plain path's "
-                             "logits are no near-tie")
-
-    decode_profile(lambda: sampled(PROFILE_TOKENS), lambda: sampled(2 * PROFILE_TOKENS), card)
-    return {n: launches[n] for n in ("int8_matmul", "int8_mlp", "int8_ffn", "int8_matmul_t")}
+        raise AssertionError(f"{name}: a first token differs where the plain path's logits "
+                             "are no near-tie")
 
 
 def decode_profile(short, long, card):
@@ -955,6 +991,268 @@ def decode_profile(short, long, card):
     print(f"sampled per-layer path, per token (torch profiler on, which slows the host): "
           f"{n:.0f} kernel launches, device busy {busy:.3f} ms of {wall:.3f} ms = "
           f"{100 * busy / wall:.1f} % (on {card})")
+
+
+def phase_int4_heads(table, dev, gen):
+    """int4_matmul_t_argmax and int4_matmul_t on the model's int4 table
+    against their plain versions; returns both result rows."""
+    from vlm_bridge_tpu_torch.ops import quant
+
+    V, H2 = table["w_int4"].shape
+    H = 2 * H2
+    x = torch.randn(BATCH, H, generator=gen, device=dev).to(torch.bfloat16)
+    # planted tie: vocab rows 1000 and 200000 (different blocks) equal and,
+    # aligned with row 5, the winners; row 7 all NaN -> id 0
+    tied = {"w_int4": table["w_int4"].clone(), "scale": table["scale"].clone()}
+    row = (torch.sign(x[5].float()) * 7).to(torch.int8)
+    for v in (1000, 200000):
+        tied["w_int4"][v] = quant._pack_nibbles(row[:H2], row[H2:])
+        tied["scale"][..., v] = 0.05
+    x[7] = float("nan")
+    got = quant.int4_matmul_t_argmax(x, tied)
+    want = quant.int4_matmul_t_argmax_plain(x, tied)
+    y = quant.int4_matmul_t_plain(x, tied)
+    torch.cuda.synchronize()
+    # ids are equal except where the plain logits' top two lie closer than the
+    # logits' own tolerance: either may win between two f32 summation orders
+    differ = got != want
+    top2 = torch.topk(y.nan_to_num(nan=float("-inf")), 2, dim=-1).values
+    gap, lim = top2[:, 0] - top2[:, 1], LOGIT4_TOL * y.abs().nan_to_num(nan=0.0).amax(dim=-1)
+    bad = int((differ & ~(gap <= lim)).sum())
+    print(f"[int4_matmul_t_argmax] ids differing={int(differ.sum())}, of them outside a near-tie "
+          f"(top-2 gap above {LOGIT4_TOL:g} x the row's max logit)={bad} (tolerance 0); "
+          f"tie row -> {int(got[5])}, NaN row -> {int(got[7])}")
+    if bad or int(got[5]) != 1000 or int(got[7]) != 0:
+        raise AssertionError("int4 argmax head disagrees with its plain version")
+    ms = time_ms(lambda: quant.int4_matmul_t_argmax(x, tied), 20)
+    plain_ms = time_ms(lambda: quant.int4_matmul_t_argmax_plain(x, tied), 3)
+    bd = bound(nbytes(tied["w_int4"], tied["scale"], x, got), 2.0 * BATCH * V * H)
+    print(f"[int4_matmul_t_argmax] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    res = {"int4_matmul_t_argmax": {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd,
+                                    "library_ms": None}}
+    del tied, y
+
+    x = torch.randn(BATCH, H, generator=gen, device=dev).to(torch.bfloat16)
+    got, want = quant.int4_matmul_t(x, table), quant.int4_matmul_t_plain(x, table)
+    torch.cuda.synchronize()
+    err = rows_close("int4_matmul_t", got, want, LOGIT4_TOL)
+    ms = time_ms(lambda: quant.int4_matmul_t(x, table), 50)
+    plain_ms = time_ms(lambda: quant.int4_matmul_t_plain(x, table), 3)
+    bd = bound(nbytes(table["w_int4"], table["scale"], x, got), 2.0 * BATCH * V * H)
+    print(f"[int4_matmul_t] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    res["int4_matmul_t"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+                            "library_ms": None}
+    return res
+
+
+def phase_int4_mlp(params, per_layer, cfg, dev, gen, card):
+    """int4_mlp, per channel and in groups of INT4_GROUP, against its plain
+    version at M = BATCH on every layer's own MLP weights; then the probe:
+    PROBE_TOKENS passes over all layers for int4_mlp (both schemes) and
+    int8_mlp in turns, device ms per token. Returns (result row, launches
+    of the probe)."""
+    from vlm_bridge_tpu_torch.ops import quant
+
+    L = cfg.lm.num_layers
+    floats = [params["lm"]["layers"][str(i)]["mlp"] for i in range(L)]
+    mlps8 = [tuple(per_layer["lm"]["layers"][str(i)]["mlp"][k] for k in ("gate", "up", "down"))
+             for i in range(L)]
+
+    def q4(group):
+        return [(quant.quantize_int4(m["gate"], group_size=group),
+                 quant.quantize_int4(m["up"], group_size=group),
+                 quant.repack_down_blockwise(quant.quantize_int4(m["down"], group_size=group),
+                                             block_f=PROBE_BLOCK_F)) for m in floats]
+
+    schemes = {"per_channel": q4(None), f"group{INT4_GROUP}": q4(INT4_GROUP)}
+    x = torch.randn(BATCH, cfg.lm.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+    m0 = floats[0]
+    y32 = ((torch.nn.functional.gelu(x.float() @ m0["gate"].float(), approximate="tanh")
+            * (x.float() @ m0["up"].float())) @ m0["down"].float())
+    by_scheme, worst = {}, 0.0
+    for sname, ws in schemes.items():
+        got = quant.int4_mlp(x, *ws[0], block_f=PROBE_BLOCK_F)
+        want = quant.int4_mlp_plain(x, *ws[0], block_f=PROBE_BLOCK_F)
+        torch.cuda.synchronize()
+        worst = max(worst, rows_close(f"int4_mlp {sname}", got, want, I8_TOL))
+        rel = float((got.float() - y32).norm() / y32.norm())
+        nxt = cycle(ws)
+        ms = time_ms(lambda: quant.int4_mlp(x, *nxt(), block_f=PROBE_BLOCK_F), 52)
+        plain_ms = time_ms(lambda: quant.int4_mlp_plain(x, *nxt(), block_f=PROBE_BLOCK_F), 4)
+        wb = sum(nbytes(q["w_int4"], q["scale"]) for q in ws[0])
+        bd = bound(wb + nbytes(x, got), 2.0 * BATCH * 2 * sum(q["w_int4"].numel() for q in ws[0]))
+        print(f"[int4_mlp] {sname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; output against the float MLP: "
+              f"relative error {rel:.4f}")
+        by_scheme[sname] = {"ms": ms, "plain_ms": plain_ms, **bd, "rel_err_vs_float": rel}
+    got8 = quant.int8_mlp(x, *mlps8[0])
+    print(f"[int8_mlp] output against the float MLP: relative error "
+          f"{float((got8.float() - y32).norm() / y32.norm()):.4f}")
+
+    # the probe: every pass streams all layers' weights, as a decode step does
+    def token_loop(fn, weights, **kw):
+        def run():
+            h = x
+            for _ in range(PROBE_TOKENS):
+                for w in weights:
+                    h = (h + 0.01 * fn(h, *w, **kw)).to(torch.bfloat16)
+            return h
+        return run
+
+    variants = {"int4_mlp per_channel": token_loop(quant.int4_mlp, schemes["per_channel"],
+                                                   block_f=PROBE_BLOCK_F),
+                f"int4_mlp group{INT4_GROUP}": token_loop(
+                    quant.int4_mlp, schemes[f"group{INT4_GROUP}"], block_f=PROBE_BLOCK_F),
+                "int8_mlp": token_loop(quant.int8_mlp, mlps8)}
+    quant.int4_mlp.launches = 0
+    times = {k: [] for k in variants}
+    for _ in range(PROBE_REPS):
+        for k, run in variants.items():
+            # 520 wrapper calls a run: a longer spin keeps the host ahead of the card
+            times[k].append(time_ms(run, 1, spin_cycles=80_000_000) / PROBE_TOKENS)
+    probe_launches = quant.int4_mlp.launches
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"int4 MLP probe, {L} layers x {PROBE_TOKENS} tokens at M = {BATCH}, {PROBE_REPS} "
+          f"turns, median device ms per token: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+          + f"; int8 / int4 per_channel {med['int8_mlp'] / med['int4_mlp per_channel']:.3f}x, "
+          f"int8 / int4 group{INT4_GROUP} "
+          f"{med['int8_mlp'] / med[f'int4_mlp group{INT4_GROUP}']:.3f}x (on {card})")
+    if not all(math.isfinite(v) and v > 0 for v in med.values()):
+        raise AssertionError("the probe's times are not positive and finite")
+    # the headline numbers are the default recipe's: groups of INT4_GROUP
+    head = by_scheme[f"group{INT4_GROUP}"]
+    row = {"max_abs_err": worst, **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None, "by_scheme": by_scheme,
+           "probe_ms_per_token": med}
+    return row, probe_launches
+
+
+def write_synthetic_split(root, n: int, crop: int) -> None:
+    """<root>/test: a captions.jsonl manifest of n samples and the pixel
+    cache's two files (data/pixel_cache.py), written with numpy alone. The
+    image files themselves are absent, which the cache's fingerprint
+    records, so VLDataset attaches the memmap and decodes no image."""
+    import numpy as np
+
+    from vlm_bridge_tpu_torch.data import pixel_cache
+
+    split = Path(root) / "test"
+    split.mkdir(parents=True)
+    samples = [{"image_path": f"images/{i:06d}.jpg", "original_id": i,
+                "caption": f"a {('red', 'blue', 'green')[i % 3]} shape number {i} on a plain "
+                           "background"} for i in range(n)]
+    (split / "captions.jsonl").write_text("".join(json.dumps(r) + "\n" for r in samples))
+    out = np.lib.format.open_memmap(split / pixel_cache.CACHE_NAME, mode="w+", dtype=np.uint8,
+                                    shape=(n, crop, crop, 3))
+    out[:] = np.random.default_rng(SEED + 10).integers(0, 256, size=out.shape, dtype=np.uint8)
+    out.flush()
+    del out
+    (split / pixel_cache.META_NAME).write_text(json.dumps(
+        {"n": n, "crop": crop,
+         "fingerprint": pixel_cache.manifest_fingerprint(split, samples)}))
+
+
+def run_eval_int4(cfg, dev, card):
+    """The int4 serving recipe through the eval harness's own entry point
+    (`vlm-eval-torch`): greedy over EVAL_BATCHES batches, then sampled over
+    EVAL_SAMPLED_BATCHES. Returns the launch counts of the two runs."""
+    from vlm_bridge_tpu_torch.inference import evaluate
+
+    wrappers = decode_wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        n = EVAL_BATCHES * BATCH
+        write_synthetic_split(tmp, n, cfg.image_size)
+        out = Path(tmp) / "result.json"
+        argv = ["--data-dir", tmp, "--split", "test", "--batch-size", str(BATCH),
+                "--max-length", str(NEW_TOKENS), "--preset", "default", "--seed", str(SEED),
+                "--quantize", "embedding4,mlp,attn,bridge", "--kv-int8", "--mlp-int4",
+                "--no-early-stop", "--output", str(out)]
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc = evaluate.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        greedy = {k: fn.launches for k, fn in wrappers.items()}
+        res = json.loads(out.read_text())
+        print(f"int4 path launches ({EVAL_BATCHES} batches, greedy): "
+              f"{ {k: v for k, v in greedy.items() if v} }")
+        want = dict.fromkeys(("fused_stack_step", "fused_bridge_step", "int4_matmul_t_argmax"),
+                             NEW_TOKENS * EVAL_BATCHES)
+        if rc != 0 or {k: v for k, v in greedy.items() if v} != want:
+            raise AssertionError(f"int4 path: rc {rc}, launches {greedy}, expected {want}")
+        if res["num_samples"] != n or not res["pixel_cache"]:
+            raise AssertionError(f"int4 path evaluated {res['num_samples']} of {n} samples, "
+                                 f"pixel cache attached: {res['pixel_cache']}")
+        m = res["metrics"]
+        if not all(math.isfinite(m[k]) for k in ("bleu1", "bleu4", "cider_d")):
+            raise AssertionError(f"int4 path metrics not finite: {m}")
+        print(f"int4 path through vlm-eval-torch: {n} captions x {NEW_TOKENS} tokens, batch "
+              f"{BATCH}: {res['captions_per_sec']:.2f} captions/s end to end in the steady state "
+              f"(loader, encode, decode, detokenizing; first batch left out), "
+              f"{res['captions_per_sec_incl_first_batch']:.2f} with it; the call took {wall:.1f} s "
+              f"with init, quantize and stack; bleu1 {m['bleu1']:.4f} bleu4 {m['bleu4']:.4f} "
+              f"cider_d {m['cider_d']:.4f} (random weights) on {card}")
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        rc = evaluate.main(argv + ["--sample", "--max-samples", str(EVAL_SAMPLED_BATCHES * BATCH)])
+        torch.cuda.synchronize()
+        sampled = {k: fn.launches for k, fn in wrappers.items()}
+        res = json.loads(out.read_text())
+        print(f"int4 path launches ({EVAL_SAMPLED_BATCHES} batches, --sample): "
+              f"{ {k: v for k, v in sampled.items() if v} }; "
+              f"{res['captions_per_sec']:.2f} captions/s end to end (one batch in the steady state)")
+        want = dict.fromkeys(("fused_stack_step", "fused_bridge_step", "int4_matmul_t"),
+                             NEW_TOKENS * EVAL_SAMPLED_BATCHES)
+        if rc != 0 or {k: v for k, v in sampled.items() if v} != want \
+                or res["num_samples"] != EVAL_SAMPLED_BATCHES * BATCH:
+            raise AssertionError(f"int4 sampled path: rc {rc}, launches {sampled}, expected {want}")
+    return {"fused_stack_step[mlp_int4]": greedy["fused_stack_step"],
+            "int4_matmul_t_argmax": greedy["int4_matmul_t_argmax"],
+            "int4_matmul_t": sampled["int4_matmul_t"]}
+
+
+def run_generate_int4(served4, cfg, dev, card, gcfg4, int8_rate):
+    """generate_tokens alone on the int4 recipe, timed beside the int8 figure
+    of this call, and one batch against the plain path."""
+    from vlm_bridge_tpu_torch.inference.generate import generate_tokens
+    from vlm_bridge_tpu_torch.ops import quant
+
+    pixels = seeded_pixels(cfg, dev)
+    generate_tokens(served4, cfg, pixel_values=pixels,
+                    gen=dataclasses.replace(gcfg4, max_length=2))
+    torch.cuda.synchronize()
+    wrappers = decode_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with record_decode_hidden("decode_step_stacked") as hidden_k:
+        toks, lens = generate_tokens(served4, cfg, pixel_values=pixels, gen=gcfg4)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    want = dict.fromkeys(("fused_stack_step", "fused_bridge_step", "int4_matmul_t_argmax"),
+                         NEW_TOKENS)
+    if got != want:
+        raise AssertionError(f"int4 generate_tokens launches {got}, expected {want}")
+    toks_c = check_tokens(toks, lens, cfg, NEW_TOKENS)
+    print(f"int4 recipe, generate_tokens alone: {BATCH} captions x {NEW_TOKENS} tokens in "
+          f"{dt:.3f} s = {BATCH / dt:.2f} captions/s (encode + decode) against {int8_rate:.2f} "
+          f"for the int8 recipe in this call, on {card}")
+
+    with plain_decode(), record_decode_hidden("decode_step_stacked") as hidden_p:
+        ref, _ = generate_tokens(served4, cfg, pixel_values=pixels, gen=gcfg4)
+    torch.cuda.synchronize()
+    if {k: fn.launches for k, fn in wrappers.items() if fn.launches} != want:
+        raise AssertionError("the plain int4 path launched a decode kernel")
+    table = served4["lm"]["embedding"]
+    hold_first_step("int4 recipe against its plain path", toks_c, ref.cpu(),
+                    quant.int4_matmul_t_plain(hidden_k[0], table),
+                    quant.int4_matmul_t_plain(hidden_p[0], table))
 
 
 def seeded_pixels(cfg, dev):
@@ -1009,7 +1307,8 @@ def main() -> int:
           f"(nvcc {'ran' if cuda_lib.build_seconds is not None else 'not needed'})", flush=True)
     log = cuda_lib.build_log.splitlines()
     for i, line in enumerate(log):  # ptxas -v: registers, shared memory and spills per kernel
-        tag = next((t for t in ("fa_", "i8l_product") if t in line), None)
+        tag = next((t for t in ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm", "argmax4_block",
+                                "logits4_block") if t in line), None)
         if "Compiling entry function" in line and tag:
             mangled = line.split("'")[1]   # ...fa_fwd_kernelILi256ELi64EEvNS_8FaParamsE
             name = mangled[mangled.index(tag):].split("Ev")[0].split("EPK")[0]
@@ -1043,7 +1342,10 @@ def main() -> int:
         results["int8_matmul_t_argmax"] = phase_argmax_head(served, dev, gen)
         results["fused_stack_step"] = phase_stack(served, cfg, dev, gen)
         results["fused_bridge_step"] = phase_bridge(served, cfg, dev, gen)
-        launches.update(run_serve(served, cfg, dev, card, gcfg))
+        serve_launches, int8_rate = run_serve(served, cfg, dev, card, gcfg)
+        launches.update(serve_launches)
+    mlp8_bytes = nbytes(*(served["lm"]["stacked_decode"][k]
+                          for k in ("wgu", "gu_scale", "wd", "d_scale")))
     del served
     torch.cuda.empty_cache()
 
@@ -1053,6 +1355,34 @@ def main() -> int:
         results.update(phase_int8_linear(per_layer, cfg, dev, i8_gen))
         results["int8_matmul_t"] = phase_logits_head(per_layer, dev, i8_gen)
         launches.update(run_sample(per_layer, cfg, dev, card))
+
+    # the int4 recipe, from the same weights: int4 table, int4 MLP weights in the stack
+    i4_gen = torch.Generator(device=dev)
+    i4_gen.manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        per_layer4 = dict(per_layer)
+        per_layer4["lm"] = {**per_layer["lm"], "embedding": gemma2.quantize_embedding_part(
+            params["lm"]["embedding"], ("embedding4",))}
+        gcfg4 = dataclasses.replace(gcfg, mlp_int4=True)
+        served4 = prestack_decode_params(per_layer4, cfg, gcfg4)
+        st4 = served4["lm"]["stacked_decode"]
+        mlp4_bytes = nbytes(*(st4[k] for k in ("wgu4", "gu_scale4", "wd4", "d_scale4")))
+        torch.cuda.synchronize()
+        print(f"int4 table + int4 stack: {time.perf_counter() - t0:.1f} s; stacked MLP fields "
+              f"{mlp4_bytes / 1e9:.4f} GB against {mlp8_bytes / 1e9:.4f} GB for the int8 stack "
+              f"({mlp4_bytes / mlp8_bytes:.3f}x); table {nbytes(*served4['lm']['embedding'].values()) / 1e9:.4f}"
+              f" GB against {nbytes(*per_layer['lm']['embedding'].values()) / 1e9:.4f} GB", flush=True)
+        results.update(phase_int4_heads(served4["lm"]["embedding"], dev, i4_gen))
+        results["fused_stack_step[mlp_int4]"] = phase_stack(served4, cfg, dev, i4_gen,
+                                                            name="fused_stack_step[mlp_int4]")
+        run_generate_int4(served4, cfg, dev, card, gcfg4, int8_rate)
+        del served4, st4, per_layer4
+        torch.cuda.empty_cache()
+        results["int4_mlp"], launches["int4_mlp"] = phase_int4_mlp(params, per_layer, cfg, dev,
+                                                                   i4_gen, card)
+        torch.cuda.empty_cache()
+        launches.update(run_eval_int4(cfg, dev, card))
     del per_layer
     torch.cuda.empty_cache()
 
@@ -1069,7 +1399,14 @@ def main() -> int:
                "int8_matmul_t": ("int8_argmax.cu", f"{qpy}:133"),
                "int8_mlp": ("int8_linear.cu", f"{qpy}:536"),
                "int8_ffn": ("int8_linear.cu", f"{qpy}:597"),
+               "int4_matmul_t": ("int8_argmax.cu", f"{qpy}:426"),
+               "int4_matmul_t_argmax": ("int8_argmax.cu", f"{qpy}:463"),
+               "int4_mlp": ("int4_linear.cu", f"{qpy}:842"),
                "fused_stack_step": ("stack_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:707"),
+               # the same wrapper and C entry with int4 MLP weights: the TPU
+               # kernel's mlp4 stage (decode_kernels.py:579), here i4_gemm.cu
+               "fused_stack_step[mlp_int4]": ("i4_gemm.cu",
+                                              "vlm_bridge_tpu/ops/decode_kernels.py:707"),
                "fused_bridge_step": ("bridge_step.cu",
                                      "vlm_bridge_tpu/ops/decode_kernels.py:1228"),
                "flash_attention_fwd": (fa_src, f"{fa_py}:194"),

@@ -1,7 +1,8 @@
 """PyTorch port kernels on the card: each CUDA kernel against its plain
-version at small widths (the decode steps, the greedy head, the three
-flash-attention kernels with their autograd function and shape gate, and
-the four int8 linear functions with `linear`'s dispatch).
+version at small widths (the decode steps, with int8 and with int4 MLP
+weights, the greedy head, the three flash-attention kernels with their
+autograd function and shape gate, the four int8 linear functions with
+`linear`'s dispatch, and the int4 heads and `int4_mlp`).
 These need an NVIDIA GPU with nvcc (sm_90a) and
 skip elsewhere; run them on the card with
 
@@ -389,3 +390,159 @@ def test_per_layer_decode_step_runs_the_kernels(dev):
                     setattr(quant, n, fn)
             _close(hk, hp)
             _close(lk, lp)
+
+
+# ---------------------------------------------------------------------------
+# int4: the two heads, int4_mlp and the stack step's int4 MLP stage
+# ---------------------------------------------------------------------------
+
+# group partials are scaled in f32 in another order than the plain version's
+# dequantize-then-multiply: a few f32 steps of the row's largest logit
+LOGIT4_TOL = 2e-5
+I4_ROWS = [(5, 1000, 128, None), (64, 4096, 256, 128), (70, 130, 256, 64), (64, 777, 512, 128)]
+
+
+def _i4_table(dev, V, H, group, seed=20):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return g, quant.quantize_int4_rows(torch.randn(V, H, generator=g, device=dev) * 0.05,
+                                       group_size=group)
+
+
+@pytest.mark.parametrize("M,V,H,group", I4_ROWS,
+                         ids=[f"M{m}_V{v}_H{h}_g{g}" for m, v, h, g in I4_ROWS])
+def test_int4_matmul_t_kernel_matches_plain(dev, M, V, H, group):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g, table = _i4_table(dev, V, H, group)
+    x = torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16)
+    n = quant.int4_matmul_t.launches
+    got = quant.int4_matmul_t(x, table)
+    torch.cuda.synchronize()
+    assert quant.int4_matmul_t.launches == n + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, V)
+    _rows_close(got, quant.int4_matmul_t_plain(x, table), LOGIT4_TOL)
+
+
+@pytest.mark.parametrize("group", [None, 64])
+def test_int4_argmax_kernel_ties_and_nan(dev, group):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g, table = _i4_table(dev, 1000, 128, group, seed=21)
+    x = torch.randn(70, 128, generator=g, device=dev).to(torch.bfloat16)
+    # two equal vocab rows in different blocks, aligned with row 1: the first wins
+    row = (torch.sign(x[1].float()) * 7).to(torch.int8)
+    packed = quant._pack_nibbles(row[:64], row[64:])
+    for v in (300, 900):
+        table["w_int4"][v] = packed
+        if group is None:
+            table["scale"][v] = 0.05
+        else:
+            table["scale"][:, v] = 0.05
+    x[3] = float("nan")
+    n = quant.int4_matmul_t_argmax.launches
+    got = quant.int4_matmul_t_argmax(x, table)
+    torch.cuda.synchronize()
+    assert quant.int4_matmul_t_argmax.launches == n + 1
+    want = quant.int4_matmul_t_argmax_plain(x, table)
+    # a near-tie of two logits may fall either way between two f32 summation orders
+    y = quant.int4_matmul_t_plain(x, table)
+    rows = torch.arange(70, device=dev)
+    differ = got != want
+    differ[3] = False
+    gap = (y[rows, want.long()] - y[rows, got.long()]).abs()
+    assert not bool(differ.any()) or float(gap[differ].max()) <= LOGIT4_TOL * float(y[differ].abs().max())
+    assert int(got[1]) == 300 and int(got[3]) == 0 and int(want[3]) == 0
+
+
+I4_MLP = [(5, 128, 512, 256, None), (64, 256, 1024, 512, 128), (130, 128, 256, 128, 64),
+          (64, 512, 1024, 512, None)]
+
+
+def _i4_mlp_case(dev, M, H, F, block_f, group, seed=22):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    q = lambda i, o: quant.quantize_int4(mk(i, o) * 0.05, group_size=group)  # noqa: E731
+    return (mk(M, H).to(torch.bfloat16), q(H, F), q(H, F),
+            quant.repack_down_blockwise(q(F, H), block_f=block_f))
+
+
+@pytest.mark.parametrize("M,H,F,block_f,group", I4_MLP,
+                         ids=[f"M{m}_H{h}_F{f}_b{b}_g{g}" for m, h, f, b, g in I4_MLP])
+def test_int4_mlp_kernel_matches_plain(dev, M, H, F, block_f, group):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    args = _i4_mlp_case(dev, M, H, F, block_f, group)
+    n = quant.int4_mlp.launches
+    got = quant.int4_mlp(*args, block_f=block_f)
+    torch.cuda.synchronize()
+    assert quant.int4_mlp.launches == n + 1 and got.dtype == torch.bfloat16
+    _rows_close(got, quant.int4_mlp_plain(*args, block_f=block_f), I8_TOL)
+    assert torch.equal(got, quant.int4_mlp(*args, block_f=block_f))   # fixed-order reduce
+
+
+def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    x, gate, up, down = _i4_mlp_case(dev, 4, 128, 256, 128, None)
+    with pytest.raises(ValueError, match="bfloat16"):
+        quant.int4_mlp(x.float(), gate, up, down, block_f=128)
+    with pytest.raises(ValueError, match="repack_down_blockwise"):
+        quant.int4_mlp(x, gate, up, {**down, "packing": "global"}, block_f=128)
+    with pytest.raises(ValueError, match="group_size"):
+        quant.int4_mlp(x, gate, {**up, "group_size": 64}, down, block_f=128)
+    narrow = _i4_mlp_case(dev, 4, 64, 128, 64, None)       # H/2 = 32 is no whole stage
+    with pytest.raises(ValueError, match="multiples"):
+        quant.int4_mlp(*narrow, block_f=64)
+    table = quant.quantize_int4_rows(torch.randn(256, 128, device=dev))
+    for head in (quant.int4_matmul_t, quant.int4_matmul_t_argmax):
+        with pytest.raises(ValueError, match="bfloat16"):
+            head(torch.randn(4, 128, device=dev), table)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            head(torch.randn(4, 64, device=dev).to(torch.bfloat16),
+                 quant.quantize_int4_rows(torch.randn(256, 64, device=dev)))
+
+
+@pytest.mark.parametrize("group", [None, 32, 128])
+def test_stack_step_int4_mlp_kernel_matches_plain(dev, group):
+    from vlm_bridge_tpu_torch.configs import Gemma2Config
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    cfg = Gemma2Config(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=3,
+                       num_heads=4, num_kv_heads=2, head_dim=64, query_pre_attn_scalar=64.0,
+                       sliding_window=128)
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = gemma2.quantize_params(gemma2.init(cfg, generator=g, device=dev))
+    st = gemma2.stack_decode_params(q, cfg, mlp_int4=True, mlp_int4_group=group)
+    assert "wgu" not in st and st["gu_scale4"].shape[1] == (1 if group is None else 256 // group)
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=64, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    ck, cp = (gemma2.StackedKVCache.zeros(cfg, 5, 8, device=dev) for _ in range(2))
+    for t in range(4):
+        x = torch.randn(5, 256, generator=g, device=dev).to(torch.bfloat16)
+        cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev), 64))
+        n = dk.fused_stack_step.launches
+        got = dk.fused_stack_step(t, x, st, *ck, cos, sin, **kw)
+        want = dk.fused_stack_step_plain(t, x, st, *cp, cos, sin, **kw)
+        assert dk.fused_stack_step.launches == n + 1
+        _close(got, want)
+        # f32 inside on both sides: far closer than the bf16 tolerance above
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2.0 ** -7 * float(want.float().abs().max())
+    with pytest.raises(ValueError, match="neither"):
+        dk.fused_stack_step(0, x, {k: v for k, v in st.items() if k not in ("wgu4",)},
+                            *ck, cos, sin, **kw)
+    # scales of 0 (a group, a column): the kernel weighs them 1e-30, the plain version 0
+    st["gu_scale4"][0, 0, :64] = 0.0
+    st["d_scale4"][1, -1] = 0.0
+    st["d_scale4"][2, :, 5] = 0.0
+    ck, cp = (gemma2.StackedKVCache.zeros(cfg, 5, 8, device=dev) for _ in range(2))
+    got = dk.fused_stack_step(0, x, st, *ck, cos, sin, **kw)
+    want = dk.fused_stack_step_plain(0, x, st, *cp, cos, sin, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want)

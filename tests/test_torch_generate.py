@@ -100,10 +100,18 @@ def test_force_plain_and_unported_modes_raise(slice_setup):
     assert not hasattr(TG.GenerationConfig(), "force_plain")
     px = torch.from_numpy(pixels[:1])
     for gen in (TG.GenerationConfig(greedy=True, kv_quant=True, exact=True),
-                TG.GenerationConfig(greedy=True, kv_quant=True, mlp_int4=True),
                 TG.GenerationConfig(greedy=True, kv_quant=True, bridge_causal=True)):
         with pytest.raises(NotImplementedError):
             TG.generate_tokens(qt, P(cfg), pixel_values=px, gen=gen)
+    # int4 MLP weights serve the fused stack only: off that path they raise, and
+    # on it a scale group that the widths do not hold is refused (tests/test_torch_int4.py
+    # runs the recipe)
+    with pytest.raises(ValueError, match="fused stack"):
+        TG.generate_tokens(qt, P(cfg), pixel_values=px,
+                           gen=TG.GenerationConfig(greedy=True, mlp_int4=True))
+    with pytest.raises(ValueError, match="mlp_int4_group"):
+        TG.generate_tokens(qt, P(cfg), pixel_values=px,
+                           gen=TG.GenerationConfig(greedy=True, kv_quant=True, mlp_int4=True))
     fused = TG.GenerationConfig(max_length=MAX_NEW, greedy=True, kv_quant=True)
     stacked = prestack_decode_params(qt, P(cfg), fused)
     assert "layers" not in stacked["lm"] and "layers" in qt["lm"]

@@ -28,7 +28,10 @@ def _port_modules():
 def test_port_imports_without_jax():
     mods = _port_modules()
     assert "vlm_bridge_tpu_torch.ops.decode_kernels" in mods
-    assert {"vlm_bridge_tpu_torch.ops.sampling", "vlm_bridge_tpu_torch.inference.robust"} <= set(mods)
+    assert {"vlm_bridge_tpu_torch.ops.sampling", "vlm_bridge_tpu_torch.inference.robust",
+            "vlm_bridge_tpu_torch.inference.evaluate", "vlm_bridge_tpu_torch.inference.metrics",
+            "vlm_bridge_tpu_torch.data.loader", "vlm_bridge_tpu_torch.data.groundcap",
+            "vlm_bridge_tpu_torch.data.pixel_cache"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None\n"
             "import importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -230,6 +233,7 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                 "bridge_step.cu": "decode_kernels.py:fused_bridge_step",
                 "int8_argmax.cu": "quant.py:int8_matmul_t_argmax",
                 "int8_linear.cu": "quant.py:int8_matmul",
+                "int4_linear.cu": "quant.py:int4_mlp",
                 "flash_attention.cu": "flash_attention.py:_flash_fwd"}
     for name, target in replaced.items():
         text = (csrc / name).read_text()
@@ -240,10 +244,14 @@ def test_kernel_sources_ship_and_name_what_they_replace():
         assert f"vlm_bridge_tpu/ops/{target}" in (csrc / "int8_linear.cu").read_text()
     assert "Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t," in \
         (csrc / "int8_argmax.cu").read_text()
+    for target in ("quant.py:int4_matmul_t_argmax,", "quant.py:int4_matmul_t,"):
+        assert f"Replaces: vlm_bridge_tpu/ops/{target}" in (csrc / "int8_argmax.cu").read_text()
+    i4 = (csrc / "i4_gemm.cu").read_text()
+    assert "vlm_bridge_tpu/ops/decode_kernels.py:_stack_kernel" in i4 and "Bound:" in i4
     from vlm_bridge_tpu_torch.ops import cuda_lib
 
-    assert {p.name for p in cuda_lib._sources()} >= set(replaced) | {"i8_gemm.cu",
-                                                                     "common.cuh"}
+    assert {p.name for p in cuda_lib._sources()} >= set(replaced) | {
+        "i8_gemm.cu", "i4_gemm.cu", "common.cuh", "linear_common.cuh"}
     assert np.isin(["-gencode", "arch=compute_90a,code=sm_90a"], cuda_lib.NVCC_FLAGS).all()
     for entry in ("vbt_flash_attention_fwd", "vbt_flash_attention_bwd_dq",
                   "vbt_flash_attention_bwd_dkv"):
@@ -251,6 +259,10 @@ def test_kernel_sources_ship_and_name_what_they_replace():
         assert f'extern "C" int {entry}(' in (csrc / "flash_attention.cu").read_text()
     for entry, src in (("vbt_int8_matmul", "int8_linear.cu"), ("vbt_int8_mlp", "int8_linear.cu"),
                        ("vbt_int8_ffn", "int8_linear.cu"),
-                       ("vbt_int8_matmul_t", "int8_argmax.cu")):
+                       ("vbt_int8_matmul_t", "int8_argmax.cu"),
+                       ("vbt_int4_matmul_t", "int8_argmax.cu"),
+                       ("vbt_int4_matmul_t_argmax", "int8_argmax.cu"),
+                       ("vbt_int4_mlp", "int4_linear.cu"),
+                       ("vbt_fused_stack_step", "stack_step.cu")):
         assert entry in cuda_lib.SIGNATURES
         assert f'extern "C" int {entry}(' in (csrc / src).read_text()

@@ -75,6 +75,62 @@ __device__ __forceinline__ void store_split(bf16* hi, size_t lo_off, size_t i, f
   hi[lo_off + i] = __float2bfloat16(v - __bfloat162float(h));
 }
 
+// ---- tensor cores: mma.sync m16n8k16, bf16 operands, f32 accumulation ----
+
+// four 8x8 matrices of 16-bit units; lanes 8i..8i+7 give the row addresses
+// of matrix i, and register i of every lane receives its piece of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- int4: two signed nibbles (-8..7) a byte ----
+// `wb` is a word of packed nibbles with every nibble's sign bit flipped
+// (w ^ 0x88888888), so a nibble reads as value + 8 in 0..15. The nibbles at
+// bit offsets s0 and s1 become one bf16x2 register (s0 in the low half):
+// the biased nibble is dropped into the mantissa of 128.0 (bf16 0x4300, whose
+// mantissa step is 1), which reads 128 + value + 8, and one bf16x2 subtract of
+// 136 leaves the value, exactly. No integer-to-float conversion is issued.
+__device__ __forceinline__ uint32_t nib_pair(uint32_t wb, int s0, int s1) {
+  uint32_t bits = ((wb >> s0) & 0xFu) | (((wb >> s1) & 0xFu) << 16) | 0x43004300u;
+  const uint32_t off = 0x43084308u;  // bf16x2 {136, 136}
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&bits),
+                             *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Y[M, N] (f32, zeroed by this call) = (A[M, K] @ W[K, N] int8) * scale[N]
 // (+ bias[N]); A split (hi rows at Ah, lo rows at Ah + M * lda), W row-major
 // [in, out] in fragment order. Defined in i8_gemm.cu. Requires N % 128 ==
@@ -82,3 +138,12 @@ __device__ __forceinline__ void store_split(bf16* hi, size_t lo_off, size_t i, f
 int launch_i8_gemm(const bf16* Ah, int lda, const int8_t* W, const float* scale,
                    const float* bias, float* Y, int M, int N, int K,
                    cudaStream_t stream);
+
+// Y[M, N] (f32, zeroed by this call) = sum over groups of (A[M, group rows] @
+// W4[group rows, N]) * scale[group, N]; A split as above, W4 int4 in the
+// packed fragment order of ops/decode_kernels.to_fragments4, scale
+// [K / group, N] (group == K: one scale per output column). Defined in
+// i4_gemm.cu. Requires N % 128 == 0, K % 128 == 0, group % 32 == 0,
+// K % group == 0, lda % 8 == 0 and 16-byte aligned A/W4.
+int launch_i4_gemm(const bf16* Ah, int lda, const uint8_t* W4, const float* scale, int group,
+                   float* Y, int M, int N, int K, cudaStream_t stream);

@@ -57,22 +57,6 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& b0, uint32_t& b1) {
   b1 = *reinterpret_cast<uint32_t*>(&p1);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __global__ void __launch_bounds__(32 * WARPS)
 i8_gemm_kernel(const bf16* __restrict__ Ah, int lda, const int8_t* __restrict__ Wf,
                const float* __restrict__ scale, const float* __restrict__ bias,

@@ -43,6 +43,7 @@
 // between them.
 
 #include "common.cuh"
+#include "linear_common.cuh"
 
 namespace {
 
@@ -63,45 +64,6 @@ constexpr int W_LD = BNH + 16;         // bytes per weight row (80: conflict-fre
 constexpr int X_STAGE = BM * X_LD;     // bf16 elements
 constexpr int W_STAGE = 2 * KC * W_LD; // bytes, both sources
 constexpr int SMEM_BYTES = STAGES * (X_STAGE * 2 + W_STAGE);
-
-enum { EPI_SCALE = 0, EPI_GEGLU = 1, EPI_GELU_ERF = 2 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const void* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // w holds int8 (k, n), (k, n+1), (k+1, n), (k+1, n+1) from low byte to high.
 // even = bf16x2 {(k, n), (k+1, n)}, odd = bf16x2 {(k, n+1), (k+1, n+1)}: one
@@ -237,58 +199,6 @@ i8l_product_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ W0,
   }
 }
 
-__device__ __forceinline__ float gelu_tanh_f(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.f + tanhf(inner));
-}
-
-__device__ __forceinline__ float gelu_erf_f(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-}
-
-// out[M, N] bf16 from the product kernel's slices, four columns a thread.
-//   EPI_SCALE     sum * s0 (+ bias)
-//   EPI_GEGLU     gelu_tanh(sum0 * s0) * (sum1 * s1)     (two sources)
-//   EPI_GELU_ERF  gelu_erf(sum * s0 + bias)
-template <int EPI>
-__global__ void i8l_epilogue_kernel(const float* __restrict__ P, int splits, int M, int N,
-                                    const float* __restrict__ s0, const float* __restrict__ s1,
-                                    const float* __restrict__ bias, bf16* __restrict__ out) {
-  constexpr int NSRC = EPI == EPI_GEGLU ? 2 : 1;
-  const size_t quads = (size_t)M * N / 4;
-  const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= quads) return;
-  const int col = (int)((q * 4) % N);
-  const float4* P4 = reinterpret_cast<const float4*>(P);
-  float a[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int sp = 0; sp < splits; ++sp) {   // fixed order: the same bits every run
-    const float4 v = P4[(size_t)(sp * NSRC) * quads + q];
-    a[0] += v.x; a[1] += v.y; a[2] += v.z; a[3] += v.w;
-    if (NSRC == 2) {
-      const float4 u = P4[(size_t)(sp * NSRC + 1) * quads + q];
-      b[0] += u.x; b[1] += u.y; b[2] += u.z; b[3] += u.w;
-    }
-  }
-  float r[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int n = col + e;
-    if (EPI == EPI_SCALE) {
-      r[e] = a[e] * s0[n] + (bias != nullptr ? bias[n] : 0.f);
-    } else if (EPI == EPI_GEGLU) {
-      r[e] = gelu_tanh_f(a[e] * s0[n]) * (b[e] * s1[n]);
-    } else {
-      r[e] = gelu_erf_f(a[e] * s0[n] + bias[n]);
-    }
-  }
-  __nv_bfloat162 lo = __floats2bfloat162_rn(r[0], r[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(r[2], r[3]);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(out + q * 4) = packed;
-}
-
 int launch_product(const bf16* X, const int8_t* W0, const int8_t* W1, float* P, int M, int N,
                    int K, int splits, cudaStream_t st) {
   if (N % 16 != 0 || K % 8 != 0 || splits < 1) return (int)cudaErrorInvalidValue;
@@ -303,16 +213,6 @@ int launch_product(const bf16* X, const int8_t* W0, const int8_t* W1, float* P, 
   const int tile = W1 != nullptr ? BNH : 2 * BNH;
   dim3 grid((N + tile - 1) / tile, splits, (M + BM - 1) / BM);
   i8l_product_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(X, W0, W1, P, M, N, K, k_per_split);
-  VBT_CHECK_LAUNCH();
-  return 0;
-}
-
-template <int EPI>
-int launch_epilogue(const float* P, int splits, int M, int N, const float* s0, const float* s1,
-                    const float* bias, bf16* out, cudaStream_t st) {
-  const size_t quads = (size_t)M * N / 4;
-  i8l_epilogue_kernel<EPI><<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(P, splits, M, N, s0,
-                                                                           s1, bias, out);
   VBT_CHECK_LAUNCH();
   return 0;
 }

@@ -1,5 +1,5 @@
 // One greedy decode step through every Gemma-2 decoder layer (int8 weights,
-// int8 KV cache).
+// or int8 attention weights with int4 MLP weights; int8 KV cache).
 //
 // Replaces: vlm_bridge_tpu/ops/decode_kernels.py:fused_stack_step, whose
 // body is _stack_kernel. Per layer: RMSNorm(1+w) -> int8 fused q|k|v
@@ -8,7 +8,11 @@
 // new row attends through its quantize->dequantize value, k scales folded
 // into the logits and v scales into the probabilities) -> int8 o-proj ->
 // post-attention RMSNorm + residual -> pre-FFN RMSNorm -> int8 gate|up ->
-// gelu_tanh(gate) * up -> int8 down -> post-FFN RMSNorm + residual.
+// gelu_tanh(gate) * up -> int8 down -> post-FFN RMSNorm + residual. With
+// mlp4 != 0 the gate|up and down products read nibble-packed int4 weights
+// (the TPU kernel's `mlp4=True` stage) through i4_gemm.cu, with one scale
+// per output column (mlp4_group == 0) or per group of mlp4_group rows; the
+// hidden stays f32 (split hi + lo) between the two products, as with int8.
 //
 // Bound: weight bandwidth. A token streams 26 x 78 MB of int8 layer weights
 // at the Gemma-2-2B widths (2.0 GB), against 0.3 MB of activations and a
@@ -179,7 +183,7 @@ extern "C" int vbt_fused_stack_step(
     const void* norms, const void* cosv, const void* sinv,
     void* kc, void* vc, void* ks, void* vs,
     void* x32, void* hbuf, void* abuf, void* ybuf,
-    int L, int B, int H, int NH, int KH, int D, int F, int S, int t,
+    int L, int B, int H, int NH, int KH, int D, int F, int S, int t, int mlp4, int mlp4_group,
     float attn_scale, float softcap, float eps, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const int QHD = NH * D, KHD = KH * D, NQKV = QHD + 2 * KHD;
@@ -191,6 +195,8 @@ extern "C" int vbt_fused_stack_step(
   const size_t cache_layer = (size_t)B * KH * S * D, scale_layer = (size_t)B * KH * S;
   const int G = NH / KH;
   const size_t attn_smem = sizeof(float) * (size_t)G * (D + t + 1);
+  // int4 MLP: rows of K that share a scale row, and scale rows per layer
+  const int gu_group = mlp4_group ? mlp4_group : H, d_group = mlp4_group ? mlp4_group : F;
 
   residual_rms_kernel<<<B, 256, 0, st>>>((const bf16*)x_in, x, nullptr, nullptr, nrm, h,
                                          nullptr, H, eps);
@@ -212,15 +218,25 @@ extern "C" int vbt_fused_stack_step(
     residual_rms_kernel<<<B, 256, 0, st>>>(nullptr, x, y, nl + H, nl + 2 * H, h, nullptr, H,
                                            eps);
     VBT_CHECK_LAUNCH();
-    rc = launch_i8_gemm(h, H, (const int8_t*)wgu + (size_t)l * H * 2 * F,
-                        (const float*)gu_scale + (size_t)l * 2 * F, nullptr, y, B, 2 * F, H,
-                        st);
+    if (mlp4)
+      rc = launch_i4_gemm(h, H, (const uint8_t*)wgu + (size_t)l * H * F,
+                          (const float*)gu_scale + (size_t)l * (H / gu_group) * 2 * F, gu_group,
+                          y, B, 2 * F, H, st);
+    else
+      rc = launch_i8_gemm(h, H, (const int8_t*)wgu + (size_t)l * H * 2 * F,
+                          (const float*)gu_scale + (size_t)l * 2 * F, nullptr, y, B, 2 * F, H,
+                          st);
     if (rc) return rc;
     const size_t n = (size_t)B * F;
     geglu_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(y, a, B, F);
     VBT_CHECK_LAUNCH();
-    rc = launch_i8_gemm(a, F, (const int8_t*)wd + (size_t)l * F * H,
-                        (const float*)d_scale + (size_t)l * H, nullptr, y, B, H, F, st);
+    if (mlp4)
+      rc = launch_i4_gemm(a, F, (const uint8_t*)wd + (size_t)l * (F / 2) * H,
+                          (const float*)d_scale + (size_t)l * (F / d_group) * H, d_group, y, B,
+                          H, F, st);
+    else
+      rc = launch_i8_gemm(a, F, (const int8_t*)wd + (size_t)l * F * H,
+                          (const float*)d_scale + (size_t)l * H, nullptr, y, B, H, F, st);
     if (rc) return rc;
     const bool last = (l == L - 1);
     residual_rms_kernel<<<B, 256, 0, st>>>(nullptr, x, y, nl + 3 * H,

@@ -10,15 +10,20 @@ and ops.sampling.sample_token). The caches are updated in place.
 Two decode paths, chosen by `_fused_decode_available` as in the JAX package:
 - fused: int8 LM layers, int8 KV cache (kv_quant) and cache rows inside the
   sliding window -> one call per token through the whole decoder stack
-  (ops.decode_kernels.fused_stack_step) and, with an int8 bridge, one
-  through the bridge (fused_bridge_step);
+  (ops.decode_kernels.fused_stack_step; with gen.mlp_int4 its MLP stage
+  reads int4 weights) and, with an int8 bridge, one through the bridge
+  (fused_bridge_step);
 - per layer (the JAX package's jnp path; `force_jnp` pins it): float or
   int8 weights, bf16 or int8 cache, any window. Int8 weights run
-  ops.quant's int8_matmul / int8_mlp / int8_ffn, an int8 table
-  int8_matmul_t or, greedy, int8_matmul_t_argmax.
-On CUDA tensors all of these launch the port's kernels.
+  ops.quant's int8_matmul / int8_mlp / int8_ffn.
+On either path an int8 table's head is int8_matmul_t or, greedy,
+int8_matmul_t_argmax; an int4 table's (--quantize embedding4) is
+int4_matmul_t or int4_matmul_t_argmax. On CUDA tensors all of these launch
+the port's kernels.
 
-Exact mode, int4 MLP weights and meshes are not ported yet and raise.
+gen.mlp_int4 serves only the fused path and raises anywhere else: nothing
+serves int8 MLP weights under the int4 label. Exact mode and meshes are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -52,8 +57,10 @@ class GenerationConfig:
                                   # package's jnp path) where the fused stack
                                   # step would serve
     bridge_causal: bool = False   # exact mode only: not ported yet
-    mlp_int4: bool = False        # int4 MLP weights: not ported yet
-    mlp_int4_group: Optional[int] = 128
+    mlp_int4: bool = False        # fused stack decode only: the Gemma MLP
+                                  # weights re-quantized to int4 when stacking
+    mlp_int4_group: Optional[int] = 128  # rows of the contraction a scale
+                                  # covers (None: one per output channel)
 
 
 class BridgeCache(NamedTuple):
@@ -172,8 +179,6 @@ def _check_supported(gen: GenerationConfig) -> None:
         raise NotImplementedError("exact generation mode is not ported yet")
     if gen.bridge_causal:
         raise NotImplementedError("bridge_causal belongs to exact mode, which is not ported yet")
-    if gen.mlp_int4:
-        raise NotImplementedError("int4 MLP weights (mlp_int4) are not ported yet")
 
 
 def _fused_decode_available(params, cfg: VLMConfig, gen: GenerationConfig) -> bool:
@@ -220,12 +225,21 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
     if use_fused:
         stacked = lm.get("stacked_decode")
         if stacked is None:
-            stacked = gemma2.stack_decode_params(lm, lm_cfg)
+            stacked = gemma2.stack_decode_params(lm, lm_cfg, mlp_int4=gen.mlp_int4,
+                                                 mlp_int4_group=gen.mlp_int4_group)
+        if gen.mlp_int4 != ("wgu4" in stacked):
+            raise ValueError(f"mlp_int4={gen.mlp_int4} but the pre-stacked decode weights "
+                             f"{'carry' if 'wgu4' in stacked else 'do not carry'} int4 MLP "
+                             "fields: restack with the same setting")
         kv = gemma2.StackedKVCache.zeros(lm_cfg, B, L, device=dev)
     else:
         kv = gemma2.KVCache.zeros(lm_cfg, B, L, device=dev,
                                   dtype=torch.int8 if gen.kv_quant else activation_dtype)
-    greedy_head = gen.greedy and quant.is_quantized(lm["embedding"])
+    table = lm["embedding"]
+    argmax_head = None
+    if gen.greedy and isinstance(table, dict):
+        argmax_head = (quant.int4_matmul_t_argmax if "w_int4" in table
+                       else quant.int8_matmul_t_argmax)
 
     bos = torch.full((B,), lm_cfg.bos_token_id, dtype=torch.int32, device=dev)
     toks = torch.full((B, gen.max_length), lm_cfg.pad_token_id, dtype=torch.int32, device=dev)
@@ -251,10 +265,10 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
             hidden, kv = gemma2.decode_step_stacked(lm, lm_cfg, stacked, bridged, kv, t)
         else:
             hidden, kv = gemma2.decode_step(lm, lm_cfg, bridged, kv, position=t)
-        if greedy_head:
-            # the argmax is taken inside the int8 head: the [B, V] logits are
-            # never written (the final softcap is monotonic)
-            nxt = quant.int8_matmul_t_argmax(hidden[:, 0].contiguous(), lm["embedding"])
+        if argmax_head is not None:
+            # the argmax is taken inside the int8 / int4 head: the [B, V] logits
+            # are never written (the final softcap is monotonic)
+            nxt = argmax_head(hidden[:, 0].contiguous(), table)
         else:
             logits = gemma2.logits_from_hidden(lm, lm_cfg, hidden)[:, 0]
             # one generator, advanced token by token: the same seed gives the
@@ -285,6 +299,12 @@ def generate_tokens(params, cfg: VLMConfig, *, pixel_values: Optional[torch.Tens
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
     _check_supported(gen)
     use_fused = _fused_decode_available(params, cfg, gen)
+    if gen.mlp_int4 and not use_fused:
+        raise ValueError(
+            "mlp_int4 serves only the fused stack decode, which cannot dispatch here "
+            f"(kv_quant={gen.kv_quant}, force_jnp={gen.force_jnp}; it needs fully int8 LM "
+            f"layers and cache rows {gemma2.fused_cache_rows(gen.max_length + 1)} within "
+            f"sliding_window={cfg.lm.sliding_window})")
     use_fused_bridge = (use_fused and not gen.bypass_bridge
                         and bridge.supports_fused_decode(params["bridge"]))
     if "layers" not in params["lm"] and not use_fused:

@@ -1,15 +1,18 @@
 """Gemma-2 decoder (port of vlm_bridge_tpu.models.gemma2).
 
 Ported: random `init`, `embed`, the int8 serving transformation
-(`quantize_params` / `quantize_layer` / `quantize_embedding_part`), the KV
-quantizer, the whole-stack decode step (`stack_decode_params`,
-`StackedKVCache`, `decode_step_stacked`) over ops.decode_kernels, the
+(`quantize_params` / `quantize_layer` / `quantize_embedding_part`, the
+latter also to the int4 rows-packed table, "embedding4"), the KV
+quantizer, the whole-stack decode step (`stack_decode_params`, with int8 or
+int4 MLP weights, `StackedKVCache`, `decode_step_stacked`) over
+ops.decode_kernels, the
 per-layer cache path (`KVCache`, `prefill`, `decode_step`; bf16 or int8
 cache, lockstep or ragged rows, sliding windows), and the full-sequence
 forward (`forward_hidden` with per-layer recomputation,
 `logits_from_hidden`, `forward`) over float or int8 weights: int8 dicts go
 through ops.quant (`int8_matmul` by way of `linear`, `int8_mlp`,
-`int8_matmul_t`). The caches are updated in place.
+`int8_matmul_t`, or `int4_matmul_t` for an int4 table). The caches are
+updated in place.
 """
 
 from __future__ import annotations
@@ -103,10 +106,21 @@ class StackedKVCache(NamedTuple):
         )
 
 
-def stack_decode_params(params: dict, cfg: Gemma2Config) -> dict:
+def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
+                        mlp_int4_group: Optional[int] = 128) -> dict:
     """Layer-stack the int8 decoder weights in the layout of
     ops.decode_kernels.fused_stack_step (int8 layers only; weights in
-    fragment order, decode_kernels.to_fragments)."""
+    fragment order, decode_kernels.to_fragments).
+
+    mlp_int4=True re-quantizes the MLP weights to nibble-packed int4
+    (quant.quantize_int4, group_size=mlp_int4_group; None: one scale per
+    output channel) into wgu4 / gu_scale4 / wd4 / d_scale4 (packed fragment
+    order, decode_kernels.to_fragments4). As in the JAX package the int4 grid
+    is built from the int8 reconstruction (dequantize(w_int8)), so both
+    packages hold the same nibbles and scales; float MLP weights pass
+    straight through. The JAX function's `free_layers` (dropping each
+    per-layer weight as it is stacked, so that a 9B stack converts within
+    16 GB) is not ported: the card holds both copies."""
     lps = [params["layers"][str(i)] for i in range(cfg.num_layers)]
     frag = decode_kernels.to_fragments
 
@@ -114,21 +128,48 @@ def stack_decode_params(params: dict, cfg: Gemma2Config) -> dict:
         return torch.stack([get(lp) for lp in lps]).contiguous()
 
     mlp = lambda lp, k: lp["mlp"][k]  # noqa: E731
-    return {
+    out = {
         "wqkv": stk(lambda lp: frag(lp["attn"]["qkv"]["w_int8"])),
         "qkv_scale": stk(lambda lp: lp["attn"]["qkv"]["scale"].float()),
         "wo": stk(lambda lp: frag(lp["attn"]["o"]["w_int8"])),
         "o_scale": stk(lambda lp: lp["attn"]["o"]["scale"].float()),
-        "wgu": stk(lambda lp: frag(torch.cat([mlp(lp, "gate")["w_int8"],
-                                              mlp(lp, "up")["w_int8"]], dim=1))),
-        "gu_scale": stk(lambda lp: torch.cat([mlp(lp, "gate")["scale"],
-                                              mlp(lp, "up")["scale"]]).float()),
-        "wd": stk(lambda lp: frag(mlp(lp, "down")["w_int8"])),
-        "d_scale": stk(lambda lp: mlp(lp, "down")["scale"].float()),
         "norms": stk(lambda lp: torch.stack([
             lp["input_norm"], lp["post_attn_norm"],
             lp["pre_ffn_norm"], lp["post_ffn_norm"]]).float()),
     }
+    if not mlp_int4:
+        out["wgu"] = stk(lambda lp: frag(torch.cat([mlp(lp, "gate")["w_int8"],
+                                                    mlp(lp, "up")["w_int8"]], dim=1)))
+        out["gu_scale"] = stk(lambda lp: torch.cat([mlp(lp, "gate")["scale"],
+                                                    mlp(lp, "up")["scale"]]).float())
+        out["wd"] = stk(lambda lp: frag(mlp(lp, "down")["w_int8"]))
+        out["d_scale"] = stk(lambda lp: mlp(lp, "down")["scale"].float())
+        return out
+
+    g = mlp_int4_group
+    F, H = cfg.intermediate_size, cfg.hidden_size
+    if g is not None and ((H // 2) % g or (F // 2) % g):
+        raise ValueError(f"mlp_int4_group={g} must divide H/2={H // 2} and F/2={F // 2} (pass "
+                         "mlp_int4_group=None for per-channel scales, or a dividing group size)")
+
+    def q4(w):
+        """(int4 values [K, N], scales [K/g or 1, N]) of one MLP weight."""
+        wf = quant.dequantize(w, axis=0) if is_quantized(w) else w.float()
+        q = quant.quantize_int4(wf, group_size=g)
+        return (torch.cat(quant.unpack_int4(q["w_int4"]), dim=0),
+                q["scale"] if g is not None else q["scale"][None])
+
+    frag4 = decode_kernels.to_fragments4
+    gu, gus, wd, ds = [], [], [], []
+    for lp in lps:
+        (gq, gs), (uq, us), (dq, dsc) = (q4(mlp(lp, k)) for k in ("gate", "up", "down"))
+        gu.append(frag4(torch.cat([gq, uq], dim=1)))
+        gus.append(torch.cat([gs, us], dim=1))
+        wd.append(frag4(dq))
+        ds.append(dsc)
+    out["wgu4"], out["gu_scale4"] = torch.stack(gu).contiguous(), torch.stack(gus).contiguous()
+    out["wd4"], out["d_scale4"] = torch.stack(wd).contiguous(), torch.stack(ds).contiguous()
+    return out
 
 
 def decode_step_stacked(params: dict, cfg: Gemma2Config, stacked: dict,
@@ -191,10 +232,12 @@ def init(cfg: Gemma2Config, *, generator: torch.Generator, dtype=torch.bfloat16,
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-    """Raw (un-normalized) embedding lookup. An int8 table dequantizes only
-    the gathered rows, in f32."""
+    """Raw (un-normalized) embedding lookup. An int8 or int4 table
+    dequantizes only the gathered rows, in f32."""
     E = params["embedding"]
     if isinstance(E, dict):
+        if "w_int4" in E:
+            return quant.take_int4_rows(E, input_ids)
         return E["w_int8"][input_ids].float() * E["scale"][input_ids][..., None]
     return E[input_ids]
 
@@ -325,7 +368,8 @@ def logits_from_hidden(params: dict, cfg: Gemma2Config, hidden: torch.Tensor) ->
     E = params["embedding"]
     B, T, H = hidden.shape
     if isinstance(E, dict):
-        logits = quant.int8_matmul_t(hidden.reshape(B * T, H).contiguous(), E).reshape(B, T, -1)
+        mm = quant.int4_matmul_t if "w_int4" in E else quant.int8_matmul_t
+        logits = mm(hidden.reshape(B * T, H).contiguous(), E).reshape(B, T, -1)
     elif hidden.is_cuda and hidden.dtype != torch.float32:
         logits = _HeadProduct.apply(hidden.reshape(B * T, H), E.to(hidden.dtype))
         logits = logits.reshape(B, T, -1)
@@ -347,9 +391,14 @@ def forward(params: dict, cfg: Gemma2Config, *, input_ids: Optional[torch.Tensor
 
 
 def quantize_embedding_part(emb: torch.Tensor, parts: Tuple[str, ...]):
-    """Quantize the tied embedding per `parts` (int8 per vocab row)."""
+    """Quantize the tied embedding per `parts`: "embedding" int8 per vocab
+    row, "embedding4" the int4 rows-packed table (scale groups of 128 where
+    H/2 holds whole ones, else one scale per row)."""
+    if "embedding4" in parts and "embedding" in parts:
+        raise ValueError("embedding and embedding4 are mutually exclusive")
     if "embedding4" in parts:
-        raise NotImplementedError("int4 embedding not ported yet")
+        h = emb.shape[1]
+        return quant.quantize_int4_rows(emb, group_size=128 if (h // 2) % 128 == 0 else None)
     if "embedding" in parts:
         return quantize_int8(emb, axis=1)
     return emb
@@ -371,7 +420,8 @@ def quantize_layer(lp: dict, parts: Tuple[str, ...]) -> dict:
 
 
 def quantize_params(params: dict, parts: Tuple[str, ...] = ("embedding", "mlp", "attn")) -> dict:
-    """Int8 weight-only quantization of the frozen decoder for serving."""
+    """Int8 weight-only quantization of the frozen decoder for serving
+    ("embedding4": the table at 4 bits)."""
     unknown = set(parts) - {"embedding", "embedding4", "mlp", "attn"}
     if unknown:
         raise ValueError(f"unknown quantize parts: {sorted(unknown)} "

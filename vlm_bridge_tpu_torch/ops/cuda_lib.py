@@ -39,7 +39,10 @@ SIGNATURES = {
     "vbt_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "vbt_int8_mlp": [_P] * 10 + [_I] * 5 + [_P],
     "vbt_int8_ffn": [_P] * 10 + [_I] * 5 + [_P],
-    "vbt_fused_stack_step": [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P],
+    "vbt_int4_matmul_t_argmax": [_P] * 6 + [_I] * 4 + [_P],
+    "vbt_int4_matmul_t": [_P] * 4 + [_I] * 4 + [_P],
+    "vbt_int4_mlp": [_P] * 10 + [_I] * 7 + [_P],
+    "vbt_fused_stack_step": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
     "vbt_fused_bridge_step": [_P] * 31 + [_I] * 9 + [_F] + [_P],
     "vbt_flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],
     "vbt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 8 + [_F] * 2 + [_P],

@@ -24,6 +24,14 @@ fragment order, `to_fragments(w)` = [N/32, K/16, 32, 16] (see there):
     wo [L, *frag(QHD, H)] + o_scale [L, H], wgu [L, *frag(H, 2F)] (gate | up)
     + gu_scale [L, 2F], wd [L, *frag(F, H)] + d_scale [L, H], norms
     [L, 4, H] f32 (input / post-attn / pre-FFN / post-FFN).
+  with int4 MLP weights (stack_decode_params(mlp_int4=True)) the MLP fields
+    are instead wgu4 [L, *frag4(H, 2F)] + gu_scale4 [L, H/g, 2F] and wd4
+    [L, *frag4(F, H)] + d_scale4 [L, F/g, H]: nibbles in the packed fragment
+    order of `to_fragments4`, scales per group of g rows of the contraction,
+    or one row of scales (per output channel) when the second dim is 1. The
+    TPU layout's pairing of row k with k + K/2, its block-local down
+    projection and its MLP chunk width serve Mosaic's tiling and are not
+    copied; the nibbles' values and the scales are the same.
   LM KV cache: K/V [L, B, KH, S, D] int8, scales [L, B, KH, S] f32.
   stacked bridge weights (models/bridge.stack_bridge_decode_params):
     lns [nb, 6, ld]; wq/wo_c/wo_s [nb, *frag(ld, ld)], wqkv
@@ -40,6 +48,7 @@ import torch
 
 from vlm_bridge_tpu_torch.ops import cuda_lib
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, gelu_tanh
+from vlm_bridge_tpu_torch.ops.quant import _pack_nibbles, unpack_int4
 
 
 def _rms(v: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -78,6 +87,45 @@ def frag_shape(K: int, N: int) -> tuple:
     return (N // 32, K // 16, 32, 16)
 
 
+def to_fragments4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values (int8 in -8..7) [K, N] -> packed [N/32, K/32, 32, 16], the
+    order in which csrc/i4_gemm.cu streams them: the 16 bytes of a lane hold
+    its `to_fragments` bytes of rows 32r..32r+15 in their low nibbles and of
+    rows 32r+16..32r+31 in their high nibbles."""
+    K, N = q.shape
+    if K % 32 or N % 32:
+        raise ValueError(f"weight {K}x{N}: K and N must be multiples of 32")
+    v = q.reshape(K // 32, 2, 16, N)
+    return _pack_nibbles(to_fragments(v[:, 0].reshape(K // 2, N)),
+                         to_fragments(v[:, 1].reshape(K // 2, N)))
+
+
+def from_fragments4(wf: torch.Tensor) -> torch.Tensor:
+    """Inverse of `to_fragments4`: packed [N/32, K/32, 32, 16] -> int8 [K, N]."""
+    lo, hi = (from_fragments(h) for h in unpack_int4(wf))
+    K2, N = lo.shape
+    return torch.stack([lo.reshape(K2 // 16, 16, N), hi.reshape(K2 // 16, 16, N)],
+                       dim=1).reshape(2 * K2, N)
+
+
+def frag4_shape(K: int, N: int) -> tuple:
+    return (N // 32, K // 32, 32, 16)
+
+
+def _mm4(a: torch.Tensor, wf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """f32 a @ (w_int4 * scale), w in packed fragment order, scale [K/g, N]
+    (one row: per output channel)."""
+    w = from_fragments4(wf).float()
+    return a @ (w * scale.repeat_interleave(w.shape[0] // scale.shape[0], dim=0))
+
+
+def _mlp4_group(stacked: dict, H: int):
+    """Rows of the contraction that share a scale in an int4 stack, from the
+    scales' shapes alone (None: one scale per output channel)."""
+    rows = stacked["gu_scale4"].shape[1]
+    return None if rows == 1 else H // rows
+
+
 def _mm(a: torch.Tensor, wf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """f32 (a @ w_int8) * scale, w given in fragment order."""
     return (a @ from_fragments(wf).float()) * scale
@@ -104,7 +152,13 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
     B = x.shape[0]
     NH, KH, D = num_heads, num_kv_heads, head_dim
     G, QHD, KHD = NH // KH, NH * head_dim, KH * head_dim
-    F = 16 * stacked["wd"].shape[2]
+    mlp4 = "wgu4" in stacked
+    if mlp4:
+        gu, gus, wd, ds = (stacked[k] for k in ("wgu4", "gu_scale4", "wd4", "d_scale4"))
+        mm, F = _mm4, 32 * wd.shape[2]
+    else:
+        gu, gus, wd, ds = (stacked[k] for k in ("wgu", "gu_scale", "wd", "d_scale"))
+        mm, F = _mm, 16 * wd.shape[2]
     n = t + 1
     xf = x.float()
     for i in range(L):
@@ -124,9 +178,9 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
         o = _mm(attn.reshape(B, QHD), stacked["wo"][i], stacked["o_scale"][i])
         xf = xf + _rms(o, nl[1], eps)
         h = _rms(xf, nl[2], eps)
-        gu = _mm(h, stacked["wgu"][i], stacked["gu_scale"][i])
-        a = gelu_tanh(gu[:, :F]) * gu[:, F:]
-        y = _mm(a, stacked["wd"][i], stacked["d_scale"][i])
+        gate_up = mm(h, gu[i], gus[i])
+        a = gelu_tanh(gate_up[:, :F]) * gate_up[:, F:]
+        y = mm(a, wd[i], ds[i])
         xf = xf + _rms(y, nl[3], eps)
     return xf.to(act)
 
@@ -141,15 +195,20 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     t of kc/vc/ks/vs in place and returns the last layer's output [B, H]
     (before the final norm) in x.dtype. CUDA tensors run
     csrc/stack_step.cu (x bf16) or raise; CPU tensors run the plain version.
+    A stacked dict with "wgu4" runs the int4 MLP stage (csrc/i4_gemm.cu); one
+    with neither "wgu" nor "wgu4" is refused.
     """
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               attn_scale=attn_scale, softcap=softcap, eps=eps)
+    mlp4 = "wgu4" in stacked
+    if not mlp4 and "wgu" not in stacked:
+        raise ValueError("stacked weights carry neither int8 (wgu) nor int4 (wgu4) MLP fields")
     if not x.is_cuda:
         return fused_stack_step_plain(t, x, stacked, kc, vc, ks, vs, cos, sin, **kw)
     B, H = x.shape
     L = stacked["wqkv"].shape[0]
     NQKV = 32 * stacked["wqkv"].shape[1]
-    F = 16 * stacked["wd"].shape[2]
+    F = (32 if mlp4 else 16) * stacked["wd4" if mlp4 else "wd"].shape[2]
     NH, KH, D = num_heads, num_kv_heads, head_dim
     QHD, KHD = NH * D, KH * D
     S = kc.shape[3]
@@ -165,14 +224,25 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
                          "or exceed the row kernels' 4096")
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (B, H))
+    if mlp4:
+        group = _mlp4_group(stacked, H)
+        if group is not None and (group % 32 or H % group or F % group):
+            raise ValueError(f"int4 scale group {group} must be a multiple of 32 that divides "
+                             f"H={H} and F={F}")
+        mlp = (("wgu4", (L, *frag4_shape(H, 2 * F)), torch.int8),
+               ("gu_scale4", (L, H // (group or H), 2 * F), torch.float32),
+               ("wd4", (L, *frag4_shape(F, H)), torch.int8),
+               ("d_scale4", (L, F // (group or F), H), torch.float32))
+    else:
+        group = None
+        mlp = (("wgu", (L, *frag_shape(H, 2 * F)), torch.int8),
+               ("gu_scale", (L, 2 * F), torch.float32),
+               ("wd", (L, *frag_shape(F, H)), torch.int8), ("d_scale", (L, H), torch.float32))
     for name, shape, dt in (
             ("wqkv", (L, *frag_shape(H, NQKV)), torch.int8),
             ("qkv_scale", (L, NQKV), torch.float32),
             ("wo", (L, *frag_shape(QHD, H)), torch.int8), ("o_scale", (L, H), torch.float32),
-            ("wgu", (L, *frag_shape(H, 2 * F)), torch.int8),
-            ("gu_scale", (L, 2 * F), torch.float32),
-            ("wd", (L, *frag_shape(F, H)), torch.int8), ("d_scale", (L, H), torch.float32),
-            ("norms", (L, 4, H), torch.float32)):
+            *mlp, ("norms", (L, 4, H), torch.float32)):
         c(stacked[name], name, dt, shape)
     for name, tt, dt, shape in (("kc", kc, torch.int8, (L, B, KH, S, D)),
                                 ("vc", vc, torch.int8, (L, B, KH, S, D)),
@@ -192,10 +262,11 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     cuda_lib.call(
         "vbt_fused_stack_step", p(x), p(x_out),
         p(s["wqkv"]), p(s["qkv_scale"]), p(s["wo"]), p(s["o_scale"]),
-        p(s["wgu"]), p(s["gu_scale"]), p(s["wd"]), p(s["d_scale"]), p(s["norms"]),
+        *(p(s[name]) for name, _, _ in mlp), p(s["norms"]),
         p(cos), p(sin), p(kc), p(vc), p(ks), p(vs),
         p(x32), p(hbuf), p(abuf), p(ybuf),
-        L, B, H, NH, KH, D, F, S, int(t), float(attn_scale), float(softcap), float(eps))
+        L, B, H, NH, KH, D, F, S, int(t), int(mlp4), group or 0,
+        float(attn_scale), float(softcap), float(eps))
     fused_stack_step.launches += 1
     return x_out
 

@@ -7,8 +7,11 @@ linear weights [in, out], int8 weights as {"w_int8", "scale"} and the
 DINOv2 patch kernel HWIO, so no array is re-laid out: an int8 LM
 (per-layer `qkv`, `o`, `gate`, `up`, `down` dicts and the int8 table) and an
 int8 bridge come across with the same integers and scales, and both
-packages decode from them. bfloat16 arrays (numpy's ml_dtypes extension
-type) are widened through f32 exactly.
+packages decode from them. The int4 dicts come across the same way: a
+rows-packed table {"w_int4", "scale"} and a `quantize_int4` weight, whose
+"packing" string and "group_size" (an int or None) pass through unchanged.
+bfloat16 arrays (numpy's ml_dtypes extension type) are widened through f32
+exactly.
 
 `from_jax` gives frozen tensors (requires_grad False): the vision and lm
 subtrees of a train step, or a whole tree for serving. `bridge_from_jax`
@@ -40,6 +43,8 @@ def from_jax(tree, device=None):
                              "per-layer tree and stack it with the port's "
                              "gemma2.stack_decode_params")
         return {k: from_jax(v, device) for k, v in tree.items()}
+    if tree is None or isinstance(tree, (str, bool, int, float)):
+        return tree  # metadata of a quantized dict ("packing", "group_size")
     return _tensor(tree, device)
 
 

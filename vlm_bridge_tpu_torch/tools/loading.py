@@ -28,8 +28,9 @@ def add_model_args(ap) -> None:
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"],
                     help="frozen-weight dtype of the random init")
     ap.add_argument("--quantize", default=None,
-                    help="int8-quantize weight groups: comma list of "
-                         "embedding,mlp,attn,bridge")
+                    help="quantize weight groups: comma list of "
+                         "embedding|embedding4,mlp,attn,bridge (embedding4: the "
+                         "table and its head at 4 bits)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="device to build and run the model on (no fallback)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random init")
@@ -66,11 +67,11 @@ def load_from_args(args):
 
 
 def prestack_decode_params(params, cfg, gen):
-    """Stack the int8 decoder weights ONCE for serving and drop the
-    per-layer copies. No-op unless the fused stack decode serves this
-    generation config: the per-layer path (no int8 KV cache, force_jnp,
-    float layers, a window the cache outgrows) reads the per-layer dicts as
-    they are and needs no second layout."""
+    """Stack the int8 decoder weights ONCE for serving (with gen.mlp_int4,
+    the MLP weights at 4 bits) and drop the per-layer copies. No-op unless
+    the fused stack decode serves this generation config: the per-layer path
+    (no int8 KV cache, force_jnp, float layers, a window the cache outgrows)
+    reads the per-layer dicts as they are and needs no second layout."""
     from vlm_bridge_tpu_torch.models import gemma2
 
     lm = params["lm"]
@@ -79,5 +80,6 @@ def prestack_decode_params(params, cfg, gen):
             or not gemma2.supports_fused_decode(lm, cfg.lm, gen.max_length + 1)):
         return params
     lm = {k: v for k, v in lm.items() if k != "layers"}
-    lm["stacked_decode"] = gemma2.stack_decode_params(params["lm"], cfg.lm)
+    lm["stacked_decode"] = gemma2.stack_decode_params(
+        params["lm"], cfg.lm, mlp_int4=gen.mlp_int4, mlp_int4_group=gen.mlp_int4_group)
     return {**params, "lm": lm}
