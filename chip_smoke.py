@@ -1,7 +1,8 @@
 """Run the PyTorch port once on one GPU: the int8 greedy caption-serving path,
-the sampled per-layer int8 decode path, the int4 serving recipe through the
-batched eval harness and the bridge train step, every kernel held against
-its plain version.
+the kernel-routed vision encode and the int8 vision tower, the sampled
+per-layer int8 decode path, the per-layer fused decode, the int4 serving
+recipe through the batched eval harness and the bridge train step, every
+kernel held against its plain version.
 
     python3 chip_smoke.py
 
@@ -24,8 +25,23 @@ its plain version.
    int8 KV cache; 64 seeded uint8 images -> normalize_on_device ->
    generate_tokens (greedy, 50 tokens, no early stop). Checks that every
    decode kernel ran on every step, that the ids and lengths are well
-   formed, and that each row's first token equals the plain path's. Then
-   the same fused stack with the sampled head, 50 tokens, timed.
+   formed, and that the first generated token of every row equals the plain
+   path's (every decode kernel's plain version behind the same encoder).
+   Then the same fused stack with the sampled head, 50 tokens, timed.
+4a. The vision encode's kernels: `tiled_matmul` at the ViT's four projection
+   shapes (16448 rows; with bias, fc1 with GELU; one without a bias; one
+   ragged case) and `layer_norm_fast` (16448 x 1024 bf16, 2048 x 2304 f32)
+   against their plain versions and torch.addmm / F.layer_norm; the
+   projection probe (all 24 layers' four projections, bias-free, kernel
+   against torch.matmul; one counted pass: 96 launches). Then dinov2.forward
+   on the 64 images: default routing, `_attention_reference` swapped in for
+   the flash kernel, and both VLM_BRIDGE_VIT_MM=kernel and
+   VLM_BRIDGE_LN_KERNEL=1 (launches 96 / 49 / 24); the serving batch again
+   with the plain attention in the ViT and with both variables set, each
+   against the default routing's (two correct bf16 encoders: the first step's
+   logits are held, and a row's first token may differ only where the top two
+   logits are a near-tie); the int8 vision tower (quantize_vision_params: 96
+   int8_matmul launches at M = 16448).
 4b. The sampled per-layer path: the same int8 weights as per-layer dicts (not
    stacked), bf16 KV cache, temperature 0.7, top-p 0.9, a seeded CUDA
    generator, 64 x 50 tokens. Checks the four int8 kernels' launch counts
@@ -35,6 +51,12 @@ its plain version.
    (both paths round to bf16 between ops, so a near-tie may flip a row's
    token: it prints how many rows agree); a short profiled window gives the
    launches per token and the device's busy share.
+4b'. The per-layer fused decode: `fused_attn_step` (t = 0, and t = 20 with
+   planted large logits) and `fused_mlp_step` against their plain versions,
+   each timed call on another layer's weights; then 50 greedy tokens at
+   batch 64 through fused_bridge_step -> gemma2.decode_step_fused ->
+   int8_matmul_t_argmax (launches 1300 / 1300), the first tokens against the
+   same loop on the plain versions, ms a token beside the stack step's.
 4c. The int4 recipe: the table re-quantized to the int4 rows-packed layout
    and the stack rebuilt with int4 MLP weights. Phases for the two int4
    heads, `int4_mlp` (per channel and in groups of 128) and the stack step
@@ -107,6 +129,19 @@ LOGIT4_TOL = 2e-5
 EVAL_BATCHES, EVAL_SAMPLED_BATCHES = 5, 2   # batches of the int4 path through vlm-eval-torch
 PROBE_TOKENS, PROBE_REPS, PROBE_BLOCK_F, INT4_GROUP = 20, 3, 512, 128
 GREEDY_CHECK_TOKENS, PROFILE_TOKENS = 6, 5
+# The per-layer fused steps against their plain versions: both round h, q,
+# p * v_scale, the attention output and the MLP hidden to bf16 at the same
+# places, over f32 sums taken in another order, so a few of those values land
+# one bf16 step away and the output row, itself rounded to bf16, moves by up
+# to two steps of its largest value. New K / V codes: equal up to 1, and
+# equal outright in at least CODES_EQUAL_MIN of them; scales to SCALE_RTOL.
+LAYER_TOL, CODES_EQUAL_MIN, SCALE_RTOL = 2.0 ** -6, 0.99, 1e-6
+# Two encoders that differ in where bf16 roundings fall (kernel-routed against
+# default, flash against plain attention): features within FEATURE_TOL x their
+# largest value. The int8 tower against the float one: int8 noise of 96
+# projections, INT8_TOWER_TOL.
+FEATURE_TOL, INT8_TOWER_TOL = 3e-2, 2.5e-1
+ENCODE_REPS = 3
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -573,10 +608,12 @@ def phase_flash(dev, gen):
 
 def expected_flash_launches(cfg, tc) -> dict:
     """Launches of one train step: each Gemma layer's forward runs twice
-    under per-layer recomputation, each bridge block's self attention once;
-    every attention has one dq and one dk/dv launch."""
+    under per-layer recomputation, each bridge block's self attention once,
+    and each layer of the frozen ViT once, forward only; every attention
+    with a gradient has one dq and one dk/dv launch."""
     attn = cfg.lm.num_layers + cfg.bridge.num_blocks
-    fwd = cfg.lm.num_layers * (2 if tc.remat_lm else 1) + cfg.bridge.num_blocks
+    fwd = (cfg.lm.num_layers * (2 if tc.remat_lm else 1) + cfg.bridge.num_blocks
+           + cfg.vision.num_layers)
     return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": attn,
             "flash_attention_bwd_dkv": attn}
 
@@ -636,7 +673,8 @@ def plain_flash(fa):
         fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = saved
 
 
-DECODE_KERNELS = {"decode_kernels": ("fused_stack_step", "fused_bridge_step"),
+DECODE_KERNELS = {"decode_kernels": ("fused_stack_step", "fused_bridge_step", "fused_attn_step",
+                                     "fused_mlp_step"),
                   "quant": ("int8_matmul_t_argmax", "int8_matmul", "int8_mlp", "int8_ffn",
                             "int8_matmul_t", "int4_matmul_t_argmax", "int4_matmul_t",
                             "int4_mlp")}
@@ -798,10 +836,12 @@ def run_train(params, cfg, dev, card):
 
 
 def run_serve(params, cfg, dev, card, gcfg):
-    """The int8 greedy serving path; returns the decode kernels' launch counts
-    and the counted run's captions per second."""
+    """The int8 greedy serving path; returns the decode kernels' launch
+    counts, the counted run's captions per second and (ids on the CPU, the
+    first step's final hidden states) of that run."""
     from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
     from vlm_bridge_tpu_torch.ops import decode_kernels, quant
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
 
     pixels = seeded_pixels(cfg, dev)
     # warm-up (cuBLAS handles, allocator) on 2 tokens, then the counted run
@@ -812,21 +852,28 @@ def run_serve(params, cfg, dev, card, gcfg):
                 quant.int8_matmul_t_argmax)
     for fn in counters:
         fn.launches = 0
+    fa.flash_attention_fwd.launches = 0
     t0 = time.perf_counter()
-    toks, lens = generate_tokens(params, cfg, pixel_values=pixels, gen=gcfg)
+    with record_decode_hidden("decode_step_stacked") as hidden_k:
+        toks, lens = generate_tokens(params, cfg, pixel_values=pixels, gen=gcfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"main path launches: {launches}")
+    print(f"main path launches: {launches}; the encode's flash_attention_fwd "
+          f"{fa.flash_attention_fwd.launches}")
     for name, n in launches.items():
         if n != NEW_TOKENS:
             raise AssertionError(f"{name} launched {n} times, expected {NEW_TOKENS}")
+    if fa.flash_attention_fwd.launches != cfg.vision.num_layers:
+        raise AssertionError("the ViT did not reach the flash kernel once a layer")
 
     toks_c = check_tokens(toks, lens, cfg, NEW_TOKENS)
     rate = BATCH / dt
     print(f"main path: {BATCH} captions x {NEW_TOKENS} tokens in {dt:.3f} s = "
           f"{rate:.2f} captions/s (encode + decode) on {card}")
 
+    # the plain path: every decode kernel's plain version behind the same
+    # encoder (f32 inside on both sides), so every first token is to be equal
     t0 = time.perf_counter()
     with plain_decode():
         ref, _ = generate_tokens(params, cfg, pixel_values=pixels, gen=gcfg)
@@ -867,7 +914,7 @@ def run_serve(params, cfg, dev, card, gcfg):
           f"cache) on {card}")
     if got != want:
         raise AssertionError(f"fused sampled path launches {got}, expected {want}")
-    return launches, rate
+    return launches, rate, (toks_c, hidden_k[0])
 
 
 def run_sample(params, cfg, dev, card):
@@ -959,6 +1006,9 @@ def hold_first_step(name, got, ref, logits_k, logits_p):
           f"{share:.4f}; first-step logits max_abs_err={err:.6g} tol={tol:.6g}; smallest top-2 "
           f"gap of the plain path's logits {float(gap.min()):.6g}, largest gap in a row that "
           f"differs {float(gap[differ].max()) if bool(differ.any()) else 0.0:.6g}")
+    for r in differ.nonzero().flatten().tolist():
+        print(f"  row {r}: first token {int(got[r, 1])} against {int(ref[r, 1])}; top-2 logit "
+              f"margin of the reference {float(gap[r]):.6g}")
     if not err <= tol:
         raise AssertionError(f"{name}: first-step logits differ from the plain path")
     if bool(differ.any()) and float(gap[differ].max()) > 2 * err + 1e-3:
@@ -991,6 +1041,527 @@ def decode_profile(short, long, card):
     print(f"sampled per-layer path, per token (torch profiler on, which slows the host): "
           f"{n:.0f} kernel launches, device busy {busy:.3f} ms of {wall:.3f} ms = "
           f"{100 * busy / wall:.1f} % (on {card})")
+
+
+@contextlib.contextmanager
+def vit_routing(mm: bool = False, ln: bool = False):
+    """Within this block VLM_BRIDGE_VIT_MM and VLM_BRIDGE_LN_KERNEL are set
+    (or unset) as asked; restored afterwards."""
+    import os
+
+    names = {"VLM_BRIDGE_VIT_MM": "kernel" if mm else None,
+             "VLM_BRIDGE_LN_KERNEL": "1" if ln else None}
+    saved = {k: os.environ.get(k) for k in names}
+    try:
+        for k, v in names.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def plain_vit_attention():
+    """Within this block the ViT's attention is `_attention_reference`, as it
+    was before the encoder was routed through dot_product_attention: the
+    other side of the flash A/B. The package has no such switch."""
+    from vlm_bridge_tpu_torch.models import dinov2
+    from vlm_bridge_tpu_torch.ops.attention import _attention_reference
+
+    saved = dinov2.dot_product_attention
+    dinov2.dot_product_attention = lambda q, k, v, *, scale: _attention_reference(
+        q, k, v, scale=scale)
+    try:
+        yield
+    finally:
+        dinov2.dot_product_attention = saved
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest abs difference over the reference's largest abs value."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def vit_projections(params, cfg):
+    """name -> ([K, N] weights of every layer, their biases, gelu) for the
+    ViT's four projections."""
+    layers = [params["vision"]["layers"][str(i)] for i in range(cfg.vision.num_layers)]
+    return {"qkv": ([lp["attn"]["qkv"] for lp in layers],
+                    [lp["attn"]["qkv_bias"] for lp in layers], False),
+            "o": ([lp["attn"]["o"] for lp in layers],
+                  [lp["attn"]["o_bias"] for lp in layers], False),
+            "fc1": ([lp["mlp"]["fc1"] for lp in layers],
+                    [lp["mlp"]["fc1_bias"] for lp in layers], True),
+            "fc2": ([lp["mlp"]["fc2"] for lp in layers],
+                    [lp["mlp"]["fc2_bias"] for lp in layers], False)}
+
+
+def phase_tiled_matmul(params, cfg, dev, gen, card):
+    """tiled_matmul at the rows a batch of BATCH images gives the ViT
+    (BATCH x 257), on the model's own weights with seeded non-zero biases:
+    the four projections with a bias (fc1 with GELU), the o projection without
+    one, a ragged case; then the projection probe. Returns the result rows
+    of `tiled_matmul` and `tiled_matmul[bias]` and the launches of the probe's
+    one counted pass."""
+    import torch.nn.functional as F
+
+    from vlm_bridge_tpu_torch.ops import matmul_kernels as mk
+
+    M = BATCH * cfg.num_vision_tokens
+    projs = vit_projections(params, cfg)
+    xs = {}
+
+    def x_of(K):
+        if K not in xs:
+            xs[K] = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        return xs[K]
+
+    def run_case(name, ws, bias, gelu):
+        K, N = ws[0].shape
+        x = x_of(K)
+        got = mk.tiled_matmul(x, ws[0], bias, gelu=gelu)
+        want = mk.tiled_matmul_plain(x, ws[0], bias, gelu=gelu)
+        torch.cuda.synchronize()
+        err = rows_close(f"{name} {M}x{K}x{N}", got, want, I8_TOL)
+        nxt = cycle(ws)
+        ms = time_ms(lambda: mk.tiled_matmul(x, nxt(), bias, gelu=gelu), 20)
+        plain_ms = time_ms(lambda: mk.tiled_matmul_plain(x, nxt(), bias, gelu=gelu), 3)
+        if bias is None:
+            lib = lambda: torch.matmul(x, nxt())  # noqa: E731
+        else:
+            b16 = bias.to(torch.bfloat16)
+            lib = ((lambda: F.gelu(torch.addmm(b16, x, nxt()))) if gelu
+                   else (lambda: torch.addmm(b16, x, nxt())))
+        library_ms = time_ms(lib, 20)
+        flops = 2.0 * M * K * N
+        bd = bound(nbytes(x, ws[0], got) + (0 if bias is None else nbytes(bias)), flops)
+        print(f"[{name}] {K} -> {N}: kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, plain "
+              f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, "
+              f"{'torch.matmul' if bias is None else 'torch.addmm' + (' + F.gelu' if gelu else '')}"
+              f" {library_ms:.4f} ms (on {card})")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+                "library_ms": library_ms}
+
+    by_shape = {}
+    for pname, (ws, _, gelu) in projs.items():
+        # the model's biases are zeros at init: seeded ones, f32 as _proj passes them
+        bias = torch.randn(ws[0].shape[1], generator=gen, device=dev) * 0.5
+        by_shape[pname] = run_case("tiled_matmul[bias]", ws, bias, gelu)
+    no_bias = run_case("tiled_matmul", projs["o"][0], None, False)
+
+    # ragged in rows and columns: the last row tile has 8 rows, the last column tile 8 columns
+    a = torch.randn(520, 64, generator=gen, device=dev).to(torch.bfloat16)
+    b = (torch.randn(64, 136, generator=gen, device=dev) * 0.125).to(torch.bfloat16)
+    bias = torch.randn(136, generator=gen, device=dev)
+    for bs, gelu in ((None, False), (bias, True)):
+        rows_close(f"tiled_matmul ragged 520x64x136 bias={bs is not None}",
+                   mk.tiled_matmul(a, b, bs, gelu=gelu),
+                   mk.tiled_matmul_plain(a, b, bs, gelu=gelu), I8_TOL)
+
+    # the projection probe: every layer's four projections, bias-free, in layer order
+    x1, x4 = x_of(cfg.vision.hidden_size), x_of(cfg.vision.hidden_size * cfg.vision.mlp_ratio)
+
+    def segment(mm):
+        def run():
+            for i in range(cfg.vision.num_layers):
+                for pname in ("qkv", "o", "fc1", "fc2"):
+                    mm(x4 if pname == "fc2" else x1, projs[pname][0][i])
+        return run
+
+    times = {"tiled_matmul": [], "torch.matmul": []}
+    for _ in range(ENCODE_REPS):
+        times["tiled_matmul"].append(time_ms(segment(mk.tiled_matmul), 1))
+        times["torch.matmul"].append(time_ms(segment(torch.matmul), 1))
+    # One counted pass of the probe, untimed: the counts set to 0 just before it and read
+    # just after. No model path reaches the bias-free call site (every projection of the ViT
+    # carries a bias, here as in the JAX package), so this pass through the public function
+    # is the run that drives it.
+    mk.tiled_matmul.launches = mk.tiled_matmul.bias_launches = 0
+    segment(mk.tiled_matmul)()
+    torch.cuda.synchronize()
+    probe_launches = mk.tiled_matmul.launches - mk.tiled_matmul.bias_launches
+    if (probe_launches, mk.tiled_matmul.bias_launches) != (4 * cfg.vision.num_layers, 0):
+        raise AssertionError(f"the projection probe launched {probe_launches} bias-free and "
+                             f"{mk.tiled_matmul.bias_launches} biased products")
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    flops = 2.0 * M * sum(w[0].numel() for w, _, _ in projs.values()) * cfg.vision.num_layers
+    print(f"projection probe, {cfg.vision.num_layers} layers x 4 bias-free projections at {M} "
+          f"rows, median of {ENCODE_REPS}: tiled_matmul {med['tiled_matmul']:.3f} ms = "
+          f"{flops / med['tiled_matmul'] / 1e9:.1f} TFLOP/s, torch.matmul "
+          f"{med['torch.matmul']:.3f} ms = {flops / med['torch.matmul'] / 1e9:.1f} TFLOP/s "
+          f"(on {card})")
+    # the headline numbers of the biased kernel are fc1's: bias and GELU both in the epilogue
+    biased = {**by_shape["fc1"], "max_abs_err": max(r["max_abs_err"] for r in by_shape.values()),
+              "by_shape": by_shape, "probe_ms": med}
+    return {"tiled_matmul": no_bias, "tiled_matmul[bias]": biased}, probe_launches
+
+
+def phase_layer_norm(cfg, dev, gen, card):
+    """layer_norm_fast at the ViT's shape (bf16) and the bridge's training
+    shape (f32) against its plain version, F.layer_norm and the eager pivot
+    form of ops.layers.layer_norm (what the default routing runs)."""
+    import torch.nn.functional as F
+
+    from vlm_bridge_tpu_torch.ops import layers
+    from vlm_bridge_tpu_torch.ops import norm_kernels as nk
+
+    shapes = {"vit": (BATCH * cfg.num_vision_tokens, cfg.vision.hidden_size, torch.bfloat16,
+                      cfg.vision.layer_norm_eps),
+              "bridge_train": (TRAIN_BATCH * TRAIN_SEQ, cfg.bridge.language_dim, torch.float32,
+                               cfg.bridge.layer_norm_eps)}
+    by_shape = {}
+    for sname, (rows, H, dtype, eps) in shapes.items():
+        x = (torch.randn(rows, H, generator=gen, device=dev) * 2 + 1).to(dtype)
+        scale = 1 + 0.2 * torch.randn(H, generator=gen, device=dev)
+        bias = 0.2 * torch.randn(H, generator=gen, device=dev)
+        got, want = nk.layer_norm_fast(x, scale, bias, eps), nk.layer_norm_fast_plain(x, scale,
+                                                                                     bias, eps)
+        torch.cuda.synchronize()
+        err = rows_close(f"layer_norm_fast {sname} {rows}x{H} {dtype}", got, want,
+                         I8_TOL if dtype == torch.bfloat16 else LOGIT_TOL)
+        sd, bd_ = scale.to(dtype), bias.to(dtype)
+        with vit_routing():
+            pivot = layers.layer_norm(x, scale, bias, eps)
+            rows_close(f"eager pivot form vs plain, {sname}", pivot, want,
+                       I8_TOL if dtype == torch.bfloat16 else LOGIT_TOL)
+            pivot_ms = time_ms(lambda: layers.layer_norm(x, scale, bias, eps), 10)
+        ms = time_ms(lambda: nk.layer_norm_fast(x, scale, bias, eps), 50)
+        plain_ms = time_ms(lambda: nk.layer_norm_fast_plain(x, scale, bias, eps), 5)
+        library_ms = time_ms(lambda: F.layer_norm(x, (H,), sd, bd_, eps), 50)
+        bd = bound(nbytes(x, got, scale, bias), 8.0 * rows * H)
+        print(f"[layer_norm_fast] {sname} {rows}x{H} {dtype}: kernel {ms:.4f} ms = "
+              f"{nbytes(x, got) / ms / 1e9:.3f} TB/s, plain {plain_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, F.layer_norm {library_ms:.4f} ms, "
+              f"the eager pivot form {pivot_ms:.4f} ms (on {card})")
+        by_shape[sname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+                           "library_ms": library_ms, "pivot_form_ms": pivot_ms}
+    return {**by_shape["vit"], "by_shape": by_shape}
+
+
+def time_encode(params, cfg, pixels) -> float:
+    from vlm_bridge_tpu_torch.models import full_model
+
+    return time_ms(lambda: full_model.encode_image(params, cfg, pixels), ENCODE_REPS)
+
+
+def run_vit_kernels(params, served, cfg, dev, card, gcfg, default_run):
+    """The vision encode of BATCH images through dinov2.forward: default
+    routing, plain attention swapped in for the flash kernel, both kernel
+    variables set (counted), the serving batch with both set, the int8 tower.
+    default_run: (ids, first-step hidden) of the default routing's serving
+    batch. Returns the launches of one kernel-routed encode."""
+    from vlm_bridge_tpu_torch.inference.generate import generate_tokens
+    from vlm_bridge_tpu_torch.models import dinov2, full_model
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+    from vlm_bridge_tpu_torch.ops import matmul_kernels as mk
+    from vlm_bridge_tpu_torch.ops import norm_kernels as nk
+    from vlm_bridge_tpu_torch.ops import quant
+
+    pixels = seeded_pixels(cfg, dev)
+    L = cfg.vision.num_layers
+
+    def counts():
+        return {"tiled_matmul[bias]": mk.tiled_matmul.bias_launches,
+                "tiled_matmul": mk.tiled_matmul.launches - mk.tiled_matmul.bias_launches,
+                "layer_norm_fast": nk.layer_norm_fast.launches,
+                "flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "int8_matmul": quant.int8_matmul.launches}
+
+    def counted(p):
+        mk.tiled_matmul.launches = mk.tiled_matmul.bias_launches = 0
+        nk.layer_norm_fast.launches = fa.flash_attention_fwd.launches = 0
+        quant.int8_matmul.launches = 0
+        out = full_model.encode_image(p, cfg, pixels)
+        torch.cuda.synchronize()
+        return out, counts()
+
+    base, n_base = counted(params)
+    if n_base != {"tiled_matmul[bias]": 0, "tiled_matmul": 0, "layer_norm_fast": 0,
+                  "flash_attention_fwd": L, "int8_matmul": 0}:
+        raise AssertionError(f"default routing of the encode launched {n_base}")
+    ms = {"default": time_encode(params, cfg, pixels)}
+    with plain_vit_attention():
+        plain_attn, n_plain = counted(params)
+        ms["plain_attention"] = time_encode(params, cfg, pixels)
+    if n_plain["flash_attention_fwd"]:
+        raise AssertionError("the plain-attention encode launched the flash kernel")
+    with vit_routing(mm=True, ln=True):
+        routed, n_routed = counted(params)
+        ms["kernels"] = time_encode(params, cfg, pixels)
+    want = {"tiled_matmul[bias]": 4 * L, "tiled_matmul": 0, "layer_norm_fast": 2 * L + 1,
+            "flash_attention_fwd": L, "int8_matmul": 0}
+    print(f"kernel-routed encode launches: {n_routed}")
+    if n_routed != want:
+        raise AssertionError(f"kernel-routed encode launched {n_routed}, expected {want}")
+    ms["default_again"] = time_encode(params, cfg, pixels)
+    errs = {"kernels vs default": rel_err(routed, base),
+            "flash vs plain attention": rel_err(base, plain_attn)}
+    print(f"vision encode, {BATCH} images, mean of {ENCODE_REPS}: default routing "
+          f"{ms['default']:.2f} ms (again {ms['default_again']:.2f}), with _attention_reference "
+          f"in place of the flash kernel {ms['plain_attention']:.2f} ms, with tiled_matmul and "
+          f"layer_norm_fast {ms['kernels']:.2f} ms; features' relative error "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (limit {FEATURE_TOL}) on {card}")
+    if not all(torch.isfinite(t.float()).all() for t in (base, routed, plain_attn)):
+        raise AssertionError("vision features are not finite")
+    if not all(v <= FEATURE_TOL for v in errs.values()):
+        raise AssertionError(f"vision features disagree: {errs}")
+
+    # The serving batch behind another encoder, against the default routing's: the ViT with
+    # the plain attention, then with both variables set. Two correct bf16 encoders round at
+    # other places (features above), so all 64 first tokens cannot be promised: what is held
+    # is the first step's logits (HIDDEN_TOL x their largest value) and that a row whose
+    # first token differs is a near-tie (top-2 margin within twice the logits' error).
+    ids0, hidden0 = default_run
+    table = served["lm"]["embedding"]
+    logits0 = quant.int8_matmul_t_plain(hidden0, table)
+
+    def serve(name):
+        with record_decode_hidden("decode_step_stacked") as hidden_k:
+            t0 = time.perf_counter()
+            toks, lens = generate_tokens(served, cfg, pixel_values=pixels, gen=gcfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        toks_c = check_tokens(toks, lens, cfg, NEW_TOKENS)
+        print(f"main path with {name}: {BATCH} captions x {NEW_TOKENS} tokens in {dt:.3f} s = "
+              f"{BATCH / dt:.2f} captions/s (encode + decode) on {card}")
+        hold_first_step(f"serving batch, {name} against the default routing", toks_c, ids0,
+                        quant.int8_matmul_t_plain(hidden_k[0], table), logits0)
+
+    with plain_vit_attention():
+        serve("the plain attention in the ViT")
+    with vit_routing(mm=True, ln=True):
+        serve("the ViT's kernels")
+
+    # the int8 tower
+    vq = dinov2.quantize_vision_params(params["vision"])
+    pq = {**params, "vision": vq}
+
+    def layer_bytes(vision):
+        return sum(nbytes(*(t for t in _leaves(lp))) for lp in vision["layers"].values())
+
+    qfeat, n_q = counted(pq)
+    want_q = {"tiled_matmul[bias]": 0, "tiled_matmul": 0, "layer_norm_fast": 0,
+              "flash_attention_fwd": L, "int8_matmul": 4 * L}
+    if n_q != want_q:
+        raise AssertionError(f"int8 tower launched {n_q}, expected {want_q}")
+    ms_q = time_encode(pq, cfg, pixels)
+    err_q = rel_err(qfeat, base)
+    print(f"int8 vision tower: encode {ms_q:.2f} ms against {ms['default']:.2f} for the float "
+          f"tower, {4 * L} int8_matmul launches at M = {BATCH * cfg.num_vision_tokens}; "
+          f"features' relative error against the float tower {err_q:.3g} (limit "
+          f"{INT8_TOWER_TOL}); layers {layer_bytes(vq) / 1e9:.4f} GB against "
+          f"{layer_bytes(params['vision']) / 1e9:.4f} GB on {card}")
+    if not err_q <= INT8_TOWER_TOL or not torch.isfinite(qfeat.float()).all():
+        raise AssertionError("the int8 tower's features are off")
+    # int8_matmul at these rows: 257 row tiles of 64 (16448 = 257 x 64, no ragged tile), one
+    # slice of the contraction
+    M = BATCH * cfg.num_vision_tokens
+    x_gen = torch.Generator(device=dev)
+    x_gen.manual_seed(SEED + 13)
+    for pname, (ws, _, _) in vit_projections(pq, cfg).items():
+        K, N = ws[0]["w_int8"].shape
+        x = torch.randn(M, K, generator=x_gen, device=dev).to(torch.bfloat16)
+        got, want = quant.int8_matmul(x, ws[0]), quant.int8_matmul_plain(x, ws[0])
+        torch.cuda.synchronize()
+        rows_close(f"int8_matmul vision {pname} {M}x{K}x{N}", got, want, I8_TOL)
+        nxt = cycle(ws)
+        k_ms = time_ms(lambda: quant.int8_matmul(x, nxt()), 10)
+        wb = (ws[0]["w_int8"].float() * ws[0]["scale"]).to(torch.bfloat16)
+        l_ms = time_ms(lambda: torch.matmul(x, wb), 10)
+        print(f"[int8_matmul] vision {pname} {M}x{K}x{N}: kernel {k_ms:.4f} ms = "
+              f"{2.0 * M * K * N / k_ms / 1e9:.1f} TFLOP/s; torch.matmul on a bf16 copy "
+              f"{l_ms:.4f} ms (not the same function)")
+    return n_routed
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_fused_layer(per_layer, cfg, dev, gen, card, t=20):
+    """fused_attn_step (t = 0 and t) and fused_mlp_step against their plain
+    versions at M = BATCH on the model's own per-layer int8 weights; every
+    timed call reads another layer's weights and cache."""
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    lm = cfg.lm
+    L, KH, D = lm.num_layers, lm.num_kv_heads, lm.head_dim
+    layers = [per_layer["lm"]["layers"][str(i)] for i in range(L)]
+    cache = gemma2.FusedKVCache.zeros(lm, BATCH, NEW_TOKENS + 1, device=dev)
+    S = cache.k[0].shape[2]
+    for i in range(L):   # history rows 0..t-1: random codes, realistic scales
+        for c in (cache.k[i], cache.v[i]):
+            c[:, :, :t] = torch.randint(-127, 128, c[:, :, :t].shape, generator=gen, device=dev,
+                                        dtype=torch.int8)
+        for c in (cache.k_scale[i], cache.v_scale[i]):
+            c[:, :, :t] = 0.02 + 0.01 * torch.rand(c[:, :, :t].shape, generator=gen, device=dev)
+        # planted: two history rows whose logits go far beyond the soft-cap
+        cache.k_scale[i][:, :, 3:5] *= 300.0
+    x = (torch.randn(BATCH, lm.hidden_size, generator=gen, device=dev) * 0.02
+         * lm.hidden_size ** 0.5).to(torch.bfloat16)
+    kw = dict(num_heads=lm.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=lm.attn_scale,
+              softcap=lm.attn_logit_softcap, eps=lm.rms_norm_eps)
+
+    def attn_args(i, pos):
+        cos, sin = rope_table(torch.tensor([pos], device=dev), D, lm.rope_theta)
+        lp = layers[i]
+        return (pos, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"],
+                lp["post_attn_norm"], cos[0].contiguous(), sin[0].contiguous(),
+                cache.k[i], cache.v[i], cache.k_scale[i], cache.v_scale[i])
+
+    res = {}
+    worst = 0.0
+    for pos in (0, t):
+        args = attn_args(0, pos)
+        got, want = dk.fused_attn_step(*args, **kw), dk.fused_attn_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, rows_close(f"fused_attn_step t={pos} x_out", got[0], want[0],
+                                      LAYER_TOL))
+        for name, a, b in (("k_new", got[1], want[1]), ("v_new", got[2], want[2])):
+            off = (a.int() - b.int()).abs()
+            equal = float((off == 0).float().mean())
+            print(f"[fused_attn_step t={pos}] {name} codes equal {equal:.6f} (need >= "
+                  f"{CODES_EQUAL_MIN}), largest difference {int(off.max())} (at most 1)")
+            if int(off.max()) > 1 or equal < CODES_EQUAL_MIN:
+                raise AssertionError(f"fused_attn_step t={pos}: {name} codes disagree")
+        for name, a, b in (("k_scale", got[3], want[3]), ("v_scale", got[4], want[4])):
+            r = float(((a - b).abs() / b).max())
+            print(f"[fused_attn_step t={pos}] {name} largest relative error {r:.3g} "
+                  f"(limit {SCALE_RTOL})")
+            if not r <= SCALE_RTOL:
+                raise AssertionError(f"fused_attn_step t={pos}: {name} disagrees")
+    if t:
+        q_reach = float(cache.k_scale[0][:, :, 3:5].max()) * 127 * lm.attn_scale
+        print(f"[fused_attn_step t={t}] planted history rows reach logits of the order of "
+              f"{q_reach:.0f} x |q| against a soft-cap of {lm.attn_logit_softcap}")
+    arg_sets = [attn_args(i, t) for i in range(L)]
+    nxt = cycle(arg_sets)
+    ms = time_ms(lambda: dk.fused_attn_step(*nxt(), **kw), 2 * L)
+    plain_ms = time_ms(lambda: dk.fused_attn_step_plain(*nxt(), **kw), 4)
+    lp = layers[0]
+    live = (nbytes(cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0]) * t) // S
+    n_w = lp["attn"]["qkv"]["w_int8"].numel() + lp["attn"]["o"]["w_int8"].numel()
+    bd = bound(nbytes(*_leaves(lp["attn"]), lp["input_norm"], lp["post_attn_norm"]) + live
+               + 2 * nbytes(x) + 2 * BATCH * KH * (D + 4), 2.0 * BATCH * n_w)
+    print(f"[fused_attn_step] t={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (on {card})")
+    res["fused_attn_step"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bd,
+                              "library_ms": None}
+
+    def mlp_args(i):
+        lp = layers[i]
+        return (x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"], lp["pre_ffn_norm"],
+                lp["post_ffn_norm"])
+
+    got = dk.fused_mlp_step(*mlp_args(0), eps=lm.rms_norm_eps)
+    want = dk.fused_mlp_step_plain(*mlp_args(0), eps=lm.rms_norm_eps)
+    torch.cuda.synchronize()
+    err = rows_close("fused_mlp_step", got, want, LAYER_TOL)
+    nxt = cycle([mlp_args(i) for i in range(L)])
+    ms = time_ms(lambda: dk.fused_mlp_step(*nxt(), eps=lm.rms_norm_eps), 2 * L)
+    plain_ms = time_ms(lambda: dk.fused_mlp_step_plain(*nxt(), eps=lm.rms_norm_eps), 4)
+    n_w = sum(lp["mlp"][k]["w_int8"].numel() for k in ("gate", "up", "down"))
+    bd = bound(nbytes(*_leaves(lp["mlp"]), lp["pre_ffn_norm"], lp["post_ffn_norm"])
+               + 2 * nbytes(x), 2.0 * BATCH * n_w)
+    print(f"[fused_mlp_step] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (on {card})")
+    res["fused_mlp_step"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+                             "library_ms": None}
+    return res
+
+
+def run_fused_layers(per_layer, cfg, dev, card, stacked_ids, stack_step_ms):
+    """50 greedy tokens at batch BATCH through fused_bridge_step ->
+    gemma2.decode_step_fused -> int8_matmul_t_argmax, from the per-layer int8
+    weights. Returns the two layer kernels' launch counts."""
+    from vlm_bridge_tpu_torch.inference.generate import _build_cross_cache
+    from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops import quant
+
+    lm, bc = cfg.lm, cfg.bridge
+    lmp = per_layer["lm"]
+    if not gemma2.supports_fused_decode(lmp, lm, NEW_TOKENS + 1):
+        raise AssertionError("the per-layer fused decode does not serve VLMConfig.default()")
+    vision = full_model.encode_image(per_layer, cfg, seeded_pixels(cfg, dev))
+    bst = bridge.stack_bridge_decode_params(per_layer["bridge"], bc)
+
+    def loop(n_tokens):
+        """(ids [B, 1 + n], first step's final hidden [B, H], seconds of the
+        token loop); the module attributes are looked up at call time, so
+        plain_decode() swaps them."""
+        bcache = _build_cross_cache(per_layer["bridge"], bc, vision, NEW_TOKENS + 1,
+                                    torch.bfloat16, kv_quant=True)
+        kv = gemma2.FusedKVCache.zeros(lm, BATCH, NEW_TOKENS + 1, device=dev)
+        tok = torch.full((BATCH,), lm.bos_token_id, dtype=torch.int32, device=dev)
+        ids, first = [tok], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_tokens):
+            emb = gemma2.embed(lmp, tok.long()[:, None]).to(torch.bfloat16)
+            x = dk.fused_bridge_step(t, emb[:, 0].contiguous(), bst, bcache.cross_k,
+                                     bcache.cross_k_scale, bcache.cross_v, bcache.cross_v_scale,
+                                     bcache.self_k, bcache.self_v,
+                                     num_heads_cross=bc.num_heads_cross,
+                                     num_heads_self=bc.num_heads_self, eps=bc.layer_norm_eps)
+            hidden, kv = gemma2.decode_step_fused(lmp, lm, x[:, None, :], kv, t)
+            if first is None:
+                first = hidden[:, 0].clone()
+            tok = quant.int8_matmul_t_argmax(hidden[:, 0].contiguous(), lmp["embedding"])
+            ids.append(tok)
+        torch.cuda.synchronize()
+        return torch.stack(ids, dim=1), first, time.perf_counter() - t0
+
+    wrappers = decode_wrappers()
+    with torch.no_grad():
+        loop(2)  # warm-up
+        for fn in wrappers.values():
+            fn.launches = 0
+        toks, _, dt = loop(NEW_TOKENS)
+        got = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+        want = {"fused_attn_step": lm.num_layers * NEW_TOKENS,
+                "fused_mlp_step": lm.num_layers * NEW_TOKENS, "fused_bridge_step": NEW_TOKENS,
+                "int8_matmul_t_argmax": NEW_TOKENS}
+        print(f"per-layer fused decode launches: {got}")
+        if got != want:
+            raise AssertionError(f"per-layer fused decode launched {got}, expected {want}")
+        toks_c = toks.cpu()
+        if not ((toks_c >= 0) & (toks_c < lm.vocab_size)).all():
+            raise AssertionError("token ids out of range")
+        share = float((toks_c[:, 1:] == stacked_ids[:, 1:]).float().mean())
+        first_eq = int((toks_c[:, 1] == stacked_ids[:, 1]).sum())
+        print(f"per-layer fused decode: {BATCH} rows x {NEW_TOKENS} tokens in {dt:.3f} s = "
+              f"{dt / NEW_TOKENS * 1e3:.3f} ms a token (bridge step, {lm.num_layers} x 2 layer "
+              f"calls, {4 * lm.num_layers} cache writes, head; host clock) against "
+              f"{stack_step_ms:.4f} ms of device time for the stack step alone; ids equal to "
+              f"the stacked path's: first tokens {first_eq} of {BATCH}, all tokens {share:.4f} "
+              f"(printed, not required: the residual is bf16 between the calls here and f32 "
+              f"there) on {card}")
+        ids_k, hidden_k, _ = loop(GREEDY_CHECK_TOKENS)
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        with plain_decode():
+            ids_p, hidden_p, _ = loop(GREEDY_CHECK_TOKENS)
+        if {n: fn.launches for n, fn in wrappers.items()} != before:
+            raise AssertionError("the plain per-layer fused loop launched a kernel")
+        hold_first_step(f"per-layer fused decode, {GREEDY_CHECK_TOKENS} tokens, kernels vs plain "
+                        "versions", ids_k.cpu(), ids_p.cpu(),
+                        quant.int8_matmul_t_plain(hidden_k, lmp["embedding"]),
+                        quant.int8_matmul_t_plain(hidden_p, lmp["embedding"]))
+    return {"fused_attn_step": got["fused_attn_step"], "fused_mlp_step": got["fused_mlp_step"]}
 
 
 def phase_int4_heads(table, dev, gen):
@@ -1307,8 +1878,9 @@ def main() -> int:
           f"(nvcc {'ran' if cuda_lib.build_seconds is not None else 'not needed'})", flush=True)
     log = cuda_lib.build_log.splitlines()
     for i, line in enumerate(log):  # ptxas -v: registers, shared memory and spills per kernel
-        tag = next((t for t in ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm", "argmax4_block",
-                                "logits4_block") if t in line), None)
+        tag = next((t for t in ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm",
+                                "argmax4_block", "logits4_block", "tiled_matmul_kernel",
+                                "layer_norm_kernel", "ls_attn_kernel") if t in line), None)
         if "Compiling entry function" in line and tag:
             mangled = line.split("'")[1]   # ...fa_fwd_kernelILi256ELi64EEvNS_8FaParamsE
             name = mangled[mangled.index(tag):].split("Ev")[0].split("EPK")[0]
@@ -1342,8 +1914,19 @@ def main() -> int:
         results["int8_matmul_t_argmax"] = phase_argmax_head(served, dev, gen)
         results["fused_stack_step"] = phase_stack(served, cfg, dev, gen)
         results["fused_bridge_step"] = phase_bridge(served, cfg, dev, gen)
-        serve_launches, int8_rate = run_serve(served, cfg, dev, card, gcfg)
+        serve_launches, int8_rate, default_run = run_serve(served, cfg, dev, card, gcfg)
         launches.update(serve_launches)
+        vit_gen = torch.Generator(device=dev)
+        vit_gen.manual_seed(SEED + 12)
+        mm_rows, launches["tiled_matmul"] = phase_tiled_matmul(params, cfg, dev, vit_gen, card)
+        results.update(mm_rows)
+        results["layer_norm_fast"] = phase_layer_norm(cfg, dev, vit_gen, card)
+        vit_launches = run_vit_kernels(params, served, cfg, dev, card, gcfg, default_run)
+        launches.update({k: vit_launches[k] for k in ("tiled_matmul[bias]", "layer_norm_fast")})
+        # `launches` of the bias-free row is the probe's counted pass; the encode's own count
+        # of that call site (0: run_vit_kernels requires it) stands beside it
+        results["tiled_matmul"]["encode_launches"] = vit_launches["tiled_matmul"]
+    stacked_ids = default_run[0]
     mlp8_bytes = nbytes(*(served["lm"]["stacked_decode"][k]
                           for k in ("wgu", "gu_scale", "wd", "d_scale")))
     del served
@@ -1355,6 +1938,9 @@ def main() -> int:
         results.update(phase_int8_linear(per_layer, cfg, dev, i8_gen))
         results["int8_matmul_t"] = phase_logits_head(per_layer, dev, i8_gen)
         launches.update(run_sample(per_layer, cfg, dev, card))
+        results.update(phase_fused_layer(per_layer, cfg, dev, i8_gen, card))
+        launches.update(run_fused_layers(per_layer, cfg, dev, card, stacked_ids,
+                                         results["fused_stack_step"]["ms"]))
 
     # the int4 recipe, from the same weights: int4 table, int4 MLP weights in the stack
     i4_gen = torch.Generator(device=dev)
@@ -1409,6 +1995,13 @@ def main() -> int:
                                               "vlm_bridge_tpu/ops/decode_kernels.py:707"),
                "fused_bridge_step": ("bridge_step.cu",
                                      "vlm_bridge_tpu/ops/decode_kernels.py:1228"),
+               "fused_attn_step": ("layer_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:249"),
+               "fused_mlp_step": ("layer_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:965"),
+               # one kernel, both pallas_call sites of _tiled_matmul_jit (:68)
+               "tiled_matmul": ("tiled_matmul.cu", "vlm_bridge_tpu/ops/matmul_kernels.py:104"),
+               "tiled_matmul[bias]": ("tiled_matmul.cu",
+                                      "vlm_bridge_tpu/ops/matmul_kernels.py:93"),
+               "layer_norm_fast": ("layer_norm.cu", "vlm_bridge_tpu/ops/norm_kernels.py:46"),
                "flash_attention_fwd": (fa_src, f"{fa_py}:194"),
                "flash_attention_bwd_dq": (fa_src, f"{fa_py}:358"),
                "flash_attention_bwd_dkv": (fa_src, f"{fa_py}:382")}

@@ -546,3 +546,242 @@ def test_stack_step_int4_mlp_kernel_matches_plain(dev, group):
     want = dk.fused_stack_step_plain(0, x, st, *cp, cos, sin, **kw)
     assert bool(torch.isfinite(got.float()).all())
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The ViT's kernels (tiled matmul, LayerNorm) and the per-layer fused decode
+# ---------------------------------------------------------------------------
+
+BF16_STEP = 2.0 ** -7  # one bf16 step of a row's largest value (chip_smoke.py: I8_TOL)
+
+
+def _rows_close(got, want, tol=BF16_STEP):
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1).clamp_min(1e-30)
+    assert float((diff / scale).max()) <= tol, float((diff / scale).max())
+
+
+MM_CASES = [  # M, K, N, bias, gelu, out_dtype
+    (257, 64, 96, False, False, None),        # ragged rows
+    (512, 128, 256, False, False, None),      # whole tiles
+    (520, 64, 136, True, False, None),        # ragged rows and columns
+    (320, 64, 160, True, True, None),         # bias + GELU
+    (1100, 4096, 1024, True, False, torch.float32),   # a deep contraction, f32 out
+    (16448, 1024, 1024, True, False, None),   # the ViT's o projection at batch 64
+]
+
+
+@pytest.mark.parametrize("M,K,N,bias,gelu,out_dtype", MM_CASES,
+                         ids=[f"M{c[0]}_K{c[1]}_N{c[2]}" for c in MM_CASES])
+def test_tiled_matmul_kernel_matches_plain(dev, M, K, N, bias, gelu, out_dtype):
+    from vlm_bridge_tpu_torch.ops import matmul_kernels as mk
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    a = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    bs = torch.randn(N, generator=g, device=dev) if bias else None
+    n, nb = mk.tiled_matmul.launches, mk.tiled_matmul.bias_launches
+    got = mk.tiled_matmul(a, b, bs, gelu=gelu, out_dtype=out_dtype)
+    want = mk.tiled_matmul_plain(a, b, bs, gelu=gelu, out_dtype=out_dtype)
+    assert got.dtype == (out_dtype or torch.bfloat16) and got.shape == (M, N)
+    assert (mk.tiled_matmul.launches, mk.tiled_matmul.bias_launches) == (n + 1, nb + int(bias))
+    # both round one f32 sum, taken in another order, to the output type
+    _rows_close(got, want, BF16_STEP if out_dtype is None else 1e-5)
+    assert torch.equal(got, mk.tiled_matmul(a, b, bs, gelu=gelu, out_dtype=out_dtype))
+
+
+def test_tiled_matmul_refuses_what_the_kernel_does_not_take(dev):
+    from vlm_bridge_tpu_torch.ops import matmul_kernels as mk
+
+    a = torch.randn(64, 64, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mk.tiled_matmul(a.half(), a.half())
+    with pytest.raises(ValueError, match="bfloat16"):
+        mk.tiled_matmul(a, a)
+    bf = a.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mk.tiled_matmul(bf[:, :60].contiguous(), bf[:60].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        mk.tiled_matmul(bf, bf, torch.zeros(64, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("rows,H,dtype", [(1030, 1024, torch.bfloat16),
+                                          (2048, 2304, torch.float32),
+                                          (7, 136, torch.bfloat16)])
+def test_layer_norm_kernel_matches_plain_and_backward(dev, rows, H, dtype):
+    from vlm_bridge_tpu_torch.ops import norm_kernels as nk
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = (torch.randn(rows, H, generator=g, device=dev) * 3 + 5).to(dtype)
+    scale = torch.randn(H, generator=g, device=dev)
+    bias = torch.randn(H, generator=g, device=dev)
+    n = nk.layer_norm_fast.launches
+    got = nk.layer_norm_fast(x, scale, bias, 1e-6)
+    want = nk.layer_norm_fast_plain(x, scale, bias, 1e-6)
+    assert nk.layer_norm_fast.launches == n + 1 and got.dtype == dtype
+    _rows_close(got, want, BF16_STEP if dtype == torch.bfloat16 else 1e-5)
+    # the backward through the Function (plain closed form) against autograd of the plain version
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    ref = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    dy = torch.randn(rows, H, generator=g, device=dev).to(dtype)
+    nk.layer_norm_fast(*leaves, 1e-6).backward(dy)
+    nk.layer_norm_fast_plain(*ref, 1e-6).backward(dy)
+    for a, b in zip(leaves, ref):
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4   # x's gradient is rounded to bf16
+        assert float((a.grad.float() - b.grad.float()).abs().max()) <= \
+            tol * float(b.grad.float().abs().max())
+
+
+def test_layer_norm_refuses_f16_and_dispatches_by_the_variable(dev, monkeypatch):
+    from vlm_bridge_tpu_torch.ops import layers
+    from vlm_bridge_tpu_torch.ops import norm_kernels as nk
+
+    x = torch.randn(1024, 128, device=dev)
+    ones, zeros = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        nk.layer_norm_fast(x.half(), ones, zeros, 1e-6)
+    n = nk.layer_norm_fast.launches
+    monkeypatch.delenv("VLM_BRIDGE_LN_KERNEL", raising=False)
+    base = layers.layer_norm(x, ones, zeros, 1e-6)
+    assert nk.layer_norm_fast.launches == n
+    monkeypatch.setenv("VLM_BRIDGE_LN_KERNEL", "1")
+    fast = layers.layer_norm(x.reshape(4, 256, 128), ones, zeros, 1e-6)
+    assert nk.layer_norm_fast.launches == n + 1
+    assert float((fast.reshape(1024, 128) - base).abs().max()) <= 1e-5
+    layers.layer_norm(x[:1023], ones, zeros, 1e-6)
+    assert nk.layer_norm_fast.launches == n + 1
+
+
+def _layer_case(dev, seed, H=256, F=512, NH=4, KH=2, D=64, L=3):
+    from vlm_bridge_tpu_torch.configs import Gemma2Config
+    from vlm_bridge_tpu_torch.models import gemma2
+
+    cfg = Gemma2Config(vocab_size=512, hidden_size=H, intermediate_size=F, num_layers=L,
+                       num_heads=NH, num_kv_heads=KH, head_dim=D, query_pre_attn_scalar=float(D),
+                       sliding_window=128)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = gemma2.init(cfg, generator=g, device=dev)
+    for lp in p["layers"].values():   # norms away from their zero init
+        for k in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
+            lp[k] = (torch.randn(H, generator=g, device=dev) * 0.1).to(lp[k].dtype)
+    return cfg, gemma2.quantize_params(p), g
+
+
+@pytest.mark.parametrize("t", [0, 1, 37])
+def test_fused_attn_step_kernel_matches_plain(dev, t):
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    cfg, q, g = _layer_case(dev, 33)
+    lp = q["layers"]["1"]
+    B, KH, D, S = 5, cfg.num_kv_heads, cfg.head_dim, 64
+    kc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    ks = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    vs = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    # rows at and beyond t hold anything: they must not be read
+    ks[:, :, t:] = float("nan")
+    vs[:, :, t:] = float("inf")
+    x = torch.randn(B, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev), D))
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    args = (t, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"],
+            lp["post_attn_norm"], cos, sin, kc, vc, ks, vs)
+    before = [c.clone() for c in (kc, vc)]
+    n = dk.fused_attn_step.launches
+    got = dk.fused_attn_step(*args, **kw)
+    want = dk.fused_attn_step_plain(*args, **kw)
+    assert dk.fused_attn_step.launches == n + 1
+    assert torch.equal(kc, before[0]) and torch.equal(vc, before[1])   # the cache is only read
+    assert bool(torch.isfinite(got[0].float()).all())
+    _rows_close(got[0], want[0], 2 * BF16_STEP)
+    for i in (1, 2):   # int8 codes: a value on a rounding boundary may land one code away
+        assert got[i].shape == (B, KH * D) and got[i].dtype == torch.int8
+        assert ((got[i].int() - want[i].int()).abs() <= 1).all()
+        assert (got[i] == want[i]).float().mean() > 0.99
+    for i in (3, 4):
+        assert got[i].shape == (KH, B)
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0)
+
+
+def test_fused_mlp_step_kernel_matches_plain(dev):
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    cfg, q, g = _layer_case(dev, 34)
+    lp = q["layers"]["2"]
+    x = torch.randn(6, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    args = (x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"], lp["pre_ffn_norm"],
+            lp["post_ffn_norm"])
+    n = dk.fused_mlp_step.launches
+    got = dk.fused_mlp_step(*args, eps=1e-6)
+    assert dk.fused_mlp_step.launches == n + 1
+    _rows_close(got, dk.fused_mlp_step_plain(*args, eps=1e-6), 2 * BF16_STEP)
+    with pytest.raises(ValueError, match="bfloat16"):
+        dk.fused_mlp_step(x.float(), *args[1:], eps=1e-6)
+    with pytest.raises(ValueError, match="post_norm: expected torch.bfloat16"):
+        dk.fused_mlp_step(x, *args[1:5], lp["post_ffn_norm"].float(), eps=1e-6)
+
+
+def test_decode_step_fused_runs_the_kernels(dev):
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    cfg, q, g = _layer_case(dev, 35)
+    B = 4
+    ck, cp = (gemma2.FusedKVCache.zeros(cfg, B, 16, device=dev) for _ in range(2))
+    assert ck.k[0].shape == (B, cfg.num_kv_heads, 64, cfg.head_dim) and ck.k[0].is_cuda
+    for t in range(3):
+        tok = torch.randn(B, 1, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+        n = (dk.fused_attn_step.launches, dk.fused_mlp_step.launches)
+        h_k, ck = gemma2.decode_step_fused(q, cfg, tok, ck, t)
+        assert (dk.fused_attn_step.launches, dk.fused_mlp_step.launches) == \
+            (n[0] + cfg.num_layers, n[1] + cfg.num_layers)
+        real = (dk.fused_attn_step, dk.fused_mlp_step)
+        dk.fused_attn_step, dk.fused_mlp_step = dk.fused_attn_step_plain, dk.fused_mlp_step_plain
+        try:
+            h_p, cp = gemma2.decode_step_fused(q, cfg, tok, cp, t)
+        finally:
+            dk.fused_attn_step, dk.fused_mlp_step = real
+        _close(h_k, h_p)
+    for i in range(cfg.num_layers):
+        assert ((ck.k[i][:, :, :3].int() - cp.k[i][:, :, :3].int()).abs() <= 1).float().mean() > 0.99
+        torch.testing.assert_close(ck.v_scale[i][:, :, :3], cp.v_scale[i][:, :, :3], rtol=2e-2,
+                                   atol=0)
+        assert (ck.k[i][:, :, 3:] == 0).all()
+
+
+def test_vit_routes_through_the_kernels(dev, monkeypatch):
+    from vlm_bridge_tpu_torch.configs import DinoV2Config
+    from vlm_bridge_tpu_torch.models import dinov2
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+    from vlm_bridge_tpu_torch.ops import matmul_kernels as mk
+    from vlm_bridge_tpu_torch.ops import norm_kernels as nk
+    from vlm_bridge_tpu_torch.ops import quant
+
+    cfg = DinoV2Config(hidden_size=256, num_layers=2, num_heads=4, image_size=224)
+    assert cfg.head_dim == 64
+    g = torch.Generator(device=dev).manual_seed(36)
+    params = dinov2.init(cfg, generator=g, device=dev)
+    px = torch.randn(5, 224, 224, 3, generator=g, device=dev).to(torch.bfloat16)
+    monkeypatch.delenv("VLM_BRIDGE_VIT_MM", raising=False)
+    monkeypatch.delenv("VLM_BRIDGE_LN_KERNEL", raising=False)
+    counts = lambda: (mk.tiled_matmul.bias_launches, nk.layer_norm_fast.launches,  # noqa: E731
+                      fa.flash_attention_fwd.launches, quant.int8_matmul.launches)
+    n0 = counts()
+    base = dinov2.forward(params, cfg, px)
+    n1 = counts()
+    assert tuple(b - a for a, b in zip(n0, n1)) == (0, 0, cfg.num_layers, 0)
+    monkeypatch.setenv("VLM_BRIDGE_VIT_MM", "kernel")
+    monkeypatch.setenv("VLM_BRIDGE_LN_KERNEL", "1")
+    routed = dinov2.forward(params, cfg, px)
+    n2 = counts()
+    assert tuple(b - a for a, b in zip(n1, n2)) == (4 * cfg.num_layers, 2 * cfg.num_layers + 1,
+                                                    cfg.num_layers, 0)
+    _close(routed, base)
+    quantized = dinov2.forward(dinov2.quantize_vision_params(params), cfg, px)
+    n3 = counts()
+    assert tuple(b - a for a, b in zip(n2, n3)) == (0, 2 * cfg.num_layers + 1, cfg.num_layers,
+                                                    4 * cfg.num_layers)
+    err = float((quantized.float() - base.float()).abs().max() / base.float().abs().max())
+    assert err <= 0.1, err

@@ -31,7 +31,8 @@ def test_port_imports_without_jax():
     assert {"vlm_bridge_tpu_torch.ops.sampling", "vlm_bridge_tpu_torch.inference.robust",
             "vlm_bridge_tpu_torch.inference.evaluate", "vlm_bridge_tpu_torch.inference.metrics",
             "vlm_bridge_tpu_torch.data.loader", "vlm_bridge_tpu_torch.data.groundcap",
-            "vlm_bridge_tpu_torch.data.pixel_cache"} <= set(mods)
+            "vlm_bridge_tpu_torch.data.pixel_cache", "vlm_bridge_tpu_torch.ops.matmul_kernels",
+            "vlm_bridge_tpu_torch.ops.norm_kernels"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None\n"
             "import importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -49,7 +50,8 @@ def test_port_imports_without_jax():
 def _port_files():
     return (sorted((REPO / "vlm_bridge_tpu_torch").rglob("*.py"))
             + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_train_torch.py",
-               REPO / "scripts" / "tune_int8_linear_torch.py"])
+               REPO / "scripts" / "tune_int8_linear_torch.py",
+               REPO / "scripts" / "tune_int4_torch.py", REPO / "scripts" / "vit_ab_torch.py"])
 
 
 def test_no_import_of_jax_or_the_jax_package():
@@ -227,6 +229,29 @@ def test_flash_wrappers_on_cpu_take_plain_path_and_count_nothing(monkeypatch):
     assert [fn.launches for fn in counted] == before
 
 
+def test_vit_wrappers_on_cpu_take_plain_path_and_count_nothing(monkeypatch):
+    from vlm_bridge_tpu_torch.ops import cuda_lib
+    from vlm_bridge_tpu_torch.ops import matmul_kernels as mk
+    from vlm_bridge_tpu_torch.ops import norm_kernels as nk
+
+    monkeypatch.setattr(cuda_lib, "lib", lambda: pytest.fail("a CPU tensor built the kernels"))
+    before = (mk.tiled_matmul.launches, mk.tiled_matmul.bias_launches, nk.layer_norm_fast.launches)
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(9, 12, generator=g), torch.randn(12, 10, generator=g)   # widths no kernel takes
+    bias = torch.randn(10, generator=g)
+    for kw in (dict(), dict(gelu=True), dict(out_dtype=torch.bfloat16)):
+        assert torch.equal(mk.tiled_matmul(a, b, bias, **kw), mk.tiled_matmul_plain(a, b, bias, **kw))
+    assert torch.equal(mk.tiled_matmul(a, b), mk.tiled_matmul_plain(a, b))
+    torch.testing.assert_close(mk.tiled_matmul(a, b, bias, gelu=True),
+                               torch.nn.functional.gelu(a @ b + bias))
+    x, s, c = torch.randn(5, 12, generator=g), torch.randn(12, generator=g), torch.randn(12, generator=g)
+    assert torch.equal(nk.layer_norm_fast(x, s, c, 1e-6), nk.layer_norm_fast_plain(x, s, c, 1e-6))
+    torch.testing.assert_close(nk.layer_norm_fast(x, s, c, 1e-6),
+                               torch.nn.functional.layer_norm(x, (12,), s, c, 1e-6))
+    assert (mk.tiled_matmul.launches, mk.tiled_matmul.bias_launches,
+            nk.layer_norm_fast.launches) == before
+
+
 def test_kernel_sources_ship_and_name_what_they_replace():
     csrc = REPO / "vlm_bridge_tpu_torch" / "csrc"
     replaced = {"stack_step.cu": "decode_kernels.py:fused_stack_step",
@@ -234,12 +259,17 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                 "int8_argmax.cu": "quant.py:int8_matmul_t_argmax",
                 "int8_linear.cu": "quant.py:int8_matmul",
                 "int4_linear.cu": "quant.py:int4_mlp",
-                "flash_attention.cu": "flash_attention.py:_flash_fwd"}
+                "flash_attention.cu": "flash_attention.py:_flash_fwd",
+                "layer_step.cu": "decode_kernels.py:fused_attn_step",
+                "tiled_matmul.cu": "matmul_kernels.py:_tiled_matmul_jit",
+                "layer_norm.cu": "norm_kernels.py:_ln_forward"}
     for name, target in replaced.items():
         text = (csrc / name).read_text()
         assert f"Replaces: vlm_bridge_tpu/ops/{target}" in text
         assert "Bound:" in text
     assert "flash_attention.py:_flash_bwd" in (csrc / "flash_attention.cu").read_text()
+    assert "vlm_bridge_tpu/ops/decode_kernels.py:fused_mlp_step" in \
+        (csrc / "layer_step.cu").read_text()
     for target in ("quant.py:int8_mlp", "quant.py:int8_ffn"):
         assert f"vlm_bridge_tpu/ops/{target}" in (csrc / "int8_linear.cu").read_text()
     assert "Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t," in \
@@ -263,6 +293,10 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                        ("vbt_int4_matmul_t", "int8_argmax.cu"),
                        ("vbt_int4_matmul_t_argmax", "int8_argmax.cu"),
                        ("vbt_int4_mlp", "int4_linear.cu"),
-                       ("vbt_fused_stack_step", "stack_step.cu")):
+                       ("vbt_fused_stack_step", "stack_step.cu"),
+                       ("vbt_fused_attn_step", "layer_step.cu"),
+                       ("vbt_fused_mlp_step", "layer_step.cu"),
+                       ("vbt_tiled_matmul", "tiled_matmul.cu"),
+                       ("vbt_layer_norm", "layer_norm.cu")):
         assert entry in cuda_lib.SIGNATURES
         assert f'extern "C" int {entry}(' in (csrc / src).read_text()

@@ -61,6 +61,18 @@ __device__ __forceinline__ float dot4_i8(const float* q, uint32_t w) {
          q[2] * (float)(int8_t)((w >> 16) & 0xff) + q[3] * (float)(int8_t)(w >> 24);
 }
 
+// Per-vector int8 of a new K or V row (the cache's format): the scale of a
+// vector from its largest magnitude, and a value's code under that scale
+// (round half to even, clipped).
+__device__ __forceinline__ float kv_scale(float absmax) { return fmaxf(absmax, 1e-12f) / 127.f; }
+
+__device__ __forceinline__ int8_t kv_code(float v, float scale) {
+  return (int8_t)fminf(fmaxf(rintf(v / scale), -127.f), 127.f);
+}
+
+// Gemma-2's logit soft-cap.
+__device__ __forceinline__ float soft_cap(float l, float cap) { return tanhf(l / cap) * cap; }
+
 // Row kernels (residual + norm) keep one row of up to 256 * ROW_REGS values
 // in registers, 256 threads a row.
 constexpr int ROW_REGS = 16;

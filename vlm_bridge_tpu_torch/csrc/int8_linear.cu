@@ -199,8 +199,12 @@ i8l_product_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ W0,
   }
 }
 
-int launch_product(const bf16* X, const int8_t* W0, const int8_t* W1, float* P, int M, int N,
-                   int K, int splits, cudaStream_t st) {
+}  // namespace
+
+// Declared in linear_common.cuh: the per-layer decode steps (layer_step.cu)
+// run their four products through it too.
+int launch_i8l_product(const bf16* X, const int8_t* W0, const int8_t* W1, float* P, int M, int N,
+                       int K, int splits, cudaStream_t st) {
   if (N % 16 != 0 || K % 8 != 0 || splits < 1) return (int)cudaErrorInvalidValue;
   static bool allowed = false;
   if (!allowed) {
@@ -217,15 +221,13 @@ int launch_product(const bf16* X, const int8_t* W0, const int8_t* W1, float* P, 
   return 0;
 }
 
-}  // namespace
-
 // y[M, N] bf16 = (x[M, K] bf16 . w[K, N] int8) * scale[N]. part: f32 scratch
 // of splits * M * N.
 extern "C" int vbt_int8_matmul(const void* x, const void* w, const void* scale, void* part,
                                void* y, int M, int K, int N, int splits, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  int rc = launch_product((const bf16*)x, (const int8_t*)w, nullptr, (float*)part, M, N, K,
-                          splits, st);
+  int rc = launch_i8l_product((const bf16*)x, (const int8_t*)w, nullptr, (float*)part, M, N, K,
+                              splits, st);
   if (rc != 0) return rc;
   return launch_epilogue<EPI_SCALE>((const float*)part, splits, M, N, (const float*)scale,
                                     nullptr, nullptr, (bf16*)y, st);
@@ -238,13 +240,13 @@ extern "C" int vbt_int8_mlp(const void* x, const void* gate, const void* up, con
                             void* hidden, void* y, int M, int H, int F, int splits1,
                             int splits2, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  int rc = launch_product((const bf16*)x, (const int8_t*)gate, (const int8_t*)up, (float*)part,
+  int rc = launch_i8l_product((const bf16*)x, (const int8_t*)gate, (const int8_t*)up, (float*)part,
                           M, F, H, splits1, st);
   if (rc != 0) return rc;
   rc = launch_epilogue<EPI_GEGLU>((const float*)part, splits1, M, F, (const float*)gs,
                                   (const float*)us, nullptr, (bf16*)hidden, st);
   if (rc != 0) return rc;
-  rc = launch_product((const bf16*)hidden, (const int8_t*)down, nullptr, (float*)part, M, H, F,
+  rc = launch_i8l_product((const bf16*)hidden, (const int8_t*)down, nullptr, (float*)part, M, H, F,
                       splits2, st);
   if (rc != 0) return rc;
   return launch_epilogue<EPI_SCALE>((const float*)part, splits2, M, H, (const float*)ds,
@@ -258,13 +260,13 @@ extern "C" int vbt_int8_ffn(const void* x, const void* fc1, const void* s1, cons
                             void* hidden, void* y, int M, int H, int F, int splits1,
                             int splits2, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  int rc = launch_product((const bf16*)x, (const int8_t*)fc1, nullptr, (float*)part, M, F, H,
+  int rc = launch_i8l_product((const bf16*)x, (const int8_t*)fc1, nullptr, (float*)part, M, F, H,
                           splits1, st);
   if (rc != 0) return rc;
   rc = launch_epilogue<EPI_GELU_ERF>((const float*)part, splits1, M, F, (const float*)s1,
                                      nullptr, (const float*)b1, (bf16*)hidden, st);
   if (rc != 0) return rc;
-  rc = launch_product((const bf16*)hidden, (const int8_t*)fc2, nullptr, (float*)part, M, H, F,
+  rc = launch_i8l_product((const bf16*)hidden, (const int8_t*)fc2, nullptr, (float*)part, M, H, F,
                       splits2, st);
   if (rc != 0) return rc;
   return launch_epilogue<EPI_SCALE>((const float*)part, splits2, M, H, (const float*)s2,

@@ -1,9 +1,17 @@
-// The second pass of the split linear layers (int8_linear.cu,
-// int4_linear.cu): adds the product kernel's K slices in a fixed order,
-// applies scale, bias and activation, and rounds to bf16.
+// What the split linear layers share (int8_linear.cu, int4_linear.cu,
+// layer_step.cu): the int8 product kernel's launcher, and the second pass
+// that adds the product kernel's K slices in a fixed order, applies scale,
+// bias and activation, and rounds to bf16.
 #pragma once
 
 #include "common.cuh"
+
+// P[split][source][M][N] (one source when W1 is null) = raw f32 sums of
+// X[M, K] (bf16) . W[K, N] (int8, row-major [in, out]) over each of `splits`
+// slices of K; with W1 the two sources share their columns (gate and up).
+// Defined in int8_linear.cu. Requires N % 16 == 0 and K % 8 == 0.
+int launch_i8l_product(const bf16* X, const int8_t* W0, const int8_t* W1, float* P, int M, int N,
+                       int K, int splits, cudaStream_t st);
 
 namespace {
 

@@ -26,6 +26,19 @@
 //
 // Cache layout (this port's own): K/V [L, B, KH, S, D] int8, so one block
 // reads one contiguous [S, D] slab per (row, kv head); scales [L, B, KH, S].
+//
+// The per-layer steps (layer_step.cu: fused_attn_step, fused_mlp_step) compute
+// the same layer in two calls. The two files share the helpers of common.cuh
+// (the block reductions, dot4_i8, kv_scale / kv_code for the per-vector int8
+// of a new K/V row, soft_cap), not their kernels, because they round at
+// other places: here every value between two stages stays f32, stored as
+// bf16 hi + lo halves for the split-K GEMM of i8_gemm.cu over weights in
+// fragment order, the residual is f32 across all layers, and the attention
+// kernel writes cache row t itself; there the normed input, q, p * v_scale,
+// the attention output and the MLP hidden are rounded to one bf16 value each,
+// as the TPU's per-layer kernels round them, the products run through the
+// row-major int8 product kernel of int8_linear.cu, the residual is rounded to
+// bf16 at the end of each half, and the cache is only read.
 
 #include "common.cuh"
 
@@ -111,11 +124,10 @@ __global__ void stack_attn_kernel(const float* __restrict__ qkv, const float* __
   const float vnew = row[QHD + KHD + kh * D + d];
   const float kamax = block_max(fabsf(knew), red);
   const float vamax = block_max(fabsf(vnew), red);
-  const float ksc = fmaxf(kamax, 1e-12f) / 127.f;
-  const float vsc = fmaxf(vamax, 1e-12f) / 127.f;
+  const float ksc = kv_scale(kamax), vsc = kv_scale(vamax);
   const size_t slab = ((size_t)b * KH + kh) * S;  // row index of (b, kh, 0)
-  kc[(slab + t) * D + d] = (int8_t)fminf(fmaxf(rintf(knew / ksc), -127.f), 127.f);
-  vc[(slab + t) * D + d] = (int8_t)fminf(fmaxf(rintf(vnew / vsc), -127.f), 127.f);
+  kc[(slab + t) * D + d] = kv_code(knew, ksc);
+  vc[(slab + t) * D + d] = kv_code(vnew, vsc);
   if (d == 0) {
     ks[slab + t] = ksc;
     vs[slab + t] = vsc;
@@ -135,8 +147,7 @@ __global__ void stack_attn_kernel(const float* __restrict__ qkv, const float* __
     for (int e = lane; e < D / 4; e += 32) acc += dot4_i8(&q[g * D + 4 * e], kj[e]);
     acc = warp_sum(acc);
     if (lane == 0) {
-      float l = acc * ks[slab + j] * attn_scale;
-      lg[g * n + j] = tanhf(l / softcap) * softcap;
+      lg[g * n + j] = soft_cap(acc * ks[slab + j] * attn_scale, softcap);
     }
   }
   __syncthreads();

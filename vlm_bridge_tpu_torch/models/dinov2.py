@@ -2,10 +2,17 @@
 
 Patch embedding as reshape + matmul over NHWC pixels, CLS token, position
 embeddings bicubically resized to the input grid, then pre-LN transformer
-layers with LayerScale and a final LayerNorm. Attention is the plain product
-and softmax of ops.attention._attention_reference (S = 257 at 224 px; the
-tower is frozen and has no backward). The int8 vision tower and the SwiGLU
-(giant) FFN are not ported yet.
+layers with LayerScale and a final LayerNorm; the FFN is the GELU MLP (base,
+large) or the SwiGLU FFN (giant). The tower is frozen and has no backward.
+
+Attention goes through ops.attention.dot_product_attention (head dim 64, no
+mask: the flash forward kernel on CUDA tensors). With VLM_BRIDGE_VIT_MM=kernel
+(or =pallas) the four float projections of each layer run
+ops.matmul_kernels.tiled_matmul, and with VLM_BRIDGE_LN_KERNEL set the norms
+run ops.norm_kernels.layer_norm_fast (see ops.layers.layer_norm); both are
+off by default, as in the JAX package. `quantize_vision_params` (--quantize
+vision) turns the layers' projections into int8 dicts, which `linear` sends
+to ops.quant.int8_matmul.
 """
 
 from __future__ import annotations
@@ -13,19 +20,18 @@ from __future__ import annotations
 import torch
 
 from vlm_bridge_tpu_torch.configs import DinoV2Config
-from vlm_bridge_tpu_torch.ops.attention import _attention_reference
+from vlm_bridge_tpu_torch.ops import matmul_kernels as mk
+from vlm_bridge_tpu_torch.ops.attention import dot_product_attention
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, layer_norm, linear
+from vlm_bridge_tpu_torch.ops.quant import quantize_int8
 
 
 def init(cfg: DinoV2Config, *, generator: torch.Generator, dtype=torch.bfloat16,
          device=None) -> dict:
     """Random init with the JAX `init`'s shapes and distributions, drawn from
     `generator` on `device`."""
-    if cfg.use_swiglu_ffn:
-        raise NotImplementedError("SwiGLU (dinov2-giant) FFN not ported yet")
     h = cfg.hidden_size
     n_pos = cfg.native_grid ** 2 + 1
-    mlp_hidden = h * cfg.mlp_ratio
 
     def normal(*shape):
         return (torch.randn(*shape, generator=generator, device=device) * 0.02).to(dtype)
@@ -36,14 +42,21 @@ def init(cfg: DinoV2Config, *, generator: torch.Generator, dtype=torch.bfloat16,
     def ln():
         return {"scale": torch.ones(h, dtype=dtype, device=device), "bias": zeros(h)}
 
+    def mlp():
+        if cfg.use_swiglu_ffn:  # dinov2-giant
+            hf = cfg.swiglu_hidden
+            return {"win": normal(h, 2 * hf), "win_bias": zeros(2 * hf),
+                    "wout": normal(hf, h), "wout_bias": zeros(h)}
+        mlp_hidden = h * cfg.mlp_ratio
+        return {"fc1": normal(h, mlp_hidden), "fc1_bias": zeros(mlp_hidden),
+                "fc2": normal(mlp_hidden, h), "fc2_bias": zeros(h)}
+
     layers = {}
     for i in range(cfg.num_layers):
+        attn = {"qkv": torch.cat([normal(h, h), normal(h, h), normal(h, h)], dim=1),
+                "qkv_bias": zeros(3 * h), "o": normal(h, h), "o_bias": zeros(h)}
         layers[str(i)] = {
-            "norm1": ln(), "norm2": ln(),
-            "attn": {"qkv": torch.cat([normal(h, h), normal(h, h), normal(h, h)], dim=1),
-                     "qkv_bias": zeros(3 * h), "o": normal(h, h), "o_bias": zeros(h)},
-            "mlp": {"fc1": normal(h, mlp_hidden), "fc1_bias": zeros(mlp_hidden),
-                    "fc2": normal(mlp_hidden, h), "fc2_bias": zeros(h)},
+            "norm1": ln(), "norm2": ln(), "attn": attn, "mlp": mlp(),
             "layerscale1": torch.full((h,), cfg.layerscale_value, dtype=dtype, device=device),
             "layerscale2": torch.full((h,), cfg.layerscale_value, dtype=dtype, device=device),
         }
@@ -55,6 +68,31 @@ def init(cfg: DinoV2Config, *, generator: torch.Generator, dtype=torch.bfloat16,
         "final_norm": ln(),
         "layers": layers,
     }
+
+
+def quantize_vision_params(params: dict) -> dict:
+    """Int8 weight-only quantization of the encoder's transformer matmuls
+    (`--quantize vision`): each layer's qkv / o / fc1 / fc2 (or SwiGLU win /
+    wout) becomes a per-output-channel int8 dict, which `linear` sends to
+    ops.quant.int8_matmul (and `_proj` leaves to `linear`). The patch
+    embedding, the position and CLS embeddings, the norms, the LayerScales and
+    the biases stay in the float dtype."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    layers = {}
+    for name, lp in params["layers"].items():
+        lp = dict(lp)
+        attn = dict(lp["attn"])
+        attn["qkv"] = quantize_int8(attn["qkv"], axis=0)
+        attn["o"] = quantize_int8(attn["o"], axis=0)
+        lp["attn"] = attn
+        mlp = dict(lp["mlp"])
+        for w in ("fc1", "fc2", "win", "wout"):
+            if w in mlp:
+                mlp[w] = quantize_int8(mlp[w], axis=0)
+        lp["mlp"] = mlp
+        layers[name] = lp
+    out["layers"] = layers
+    return out
 
 
 def _cubic_weight_mat(in_size: int, out_size: int, device=None) -> torch.Tensor:
@@ -92,15 +130,38 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, cfg: DinoV2Config, grid: int)
     return torch.cat([pos_embed[:, :1], patch], dim=1)
 
 
+def _proj(x: torch.Tensor, w, b: torch.Tensor, *, gelu: bool = False) -> torch.Tensor:
+    """Encoder projection: [B, T, K] @ [K, N] + bias (+ exact GELU). A float
+    weight goes through ops.matmul_kernels.tiled_matmul when
+    VLM_BRIDGE_VIT_MM selects it (weight cast to x.dtype, bias passed as
+    f32); otherwise, and for an int8 dict, through `linear`."""
+    if mk.vit_mm_mode() == "kernel" and not isinstance(w, dict) and x.dim() == 3:
+        B, T, K = x.shape
+        y = mk.tiled_matmul(x.reshape(B * T, K).contiguous(), w.to(x.dtype).contiguous(),
+                            b.float(), gelu=gelu)
+        return y.reshape(B, T, -1)
+    y = linear(x, w, b)
+    return gelu_exact(y) if gelu else y
+
+
+def _mlp(mp: dict, x: torch.Tensor) -> torch.Tensor:
+    """GELU MLP (base / large) or SwiGLU FFN (giant: weights_in -> two halves
+    -> silu(x1) * x2 -> weights_out)."""
+    if "win" in mp:
+        x1, x2 = linear(x, mp["win"], mp["win_bias"]).chunk(2, dim=-1)
+        return linear(torch.nn.functional.silu(x1) * x2, mp["wout"], mp["wout_bias"])
+    h = _proj(x, mp["fc1"], mp["fc1_bias"], gelu=True)
+    return _proj(h, mp["fc2"], mp["fc2_bias"])
+
+
 def _attention(lp: dict, cfg: DinoV2Config, x: torch.Tensor) -> torch.Tensor:
     B, T, h = x.shape
     H, D = cfg.num_heads, cfg.head_dim
-    qkv = linear(x, lp["attn"]["qkv"], lp["attn"]["qkv_bias"])
+    qkv = _proj(x, lp["attn"]["qkv"], lp["attn"]["qkv_bias"])
     q, k, v = (qkv[..., :h].reshape(B, T, H, D), qkv[..., h:2 * h].reshape(B, T, H, D),
                qkv[..., 2 * h:].reshape(B, T, H, D))
-    # the plain path, not the flash kernel's D = 64 instantiation
-    out = _attention_reference(q, k, v, scale=D ** -0.5)
-    return linear(out.reshape(B, T, h), lp["attn"]["o"], lp["attn"]["o_bias"])
+    out = dot_product_attention(q, k, v, scale=D ** -0.5)
+    return _proj(out.reshape(B, T, h), lp["attn"]["o"], lp["attn"]["o_bias"])
 
 
 def forward(params: dict, cfg: DinoV2Config, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -129,7 +190,5 @@ def forward(params: dict, cfg: DinoV2Config, pixel_values: torch.Tensor) -> torc
         h = layer_norm(x, lp["norm1"]["scale"], lp["norm1"]["bias"], eps)
         x = x + _attention(lp, cfg, h) * lp["layerscale1"].to(x.dtype)
         h = layer_norm(x, lp["norm2"]["scale"], lp["norm2"]["bias"], eps)
-        mp = lp["mlp"]
-        h = linear(gelu_exact(linear(h, mp["fc1"], mp["fc1_bias"])), mp["fc2"], mp["fc2_bias"])
-        x = x + h * lp["layerscale2"].to(x.dtype)
+        x = x + _mlp(lp["mlp"], h) * lp["layerscale2"].to(x.dtype)
     return layer_norm(x, params["final_norm"]["scale"], params["final_norm"]["bias"], eps)

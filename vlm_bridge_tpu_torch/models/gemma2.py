@@ -5,7 +5,9 @@ Ported: random `init`, `embed`, the int8 serving transformation
 latter also to the int4 rows-packed table, "embedding4"), the KV
 quantizer, the whole-stack decode step (`stack_decode_params`, with int8 or
 int4 MLP weights, `StackedKVCache`, `decode_step_stacked`) over
-ops.decode_kernels, the
+ops.decode_kernels, the per-layer fused decode (`FusedKVCache`,
+`decode_step_fused`: two calls a layer, `fused_attn_step` and
+`fused_mlp_step`), the
 per-layer cache path (`KVCache`, `prefill`, `decode_step`; bf16 or int8
 cache, lockstep or ragged rows, sliding windows), and the full-sequence
 forward (`forward_hidden` with per-layer recomputation,
@@ -83,6 +85,69 @@ def supports_fused_decode(params: dict, cfg: Gemma2Config, max_len: int) -> bool
         if not all(is_quantized(mlp[k]) for k in ("gate", "up", "down")):
             return False
     return True
+
+
+class FusedKVCache(NamedTuple):
+    """Per-layer int8 decode caches of the per-layer fused decode
+    (`decode_step_fused`): one tensor a layer, as in the JAX package, in this
+    port's layout: K/V [B, KH, S, D] int8 (the JAX one is [B, S, KH*D]),
+    per-vector scales [B, KH, S] f32 (JAX: [KH, B, S]), S =
+    fused_cache_rows(max_len). Updated in place."""
+
+    k: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+    k_scale: Tuple[torch.Tensor, ...]
+    v_scale: Tuple[torch.Tensor, ...]
+
+    @staticmethod
+    def zeros(cfg: Gemma2Config, batch: int, max_len: int, device=None) -> "FusedKVCache":
+        shape = (batch, cfg.num_kv_heads, fused_cache_rows(max_len), cfg.head_dim)
+
+        def per_layer(sh, dtype):
+            return tuple(torch.zeros(sh, dtype=dtype, device=device)
+                         for _ in range(cfg.num_layers))
+
+        return FusedKVCache(k=per_layer(shape, torch.int8), v=per_layer(shape, torch.int8),
+                            k_scale=per_layer(shape[:-1], torch.float32),
+                            v_scale=per_layer(shape[:-1], torch.float32))
+
+
+def decode_step_fused(params: dict, cfg: Gemma2Config, token_embeds: torch.Tensor,
+                      cache: FusedKVCache, position: int) -> Tuple[torch.Tensor, FusedKVCache]:
+    """Lockstep decode step at `position` through the per-layer fused calls:
+    two a layer (ops.decode_kernels.fused_attn_step / fused_mlp_step) over
+    fully int8 per-layer weights (`supports_fused_decode`). Semantics match
+    decode_step(position=...) with an int8 cache; the calls round the
+    residual stream to the activation dtype twice a layer.
+
+    token_embeds: [B, 1, H] raw embeddings. The four cache writes of a layer
+    stay here: `fused_attn_step` hands back the new K/V and scales and leaves
+    the cache untouched. Returns (final-normed hidden [B, 1, H], cache
+    updated in place)."""
+    t = int(position)
+    dev = token_embeds.device
+    B = token_embeds.shape[0]
+    KH, D = cfg.num_kv_heads, cfg.head_dim
+    cos, sin = rope_table(torch.tensor([t], device=dev), D, cfg.rope_theta)
+    cos, sin = cos[0].contiguous(), sin[0].contiguous()
+    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=token_embeds.dtype, device=dev)
+    x = (token_embeds * normalizer)[:, 0].contiguous()
+    for i in range(cfg.num_layers):
+        lp = params["layers"][str(i)]
+        x, k_new, v_new, k_sc, v_sc = decode_kernels.fused_attn_step(
+            t, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"], lp["post_attn_norm"],
+            cos, sin, cache.k[i], cache.v[i], cache.k_scale[i], cache.v_scale[i],
+            num_heads=cfg.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=cfg.attn_scale,
+            softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps)
+        cache.k[i][:, :, t] = k_new.view(B, KH, D)
+        cache.v[i][:, :, t] = v_new.view(B, KH, D)
+        cache.k_scale[i][:, :, t] = k_sc.T
+        cache.v_scale[i][:, :, t] = v_sc.T
+        x = decode_kernels.fused_mlp_step(
+            x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"],
+            lp["pre_ffn_norm"], lp["post_ffn_norm"], eps=cfg.rms_norm_eps)
+    hidden = rms_norm(x[:, None, :], params["final_norm"], cfg.rms_norm_eps)
+    return hidden, cache
 
 
 class StackedKVCache(NamedTuple):

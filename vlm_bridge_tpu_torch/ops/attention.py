@@ -1,9 +1,8 @@
 """Attention (port of vlm_bridge_tpu.ops.attention).
 
-`dot_product_attention` is the one entry point of the bridge and Gemma-2:
-shapes the flash kernels take go to ops.flash_attention, everything else to
-the plain `_attention_reference`. The ViT calls `_attention_reference`
-itself. Decode attention folds the int8 cache scales into the algebra as
+`dot_product_attention` is the one entry point of the ViT, the bridge and
+Gemma-2: shapes the flash kernels take go to ops.flash_attention, everything
+else to the plain `_attention_reference`. Decode attention folds the int8 cache scales into the algebra as
 the JAX function does.
 """
 

@@ -16,6 +16,23 @@ versions to f32 rounding, which greedy decoding needs on near-ties. At f32
 activations this is the JAX jnp-int8 decode path's algebra; the TPU kernels
 instead round projection inputs to bf16.
 
+`fused_attn_step` and `fused_mlp_step` are one decoder layer's two halves
+(the per-layer fused decode, models/gemma2.decode_step_fused), over the
+per-layer int8 dicts {"w_int8" [in, out], "scale" [out]} as quantize_params
+makes them (csrc/layer_step.cu on CUDA tensors). They share the stack step's
+algebra and differ from it in where they round, as the TPU kernels do: the
+per-layer steps round the normed input h, the attention output and the MLP
+hidden to bf16 before each product (one bf16 operand a product) and the
+residual stream to x.dtype at the end of each half, twice a layer; the stack
+step keeps f32 between its stages (hi + lo halves) and across all layers.
+Their plain versions round at the same places. In the sources, the per-layer
+steps run their four products through the int8 linear layers' product kernel
+and GeGLU epilogue (csrc/int8_linear.cu, linear_common.cuh: row-major
+weights, no second layout); with the stack step (csrc/stack_step.cu) they
+share the per-vector int8 and soft-cap helpers and the block reductions of
+common.cuh, not its kernels, which write the cache in place and store split
+activations.
+
 Layouts are this port's own (not the TPU's head-major/64-row/8-row-window
 ones). Every stacked int8 weight [K, N] ([in, out]) is stored in mma.sync
 fragment order, `to_fragments(w)` = [N/32, K/16, 32, 16] (see there):
@@ -48,7 +65,7 @@ import torch
 
 from vlm_bridge_tpu_torch.ops import cuda_lib
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, gelu_tanh
-from vlm_bridge_tpu_torch.ops.quant import _pack_nibbles, unpack_int4
+from vlm_bridge_tpu_torch.ops.quant import _pack_nibbles, _sms, _splits, unpack_int4
 
 
 def _rms(v: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -386,3 +403,175 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
 
 
 fused_bridge_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One decoder layer in two calls
+# ---------------------------------------------------------------------------
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and return to f32: where the kernels cast."""
+    return v.to(torch.bfloat16).float()
+
+
+def _mmq(a: torch.Tensor, wq: dict) -> torch.Tensor:
+    """f32 (a @ w_int8) * scale over a row-major int8 dict."""
+    return (a @ wq["w_int8"].float()) * wq["scale"]
+
+
+def fused_attn_step_plain(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, sin,
+                          kc, vc, ks, vs, *, num_heads: int, num_kv_heads: int, head_dim: int,
+                          attn_scale: float, softcap: float, eps: float):
+    """Plain version of `fused_attn_step` (same arguments and results)."""
+    from vlm_bridge_tpu_torch.models.gemma2 import quantize_kv
+
+    B = x.shape[0]
+    NH, KH, D = num_heads, num_kv_heads, head_dim
+    G, QHD, KHD = NH // KH, NH * D, KH * D
+    xf = x.float()
+    qkv = _mmq(_bf16(_rms(xf, in_norm.float(), eps)), wqkv)
+    q = _rope(qkv[:, :QHD].reshape(B, KH, G, D), cos, sin)
+    k = _rope(qkv[:, QHD:QHD + KHD].reshape(B, KH, D), cos, sin)
+    v = qkv[:, QHD + KHD:].reshape(B, KH, D)
+    k_i8, k_sc = quantize_kv(k)
+    v_i8, v_sc = quantize_kv(v)
+    # the new row attends through its quantized value, as a cache row would
+    k_q, v_q = k_i8.float() * k_sc[..., None], v_i8.float() * v_sc[..., None]
+    ls = (q * k_q[:, :, None]).sum(-1, keepdim=True) * attn_scale            # [B, KH, G, 1]
+    ls = torch.tanh(ls / softcap) * softcap
+    # history rows s < t only: whatever the cache holds at and beyond t is never read
+    lg = torch.einsum("bkgd,bksd->bkgs", _bf16(q), kc[:, :, :t].float())
+    lg = lg * ks[:, :, None, :t] * attn_scale
+    lg = torch.tanh(lg / softcap) * softcap
+    m = torch.maximum(lg.amax(dim=-1, keepdim=True), ls) if t > 0 else ls
+    e_hist, e_self = torch.exp(lg - m), torch.exp(ls - m)
+    denom = e_hist.sum(dim=-1, keepdim=True) + e_self
+    p = _bf16(e_hist / denom * vs[:, :, None, :t])
+    out = torch.einsum("bkgs,bksd->bkgd", p, vc[:, :, :t].float())
+    out = out + (e_self / denom) * v_q[:, :, None]
+    proj = _mmq(_bf16(out.reshape(B, QHD)), wo)
+    x_out = (xf + _rms(proj, post_norm.float(), eps)).to(x.dtype)
+    return (x_out, k_i8.reshape(B, KHD), v_i8.reshape(B, KHD), k_sc.T.contiguous(),
+            v_sc.T.contiguous())
+
+
+def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, sin,
+                    kc, vc, ks, vs, *, num_heads: int, num_kv_heads: int, head_dim: int,
+                    attn_scale: float, softcap: float, eps: float):
+    """One decoder layer's attention half for one lockstep decode step.
+
+    x: [B, H] residual stream; t: the position (cache rows s < t are valid);
+    wqkv / wo: the layer's fused q|k|v and o int8 dicts; in_norm / post_norm:
+    [H]; cos / sin: [head_dim] f32 RoPE rows of position t; kc / vc:
+    [B, KH, S, D] int8 with scales ks / vs [B, KH, S] f32 (this port's layout;
+    read, never written). Returns (x_out [B, H] in x.dtype, k_new [B, KH*D]
+    int8, v_new, k_scale [KH, B] f32, v_scale): the caller writes the new
+    entries at row t. CUDA tensors run csrc/layer_step.cu (x and the norm
+    weights bf16, as the model holds them on the card) or raise;
+    CPU tensors run the plain version."""
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
+              attn_scale=attn_scale, softcap=softcap, eps=eps)
+    if not x.is_cuda:
+        return fused_attn_step_plain(t, x, wqkv, wo, in_norm, post_norm, cos, sin,
+                                     kc, vc, ks, vs, **kw)
+    B, H = x.shape
+    NH, KH, D = num_heads, num_kv_heads, head_dim
+    QHD, KHD = NH * D, KH * D
+    NQKV = QHD + 2 * KHD
+    S = kc.shape[2]
+    if not 0 <= t < S:
+        raise ValueError(f"position {t} outside the {S}-row cache")
+    if D % 32 or D > 1024 or NH % KH or NH // KH > D // 32:
+        raise ValueError(f"unsupported head layout NH={NH} KH={KH} D={D}")
+    if H % 16 or H > 4096 or NQKV % 16 or QHD % 8:
+        raise ValueError(f"unsupported widths H={H} q|k|v={NQKV}")
+    c = cuda_lib.check
+    c(x, "x", torch.bfloat16, (B, H))
+    for name, wq, shape in (("wqkv", wqkv, (H, NQKV)), ("wo", wo, (QHD, H))):
+        c(wq["w_int8"], f"{name}.w_int8", torch.int8, shape)
+        c(wq["scale"], f"{name}.scale", torch.float32, shape[1:])
+    for name, tt, dt, shape in (("in_norm", in_norm, torch.bfloat16, (H,)),
+                                ("post_norm", post_norm, torch.bfloat16, (H,)),
+                                ("cos", cos, torch.float32, (D,)),
+                                ("sin", sin, torch.float32, (D,)),
+                                ("kc", kc, torch.int8, (B, KH, S, D)),
+                                ("vc", vc, torch.int8, (B, KH, S, D)),
+                                ("ks", ks, torch.float32, (B, KH, S)),
+                                ("vs", vs, torch.float32, (B, KH, S))):
+        c(tt, name, dt, shape)
+    dev, sms = x.device, _sms(x.device)
+    s_qkv = _splits(B, NQKV, H, dual=False, sms=sms)
+    s_o = _splits(B, H, QHD, dual=False, sms=sms)
+    x_out = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
+    k_new = torch.empty(B, KHD, dtype=torch.int8, device=dev)
+    v_new = torch.empty(B, KHD, dtype=torch.int8, device=dev)
+    k_sc = torch.empty(KH, B, dtype=torch.float32, device=dev)
+    v_sc = torch.empty(KH, B, dtype=torch.float32, device=dev)
+    h = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
+    attn = torch.empty(B, QHD, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(max(s_qkv * B * NQKV, s_o * B * H), dtype=torch.float32, device=dev)
+    p = cuda_lib.ptr
+    cuda_lib.call(
+        "vbt_fused_attn_step", p(x), p(wqkv["w_int8"]), p(wqkv["scale"]), p(wo["w_int8"]),
+        p(wo["scale"]), p(in_norm), p(post_norm), p(cos), p(sin), p(kc), p(vc), p(ks), p(vs),
+        p(x_out), p(k_new), p(v_new), p(k_sc), p(v_sc), p(h), p(attn), p(part),
+        B, H, NH, KH, D, S, int(t), s_qkv, s_o,
+        float(attn_scale), float(softcap), float(eps))
+    fused_attn_step.launches += 1
+    return x_out, k_new, v_new, k_sc, v_sc
+
+
+fused_attn_step.launches = 0
+
+
+def fused_mlp_step_plain(x, gate_q: dict, up_q: dict, down_q: dict, pre_norm, post_norm, *,
+                         eps: float):
+    """Plain version of `fused_mlp_step` (same arguments and result)."""
+    xf = x.float()
+    h = _bf16(_rms(xf, pre_norm.float(), eps))
+    hidden = _bf16(gelu_tanh(_mmq(h, gate_q)) * _mmq(h, up_q))
+    return (xf + _rms(_mmq(hidden, down_q), post_norm.float(), eps)).to(x.dtype)
+
+
+def fused_mlp_step(x, gate_q: dict, up_q: dict, down_q: dict, pre_norm, post_norm, *,
+                   eps: float):
+    """x + rms_post(down(gelu_tanh(gate(h)) * up(h))), h = rms_pre(x), for one
+    decoder layer: h and the hidden rounded to bf16 before their products,
+    f32 accumulation, scales applied after the sums, one rounding to x.dtype.
+    x: [M, H]; gate / up: int8 dicts [H, F]; down: [F, H]; norms [H]. The JAX
+    function's `block_f` is Mosaic's tile and has no counterpart: the order in
+    which the kernel adds over F is its own and fixed. CUDA tensors run
+    csrc/layer_step.cu (x and the norm weights bf16) or raise; CPU tensors run
+    the plain version."""
+    if not x.is_cuda:
+        return fused_mlp_step_plain(x, gate_q, up_q, down_q, pre_norm, post_norm, eps=eps)
+    M, H = x.shape
+    F = gate_q["w_int8"].shape[1]
+    if H % 16 or F % 16 or H > 4096:
+        raise ValueError(f"unsupported widths H={H} F={F}")
+    c = cuda_lib.check
+    c(x, "x", torch.bfloat16, (M, H))
+    for name, wq, shape in (("gate", gate_q, (H, F)), ("up", up_q, (H, F)),
+                            ("down", down_q, (F, H))):
+        c(wq["w_int8"], f"{name}.w_int8", torch.int8, shape)
+        c(wq["scale"], f"{name}.scale", torch.float32, shape[1:])
+    c(pre_norm, "pre_norm", torch.bfloat16, (H,))
+    c(post_norm, "post_norm", torch.bfloat16, (H,))
+    dev, sms = x.device, _sms(x.device)
+    s1 = _splits(M, F, H, dual=True, sms=sms)
+    s2 = _splits(M, H, F, dual=False, sms=sms)
+    x_out = torch.empty(M, H, dtype=torch.bfloat16, device=dev)
+    h = torch.empty(M, H, dtype=torch.bfloat16, device=dev)
+    hidden = torch.empty(M, F, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(max(2 * s1 * M * F, s2 * M * H), dtype=torch.float32, device=dev)
+    p = cuda_lib.ptr
+    cuda_lib.call(
+        "vbt_fused_mlp_step", p(x), p(gate_q["w_int8"]), p(up_q["w_int8"]), p(gate_q["scale"]),
+        p(up_q["scale"]), p(down_q["w_int8"]), p(down_q["scale"]), p(pre_norm), p(post_norm),
+        p(x_out), p(h), p(hidden), p(part), M, H, F, s1, s2, float(eps))
+    fused_mlp_step.launches += 1
+    return x_out
+
+
+fused_mlp_step.launches = 0

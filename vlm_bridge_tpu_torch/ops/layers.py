@@ -7,11 +7,12 @@ are stored [in, out] as in the JAX package; an int8 weight is the dict
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
-from vlm_bridge_tpu_torch.ops import quant
+from vlm_bridge_tpu_torch.ops import norm_kernels, quant
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -33,7 +34,17 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with f32 statistics, one-pass variance around a per-row
     pivot x[..., 0] (cancels algebraically; removes the |mean| >> std
-    cancellation of E[x^2] - E[x]^2)."""
+    cancellation of E[x^2] - E[x]^2).
+
+    With VLM_BRIDGE_LN_KERNEL set (read at call time), row batches of at
+    least 1024 rows whose width is a multiple of 128 go to
+    ops.norm_kernels.layer_norm_fast instead (its kernel on CUDA tensors,
+    exact two-pass statistics): the JAX package's dispatch, off by default
+    there and here."""
+    H = x.shape[-1]
+    rows = x.numel() // max(H, 1)
+    if os.environ.get("VLM_BRIDGE_LN_KERNEL") and H % 128 == 0 and rows >= 1024:
+        return norm_kernels.layer_norm_fast(x.reshape(rows, H), scale, bias, eps).reshape(x.shape)
     xf = x.float()
     xs = xf - xf[..., :1]
     mean = xs.mean(dim=-1, keepdim=True)

@@ -29,8 +29,9 @@ def add_model_args(ap) -> None:
                     help="frozen-weight dtype of the random init")
     ap.add_argument("--quantize", default=None,
                     help="quantize weight groups: comma list of "
-                         "embedding|embedding4,mlp,attn,bridge (embedding4: the "
-                         "table and its head at 4 bits)")
+                         "embedding|embedding4,mlp,attn,bridge,vision (embedding4: "
+                         "the table and its head at 4 bits; vision: the DINOv2 "
+                         "layers' projections at int8)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="device to build and run the model on (no fallback)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random init")
@@ -45,7 +46,7 @@ def resolve_device(name: str) -> torch.device:
 def load_from_args(args):
     """(cfg, params, tokenizer) resolved from the common argument set."""
     from vlm_bridge_tpu_torch.data.tokenizer import get_tokenizer
-    from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
+    from vlm_bridge_tpu_torch.models import bridge, dinov2, full_model, gemma2
 
     for flag in ("checkpoint", "hf_vision_path", "hf_lm_path"):
         if getattr(args, flag, None):
@@ -58,11 +59,13 @@ def load_from_args(args):
     params = full_model.init(cfg, generator=gen, frozen_dtype=dtype, device=device)
     if args.quantize:
         parts = args.quantize.split(",")
-        lm_parts = tuple(p for p in parts if p != "bridge")
+        lm_parts = tuple(p for p in parts if p not in ("bridge", "vision"))
         if lm_parts:
             params["lm"] = gemma2.quantize_params(params["lm"], parts=lm_parts)
         if "bridge" in parts:
             params["bridge"] = bridge.quantize_decode_params(params["bridge"])
+        if "vision" in parts:
+            params["vision"] = dinov2.quantize_vision_params(params["vision"])
     return cfg, params, get_tokenizer(args.tokenizer_path)
 
 
