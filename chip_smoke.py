@@ -8,8 +8,9 @@ kernel held against its plain version.
 
 1. Refuses to run without CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from vlm_bridge_tpu_torch/csrc (one nvcc per
-   source, sm_90a) and prints what ptxas reports for the flash kernels and
-   the int8 product kernel.
+   source, sm_90a) and prints what ptxas reports (registers, spills) for the
+   flash kernels, the int8 product kernels and tiled_matmul's wgmma kernel;
+   fails if ptxas serialised a wgmma pipeline or the wgmma kernel spills.
 3. One phase per kernel: the kernel and its plain PyTorch version on the
    same seeded inputs at the main paths' shapes, their max abs error
    against the stated tolerance, both times (device time: the host queues
@@ -29,8 +30,10 @@ kernel held against its plain version.
    path's (every decode kernel's plain version behind the same encoder).
    Then the same fused stack with the sampled head, 50 tokens, timed.
 4a. The vision encode's kernels: `tiled_matmul` at the ViT's four projection
-   shapes (16448 rows; with bias, fc1 with GELU; one without a bias; one
-   ragged case) and `layer_norm_fast` (16448 x 1024 bf16, 2048 x 2304 f32)
+   shapes (16448 rows; with bias, fc1 with GELU; one without a bias; TFLOP/s
+   beside its earlier mma.sync form's and the library call's; the kernel's
+   ragged edges: rows, columns and depth beyond a tile, f32 out) and
+   `layer_norm_fast` (16448 x 1024 bf16, 2048 x 2304 f32)
    against their plain versions and torch.addmm / F.layer_norm; the
    projection probe (all 24 layers' four projections, bias-free, kernel
    against torch.matmul; one counted pass: 96 launches). Then dinov2.forward
@@ -86,6 +89,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -142,6 +146,10 @@ LAYER_TOL, CODES_EQUAL_MIN, SCALE_RTOL = 2.0 ** -6, 0.99, 1e-6
 # projections, INT8_TOWER_TOL.
 FEATURE_TOL, INT8_TOWER_TOL = 3e-2, 2.5e-1
 ENCODE_REPS = 3
+# tiled_matmul's earlier (mma.sync) form on the same card, PERF.md rows 8 and 9: each
+# projection with its bias at 16448 rows, o without one, and the projection probe
+TILED_MATMUL_MMA_SYNC_MS = {"qkv": 0.4026, "o": 0.1449, "fc1": 0.5610, "fc2": 0.4733,
+                            "o without bias": 0.1408, "probe": 37.753}
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -164,6 +172,34 @@ def card_line() -> str:
         return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "unknown"
     except (OSError, subprocess.TimeoutExpired):
         return "unknown (nvidia-smi unavailable)"
+
+
+PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm", "argmax4_block",
+              "logits4_block", "tiled_matmul_kernel", "layer_norm_kernel", "ls_attn_kernel")
+
+
+def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
+    """Print what ptxas -v said of the kernels named by `tags` (registers,
+    shared memory, spills). Raise if ptxas serialised a kernel's wgmma
+    instructions (tiled_matmul_kernel is the one wgmma kernel: a serialised
+    pipeline runs it at a fraction of its rate and still agrees with the plain
+    version). Returns the instantiations of tiled_matmul_kernel that spill."""
+    log = build_log.splitlines()
+    serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
+    if serial:
+        raise AssertionError("ptxas serialised wgmma:\n" + "\n".join(serial))
+    spills = []
+    for i, line in enumerate(log):
+        tag = next((t for t in tags if t in line), None)
+        if "Compiling entry function" in line and tag:
+            mangled = line.split("'")[1]   # ...fa_fwd_kernelILi256ELi64EEvNS_8FaParamsE
+            name = mangled[mangled.index(tag):].split("Ev")[0].split("EPK")[0]
+            info = [x.strip() for x in log[i + 1:i + 4] if "bytes" in x or "registers" in x]
+            print(f"ptxas: {name} |", " ".join(info))
+            if tag == "tiled_matmul_kernel" and any(
+                    int(n) for x in info for n in re.findall(r"(\d+) bytes spill", x)):
+                spills.append(name)
+    return spills
 
 
 def time_ms(fn, iters: int, spin_cycles: int = 20_000_000) -> float:
@@ -1123,7 +1159,7 @@ def phase_tiled_matmul(params, cfg, dev, gen, card):
             xs[K] = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
         return xs[K]
 
-    def run_case(name, ws, bias, gelu):
+    def run_case(name, pname, ws, bias, gelu):
         K, N = ws[0].shape
         x = x_of(K)
         got = mk.tiled_matmul(x, ws[0], bias, gelu=gelu)
@@ -1142,10 +1178,12 @@ def phase_tiled_matmul(params, cfg, dev, gen, card):
         library_ms = time_ms(lib, 20)
         flops = 2.0 * M * K * N
         bd = bound(nbytes(x, ws[0], got) + (0 if bias is None else nbytes(bias)), flops)
-        print(f"[{name}] {K} -> {N}: kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, plain "
-              f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, "
+        earlier = TILED_MATMUL_MMA_SYNC_MS[pname if bias is not None else pname + " without bias"]
+        print(f"[{name}] {pname} {K} -> {N}: kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s "
+              f"(the mma.sync form, PERF.md: {earlier:.4f} ms = {flops / earlier / 1e9:.1f}), "
+              f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, "
               f"{'torch.matmul' if bias is None else 'torch.addmm' + (' + F.gelu' if gelu else '')}"
-              f" {library_ms:.4f} ms (on {card})")
+              f" {library_ms:.4f} ms = {flops / library_ms / 1e9:.1f} TFLOP/s (on {card})")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
                 "library_ms": library_ms}
 
@@ -1153,17 +1191,27 @@ def phase_tiled_matmul(params, cfg, dev, gen, card):
     for pname, (ws, _, gelu) in projs.items():
         # the model's biases are zeros at init: seeded ones, f32 as _proj passes them
         bias = torch.randn(ws[0].shape[1], generator=gen, device=dev) * 0.5
-        by_shape[pname] = run_case("tiled_matmul[bias]", ws, bias, gelu)
-    no_bias = run_case("tiled_matmul", projs["o"][0], None, False)
+        by_shape[pname] = run_case("tiled_matmul[bias]", pname, ws, bias, gelu)
+    no_bias = run_case("tiled_matmul", "o", projs["o"][0], None, False)
 
-    # ragged in rows and columns: the last row tile has 8 rows, the last column tile 8 columns
-    a = torch.randn(520, 64, generator=gen, device=dev).to(torch.bfloat16)
-    b = (torch.randn(64, 136, generator=gen, device=dev) * 0.125).to(torch.bfloat16)
-    bias = torch.randn(136, generator=gen, device=dev)
-    for bs, gelu in ((None, False), (bias, True)):
-        rows_close(f"tiled_matmul ragged 520x64x136 bias={bs is not None}",
-                   mk.tiled_matmul(a, b, bs, gelu=gelu),
-                   mk.tiled_matmul_plain(a, b, bs, gelu=gelu), I8_TOL)
+    # the kernel's edges: rows and columns ragged by 8 (520 x 136); a K tail (72 = 64 + 8);
+    # a last row tile of 64 rows (192 = 128 + 64, as 16448 = 128 x 128 + 64); N beyond a
+    # tile by 8 (264 = 2 x 128 + 8); GELU without a bias; f32 out with bias and GELU
+    for M_, K_, N_, has_bias, gelu, out_dtype in ((520, 64, 136, False, False, None),
+                                                 (520, 64, 136, True, True, None),
+                                                 (256, 72, 128, True, False, None),
+                                                 (192, 256, 256, True, False, None),
+                                                 (384, 128, 264, True, False, None),
+                                                 (300, 128, 192, False, True, None),
+                                                 (640, 512, 320, True, True, torch.float32)):
+        a = torch.randn(M_, K_, generator=gen, device=dev).to(torch.bfloat16)
+        b = (torch.randn(K_, N_, generator=gen, device=dev) * K_ ** -0.5).to(torch.bfloat16)
+        bs = torch.randn(N_, generator=gen, device=dev) if has_bias else None
+        rows_close(f"tiled_matmul ragged {M_}x{K_}x{N_} bias={has_bias} gelu={gelu} "
+                   f"out={out_dtype or torch.bfloat16}",
+                   mk.tiled_matmul(a, b, bs, gelu=gelu, out_dtype=out_dtype),
+                   mk.tiled_matmul_plain(a, b, bs, gelu=gelu, out_dtype=out_dtype),
+                   LOGIT_TOL if out_dtype == torch.float32 else I8_TOL)
 
     # the projection probe: every layer's four projections, bias-free, in layer order
     x1, x4 = x_of(cfg.vision.hidden_size), x_of(cfg.vision.hidden_size * cfg.vision.mlp_ratio)
@@ -1194,7 +1242,8 @@ def phase_tiled_matmul(params, cfg, dev, gen, card):
     flops = 2.0 * M * sum(w[0].numel() for w, _, _ in projs.values()) * cfg.vision.num_layers
     print(f"projection probe, {cfg.vision.num_layers} layers x 4 bias-free projections at {M} "
           f"rows, median of {ENCODE_REPS}: tiled_matmul {med['tiled_matmul']:.3f} ms = "
-          f"{flops / med['tiled_matmul'] / 1e9:.1f} TFLOP/s, torch.matmul "
+          f"{flops / med['tiled_matmul'] / 1e9:.1f} TFLOP/s (the mma.sync form, PERF.md: "
+          f"{TILED_MATMUL_MMA_SYNC_MS['probe']:.3f} ms), torch.matmul "
           f"{med['torch.matmul']:.3f} ms = {flops / med['torch.matmul'] / 1e9:.1f} TFLOP/s "
           f"(on {card})")
     # the headline numbers of the biased kernel are fc1's: bias and GELU both in the epilogue
@@ -1876,16 +1925,9 @@ def main() -> int:
     cuda_lib.lib()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {'ran' if cuda_lib.build_seconds is not None else 'not needed'})", flush=True)
-    log = cuda_lib.build_log.splitlines()
-    for i, line in enumerate(log):  # ptxas -v: registers, shared memory and spills per kernel
-        tag = next((t for t in ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm",
-                                "argmax4_block", "logits4_block", "tiled_matmul_kernel",
-                                "layer_norm_kernel", "ls_attn_kernel") if t in line), None)
-        if "Compiling entry function" in line and tag:
-            mangled = line.split("'")[1]   # ...fa_fwd_kernelILi256ELi64EEvNS_8FaParamsE
-            name = mangled[mangled.index(tag):].split("Ev")[0].split("EPK")[0]
-            print(f"ptxas: {name} |",
-                  " ".join(x.strip() for x in log[i + 1:i + 4] if "bytes" in x or "registers" in x))
+    spills = ptxas_report(cuda_lib.build_log)
+    if spills:
+        raise AssertionError(f"ptxas: {spills} spill")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)

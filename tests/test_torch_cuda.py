@@ -568,6 +568,11 @@ MM_CASES = [  # M, K, N, bias, gelu, out_dtype
     (320, 64, 160, True, True, None),         # bias + GELU
     (1100, 4096, 1024, True, False, torch.float32),   # a deep contraction, f32 out
     (16448, 1024, 1024, True, False, None),   # the ViT's o projection at batch 64
+    (256, 72, 128, True, False, None),        # a K tail: 72 = 64 + 8
+    (192, 256, 256, True, False, None),       # a last row tile of 64 (16448 = 128 x 128 + 64)
+    (384, 128, 264, True, False, None),       # N beyond a tile by 8: 264 = 2 x 128 + 8
+    (300, 128, 192, False, True, None),       # GELU without a bias
+    (640, 512, 320, True, True, torch.float32),   # f32 out with bias and GELU
 ]
 
 

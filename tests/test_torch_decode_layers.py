@@ -246,6 +246,42 @@ def test_dispatch_follows_the_jax_package(slice_setup):
     assert dataclasses.asdict(G()) == dataclasses.asdict(JG.GenerationConfig())
 
 
+def test_debug_force_jnp_variable_pins_the_per_layer_path(slice_setup, monkeypatch):
+    """VLM_BRIDGE_DEBUG_FORCE_JNP does what force_jnp does, in both packages:
+    the per-layer path serves int8 layers with the int8 KV cache (ids equal
+    to the JAX package's under the same variable), the per-layer dicts are
+    kept rather than stacked, and pre-stacked weights raise."""
+    from vlm_bridge_tpu_torch.tools.loading import prestack_decode_params
+
+    cfg, trees, pixels = slice_setup
+    q = from_jax(trees["int8"])
+    gen = TG.GenerationConfig(max_length=MAX_NEW, kv_quant=True)
+    stacked = prestack_decode_params(q, P(cfg), gen)
+    assert "stacked_decode" in stacked["lm"] and "layers" not in stacked["lm"]
+    assert TG._fused_decode_available(q, P(cfg), gen)
+
+    monkeypatch.setenv("VLM_BRIDGE_DEBUG_FORCE_JNP", "1")
+    assert not TG._fused_decode_available(q, P(cfg), gen)
+    assert prestack_decode_params(q, P(cfg), gen) is q
+    for avail, conf in ((TG._fused_decode_available, P(cfg)),
+                        (JG._fused_decode_available, cfg)):
+        with pytest.raises(ValueError, match="pre-stacked"):
+            avail({**stacked, "lm": {"stacked_decode": stacked["lm"]["stacked_decode"]}}, conf,
+                  gen)
+    served = []
+    real = TG._generate_fast
+    monkeypatch.setattr(TG, "_generate_fast",
+                        lambda *a: served.append(a[-2:]) or real(*a))
+    want_t, want_l = JG.generate_tokens(
+        trees["int8"], cfg, pixel_values=jnp.asarray(pixels),
+        gen=JG.GenerationConfig(max_length=MAX_NEW, greedy=True, kv_quant=True),
+        activation_dtype=jnp.float32)
+    got_t, got_l = _port(cfg, q, pixels, greedy=True, kv_quant=True)
+    assert served == [(False, False)]   # (use_fused, use_fused_bridge)
+    np.testing.assert_array_equal(got_t, np.asarray(want_t))
+    np.testing.assert_array_equal(got_l, np.asarray(want_l))
+
+
 SAMPLED_CASES = [("int8", False, False), ("int8", True, False), ("int8", False, True),
                  ("float", False, False)]
 

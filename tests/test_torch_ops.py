@@ -187,3 +187,20 @@ def test_preprocess_matches_jax():
     _close(tp.normalize_on_device(_t(px), dtype=torch.float32),
            jp.normalize_on_device(jnp.asarray(px), dtype=jnp.float32))
     np.testing.assert_array_equal(tp.pad_to_batch(px, 5), jp.pad_to_batch(px, 5))
+
+
+def test_preprocess_numpy_matches_jax():
+    """The host-only path: resize, crop and normalise a few seeded PIL images
+    of other sizes and modes, equal to the JAX package's in f32."""
+    from PIL import Image
+
+    from vlm_bridge_tpu.data import preprocess as jp
+    from vlm_bridge_tpu_torch.data import preprocess as tp
+
+    rng = _rng(10)
+    images = [Image.fromarray(rng.integers(0, 256, (300, 260, 3), dtype=np.uint8)),
+              Image.fromarray(rng.integers(0, 256, (240, 410, 3), dtype=np.uint8)),
+              Image.fromarray(rng.integers(0, 256, (256, 256), dtype=np.uint8))]
+    got = tp.preprocess_numpy(images)
+    assert got.dtype == np.float32 and got.shape == (3, tp.CROP_SIZE, tp.CROP_SIZE, 3)
+    np.testing.assert_array_equal(got, jp.preprocess_numpy(images))

@@ -46,27 +46,40 @@ def _rows_close(got, want, tol):
         (diff / np.abs(want).max(axis=-1)).max())
 
 
-@pytest.mark.parametrize("M,K,N,bias,gelu", [
-    (257, 64, 96, False, False),     # ragged rows
-    (512, 128, 256, False, False),   # whole blocks
-    (520, 64, 136, False, False),    # ragged rows and columns
-    (320, 64, 160, True, True),      # bias + exact GELU
+@pytest.mark.parametrize("M,K,N,bias,gelu,f32", [
+    pytest.param(257, 64, 96, False, False, False, id="257-64-96-False-False"),    # ragged rows
+    pytest.param(512, 128, 256, False, False, False, id="512-128-256-False-False"),  # whole blocks
+    # ragged rows and columns
+    pytest.param(520, 64, 136, False, False, False, id="520-64-136-False-False"),
+    pytest.param(320, 64, 160, True, True, False, id="320-64-160-True-True"),  # bias + exact GELU
+    # the CUDA kernel's edges: a K tail (72 = 64 + 8); a last row tile of 64 rows
+    # (192 = 128 + 64, the small twin of 16448 = 128 x 128 + 64); N beyond a
+    # 128-column tile by 8 (264 = 2 x 128 + 8); GELU without a bias; f32 out with
+    # bias and GELU
+    (256, 72, 128, True, False, False),
+    (192, 256, 256, True, False, False),
+    (384, 128, 264, True, False, False),
+    (300, 128, 192, False, True, False),
+    (640, 512, 320, True, True, True),
 ])
-def test_tiled_matmul_plain_matches_the_pallas_kernel(monkeypatch, M, K, N, bias, gelu):
-    """bf16 in and out on both sides; each rounds one f32 sum, taken in another
-    order, so a value may land one bf16 step away."""
+def test_tiled_matmul_plain_matches_the_pallas_kernel(monkeypatch, M, K, N, bias, gelu, f32):
+    """bf16 in on both sides; each rounds one f32 sum, taken in another order,
+    to the output type, so a bf16 value may land one bf16 step away (f32 out:
+    the summation order alone, 1e-5 of the row's largest value)."""
     monkeypatch.setattr(jmk, "INTERPRET", True)
     rng = np.random.default_rng(0)
     a = jnp.asarray(rng.normal(size=(M, K)), jnp.bfloat16)
     b = jnp.asarray(rng.normal(size=(K, N)), jnp.bfloat16)
     bs = jnp.asarray(rng.normal(size=(N,)), jnp.float32) if bias else None
-    want = jmk.tiled_matmul(a, b, bs, block_m=128, block_n=128, gelu=gelu)
+    want = jmk.tiled_matmul(a, b, bs, block_m=128, block_n=128, gelu=gelu,
+                            out_dtype=jnp.float32 if f32 else None)
     got = tmk.tiled_matmul(_bf16(a), _bf16(b), None if bs is None else torch.from_numpy(
-        np.array(bs)), gelu=gelu)
-    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, N)
-    _rows_close(got.float().numpy(), want, BF16_STEP)
-    f32 = tmk.tiled_matmul_plain(_bf16(a), _bf16(b), out_dtype=torch.float32)
-    assert f32.dtype == torch.float32
+        np.array(bs)), gelu=gelu, out_dtype=torch.float32 if f32 else None)
+    assert got.dtype == (torch.float32 if f32 else torch.bfloat16)
+    assert tuple(got.shape) == (M, N)
+    _rows_close(got.float().numpy(), want, 1e-5 if f32 else BF16_STEP)
+    f32_out = tmk.tiled_matmul_plain(_bf16(a), _bf16(b), out_dtype=torch.float32)
+    assert f32_out.dtype == torch.float32
 
 
 def test_vit_mm_mode_reads_the_variable_at_call_time(monkeypatch):

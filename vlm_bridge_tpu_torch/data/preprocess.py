@@ -49,3 +49,12 @@ def pad_to_batch(x: np.ndarray, batch_size: int) -> np.ndarray:
         return x
     reps = np.repeat(x[:1], batch_size - x.shape[0], axis=0)
     return np.concatenate([x, reps], axis=0)
+
+
+def preprocess_numpy(images) -> np.ndarray:
+    """List of PIL images -> normalized f32 [B, 224, 224, 3] on the host
+    (where a device round-trip is not wanted, e.g. tests)."""
+    arr = np.stack([host_resize_crop(im) for im in images]).astype(np.float32)
+    mean = np.asarray(IMAGE_MEAN, np.float32) * 255.0
+    std = np.asarray(IMAGE_STD, np.float32) * 255.0
+    return (arr - mean) / std

@@ -28,6 +28,7 @@ ported yet and raise.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -184,9 +185,10 @@ def _check_supported(gen: GenerationConfig) -> None:
 def _fused_decode_available(params, cfg: VLMConfig, gen: GenerationConfig) -> bool:
     """Whether the whole-stack decode step serves this call: int8 KV cache,
     fully int8 layers (or weights stacked ahead of time) and cache rows that
-    fit every sliding window. gen.force_jnp pins the per-layer path."""
+    fit every sliding window. gen.force_jnp, or VLM_BRIDGE_DEBUG_FORCE_JNP
+    set in the environment (read at call time), pins the per-layer path."""
     lm = params["lm"]
-    if gen.force_jnp:
+    if gen.force_jnp or os.environ.get("VLM_BRIDGE_DEBUG_FORCE_JNP"):
         if "layers" not in lm:
             raise ValueError("force_jnp requested but params carry only pre-stacked decode "
                              "weights (stacked_decode): the per-layer path needs per-layer "

@@ -5,8 +5,9 @@ projections (port of vlm_bridge_tpu.ops.matmul_kernels).
 [M, K] @ [K, N] (+ bias [N]) (+ erf GELU) with f32 accumulation: the bias
 (f32) is added to the f32 sum, the GELU sees that f32 value, and the result
 is rounded once, to `out_dtype` (default a.dtype). On CUDA tensors it
-launches csrc/tiled_matmul.cu (a and b bf16, bias f32, out bf16 or f32; K
-and N multiples of 8, which its 16-byte copies need) or raises; on CPU
+launches csrc/tiled_matmul.cu, a persistent wgmma + TMA kernel (a and b
+bf16, bias f32, out bf16 or f32; K and N multiples of 8, since the TMA's
+row strides are 16-byte units) or raises; on CPU
 tensors it runs `tiled_matmul_plain`, which mirrors the kernel's arithmetic
 and is therefore not `linear` + `gelu_exact` (those round the product to
 bf16 before the bias and again before the GELU). One kernel serves both of
@@ -19,7 +20,7 @@ the JAX package gates this dispatch by measurement, and so does the port
 
 The JAX module's `block_m` / `block_n` arguments and its `DEFAULT_BLOCK_M/N`
 are Mosaic's tiling and have no counterpart: the kernel's tile is a
-build-time constant of the source.
+constant of the source.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] 
         raise ValueError(f"the kernel writes bfloat16 or float32, not {out_dtype}")
     if M < 1 or K < 8 or N < 8 or K % 8 or N % 8:
         raise ValueError(f"tiled_matmul {M}x{K} @ {K}x{N}: K and N must be multiples of 8 (the "
-                         "kernel copies 16-byte pieces and pads nothing)")
+                         "kernel's TMA row strides are 16-byte units; it pads nothing)")
     out = torch.empty(M, N, dtype=out_dtype, device=a.device)
     p = cuda_lib.ptr
     cuda_lib.call("vbt_tiled_matmul", p(a), p(b), None if bias is None else p(bias), p(out),

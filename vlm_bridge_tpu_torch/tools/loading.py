@@ -73,13 +73,16 @@ def prestack_decode_params(params, cfg, gen):
     """Stack the int8 decoder weights ONCE for serving (with gen.mlp_int4,
     the MLP weights at 4 bits) and drop the per-layer copies. No-op unless
     the fused stack decode serves this generation config: the per-layer path
-    (no int8 KV cache, force_jnp, float layers, a window the cache outgrows)
-    reads the per-layer dicts as they are and needs no second layout."""
+    (no int8 KV cache, force_jnp or VLM_BRIDGE_DEBUG_FORCE_JNP, float layers,
+    a window the cache outgrows) reads the per-layer dicts as they are and
+    needs no second layout."""
+    import os
+
     from vlm_bridge_tpu_torch.models import gemma2
 
     lm = params["lm"]
     if ("stacked_decode" in lm or "layers" not in lm or gen.exact or gen.force_jnp
-            or not gen.kv_quant
+            or os.environ.get("VLM_BRIDGE_DEBUG_FORCE_JNP") or not gen.kv_quant
             or not gemma2.supports_fused_decode(lm, cfg.lm, gen.max_length + 1)):
         return params
     lm = {k: v for k, v in lm.items() if k != "layers"}
