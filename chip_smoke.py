@@ -9,8 +9,10 @@ kernel held against its plain version.
 1. Refuses to run without CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from vlm_bridge_tpu_torch/csrc (one nvcc per
    source, sm_90a) and prints what ptxas reports (registers, spills) for the
-   flash kernels, the int8 product kernels and tiled_matmul's wgmma kernel;
-   fails if ptxas serialised a wgmma pipeline or the wgmma kernel spills.
+   flash kernels, the int8 product kernels and the two wgmma kernels
+   (tiled_matmul's and the flash forward's three instantiations, D 64 / 128 /
+   256); fails if ptxas serialised a wgmma pipeline, if a wgmma kernel
+   spills, or if an instantiation of the flash forward is missing.
 3. One phase per kernel: the kernel and its plain PyTorch version on the
    same seeded inputs at the main paths' shapes, their max abs error
    against the stated tolerance, both times (device time: the host queues
@@ -19,8 +21,13 @@ kernel held against its plain version.
    larger) and, where one PyTorch call computes the same function, that
    call's time. The int8 linear kernels walk through the layers' weights,
    call after call, so that none finds its weights in the L2. The three
-   flash-attention kernels also run at the ViT shape, with a binding window
-   and T != S, with an empty row, and with logits several times the soft-cap.
+   flash-attention kernels also run at the ViT shape (B 8, and the encode's
+   own B 64 with q, k and v column views of one fused projection), with a
+   binding window and T != S, with an empty row, with logits several times
+   the soft-cap, and with GQA, T != S and a tail tile past T; the forward's
+   yardstick is scaled_dot_product_attention without a mask where the case
+   has no lengths, and the backward kernels' is SDPA's backward at the
+   bridge-self shape.
 4. The serving path: VLMConfig.default() at full width, seeded random
    weights made on the device, --quantize embedding,mlp,attn,bridge with the
    int8 KV cache; 64 seeded uint8 images -> normalize_on_device ->
@@ -95,7 +102,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -178,27 +185,39 @@ PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm", "argmax
               "logits4_block", "tiled_matmul_kernel", "layer_norm_kernel", "ls_attn_kernel")
 
 
+# the wgmma kernels: each instantiation must not spill
+SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel")
+FLASH_FWD_INSTANCES = ("fa_fwd_sm90_kernelILi64E", "fa_fwd_sm90_kernelILi128E",
+                       "fa_fwd_sm90_kernelILi256E")
+
+
 def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
     """Print what ptxas -v said of the kernels named by `tags` (registers,
     shared memory, spills). Raise if ptxas serialised a kernel's wgmma
-    instructions (tiled_matmul_kernel is the one wgmma kernel: a serialised
-    pipeline runs it at a fraction of its rate and still agrees with the plain
-    version). Returns the instantiations of tiled_matmul_kernel that spill."""
+    instructions (tiled_matmul_kernel and fa_fwd_sm90_kernel are the wgmma
+    kernels: a serialised pipeline runs them at a fraction of their rate and
+    still agrees with the plain version), or if the build has not all three
+    instantiations of the flash forward (D 64 / 128 / 256). Returns the
+    instantiations of the wgmma kernels that spill."""
     log = build_log.splitlines()
     serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
     if serial:
         raise AssertionError("ptxas serialised wgmma:\n" + "\n".join(serial))
-    spills = []
+    spills, seen = [], []
     for i, line in enumerate(log):
         tag = next((t for t in tags if t in line), None)
         if "Compiling entry function" in line and tag:
-            mangled = line.split("'")[1]   # ...fa_fwd_kernelILi256ELi64EEvNS_8FaParamsE
+            mangled = line.split("'")[1]   # ...fa_fwd_sm90_kernelILi256EEEv14CUtensorMap_st...
             name = mangled[mangled.index(tag):].split("Ev")[0].split("EPK")[0]
             info = [x.strip() for x in log[i + 1:i + 4] if "bytes" in x or "registers" in x]
             print(f"ptxas: {name} |", " ".join(info))
-            if tag == "tiled_matmul_kernel" and any(
+            seen.append(name)
+            if any(k in name for k in SPILL_CHECKED) and any(
                     int(n) for x in info for n in re.findall(r"(\d+) bytes spill", x)):
                 spills.append(name)
+    missing = [k for k in FLASH_FWD_INSTANCES if not any(k in n for n in seen)]
+    if missing:
+        raise AssertionError(f"ptxas reported no {missing}: the flash forward is not built")
     return spills
 
 
@@ -482,8 +501,10 @@ class FlashCase(NamedTuple):
     causal: bool
     cap: Optional[float]
     window: Optional[int]
-    lens: Optional[str]   # "ragged": lengths in [S/4, S] with one full row; "zero" also empties one
+    # "ragged": lengths in [S/4, S] with one full row; "zero" also empties one; or the lengths
+    lens: Union[None, str, Tuple[int, ...]]
     q_mul: float = 1.0    # q is randn times this: logits have this standard deviation
+    views: bool = False   # q, k, v as column views of one fused [B, T, (H + 2 KH) D] projection
 
 
 FLASH_CASES = (
@@ -495,8 +516,19 @@ FLASH_CASES = (
     # randn logits stay under a tenth of Gemma's cap, where tanh is the identity
     # to 0.3 %; here they reach three times the cap and 1 - tanh^2 spans 0.01 to 1
     FlashCase("softcap_binds", 8, 256, 256, 8, 4, 256, True, 2.0, 4096, "ragged", 2.0),
+    # the encode's own call: 64 images, q, k and v as dinov2._attention hands them over
+    FlashCase("vit_encode", 64, 257, 257, 16, 16, 64, False, None, None, None, views=True),
+    # GQA (G = 4), T != S, B > 1, a tail tile of 36 rows past T, a binding window
+    FlashCase("gqa_tail", 3, 100, 300, 8, 2, 128, True, 30.0, 160, "ragged"),
+    # G = 1 (the two items of a unit are neighbouring row tiles) under a window
+    # that binds, with kv_lens so short that late row tiles see no key at all
+    FlashCase("window_g1", 3, 256, 256, 4, 4, 128, False, None, 64, (256, 10, 70)),
+    FlashCase("window_g1_causal", 3, 256, 256, 4, 4, 128, True, None, 64, (256, 10, 70)),
+    FlashCase("window_g1_d64", 3, 512, 512, 4, 4, 64, False, None, 32, (512, 10, 70)),
 )
 MAIN_PATH_CASES = ("gemma", "bridge_self")  # the shapes the train step gives the kernels
+LIBRARY_CASES = ("bridge_self", "vit", "vit_encode")   # no soft-cap: SDPA computes the same
+FWD_ONLY_CASES = ("vit_encode",)   # the frozen ViT: no backward on the main path
 
 
 def flash_case_inputs(case, dev, gen):
@@ -505,9 +537,19 @@ def flash_case_inputs(case, dev, gen):
     def mk(*shape, mul=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * mul).to(torch.bfloat16)
 
-    q, k, v, dout = mk(B, T, H, D, mul=case.q_mul), mk(B, S, KH, D), mk(B, S, KH, D), mk(B, T, H, D)
+    if case.views:
+        fused = mk(B, T, (H + 2 * KH) * D)
+        q, k, v = (fused[..., :H * D].reshape(B, T, H, D),
+                   fused[..., H * D:(H + KH) * D].reshape(B, S, KH, D),
+                   fused[..., (H + KH) * D:].reshape(B, S, KH, D))
+        dout = mk(B, T, H, D)
+    else:
+        q, k, v, dout = (mk(B, T, H, D, mul=case.q_mul), mk(B, S, KH, D), mk(B, S, KH, D),
+                         mk(B, T, H, D))
     if case.lens is None:
         lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    elif isinstance(case.lens, tuple):
+        lens = torch.tensor(case.lens, dtype=torch.int32, device=dev)
     else:
         lens = torch.randint(S // 4, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
         lens[0] = S
@@ -544,9 +586,12 @@ def row_err(name, got, want, failures) -> float:
 
 
 def phase_flash(dev, gen):
-    """The three flash kernels against their plain versions at every case;
-    times, bounds and the library yardstick at the main path's two shapes
-    and at the ViT shape."""
+    """The three flash kernels against their plain versions at every case
+    (the forward on q, k and v as the case gives them, views included; the
+    backward kernels on contiguous copies, as the autograd function hands
+    them over); times, bounds and the library yardstick at the main path's
+    two shapes and at the ViT's two, and scaled_dot_product_attention's
+    backward at the bridge-self shape."""
     import torch.nn.functional as F
 
     from vlm_bridge_tpu_torch.ops import flash_attention as fa
@@ -558,6 +603,7 @@ def phase_flash(dev, gen):
         cname, B, T, S, H, KH, D = case[:7]
         cap = case.cap
         q, k, v, dout, lens = flash_case_inputs(case, dev, gen)
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
         kw = dict(scale=D ** -0.5, is_causal=case.causal, logit_softcap=cap,
                   sliding_window=case.window)
         out_p, lse_p = fa.flash_attention_plain(q, k, v, lens, **kw)
@@ -565,10 +611,10 @@ def phase_flash(dev, gen):
         out, lse = fa.flash_attention_fwd(q, k, v, lens, **kw)
         # the backward kernels get the plain forward's out and lse: each kernel
         # is held to its plain version on the same inputs
-        dq = fa.flash_attention_bwd_dq(q, k, v, lens, out_p, lse_p, dout, **kw)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lens, out_p, lse_p, dout, **kw)
+        dq = fa.flash_attention_bwd_dq(qc, kc, vc, lens, out_p, lse_p, dout, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(qc, kc, vc, lens, out_p, lse_p, dout, **kw)
         torch.cuda.synchronize()
-        tag = f"{cname} B{B} T{T} S{S} H{H} KH{KH} D{D}"
+        tag = f"{cname} B{B} T{T} S{S} H{H} KH{KH} D{D}{' views' if case.views else ''}"
         errs = {
             names[0]: row_err(f"{names[0]} out, {tag}", out, out_p, failures),
             names[1]: row_err(f"{names[1]} dq, {tag}", dq, dq_p, failures),
@@ -577,11 +623,18 @@ def phase_flash(dev, gen):
         }
         full = lse_p > -1e38
         lse_err = float((lse[full] - lse_p[full]).abs().max()) if bool(full.any()) else 0.0
-        print(f"[{names[0]} lse, {tag}] max_abs_err={lse_err:.6g} (limit {LSE_TOL})")
+        print(f"[{names[0]} lse, {tag}] max_abs_err={lse_err:.6g} (limit {LSE_TOL}); "
+              f"rows with empty support: {int((~full).sum())}")
         if not lse_err <= LSE_TOL:
             failures.append(f"{tag}: lse error {lse_err} above {LSE_TOL}")
         if not torch.equal(lse[~full], lse_p[~full]):
             failures.append(f"{tag}: rows with empty support disagree on lse")
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, lens, **kw)
+        if not (torch.equal(out2, out) and torch.equal(lse2, lse)):
+            failures.append(f"{tag}: two calls of the forward give different bits")
+        empty_out = out[~full.transpose(1, 2)]
+        if empty_out.numel() and float(empty_out.float().abs().max()) != 0.0:
+            failures.append(f"{tag}: rows with empty support must give out = 0")
         if case.lens == "zero":
             if any(float(x[3].float().abs().max()) != 0.0 for x in (out, dq, dk, dv)):
                 failures.append(f"{tag}: the empty row's out, dq, dk and dv must be 0")
@@ -596,43 +649,70 @@ def phase_flash(dev, gen):
         for n in names:
             res[n]["max_abs_err"] = max(res[n]["max_abs_err"], errs[n])
 
-        library_ms = None
-        if cap is None and cname in ("bridge_self", "vit"):
+        library_ms = library_bwd_ms = None
+        if cname in LIBRARY_CASES:
             # scaled_dot_product_attention computes the same function where there is
-            # no soft-cap; a yardstick only, the port never calls it
+            # no soft-cap; a yardstick only, the port never calls it. A mask only where
+            # the case has lengths: with none it keeps SDPA off its fastest backends
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+            mask = None
+            if case.lens is not None:
+                mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask, scale=D ** -0.5)
             row_err(f"scaled_dot_product_attention vs plain, {tag}",
                     sdpa().transpose(1, 2), out_p, failures)
             library_ms = time_ms(sdpa, 20)
+            if cname == "bridge_self":
+                # its backward (dq, dk and dv in one call) on the masked call: the
+                # yardstick of the two backward kernels together
+                leaves = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+                dot = dout.transpose(1, 2)
+                with torch.enable_grad():
+                    o = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=D ** -0.5)
+                    grads = torch.autograd.grad(o, leaves, dot, retain_graph=True)
+                    row_err(f"scaled_dot_product_attention backward dq vs plain, {tag}",
+                            grads[0].transpose(1, 2), dq_p, failures)
+                    library_bwd_ms = time_ms(
+                        lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True), 20)
+                print(f"[scaled_dot_product_attention backward] {cname}: {library_bwd_ms:.4f} ms "
+                      f"for dq, dk and dv together")
         if cname not in MAIN_PATH_CASES and library_ms is None:
             continue
         pairs = attended_pairs(case, lens)
         delta = fa._delta(out_p, dout)
-        io_bwd = nbytes(q, k, v, dout, lse_p, delta, lens)
+        io_bwd = nbytes(qc, kc, vc, dout, lse_p, delta, lens)
         runs = {
             names[0]: (lambda: fa.flash_attention_fwd(q, k, v, lens, **kw),
                        lambda: fa.flash_attention_plain(q, k, v, lens, **kw),
-                       bound(nbytes(q, k, v, lens, out, lse), 4.0 * D * pairs * H), library_ms),
-            names[1]: (lambda: fa.flash_attention_bwd_dq(q, k, v, lens, out_p, lse_p, dout,
+                       bound(nbytes(qc, kc, vc, lens, out, lse), 4.0 * D * pairs * H), library_ms),
+            names[1]: (lambda: fa.flash_attention_bwd_dq(qc, kc, vc, lens, out_p, lse_p, dout,
                                                          delta=delta, **kw),
                        lambda: fa.flash_attention_bwd_plain(q, k, v, lens, out_p, lse_p, dout,
                                                             **kw),
                        bound(io_bwd + nbytes(dq), 6.0 * D * pairs * H), None),
-            names[2]: (lambda: fa.flash_attention_bwd_dkv(q, k, v, lens, out_p, lse_p, dout,
+            names[2]: (lambda: fa.flash_attention_bwd_dkv(qc, kc, vc, lens, out_p, lse_p, dout,
                                                           delta=delta, **kw),
                        lambda: fa.flash_attention_bwd_plain(q, k, v, lens, out_p, lse_p, dout,
                                                             **kw),
                        bound(io_bwd + nbytes(dk, dv), 8.0 * D * pairs * H), None),
         }
         for n, (kernel, plain, bd, lib) in runs.items():
+            if cname in FWD_ONLY_CASES and n != names[0]:
+                continue
             ms, plain_ms = time_ms(kernel, 50), time_ms(plain, 5)
             print(f"[{n}] {cname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, library "
                   f"{'none' if lib is None else f'{lib:.4f} ms'}")
             res[n]["by_shape"][cname] = {"ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib}
+        if library_bwd_ms is not None:
+            # no one library call computes dq alone or dk, dv alone: SDPA's backward
+            # is held against the two kernels together, on both kernels' entries
+            pair_ms = sum(res[n]["by_shape"][cname]["ms"] for n in names[1:])
+            print(f"[flash backward pair] {cname}: dq + dk/dv kernels {pair_ms:.4f} ms, "
+                  f"scaled_dot_product_attention backward {library_bwd_ms:.4f} ms")
+            for n in names[1:]:
+                res[n]["by_shape"][cname].update(pair_ms=pair_ms, library_pair_ms=library_bwd_ms)
     if failures:
         raise AssertionError("flash kernels disagree with their plain versions:\n  "
                              + "\n  ".join(failures))
@@ -2044,7 +2124,7 @@ def main() -> int:
                "tiled_matmul[bias]": ("tiled_matmul.cu",
                                       "vlm_bridge_tpu/ops/matmul_kernels.py:93"),
                "layer_norm_fast": ("layer_norm.cu", "vlm_bridge_tpu/ops/norm_kernels.py:46"),
-               "flash_attention_fwd": (fa_src, f"{fa_py}:194"),
+               "flash_attention_fwd": ("flash_fwd.cu", f"{fa_py}:194"),
                "flash_attention_bwd_dq": (fa_src, f"{fa_py}:358"),
                "flash_attention_bwd_dkv": (fa_src, f"{fa_py}:382")}
     kernels = [{"name": name, "route": "cuda",

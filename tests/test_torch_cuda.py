@@ -209,11 +209,147 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
                                v[..., :32].contiguous(), kv, scale=0.125)
+    # the forward reads views in place, but its tensor maps need D contiguous
     with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, kv,
+        fa.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, kv,
                                scale=0.125)
     with pytest.raises(ValueError, match="int32"):
         fa.flash_attention_fwd(q, k, v, kv.long(), scale=0.125)
+    # the backward kernels still take contiguous tensors only
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd_dq(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, kv,
+                                  q, torch.zeros(1, 2, 8, device=dev), q, scale=0.125)
+
+
+def _fused_views(dev, B, T, H, KH, D, seed, pad=0):
+    """q [B, T, H, D] and k, v [B, T, KH, D] as column views of one fused
+    [B, T + pad, (H + 2 KH) D] projection, as dinov2._attention and the bridge's
+    serving form hand them over; batch b's v is scaled by b + 1 (q and k are
+    not: lse is held to LSE_TOL absolute, under three f32 steps once |lse|
+    passes 16), and the pad rows past T hold NaN (a kernel that read them
+    would show it)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fused = torch.randn(B, T + pad, (H + 2 * KH) * D, generator=g, device=dev)
+    fused[..., (H + KH) * D:] *= torch.arange(1, B + 1, device=dev)[:, None, None]
+    fused[:, T:] = float("nan")
+    fused = fused.to(torch.bfloat16)[:, :T]
+    q = fused[..., :H * D].reshape(B, T, H, D)
+    k = fused[..., H * D:(H + KH) * D].reshape(B, T, KH, D)
+    v = fused[..., (H + KH) * D:].reshape(B, T, KH, D)
+    return q, k, v
+
+
+FWD_VIEW_CASES = [
+    # name, (B, T, H, KH, D), kwargs, lens
+    ("d64_vit_tail", (3, 257, 4, 4, 64), {}, None),
+    ("d128_gqa_causal_ragged", (2, 200, 4, 2, 128), dict(is_causal=True, logit_softcap=50.0),
+     [200, 77]),
+    ("d256_gqa_window", (2, 150, 4, 2, 256),
+     dict(is_causal=True, logit_softcap=50.0, sliding_window=64), [150, 150]),
+    # more work units than the card has SMs: each persistent block walks several
+    ("d64_many_units", (8, 257, 16, 16, 64), {}, None),
+    ("d128_many_units", (8, 256, 18, 18, 128), {}, [256, 200, 100, 256, 7, 256, 64, 129]),
+    ("d256_many_units", (8, 256, 8, 4, 256), dict(is_causal=True, logit_softcap=50.0),
+     [256, 200, 100, 256, 7, 256, 64, 129]),
+    # G = 1 under a binding window with kv_lens so short that late row tiles
+    # see no key: a unit's two items are neighbouring row tiles, one of them
+    # (or both) empty, and no warpgroup may wait for a tile its unit never loads
+    ("d128_g1_window_short_lens", (3, 256, 4, 4, 128), dict(sliding_window=64), [256, 10, 70]),
+    ("d128_g1_causal_window_short_lens", (3, 256, 4, 4, 128),
+     dict(is_causal=True, sliding_window=64), [256, 10, 70]),
+    ("d64_g1_window_short_lens", (3, 512, 4, 4, 64), dict(sliding_window=32), [512, 10, 70]),
+]
+
+
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("name,shape,kwargs,lens", FWD_VIEW_CASES,
+                         ids=[c[0] for c in FWD_VIEW_CASES])
+def test_flash_fwd_kernel_reads_views_in_place(dev, name, shape, kwargs, lens, layout):
+    """The forward at D 64 / 128 / 256 on column views of a fused projection
+    (NaN in the rows past T) and on contiguous copies, against the plain
+    version row by row; both layouts and repeated calls give the same bits.
+    B = 3 with T = 257:
+    each batch's v scaled differently, so reading a neighbour batch's rows,
+    or the NaN rows past T, would show."""
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, KH, D = shape
+    q, k, v = _fused_views(dev, B, T, H, KH, D, seed=6, pad=9)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    else:
+        assert not q.is_contiguous() and q.stride(1) == (H + 2 * KH) * D
+    kv = torch.tensor([T] * B if lens is None else lens, dtype=torch.int32, device=dev)
+    kw = dict(scale=D ** -0.5, is_causal=False, logit_softcap=None, sliding_window=None)
+    kw.update(kwargs)
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, kv, **kw)
+    out_p, lse_p = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            kv, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert out.is_contiguous() and bool(torch.isfinite(out).all())
+    diff = (out.float() - out_p.float()).abs().amax(dim=-1)
+    scale = out_p.float().abs().amax(dim=-1)
+    scale = torch.maximum(scale, FLASH_FLOOR * scale.max()).clamp_min(1e-30)
+    assert float((diff / scale).max()) <= FLASH_TOL
+    assert float((lse - lse_p).abs().max()) <= LSE_TOL
+    if layout == "views":
+        out_c, lse_c = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                              kv, **kw)
+        assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+    # every call gives the same bits (a block walks several units; a warpgroup
+    # with no item in one must not run ahead of the other)
+    for _ in range(5):
+        again, lse_again = fa.flash_attention_fwd(q, k, v, kv, **kw)
+        assert torch.equal(again, out) and torch.equal(lse_again, lse)
+
+
+def test_flash_fwd_refuses_strides_off_16_bytes(dev):
+    """A row or head stride that is not a multiple of 16 bytes cannot be a
+    tensor map's stride: the wrapper raises before the kernel is called."""
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    kv = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    k = torch.randn(2, 8, 2, 64, generator=g, device=dev).to(torch.bfloat16)
+    odd_head = torch.randn(2, 8, 2, 68, generator=g, device=dev).to(torch.bfloat16)[..., :64]
+    odd_row = torch.randn(2, 8, 2 * 64 + 4, generator=g, device=dev).to(torch.bfloat16)
+    odd_row = odd_row[..., :128].reshape(2, 8, 2, 64)
+    before = fa.flash_attention_fwd.launches
+    for q in (odd_head, odd_row):
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_attention_fwd(q, k, k, kv, scale=0.125)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention_fwd(k, odd_head, k, kv, scale=0.125)
+    assert fa.flash_attention_fwd.launches == before
+
+
+def test_vit_attention_hands_views_to_the_kernel(dev, monkeypatch):
+    """dinov2's attention hands the forward kernel q, k and v as views of its
+    fused projection: the pointers the C entry gets are one row's q, k and v
+    columns, h elements apart, with the fused row's stride 3 h. No copy is
+    made before the kernel."""
+    from vlm_bridge_tpu_torch.configs import DinoV2Config
+    from vlm_bridge_tpu_torch.models import dinov2
+    from vlm_bridge_tpu_torch.ops import cuda_lib
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+
+    cfg = DinoV2Config(hidden_size=256, num_layers=1, num_heads=4, image_size=224)
+    g = torch.Generator(device=dev).manual_seed(8)
+    params = dinov2.init(cfg, generator=g, device=dev)
+    px = torch.randn(2, 224, 224, 3, generator=g, device=dev).to(torch.bfloat16)
+    calls, real = [], cuda_lib.call
+    monkeypatch.setattr(cuda_lib, "call", lambda name, *a: calls.append((name, a)) or real(name, *a))
+    before = fa.flash_attention_fwd.launches
+    dinov2.forward(params, cfg, px)
+    assert fa.flash_attention_fwd.launches == before + cfg.num_layers
+    fwd = [a for name, a in calls if name == "vbt_flash_attention_fwd"]
+    assert len(fwd) == cfg.num_layers
+    h, T = cfg.hidden_size, 1 + (224 // cfg.patch_size) ** 2
+    q_ptr, k_ptr, v_ptr = fwd[0][:3]
+    assert k_ptr - q_ptr == v_ptr - k_ptr == h * 2
+    assert fwd[0][-9:] == (T * 3 * h, 3 * h, cfg.head_dim) * 3
 
 
 def test_head_product_keeps_the_f32_accumulator(dev):

@@ -33,6 +33,18 @@ CASES = [
      dict(is_causal=True, logit_softcap=50.0, sliding_window=48), [128, 70, 9]),
     ("zero_length_row", (3, 64, 64, 2, 2, 64), dict(is_causal=True, logit_softcap=50.0),
      [64, 0, 17]),
+    # the head dims of the forward's other two instantiations
+    ("d128_ragged", (2, 128, 128, 2, 2, 128), {}, [128, 50]),
+    ("d256_causal_cap", (1, 128, 128, 2, 1, 256), dict(is_causal=True, logit_softcap=50.0),
+     None),
+    # the ViT's 257 rows and keys: a tail tile of one row and one key, B = 3
+    ("tail_257", (3, 257, 257, 2, 2, 64), {}, None),
+    # GQA (G = 2), causal with T != S, soft-capped: the queries are the last T of S
+    ("gqa2_causal_t_ne_s_cap", (2, 100, 200, 4, 2, 128),
+     dict(is_causal=True, logit_softcap=30.0), None),
+    # G = 1 under a non-causal window with kv_lengths so short that the later
+    # row tiles see no key at all
+    ("g1_window_short_lens", (3, 256, 256, 2, 2, 128), dict(sliding_window=64), [256, 10, 70]),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -222,3 +234,59 @@ def test_cpu_backward_runs_the_plain_version_once(monkeypatch):
     out = tfa.flash_attention(*leaves, scale=0.125, is_causal=True)
     grads = torch.autograd.grad(out.sum(), leaves)
     assert calls == [1] and all(g.shape == t.shape for g, t in zip(grads, leaves))
+
+
+def test_views_of_a_fused_projection_match_contiguous_copies():
+    """flash_attention on q, k and v as column views of one fused
+    [B, T, 3 H D] projection (how dinov2 and the bridge's serving form hand
+    them over, now with no copy before the forward) gives the same out and the
+    same gradients as on contiguous copies."""
+    B, T, H, D = 2, 70, 2, 64
+    rng = np.random.default_rng(4)
+    fused = rng.normal(0, 1, (B, T, 3 * H * D)).astype(np.float32)
+    w = torch.from_numpy(rng.normal(0, 1, (B, T, H, D)).astype(np.float32))
+    lens = torch.tensor([70, 33])
+
+    def split(x):
+        return (x[..., :H * D].reshape(B, T, H, D), x[..., H * D:2 * H * D].reshape(B, T, H, D),
+                x[..., 2 * H * D:].reshape(B, T, H, D))
+
+    a = torch.from_numpy(fused).requires_grad_(True)
+    q, k, v = split(a)
+    assert not any(t.is_contiguous() for t in (q, k, v))
+    out_v = tfa.flash_attention(q, k, v, scale=D ** -0.5, is_causal=True, logit_softcap=30.0,
+                                kv_lengths=lens)
+    (g_v,) = torch.autograd.grad((out_v * w).sum(), a)
+
+    copies = [t.detach().contiguous().requires_grad_(True) for t in split(torch.from_numpy(fused))]
+    out_c = tfa.flash_attention(*copies, scale=D ** -0.5, is_causal=True, logit_softcap=30.0,
+                                kv_lengths=lens)
+    g_c = torch.autograd.grad((out_c * w).sum(), copies)
+    torch.testing.assert_close(out_v, out_c, rtol=0, atol=0)
+    torch.testing.assert_close(g_v, torch.cat([g.reshape(B, T, H * D) for g in g_c], dim=-1),
+                               rtol=0, atol=0)
+
+
+def test_vit_attention_passes_views_to_the_forward(monkeypatch):
+    """dinov2's attention hands the forward q, k and v as views of its fused
+    qkv projection (one storage, h columns apart): nothing copies them on the
+    way to the kernel."""
+    from vlm_bridge_tpu_torch.configs import DinoV2Config
+    from vlm_bridge_tpu_torch.models import dinov2
+
+    cfg = DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, image_size=28)
+    assert cfg.head_dim in tfa.HEAD_DIMS
+    params = dinov2.init(cfg, generator=torch.Generator().manual_seed(0), dtype=torch.float32)
+    seen, real = [], tfa.flash_attention_fwd
+    monkeypatch.setattr(tfa, "flash_attention_fwd",
+                        lambda q, k, v, *a, **kw: seen.append((q, k, v)) or real(q, k, v, *a, **kw))
+    px = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (2, 28, 28, 3)).astype(np.float32))
+    with torch.no_grad():
+        dinov2.forward(params, cfg, px)
+    assert len(seen) == cfg.num_layers
+    for q, k, v in seen:
+        assert not any(t.is_contiguous() for t in (q, k, v))
+        assert q.untyped_storage().data_ptr() == k.untyped_storage().data_ptr() == \
+            v.untyped_storage().data_ptr()
+        assert k.data_ptr() - q.data_ptr() == cfg.hidden_size * q.element_size()
+        assert q.stride(1) == 3 * cfg.hidden_size

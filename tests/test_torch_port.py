@@ -259,7 +259,7 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                 "int8_argmax.cu": "quant.py:int8_matmul_t_argmax",
                 "int8_linear.cu": "quant.py:int8_matmul",
                 "int4_linear.cu": "quant.py:int4_mlp",
-                "flash_attention.cu": "flash_attention.py:_flash_fwd",
+                "flash_fwd.cu": "flash_attention.py:_flash_fwd",
                 "layer_step.cu": "decode_kernels.py:fused_attn_step",
                 "tiled_matmul.cu": "matmul_kernels.py:_tiled_matmul_jit",
                 "layer_norm.cu": "norm_kernels.py:_ln_forward"}
@@ -267,7 +267,8 @@ def test_kernel_sources_ship_and_name_what_they_replace():
         text = (csrc / name).read_text()
         assert f"Replaces: vlm_bridge_tpu/ops/{target}" in text
         assert "Bound:" in text
-    assert "flash_attention.py:_flash_bwd" in (csrc / "flash_attention.cu").read_text()
+    fa_bwd = (csrc / "flash_attention.cu").read_text()
+    assert "vlm_bridge_tpu/ops/flash_attention.py:_flash_bwd" in fa_bwd and "Bound:" in fa_bwd
     assert "vlm_bridge_tpu/ops/decode_kernels.py:fused_mlp_step" in \
         (csrc / "layer_step.cu").read_text()
     for target in ("quant.py:int8_mlp", "quant.py:int8_ffn"):
@@ -281,12 +282,14 @@ def test_kernel_sources_ship_and_name_what_they_replace():
     from vlm_bridge_tpu_torch.ops import cuda_lib
 
     assert {p.name for p in cuda_lib._sources()} >= set(replaced) | {
-        "i8_gemm.cu", "i4_gemm.cu", "common.cuh", "linear_common.cuh"}
+        "flash_attention.cu", "i8_gemm.cu", "i4_gemm.cu", "common.cuh", "linear_common.cuh",
+        "sm90.cuh"}
     assert np.isin(["-gencode", "arch=compute_90a,code=sm_90a"], cuda_lib.NVCC_FLAGS).all()
-    for entry in ("vbt_flash_attention_fwd", "vbt_flash_attention_bwd_dq",
-                  "vbt_flash_attention_bwd_dkv"):
+    for entry, src in (("vbt_flash_attention_fwd", "flash_fwd.cu"),
+                       ("vbt_flash_attention_bwd_dq", "flash_attention.cu"),
+                       ("vbt_flash_attention_bwd_dkv", "flash_attention.cu")):
         assert entry in cuda_lib.SIGNATURES
-        assert f'extern "C" int {entry}(' in (csrc / "flash_attention.cu").read_text()
+        assert f'extern "C" int {entry}(' in (csrc / src).read_text()
     for entry, src in (("vbt_int8_matmul", "int8_linear.cu"), ("vbt_int8_mlp", "int8_linear.cu"),
                        ("vbt_int8_ffn", "int8_linear.cu"),
                        ("vbt_int8_matmul_t", "int8_argmax.cu"),

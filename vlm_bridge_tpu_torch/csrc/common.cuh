@@ -73,6 +73,40 @@ __device__ __forceinline__ int8_t kv_code(float v, float scale) {
 // Gemma-2's logit soft-cap.
 __device__ __forceinline__ float soft_cap(float l, float cap) { return tanhf(l / cap) * cap; }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- flash attention's mask, one definition for the forward (flash_fwd.cu)
+// and the backward (flash_attention.cu) ----
+
+// lse of a row with empty support
+constexpr float FA_NEG_INF = -2.3819763e38f;
+
+__device__ __forceinline__ bool attends(int qpos, int kpos, int kv_len, int causal, int window) {
+  bool m = kpos < kv_len;
+  if (causal) m = m && (kpos <= qpos);
+  if (window > 0) m = m && (kpos > qpos - window);
+  return m;
+}
+
+// Tiles [lo, hi) of BN keys that a query tile starting at position q_start
+// (BM rows) can attend to; lo = hi = 0 when it sees none (a window past a
+// short kv_len), so that an empty range never points past a caller's loads.
+__device__ __forceinline__ void key_tile_range(int q_start, int BM, int BN, int kv_len, int S,
+                                               int causal, int window, int& lo, int& hi) {
+  int end = min(kv_len, S);
+  if (causal) end = min(end, q_start + BM);
+  hi = end > 0 ? (end + BN - 1) / BN : 0;
+  lo = 0;
+  if (window > 0) {
+    const int first = q_start - window + 1;  // smallest key the tile's first row sees
+    if (first > 0) lo = first / BN;
+  }
+  if (hi <= lo) lo = hi = 0;
+}
+
 // Row kernels (residual + norm) keep one row of up to 256 * ROW_REGS values
 // in registers, 256 threads a row.
 constexpr int ROW_REGS = 16;

@@ -1,7 +1,7 @@
-// Flash attention for training: forward, backward dq, backward dk/dv.
+// Flash attention for training: backward dq and backward dk/dv (the forward
+// is flash_fwd.cu).
 //
-// Replaces: vlm_bridge_tpu/ops/flash_attention.py:_flash_fwd (body
-// _fwd_kernel) with fa_fwd_kernel, and the two pallas_calls of
+// Replaces: the two pallas_calls of
 // vlm_bridge_tpu/ops/flash_attention.py:_flash_bwd (bodies _bwd_dq_kernel and
 // _bwd_dkv_kernel) with fa_bwd_dq_kernel and fa_bwd_dkv_kernel.
 //
@@ -10,27 +10,24 @@
 // query heads per kv head, kv_lens [B]. Logits = (q . k) * scale in f32 from
 // bf16 operands, then tanh(x / cap) * cap, then the mask
 //   kpos < kv_len  and  (causal: kpos <= qpos)  and  (window: kpos > qpos - W)
-// with qpos = t + q_offset. The forward keeps a running max and sum per
-// row, rounds p to bf16 before p . v, and writes out (bf16) and the per-row
-// logsumexp lse [B, H, T] (f32). A row with empty support gives out = 0 and
-// lse = -2.3819763e38. The backward recomputes p = exp(logits - lse) per
+// with qpos = t + q_offset. From the forward's out and per-row logsumexp
+// lse [B, H, T] (f32) the backward recomputes p = exp(logits - lse) per
 // tile (zero where masked) and
 //   dv += p^T . do       dp = do . v^T       ds = p (dp - delta) dcap scale
 //   dq += ds . k         dk += ds^T . q      dcap = 1 - tanh^2
 // with p and ds rounded to bf16 before their products and f32 sums.
 //
 // Bound: bytes. At the train step's Gemma shape (B 8, T = S 256, H 8, KH 4,
-// D 256) a forward call reads and writes about 25 MB (7.5 us at 3.35 TB/s)
-// and does about 2 GFLOP on its causal half (2 us at the bf16 tensor-core
-// peak); the backward calls are alike. What the design has to keep is that
-// the [T, S] logits never reach device memory and that tiles outside
-// kv_len, the causal diagonal and the window are skipped, not masked.
+// D 256) a call reads and writes about 34 MB (10 us at 3.35 TB/s) and does
+// about 3-4 GFLOP on its causal half (3-4 us at the bf16 tensor-core peak).
+// What the design has to keep is that the [T, S] logits never reach device
+// memory and that tiles outside kv_len, the causal diagonal and the window
+// are skipped, not masked.
 //
-// Design. The TPU grid's sequential k-block axis (running max / sum / acc
-// carried in VMEM scratch) is a loop inside the block here. A block owns a
-// tile of "row" positions (64 queries in forward and dq, 64 keys in dk/dv),
-// one warp per 16 rows, and loops over tiles of the other sequence. Both
-// products of a step run on the tensor cores with mma.sync m16n8k16: the
+// Design. The TPU grid's sequential k-block axis is a loop inside the block
+// here. A block owns a tile of "row" positions (64 queries in dq, 64 keys in
+// dk/dv), one warp per 16 rows, and loops over tiles of the other sequence.
+// Both products of a step run on the tensor cores with mma.sync m16n8k16: the
 // first (rows . cols^T, contraction over D) reads both operands from shared
 // memory; its f32 result stays in registers, is turned into p or ds there,
 // and is fed as the A operand of the second product without a round trip
@@ -51,7 +48,6 @@
 
 namespace {
 
-constexpr float FA_NEG_INF = -2.3819763e38f;
 constexpr int FA_ROWS = 64;      // rows a block owns; one warp per 16
 constexpr int FA_THREADS = 128;
 
@@ -63,8 +59,6 @@ struct FaParams {
   const float* lse_in;
   const float* delta;
   const int* kv_lens;
-  bf16* out;
-  float* lse_out;
   bf16* dq;
   bf16* dk;
   bf16* dv;
@@ -72,11 +66,6 @@ struct FaParams {
   int causal, window, q_offset;   // window <= 0: none
   float scale, softcap;           // softcap <= 0: none
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Rows [row0, row0 + R) of one head of a [*, L, NH, D] tensor -> shared
 // [R][D + 8]; `src` points at (b, 0, head, 0), rows are row_stride apart.
@@ -160,27 +149,6 @@ __device__ __forceinline__ float cap_logit(float raw, float scale, float softcap
   return s;
 }
 
-__device__ __forceinline__ bool attends(int qpos, int kpos, int kv_len, int causal, int window) {
-  bool m = kpos < kv_len;
-  if (causal) m = m && (kpos <= qpos);
-  if (window > 0) m = m && (kpos > qpos - window);
-  return m;
-}
-
-// Tiles [lo, hi) of BN keys that a query tile starting at position q_start
-// (BM rows) can attend to.
-__device__ __forceinline__ void key_tile_range(int q_start, int BM, int BN, int kv_len, int S,
-                                               int causal, int window, int& lo, int& hi) {
-  int end = min(kv_len, S);
-  if (causal) end = min(end, q_start + BM);
-  hi = end > 0 ? (end + BN - 1) / BN : 0;
-  lo = 0;
-  if (window > 0) {
-    const int first = q_start - window + 1;  // smallest key the tile's first row sees
-    if (first > 0) lo = first / BN;
-  }
-}
-
 // Store a warp's 16 x D f32 accumulator as bf16 rows of a [*, L, NH, D] tensor.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, size_t row_stride, int row0, int L,
@@ -196,109 +164,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t row_stride, int row
     if (r1 < L)
       *reinterpret_cast<uint32_t*>(dst + (size_t)r1 * row_stride + c) =
           pack_bf16(acc[nt][2] * mul1, acc[nt][3] * mul1);
-  }
-}
-
-// ---------------------------------------------------------------- forward
-
-template <int D, int BN>
-__global__ void __launch_bounds__(FA_THREADS) fa_fwd_kernel(const FaParams p) {
-  constexpr int LD = D + 8, BM = FA_ROWS;
-  extern __shared__ __align__(16) unsigned char fa_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(fa_smem);
-  bf16* Ks = Qs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
-
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kh = h / (p.H / p.KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row_tile = blockIdx.x * BM;
-  const int q_start = row_tile + p.q_offset;
-  const int kv_len = min(p.kv_lens[b], p.S);
-  const size_t q_stride = (size_t)p.H * D, k_stride = (size_t)p.KH * D;
-  const bf16* qg = p.q + ((size_t)b * p.T * p.H + h) * D;
-  const bf16* kg = p.k + ((size_t)b * p.S * p.KH + kh) * D;
-  const bf16* vg = p.v + ((size_t)b * p.S * p.KH + kh) * D;
-
-  load_tile<D, BM>(Qs, qg, row_tile, p.T, q_stride);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
-  float m_run[2] = {FA_NEG_INF, FA_NEG_INF};
-  float l_run[2] = {0.f, 0.f};  // this lane's share of the row sums
-
-  int lo, hi;
-  key_tile_range(q_start, BM, BN, kv_len, p.S, p.causal, p.window, lo, hi);
-  const int qpos0 = q_start + warp * 16 + g;
-
-  for (int j = lo; j < hi; ++j) {
-    const int k_start = j * BN;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, BN>(Ks, kg, k_start, p.S, k_stride);
-    load_tile<D, BN>(Vs, vg, k_start, p.S, k_stride);
-    __syncthreads();
-
-    float s[BN / 8][4];
-    gemm_nt<D, BN>(s, Qs + warp * 16 * LD, Ks);
-
-    float m_cur[2] = {FA_NEG_INF, FA_NEG_INF};
-#pragma unroll
-    for (int jn = 0; jn < BN / 8; ++jn)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float dcap;
-        const float capped = cap_logit(s[jn][r], p.scale, p.softcap, dcap);
-        const int qpos = qpos0 + (r >> 1) * 8, kpos = k_start + jn * 8 + t * 2 + (r & 1);
-        // a capped logit is never the fill value, so the fill marks a masked entry
-        s[jn][r] = attends(qpos, kpos, kv_len, p.causal, p.window) ? capped : FA_NEG_INF;
-        m_cur[r >> 1] = fmaxf(m_cur[r >> 1], s[jn][r]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_cur[i] = fmaxf(m_cur[i], __shfl_xor_sync(0xffffffffu, m_cur[i], 1));
-      m_cur[i] = fmaxf(m_cur[i], __shfl_xor_sync(0xffffffffu, m_cur[i], 2));
-      const float m_new = fmaxf(m_run[i], m_cur[i]);
-      corr[i] = __expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_run[i] *= corr[i];
-    }
-#pragma unroll
-    for (int jn = 0; jn < BN / 8; ++jn)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float pv = s[jn][r] == FA_NEG_INF ? 0.f : __expf(s[jn][r] - m_run[r >> 1]);
-        s[jn][r] = pv;
-        l_run[r >> 1] += pv;
-      }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
-    }
-    gemm_acc<D, BN>(acc, s, Vs);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    inv[i] = l_run[i] == 0.f ? 1.f : 1.f / l_run[i];
-  }
-  bf16* og = p.out + ((size_t)b * p.T * p.H + h) * D;
-  store_rows<D>(og, q_stride, row_tile + warp * 16, p.T, acc, inv[0], inv[1]);
-  if (t == 0) {
-    float* lse = p.lse_out + ((size_t)b * p.H + h) * p.T;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row_tile + warp * 16 + g + i * 8;
-      if (row < p.T) lse[row] = l_run[i] == 0.f ? FA_NEG_INF : m_run[i] + logf(l_run[i]);
-    }
   }
 }
 
@@ -496,7 +361,6 @@ __global__ void __launch_bounds__(FA_THREADS) fa_bwd_dkv_kernel(const FaParams p
 #define FA_DKV_FUSED_MAX_D 128
 #endif
 template <int D> struct FaTiles {
-  static constexpr int FWD_BN = 64;
   static constexpr int BWD_BN = D == 256 ? 32 : 64;
   static constexpr bool DKV_FUSED = D <= FA_DKV_FUSED_MAX_D;
   // two 16 x 128 accumulators beside two 16 x 64 score tiles spill; 32 columns do not
@@ -506,18 +370,6 @@ template <int D> struct FaTiles {
 template <typename K>
 int allow_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <int D>
-int launch_fwd(const FaParams& p, cudaStream_t st) {
-  constexpr int BN = FaTiles<D>::FWD_BN;
-  constexpr int smem = (FA_ROWS + 2 * BN) * (D + 8) * 2;
-  static int attr = allow_smem(fa_fwd_kernel<D, BN>, smem);
-  if (attr != 0) return attr;
-  dim3 grid((p.T + FA_ROWS - 1) / FA_ROWS, p.B * p.H);
-  fa_fwd_kernel<D, BN><<<grid, FA_THREADS, smem, st>>>(p);
-  VBT_CHECK_LAUNCH();
-  return 0;
 }
 
 template <int D>
@@ -564,17 +416,6 @@ FaParams fa_params(int B, int T, int S, int H, int KH, int causal, int window, f
 
 #define FA_DISPATCH(D, fn, p, st)                   \
   ((D) == 256 ? fn<256>(p, st) : (D) == 128 ? fn<128>(p, st) : fn<64>(p, st))
-
-extern "C" int vbt_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                       const void* kv_lens, void* out, void* lse, int B, int T,
-                                       int S, int H, int KH, int D, int causal, int window,
-                                       float scale, float softcap, void* stream_ptr) {
-  if (!fa_shape_ok(B, T, S, H, KH, D)) return (int)cudaErrorInvalidValue;
-  FaParams p = fa_params(B, T, S, H, KH, causal, window, scale, softcap);
-  p.q = (const bf16*)q; p.k = (const bf16*)k; p.v = (const bf16*)v;
-  p.kv_lens = (const int*)kv_lens; p.out = (bf16*)out; p.lse_out = (float*)lse;
-  return FA_DISPATCH(D, launch_fwd, p, (cudaStream_t)stream_ptr);
-}
 
 extern "C" int vbt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,

@@ -7,9 +7,10 @@ started together, and a last call links the objects. The build runs at
 first use, into `build/` at the repository root, keyed by a hash of the
 sources, so a changed source rebuilds and an unchanged one is loaded as it
 is. `build_log` keeps what `-Xptxas -v` printed (registers, shared memory
-and spills per kernel). `VBT_NVCC_FLAGS` in the environment adds compiler flags
-(for instance `-DFA_DKV_FUSED_MAX_D=0`, to time a kernel's variants against
-each other); they are part of the key.
+and spills per kernel), also when the library was built by an earlier
+process: the log is kept beside it. `VBT_NVCC_FLAGS` in the environment adds
+compiler flags (for instance `-DFA_DKV_FUSED_MAX_D=0`, to time a kernel's
+variants against each other); they are part of the key.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as void*)
 SIGNATURES = {
     "vbt_int8_matmul_t_argmax": [_P] * 6 + [_I] * 3 + [_P],
@@ -48,7 +49,7 @@ SIGNATURES = {
     "vbt_fused_mlp_step": [_P] * 13 + [_I] * 5 + [_F] + [_P],
     "vbt_fused_stack_step": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
     "vbt_fused_bridge_step": [_P] * 31 + [_I] * 9 + [_F] + [_P],
-    "vbt_flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],
+    "vbt_flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_L] * 9 + [_P],
     "vbt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 8 + [_F] * 2 + [_P],
     "vbt_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_P],
 }
@@ -56,7 +57,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build in this process (None: loaded, not built)
-build_log = ""        # the compilers' output of that build
+build_log = ""        # the compilers' output of the loaded library's build
 
 
 def _sources():
@@ -107,8 +108,11 @@ def lib() -> ctypes.CDLL:
                 if res.returncode != 0:
                     raise RuntimeError(
                         f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+                out.with_suffix(".log").write_text(build_log)
                 os.replace(tmp, out)
             build_seconds = time.perf_counter() - t0
+        elif out.with_suffix(".log").exists():
+            build_log = out.with_suffix(".log").read_text()
         handle = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)

@@ -1,15 +1,20 @@
 """Flash attention, forward and backward (port of
 vlm_bridge_tpu.ops.flash_attention).
 
-Three CUDA kernels (csrc/flash_attention.cu) behind three wrappers,
+Three CUDA kernels (the forward in csrc/flash_fwd.cu, the two backward
+kernels in csrc/flash_attention.cu) behind three wrappers,
 `flash_attention_fwd`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`,
 tied together by a `torch.autograd.Function`; `flash_attention` keeps the
 JAX signature. Each wrapper launches its kernel on CUDA tensors (bf16, head
 dim 64, 128 or 256) or raises, takes the plain version on CPU tensors, and
-counts its launches. The plain versions `flash_attention_plain` and
-`flash_attention_bwd_plain` are the same recurrence written with whole-matrix
-torch ops and the same rounding points (p and ds rounded to the inputs'
-dtype before their products, f32 sums).
+counts its launches. The forward reads q, k and v where they lie (views of a
+fused projection included: D contiguous, the other strides multiples of 16
+bytes); the backward kernels take contiguous tensors, and the autograd
+function copies the saved q, k and v only when a gradient is asked for. The
+plain versions `flash_attention_plain` and `flash_attention_bwd_plain` are
+the same recurrence written with whole-matrix torch ops and the same rounding
+points (p and ds rounded to the inputs' dtype before their products, f32
+sums).
 
 Feature union: GQA (H % KH == 0), causal masking with the queries taken as
 the last T of the S positions, sliding windows, tanh logit soft-capping with
@@ -27,7 +32,7 @@ import torch
 from vlm_bridge_tpu_torch.ops import cuda_lib
 
 _NEG_INF = -2.3819763e38
-HEAD_DIMS = (64, 128, 256)  # the instantiations csrc/flash_attention.cu builds
+HEAD_DIMS = (64, 128, 256)  # the instantiations csrc/flash_fwd.cu and flash_attention.cu build
 
 def _scores(q, k, kv_lens, *, scale, is_causal, logit_softcap, sliding_window):
     """Capped logits [B, KH, G, T, S] (f32), d(capped)/d(raw logit), and the
@@ -115,6 +120,33 @@ def _check_qkv(q, k, v, kv_lens):
     return B, T, S, H, KH, D
 
 
+def _strides(t: torch.Tensor, name: str, shape) -> Tuple[int, int, int]:
+    """The (batch, row, head) element strides of a [B, L, NH, D] bf16 CUDA
+    tensor the forward kernel reads in place; raise on what its tensor maps
+    cannot take. A dimension of size 1 is never stepped, so its stride is
+    given as the packed one."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: expected {torch.bfloat16}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous (stride {t.stride(3)})")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+    B, L, NH, D = shape
+    packed = (L * NH * D, NH * D, D)
+    out = []
+    for dim, size in enumerate((B, L, NH)):
+        st = t.stride(dim) if size > 1 else packed[dim]
+        if st <= 0 or (st * t.element_size()) % 16:
+            raise ValueError(f"{name}: stride {st} of dim {dim} is not a positive multiple "
+                             f"of 16 bytes")
+        out.append(st)
+    return tuple(out)
+
+
 def _tail(B, T, S, H, KH, D, scale, is_causal, logit_softcap, sliding_window):
     """The scalar arguments every entry point ends with (0 = no window / cap)."""
     return (B, T, S, H, KH, D, int(bool(is_causal)), int(sliding_window or 0),
@@ -123,18 +155,27 @@ def _tail(B, T, S, H, KH, D, scale, is_causal, logit_softcap, sliding_window):
 
 def flash_attention_fwd(q, k, v, kv_lens, *, scale, is_causal=False, logit_softcap=None,
                         sliding_window=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel: (out, lse [B, H, T] f32). kv_lens [B] int32, <= S."""
+    """Forward kernel: (out [B, T, H, D] contiguous, lse [B, H, T] f32).
+    kv_lens [B] int32, <= S. q, k and v may be strided views (see
+    `_strides`); nothing is copied."""
     kw = dict(scale=scale, is_causal=is_causal, logit_softcap=logit_softcap,
               sliding_window=sliding_window)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kv_lens, **kw)
-    dims = _check_qkv(q, k, v, kv_lens)
-    B, T, _, H, _, _ = dims
-    out = torch.empty_like(q)
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not built (kernels exist for {HEAD_DIMS})")
+    if H % KH:
+        raise ValueError(f"{H} query heads do not divide into {KH} kv heads")
+    strides = (*_strides(q, "q", (B, T, H, D)), *_strides(k, "k", (B, S, KH, D)),
+               *_strides(v, "v", (B, S, KH, D)))
+    cuda_lib.check(kv_lens, "kv_lens", torch.int32, (B,))
+    out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     p = cuda_lib.ptr
     cuda_lib.call("vbt_flash_attention_fwd", p(q), p(k), p(v), p(kv_lens), p(out), p(lse),
-                  *_tail(*dims, **kw))
+                  *_tail(B, T, S, H, KH, D, **kw), *strides)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -200,7 +241,8 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 class _FlashCore(torch.autograd.Function):
     """Counterpart of the JAX package's `_flash_core` custom_vjp: the forward
-    saves q, k, v, kv_lens, out and lse; the backward is the two kernels."""
+    saves q, k, v (as given: views stay views), kv_lens, out and lse; the
+    backward is the two kernels, on contiguous copies of q, k and v."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, scale, is_causal, logit_softcap, sliding_window):
@@ -214,7 +256,7 @@ class _FlashCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_lens, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
+        q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
         if not q.is_cuda:  # the plain backward gives all three at once
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, dout, **ctx.kw)
             return dq, dk, dv, None, None, None, None, None
@@ -243,5 +285,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
         kv_lens = torch.full((B,), S, dtype=torch.int32, device=q.device)
     else:
         kv_lens = torch.clamp(kv_lengths.to(torch.int32), max=S)
-    return _FlashCore.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_lens,
-                            float(scale), bool(is_causal), logit_softcap, sliding_window)
+    return _FlashCore.apply(q, k, v, kv_lens, float(scale), bool(is_causal), logit_softcap,
+                            sliding_window)
