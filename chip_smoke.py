@@ -9,10 +9,10 @@ kernel held against its plain version.
 1. Refuses to run without CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from vlm_bridge_tpu_torch/csrc (one nvcc per
    source, sm_90a) and prints what ptxas reports (registers, spills) for the
-   flash kernels, the int8 product kernels and the two wgmma kernels
-   (tiled_matmul's and the flash forward's three instantiations, D 64 / 128 /
-   256); fails if ptxas serialised a wgmma pipeline, if a wgmma kernel
-   spills, or if an instantiation of the flash forward is missing.
+   flash kernels, the int8 product kernels and the wgmma kernels
+   (tiled_matmul's, and the flash forward's, dq's and dk/dv's three
+   instantiations each, D 64 / 128 / 256); fails if ptxas serialised a wgmma
+   pipeline, if a wgmma kernel spills, or if a flash instantiation is missing.
 3. One phase per kernel: the kernel and its plain PyTorch version on the
    same seeded inputs at the main paths' shapes, their max abs error
    against the stated tolerance, both times (device time: the host queues
@@ -27,7 +27,9 @@ kernel held against its plain version.
    the soft-cap, and with GQA, T != S and a tail tile past T; the forward's
    yardstick is scaled_dot_product_attention without a mask where the case
    has no lengths, and the backward kernels' is SDPA's backward at the
-   bridge-self shape.
+   bridge-self shape (the pair's time includes the dq kernel's delta). The
+   backward kernels get q, k, v and dout as the case gives them, and two calls
+   of each must give the same bits.
 4. The serving path: VLMConfig.default() at full width, seeded random
    weights made on the device, --quantize embedding,mlp,attn,bridge with the
    int8 KV cache; 64 seeded uint8 images -> normalize_on_device ->
@@ -186,19 +188,19 @@ PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm", "argmax
 
 
 # the wgmma kernels: each instantiation must not spill
-SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel")
-FLASH_FWD_INSTANCES = ("fa_fwd_sm90_kernelILi64E", "fa_fwd_sm90_kernelILi128E",
-                       "fa_fwd_sm90_kernelILi256E")
+SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel", "fa_bwd_dq_sm90_kernel",
+                 "fa_bwd_dkv_sm90_kernel")
+FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:] for d in (64, 128, 256))
 
 
 def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
     """Print what ptxas -v said of the kernels named by `tags` (registers,
     shared memory, spills). Raise if ptxas serialised a kernel's wgmma
-    instructions (tiled_matmul_kernel and fa_fwd_sm90_kernel are the wgmma
-    kernels: a serialised pipeline runs them at a fraction of their rate and
-    still agrees with the plain version), or if the build has not all three
-    instantiations of the flash forward (D 64 / 128 / 256). Returns the
-    instantiations of the wgmma kernels that spill."""
+    instructions (tiled_matmul_kernel and the three flash kernels are the
+    wgmma kernels: a serialised pipeline runs them at a fraction of their rate
+    and still agrees with the plain version), or if the build has not all
+    three instantiations (D 64 / 128 / 256) of the flash forward, dq and
+    dk/dv. Returns the instantiations of the wgmma kernels that spill."""
     log = build_log.splitlines()
     serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
     if serial:
@@ -215,9 +217,9 @@ def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
             if any(k in name for k in SPILL_CHECKED) and any(
                     int(n) for x in info for n in re.findall(r"(\d+) bytes spill", x)):
                 spills.append(name)
-    missing = [k for k in FLASH_FWD_INSTANCES if not any(k in n for n in seen)]
+    missing = [k for k in FLASH_INSTANCES if not any(k in n for n in seen)]
     if missing:
-        raise AssertionError(f"ptxas reported no {missing}: the flash forward is not built")
+        raise AssertionError(f"ptxas reported no {missing}: a flash kernel is not built")
     return spills
 
 
@@ -542,7 +544,7 @@ def flash_case_inputs(case, dev, gen):
         q, k, v = (fused[..., :H * D].reshape(B, T, H, D),
                    fused[..., H * D:(H + KH) * D].reshape(B, S, KH, D),
                    fused[..., (H + KH) * D:].reshape(B, S, KH, D))
-        dout = mk(B, T, H, D)
+        dout = mk(B, T, 2 * H * D)[..., H * D:].reshape(B, T, H, D)
     else:
         q, k, v, dout = (mk(B, T, H, D, mul=case.q_mul), mk(B, S, KH, D), mk(B, S, KH, D),
                          mk(B, T, H, D))
@@ -586,12 +588,12 @@ def row_err(name, got, want, failures) -> float:
 
 
 def phase_flash(dev, gen):
-    """The three flash kernels against their plain versions at every case
-    (the forward on q, k and v as the case gives them, views included; the
-    backward kernels on contiguous copies, as the autograd function hands
-    them over); times, bounds and the library yardstick at the main path's
-    two shapes and at the ViT's two, and scaled_dot_product_attention's
-    backward at the bridge-self shape."""
+    """The three flash kernels against their plain versions at every case,
+    each on q, k, v (and dout) as the case gives them, views included, as the
+    autograd function hands them over; two calls of each give the same bits;
+    times, bounds and the library yardstick at the main path's two shapes and
+    at the ViT's two, and scaled_dot_product_attention's backward at the
+    bridge-self shape against the dq + dk/dv pair, delta included."""
     import torch.nn.functional as F
 
     from vlm_bridge_tpu_torch.ops import flash_attention as fa
@@ -603,16 +605,17 @@ def phase_flash(dev, gen):
         cname, B, T, S, H, KH, D = case[:7]
         cap = case.cap
         q, k, v, dout, lens = flash_case_inputs(case, dev, gen)
-        qc, kc, vc = (x.contiguous() for x in (q, k, v))
         kw = dict(scale=D ** -0.5, is_causal=case.causal, logit_softcap=cap,
                   sliding_window=case.window)
         out_p, lse_p = fa.flash_attention_plain(q, k, v, lens, **kw)
         dq_p, dk_p, dv_p = fa.flash_attention_bwd_plain(q, k, v, lens, out_p, lse_p, dout, **kw)
         out, lse = fa.flash_attention_fwd(q, k, v, lens, **kw)
         # the backward kernels get the plain forward's out and lse: each kernel
-        # is held to its plain version on the same inputs
-        dq = fa.flash_attention_bwd_dq(qc, kc, vc, lens, out_p, lse_p, dout, **kw)
-        dk, dv = fa.flash_attention_bwd_dkv(qc, kc, vc, lens, out_p, lse_p, dout, **kw)
+        # is held to its plain version on the same inputs; dk/dv gets the dq
+        # kernel's delta, as in the autograd function
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, lens, out_p, lse_p, dout, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lens, out_p, lse_p, dout, delta=delta,
+                                            **kw)
         torch.cuda.synchronize()
         tag = f"{cname} B{B} T{T} S{S} H{H} KH{KH} D{D}{' views' if case.views else ''}"
         errs = {
@@ -632,6 +635,17 @@ def phase_flash(dev, gen):
         out2, lse2 = fa.flash_attention_fwd(q, k, v, lens, **kw)
         if not (torch.equal(out2, out) and torch.equal(lse2, lse)):
             failures.append(f"{tag}: two calls of the forward give different bits")
+        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, lens, out_p, lse_p, dout, **kw)
+        if not (torch.equal(dq2, dq) and torch.equal(delta2, delta)):
+            failures.append(f"{tag}: two calls of dq give different bits")
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lens, out_p, lse_p, dout, delta=delta2,
+                                              **kw)
+        if not (torch.equal(dk2, dk) and torch.equal(dv2, dv)):
+            failures.append(f"{tag}: two calls of dk/dv give different bits")
+        delta_p = fa._delta(out_p, dout)
+        delta_err = float((delta - delta_p).abs().max())
+        if not delta_err <= LSE_TOL * max(1.0, float(delta_p.abs().max())):
+            failures.append(f"{tag}: the dq kernel's delta is {delta_err} off _delta's")
         empty_out = out[~full.transpose(1, 2)]
         if empty_out.numel() and float(empty_out.float().abs().max()) != 0.0:
             failures.append(f"{tag}: rows with empty support must give out = 0")
@@ -680,18 +694,18 @@ def phase_flash(dev, gen):
         if cname not in MAIN_PATH_CASES and library_ms is None:
             continue
         pairs = attended_pairs(case, lens)
-        delta = fa._delta(out_p, dout)
-        io_bwd = nbytes(qc, kc, vc, dout, lse_p, delta, lens)
+        # each input read once, each output written once: q, k, v, dout, lse, lens and
+        # delta (the dq kernel writes it and also reads out; dk/dv reads it)
+        io_bwd = nbytes(q, k, v, dout, lse_p, lens, delta)
         runs = {
             names[0]: (lambda: fa.flash_attention_fwd(q, k, v, lens, **kw),
                        lambda: fa.flash_attention_plain(q, k, v, lens, **kw),
-                       bound(nbytes(qc, kc, vc, lens, out, lse), 4.0 * D * pairs * H), library_ms),
-            names[1]: (lambda: fa.flash_attention_bwd_dq(qc, kc, vc, lens, out_p, lse_p, dout,
-                                                         delta=delta, **kw),
+                       bound(nbytes(q, k, v, lens, out, lse), 4.0 * D * pairs * H), library_ms),
+            names[1]: (lambda: fa.flash_attention_bwd_dq(q, k, v, lens, out_p, lse_p, dout, **kw),
                        lambda: fa.flash_attention_bwd_plain(q, k, v, lens, out_p, lse_p, dout,
                                                             **kw),
-                       bound(io_bwd + nbytes(dq), 6.0 * D * pairs * H), None),
-            names[2]: (lambda: fa.flash_attention_bwd_dkv(qc, kc, vc, lens, out_p, lse_p, dout,
+                       bound(io_bwd + nbytes(out_p, dq), 6.0 * D * pairs * H), None),
+            names[2]: (lambda: fa.flash_attention_bwd_dkv(q, k, v, lens, out_p, lse_p, dout,
                                                           delta=delta, **kw),
                        lambda: fa.flash_attention_bwd_plain(q, k, v, lens, out_p, lse_p, dout,
                                                             **kw),
@@ -708,6 +722,7 @@ def phase_flash(dev, gen):
         if library_bwd_ms is not None:
             # no one library call computes dq alone or dk, dv alone: SDPA's backward
             # is held against the two kernels together, on both kernels' entries
+            # (the dq kernel's time includes delta, which SDPA's backward computes too)
             pair_ms = sum(res[n]["by_shape"][cname]["ms"] for n in names[1:])
             print(f"[flash backward pair] {cname}: dq + dk/dv kernels {pair_ms:.4f} ms, "
                   f"scaled_dot_product_attention backward {library_bwd_ms:.4f} ms")
@@ -779,8 +794,8 @@ def plain_flash(fa):
     versions: the reference a whole step is compared with on the card."""
     saved = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     fa.flash_attention_fwd = fa.flash_attention_plain
-    fa.flash_attention_bwd_dq = (
-        lambda *a, delta=None, **kw: fa.flash_attention_bwd_plain(*a, **kw)[0])
+    fa.flash_attention_bwd_dq = (   # (dq, delta) from (q, k, v, kv_lens, out, lse, dout)
+        lambda *a, **kw: (fa.flash_attention_bwd_plain(*a, **kw)[0], fa._delta(a[4], a[6])))
     fa.flash_attention_bwd_dkv = (
         lambda *a, delta=None, **kw: fa.flash_attention_bwd_plain(*a, **kw)[1:])
     try:
@@ -2100,7 +2115,7 @@ def main() -> int:
         results.update(phase_flash(dev, flash_gen))
     launches.update(run_train(params, cfg, dev, card))
 
-    fa_src, fa_py = "flash_attention.cu", "vlm_bridge_tpu/ops/flash_attention.py"
+    fa_src, fa_py = "flash_bwd.cu", "vlm_bridge_tpu/ops/flash_attention.py"
     qpy = "vlm_bridge_tpu/ops/quant.py"
     sources = {"int8_matmul_t_argmax": ("int8_argmax.cu", f"{qpy}:169"),
                "int8_matmul": ("int8_linear.cu", f"{qpy}:74"),

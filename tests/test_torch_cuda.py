@@ -1,7 +1,7 @@
 """PyTorch port kernels on the card: each CUDA kernel against its plain
 version at small widths (the decode steps, with int8 and with int4 MLP
 weights, the greedy head, the three flash-attention kernels with their
-autograd function and shape gate, the four int8 linear functions with
+autograd function and shape gate, on views and contiguous tensors, the four int8 linear functions with
 `linear`'s dispatch, and the int4 heads and `int4_mlp`).
 These need an NVIDIA GPU with nvcc (sm_90a) and
 skip elsewhere; run them on the card with
@@ -149,10 +149,12 @@ def test_flash_kernels_match_plain(dev, name, shape, kwargs, lens):
     out_p, lse_p = fa.flash_attention_plain(q, k, v, kv, **kw)
     want = fa.flash_attention_bwd_plain(q, k, v, kv, out_p, lse_p, do, **kw)
     out, lse = fa.flash_attention_fwd(q, k, v, kv, **kw)
-    dq = fa.flash_attention_bwd_dq(q, k, v, kv, out_p, lse_p, do, **kw)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, kv, out_p, lse_p, do, **kw)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, kv, out_p, lse_p, do, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, kv, out_p, lse_p, do, delta=delta, **kw)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counted] == [n + 1 for n in before]
+    # the dq kernel's delta: the same f32 sum in another order
+    torch.testing.assert_close(delta, fa._delta(out_p, do), rtol=1e-5, atol=1e-5)
     for got, ref in ((out, out_p), (dq, want[0]), (dk, want[1]), (dv, want[2])):
         diff = (got.float() - ref.float()).abs().amax(dim=-1)
         scale = ref.float().abs().amax(dim=-1)
@@ -215,9 +217,9 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                scale=0.125)
     with pytest.raises(ValueError, match="int32"):
         fa.flash_attention_fwd(q, k, v, kv.long(), scale=0.125)
-    # the backward kernels still take contiguous tensors only
+    # the backward kernels read views in place too, but need D contiguous
     with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention_bwd_dq(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, kv,
+        fa.flash_attention_bwd_dq(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, kv,
                                   q, torch.zeros(1, 2, 8, device=dev), q, scale=0.125)
 
 
@@ -323,6 +325,126 @@ def test_flash_fwd_refuses_strides_off_16_bytes(dev):
     with pytest.raises(ValueError, match="16 bytes"):
         fa.flash_attention_fwd(k, odd_head, k, kv, scale=0.125)
     assert fa.flash_attention_fwd.launches == before
+
+
+def _rows_within(got, ref):
+    """Worst row error of got against ref [..., D], in units of the row's scale
+    (FLASH_TOL x the row's max|ref|, not under FLASH_FLOOR x the tensor's)."""
+    diff = (got.float() - ref.float()).abs().amax(dim=-1)
+    scale = ref.float().abs().amax(dim=-1)
+    scale = torch.maximum(scale, FLASH_FLOOR * scale.max()).clamp_min(1e-30)
+    return float((diff / scale).max())
+
+
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("name,shape,kwargs,lens", FWD_VIEW_CASES,
+                         ids=[c[0] for c in FWD_VIEW_CASES])
+def test_flash_bwd_kernels_read_views_in_place(dev, name, shape, kwargs, lens, layout):
+    """dq (with its delta) and dk / dv at D 64 / 128 / 256 on column views of
+    fused tensors (q, k, v of one projection; out and dout of another; NaN in
+    the rows past T) and on contiguous copies, against the plain backward row
+    by row: many units a call, G = 1 under a window past short kv_lens, the
+    D 256 column split. Both layouts and repeated calls give the same bits."""
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, KH, D = shape
+    q, k, v = _fused_views(dev, B, T, H, KH, D, seed=11, pad=9)
+    g = torch.Generator(device=dev).manual_seed(12)
+    kv = torch.tensor([T] * B if lens is None else lens, dtype=torch.int32, device=dev)
+    kw = dict(scale=D ** -0.5, is_causal=False, logit_softcap=None, sliding_window=None)
+    kw.update(kwargs)
+    out_p, lse_p = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            kv, **kw)
+    od = torch.randn(B, T + 9, 2 * H * D, generator=g, device=dev)
+    od[:, T:] = float("nan")
+    od = od.to(torch.bfloat16)[:, :T]
+    od[..., :H * D] = out_p.reshape(B, T, H * D)
+    out, do = od[..., :H * D].reshape(B, T, H, D), od[..., H * D:].reshape(B, T, H, D)
+    if layout == "contiguous":
+        q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    else:
+        assert not (q.is_contiguous() or out.is_contiguous() or do.is_contiguous())
+    want = fa.flash_attention_bwd_plain(q.contiguous(), k.contiguous(), v.contiguous(), kv,
+                                        out.contiguous(), lse_p, do.contiguous(), **kw)
+    counted = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [fn.launches for fn in counted]
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, kv, out, lse_p, do, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, kv, out, lse_p, do, delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [n + 1 for n in before]
+    torch.testing.assert_close(delta, fa._delta(out.contiguous(), do.contiguous()),
+                               rtol=1e-5, atol=1e-5)
+    for got, ref in ((dq, want[0]), (dk, want[1]), (dv, want[2])):
+        assert got.is_contiguous() and bool(torch.isfinite(got).all())
+        assert _rows_within(got, ref) <= FLASH_TOL
+    if layout == "views":
+        cq, ck, cv, co, cd = (t.contiguous() for t in (q, k, v, out, do))
+        dq_c, delta_c = fa.flash_attention_bwd_dq(cq, ck, cv, kv, co, lse_p, cd, **kw)
+        dk_c, dv_c = fa.flash_attention_bwd_dkv(cq, ck, cv, kv, co, lse_p, cd, delta=delta_c,
+                                                **kw)
+        assert torch.equal(dq, dq_c) and torch.equal(delta, delta_c)
+        assert torch.equal(dk, dk_c) and torch.equal(dv, dv_c)
+    # every call gives the same bits (no atomics; the G heads summed in one order)
+    for _ in range(3):
+        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, kv, out, lse_p, do, **kw)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, kv, out, lse_p, do, delta=delta2, **kw)
+        assert torch.equal(dq2, dq) and torch.equal(delta2, delta)
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_flash_kernels_run_from_a_fresh_thread(dev):
+    """Each flash wrapper called first thing on a new thread (as PyTorch's
+    autograd thread calls the backward): the tensor maps are encoded with the
+    tensors' device made current, and the results equal the main thread's."""
+    import threading
+
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, kv = _flash_inputs(dev, (2, 50, 50, 4, 2, 128), [50, 20], seed=14)
+    kw = dict(scale=128 ** -0.5, is_causal=True, logit_softcap=50.0, sliding_window=None)
+
+    def run():
+        out, lse = fa.flash_attention_fwd(q, k, v, kv, **kw)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, kv, out, lse, do, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, kv, out, lse, do, delta=delta, **kw)
+        torch.cuda.synchronize()
+        return out, dq, dk, dv
+
+    got = []
+    th = threading.Thread(target=lambda: got.append(run()))
+    th.start()
+    th.join()
+    assert len(got) == 1
+    for a, b in zip(got[0], run()):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_refuses_strides_off_16_bytes(dev):
+    """The backward wrappers raise before any launch on a q, k, v, out or
+    dout whose row or head stride is not a multiple of 16 bytes."""
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    kv = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    t = torch.randn(2, 8, 2, 64, generator=g, device=dev).to(torch.bfloat16)
+    lse = torch.zeros(2, 2, 8, device=dev)
+    odd_head = torch.randn(2, 8, 2, 68, generator=g, device=dev).to(torch.bfloat16)[..., :64]
+    odd_row = torch.randn(2, 8, 2 * 64 + 4, generator=g, device=dev).to(torch.bfloat16)
+    odd_row = odd_row[..., :128].reshape(2, 8, 2, 64)
+    counted = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [fn.launches for fn in counted]
+    for odd in (odd_head, odd_row):
+        for at in range(5):   # q, k, v, out, dout
+            args = [t, t, t, t, t]
+            args[at] = odd
+            q, k, v, out, do = args
+            with pytest.raises(ValueError, match="16 bytes"):
+                fa.flash_attention_bwd_dq(q, k, v, kv, out, lse, do, scale=0.125)
+            if at != 3:   # the dk/dv kernel does not read out when it gets a delta
+                with pytest.raises(ValueError, match="16 bytes"):
+                    fa.flash_attention_bwd_dkv(q, k, v, kv, out, lse, do, scale=0.125,
+                                               delta=lse)
+    assert [fn.launches for fn in counted] == before
 
 
 def test_vit_attention_hands_views_to_the_kernel(dev, monkeypatch):

@@ -167,6 +167,62 @@ def test_kv_lengths_clamp_and_only_needed_gradients():
     out = tfa.flash_attention(tq, tk, tv, scale=0.125)
     (dq,) = torch.autograd.grad(out.sum(), tq)
     assert dq.shape == tq.shape and tk.grad is None
+    # only k and v ask: dk and dv alone, equal to the full backward's
+    tq.requires_grad_(False)
+    tk.requires_grad_(True)
+    tv.requires_grad_(True)
+    out = tfa.flash_attention(tq, tk, tv, scale=0.125, kv_lengths=torch.tensor([8, 5]))
+    dk, dv = torch.autograd.grad(out.sum(), (tk, tv))
+    want = tfa.flash_attention_bwd_plain(
+        tq, tk.detach(), tv.detach(), torch.tensor([8, 5], dtype=torch.int32),
+        *tfa.flash_attention_plain(tq, tk.detach(), tv.detach(),
+                                   torch.tensor([8, 5], dtype=torch.int32), scale=0.125),
+        torch.ones_like(out), scale=0.125)
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+
+
+def test_backward_hands_the_dq_delta_to_dkv(monkeypatch):
+    """The kernels' backward (`_backward`, what the autograd function runs on
+    CUDA tensors) on CPU tensors, where the wrappers take their plain
+    versions: dq comes with its delta, equal to the plain dq and `_delta`, and
+    that same delta object is what the dk/dv wrapper gets; with no dq asked
+    for, dk/dv gets none and computes `_delta` itself."""
+    monkeypatch.setattr(cuda_lib, "lib", lambda: pytest.fail("a CPU tensor built the kernels"))
+    q, k, v, do = (torch.from_numpy(a) for a in _mk(2, 70, 70, 4, 2, 128, seed=6))
+    lens = torch.tensor([70, 33], dtype=torch.int32)
+    kw = dict(scale=128 ** -0.5, is_causal=True, logit_softcap=30.0, sliding_window=48)
+    out, lse = tfa.flash_attention_plain(q, k, v, lens, **kw)
+    dq, delta = tfa.flash_attention_bwd_dq(q, k, v, lens, out, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, lens, out, lse, do, **kw)
+    assert torch.equal(dq, want[0]) and torch.equal(delta, tfa._delta(out, do))
+    assert delta.shape == (2, 4, 70) and delta.dtype == torch.float32
+
+    seen = {}
+    real_dq, real_dkv = tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv
+
+    def spy_dq(*a, **kwargs):
+        seen["dq"] = real_dq(*a, **kwargs)
+        return seen["dq"]
+
+    def spy_dkv(*a, delta=None, **kwargs):
+        seen["dkv_delta"] = delta
+        return real_dkv(*a, delta=delta, **kwargs)
+
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", spy_dq)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dkv", spy_dkv)
+    got = tfa._backward(q, k, v, lens, out, lse, do, kw, True, True)
+    assert seen["dkv_delta"] is seen["dq"][1]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    seen.clear()
+    got = tfa._backward(q, k, v, lens, out, lse, do, kw, False, True)
+    assert "dq" not in seen and seen["dkv_delta"] is None and got[0] is None
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    # an expanded gradient (stride 0, as out.sum() gives) reaches the wrappers as a copy
+    seen.clear()
+    tfa._backward(q, k, v, lens, out, lse, torch.ones(1, 1, 1, 1).expand(2, 70, 4, 128), kw,
+                  True, True)
+    assert seen["dq"][1].shape == (2, 4, 70)
 
 
 def _spy(monkeypatch):

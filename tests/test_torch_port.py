@@ -51,7 +51,9 @@ def _port_files():
     return (sorted((REPO / "vlm_bridge_tpu_torch").rglob("*.py"))
             + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_train_torch.py",
                REPO / "scripts" / "tune_int8_linear_torch.py",
-               REPO / "scripts" / "tune_int4_torch.py", REPO / "scripts" / "vit_ab_torch.py"])
+               REPO / "scripts" / "tune_int4_torch.py", REPO / "scripts" / "vit_ab_torch.py",
+               REPO / "scripts" / "flash_fwd_torch.py", REPO / "scripts" / "flash_bwd_torch.py",
+               REPO / "scripts" / "tiled_matmul_torch.py"])
 
 
 def test_no_import_of_jax_or_the_jax_package():
@@ -223,7 +225,8 @@ def test_flash_wrappers_on_cpu_take_plain_path_and_count_nothing(monkeypatch):
     out_p, lse_p = fa.flash_attention_plain(q, k, v, lens, **kw)
     assert torch.equal(out, out_p) and torch.equal(lse, lse_p)
     dq_p, dk_p, dv_p = fa.flash_attention_bwd_plain(q, k, v, lens, out, lse, do, **kw)
-    assert torch.equal(fa.flash_attention_bwd_dq(q, k, v, lens, out, lse, do, **kw), dq_p)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, lens, out, lse, do, **kw)
+    assert torch.equal(dq, dq_p) and torch.equal(delta, fa._delta(out, do))
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lens, out, lse, do, **kw)
     assert torch.equal(dk, dk_p) and torch.equal(dv, dv_p)
     assert [fn.launches for fn in counted] == before
@@ -267,8 +270,9 @@ def test_kernel_sources_ship_and_name_what_they_replace():
         text = (csrc / name).read_text()
         assert f"Replaces: vlm_bridge_tpu/ops/{target}" in text
         assert "Bound:" in text
-    fa_bwd = (csrc / "flash_attention.cu").read_text()
+    fa_bwd = (csrc / "flash_bwd.cu").read_text()
     assert "vlm_bridge_tpu/ops/flash_attention.py:_flash_bwd" in fa_bwd and "Bound:" in fa_bwd
+    assert not (csrc / "flash_attention.cu").exists()   # the mma.sync backward is gone
     assert "vlm_bridge_tpu/ops/decode_kernels.py:fused_mlp_step" in \
         (csrc / "layer_step.cu").read_text()
     for target in ("quant.py:int8_mlp", "quant.py:int8_ffn"):
@@ -282,12 +286,12 @@ def test_kernel_sources_ship_and_name_what_they_replace():
     from vlm_bridge_tpu_torch.ops import cuda_lib
 
     assert {p.name for p in cuda_lib._sources()} >= set(replaced) | {
-        "flash_attention.cu", "i8_gemm.cu", "i4_gemm.cu", "common.cuh", "linear_common.cuh",
+        "flash_bwd.cu", "i8_gemm.cu", "i4_gemm.cu", "common.cuh", "linear_common.cuh",
         "sm90.cuh"}
     assert np.isin(["-gencode", "arch=compute_90a,code=sm_90a"], cuda_lib.NVCC_FLAGS).all()
     for entry, src in (("vbt_flash_attention_fwd", "flash_fwd.cu"),
-                       ("vbt_flash_attention_bwd_dq", "flash_attention.cu"),
-                       ("vbt_flash_attention_bwd_dkv", "flash_attention.cu")):
+                       ("vbt_flash_attention_bwd_dq", "flash_bwd.cu"),
+                       ("vbt_flash_attention_bwd_dkv", "flash_bwd.cu")):
         assert entry in cuda_lib.SIGNATURES
         assert f'extern "C" int {entry}(' in (csrc / src).read_text()
     for entry, src in (("vbt_int8_matmul", "int8_linear.cu"), ("vbt_int8_mlp", "int8_linear.cu"),

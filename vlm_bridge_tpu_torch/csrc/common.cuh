@@ -79,7 +79,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---- flash attention's mask, one definition for the forward (flash_fwd.cu)
-// and the backward (flash_attention.cu) ----
+// and the backward (flash_bwd.cu) ----
 
 // lse of a row with empty support
 constexpr float FA_NEG_INF = -2.3819763e38f;
@@ -105,6 +105,24 @@ __device__ __forceinline__ void key_tile_range(int q_start, int BM, int BN, int 
     if (first > 0) lo = first / BN;
   }
   if (hi <= lo) lo = hi = 0;
+}
+
+// Query tiles [lo, hi) of BM rows (row t at position t + q_offset, t < T)
+// that attend to some key of the tile starting at k_start (BK keys): the
+// dk/dv kernel's loop. lo = hi = 0 when none does (a tile at or past kv_len,
+// or one a window leaves to no row), as key_tile_range.
+__device__ __forceinline__ void query_tile_range(int k_start, int BK, int BM, int kv_len, int T,
+                                                 int q_offset, int causal, int window, int& lo,
+                                                 int& hi) {
+  lo = hi = 0;
+  const int k_last = min(k_start + BK, kv_len) - 1;   // last key of the tile a row can see
+  if (k_last < k_start) return;
+  int first = 0, last = T - 1;                         // rows that can see one of its keys
+  if (causal) first = max(0, k_start - q_offset);      // kpos <= qpos
+  if (window > 0) last = min(last, k_last + window - 1 - q_offset);   // kpos > qpos - window
+  if (last < first) return;
+  lo = first / BM;
+  hi = last / BM + 1;
 }
 
 // Row kernels (residual + norm) keep one row of up to 256 * ROW_REGS values

@@ -286,6 +286,7 @@ tiled_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
 template <typename OutT, bool GELU>
 int launch(const void* a, const void* b, const float* bias, OutT* out, int M, int N, int K,
            cudaStream_t st) {
+  VBT_CHECK((cudaError_t)bind_device(a));
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap map_a, map_b, map_out = {};   // map_out: bf16 out only

@@ -9,7 +9,7 @@ sources, so a changed source rebuilds and an unchanged one is loaded as it
 is. `build_log` keeps what `-Xptxas -v` printed (registers, shared memory
 and spills per kernel), also when the library was built by an earlier
 process: the log is kept beside it. `VBT_NVCC_FLAGS` in the environment adds
-compiler flags (for instance `-DFA_DKV_FUSED_MAX_D=0`, to time a kernel's
+compiler flags (for instance `-DI4_MIN_BLOCKS=3`, to time a kernel's
 variants against each other); they are part of the key.
 """
 
@@ -50,8 +50,8 @@ SIGNATURES = {
     "vbt_fused_stack_step": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
     "vbt_fused_bridge_step": [_P] * 31 + [_I] * 9 + [_F] + [_P],
     "vbt_flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_L] * 9 + [_P],
-    "vbt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 8 + [_F] * 2 + [_P],
-    "vbt_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_P],
+    "vbt_flash_attention_bwd_dq": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_L] * 15 + [_P],
+    "vbt_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_L] * 12 + [_P],
 }
 
 _lock = threading.Lock()

@@ -2,19 +2,19 @@
 vlm_bridge_tpu.ops.flash_attention).
 
 Three CUDA kernels (the forward in csrc/flash_fwd.cu, the two backward
-kernels in csrc/flash_attention.cu) behind three wrappers,
-`flash_attention_fwd`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`,
-tied together by a `torch.autograd.Function`; `flash_attention` keeps the
-JAX signature. Each wrapper launches its kernel on CUDA tensors (bf16, head
-dim 64, 128 or 256) or raises, takes the plain version on CPU tensors, and
-counts its launches. The forward reads q, k and v where they lie (views of a
-fused projection included: D contiguous, the other strides multiples of 16
-bytes); the backward kernels take contiguous tensors, and the autograd
-function copies the saved q, k and v only when a gradient is asked for. The
-plain versions `flash_attention_plain` and `flash_attention_bwd_plain` are
-the same recurrence written with whole-matrix torch ops and the same rounding
-points (p and ds rounded to the inputs' dtype before their products, f32
-sums).
+kernels in csrc/flash_bwd.cu) behind three wrappers, `flash_attention_fwd`,
+`flash_attention_bwd_dq` and `flash_attention_bwd_dkv`, tied together by a
+`torch.autograd.Function`; `flash_attention` keeps the JAX signature. Each
+wrapper launches its kernel on CUDA tensors (bf16, head dim 64, 128 or 256)
+or raises, takes the plain version on CPU tensors, and counts its launches.
+All three read q, k, v (and the backward dout, the dq kernel also out) where
+they lie: views of a fused projection included, D contiguous, the other
+strides multiples of 16 bytes. The dq kernel also computes delta = sum_d out
+* dout and returns it, and the autograd function hands it to the dk/dv
+kernel. The plain versions `flash_attention_plain` and
+`flash_attention_bwd_plain` are the same recurrence written with
+whole-matrix torch ops and the same rounding points (p and ds rounded to the
+inputs' dtype before their products, f32 sums).
 
 Feature union: GQA (H % KH == 0), causal masking with the queries taken as
 the last T of the S positions, sliding windows, tanh logit soft-capping with
@@ -32,7 +32,8 @@ import torch
 from vlm_bridge_tpu_torch.ops import cuda_lib
 
 _NEG_INF = -2.3819763e38
-HEAD_DIMS = (64, 128, 256)  # the instantiations csrc/flash_fwd.cu and flash_attention.cu build
+HEAD_DIMS = (64, 128, 256)  # the instantiations csrc/flash_fwd.cu and flash_bwd.cu build
+
 
 def _scores(q, k, kv_lens, *, scale, is_causal, logit_softcap, sliding_window):
     """Capped logits [B, KH, G, T, S] (f32), d(capped)/d(raw logit), and the
@@ -106,24 +107,22 @@ def flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, dout, *, scale, is_cau
     return dq, dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
 
 
-def _check_qkv(q, k, v, kv_lens):
+def _dims(q, k):
+    """(B, T, S, H, KH, D) of q [B, T, H, D] and k [B, S, KH, D]; raise on a
+    head dim no kernel is built for or heads that do not group."""
     B, T, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not built (kernels exist for {HEAD_DIMS})")
     if H % KH:
         raise ValueError(f"{H} query heads do not divide into {KH} kv heads")
-    cuda_lib.check(q, "q", torch.bfloat16, (B, T, H, D))
-    cuda_lib.check(k, "k", torch.bfloat16, (B, S, KH, D))
-    cuda_lib.check(v, "v", torch.bfloat16, (B, S, KH, D))
-    cuda_lib.check(kv_lens, "kv_lens", torch.int32, (B,))
     return B, T, S, H, KH, D
 
 
 def _strides(t: torch.Tensor, name: str, shape) -> Tuple[int, int, int]:
     """The (batch, row, head) element strides of a [B, L, NH, D] bf16 CUDA
-    tensor the forward kernel reads in place; raise on what its tensor maps
-    cannot take. A dimension of size 1 is never stepped, so its stride is
+    tensor a kernel reads in place; raise on what its tensor maps cannot
+    take. A dimension of size 1 is never stepped, so its stride is
     given as the packed one."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -162,12 +161,7 @@ def flash_attention_fwd(q, k, v, kv_lens, *, scale, is_causal=False, logit_softc
               sliding_window=sliding_window)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kv_lens, **kw)
-    B, T, H, D = q.shape
-    S, KH = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not built (kernels exist for {HEAD_DIMS})")
-    if H % KH:
-        raise ValueError(f"{H} query heads do not divide into {KH} kv heads")
+    B, T, S, H, KH, D = _dims(q, k)
     strides = (*_strides(q, "q", (B, T, H, D)), *_strides(k, "k", (B, S, KH, D)),
                *_strides(v, "v", (B, S, KH, D)))
     cuda_lib.check(kv_lens, "kv_lens", torch.int32, (B,))
@@ -181,49 +175,56 @@ def flash_attention_fwd(q, k, v, kv_lens, *, scale, is_causal=False, logit_softc
 
 
 def flash_attention_bwd_dq(q, k, v, kv_lens, out, lse, dout, *, scale, is_causal=False,
-                           logit_softcap=None, sliding_window=None,
-                           delta=None) -> torch.Tensor:
-    """Backward kernel for dq [B, T, H, D]. delta: `_delta(out, dout)` where
-    the caller has it already."""
+                           logit_softcap=None, sliding_window=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward kernel: (dq [B, T, H, D] contiguous, delta [B, H, T] f32), delta
+    = sum_d out * dout, computed by the kernel for the dk/dv kernel. q, k, v,
+    out and dout may be strided views (see `_strides`)."""
     kw = dict(scale=scale, is_causal=is_causal, logit_softcap=logit_softcap,
               sliding_window=sliding_window)
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, dout, **kw)[0]
-    dims = _check_qkv(q, k, v, kv_lens)
-    B, T, _, H, _, D = dims
-    cuda_lib.check(dout, "dout", torch.bfloat16, (B, T, H, D))
+        return flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, dout, **kw)[0], \
+            _delta(out, dout)
+    dims = _dims(q, k)
+    B, T, S, H, KH, D = dims
+    strides = (*_strides(q, "q", (B, T, H, D)), *_strides(k, "k", (B, S, KH, D)),
+               *_strides(v, "v", (B, S, KH, D)), *_strides(out, "out", (B, T, H, D)),
+               *_strides(dout, "dout", (B, T, H, D)))
+    cuda_lib.check(kv_lens, "kv_lens", torch.int32, (B,))
     cuda_lib.check(lse, "lse", torch.float32, (B, H, T))
-    if delta is None:
-        delta = _delta(out, dout)
-    cuda_lib.check(delta, "delta", torch.float32, (B, H, T))
-    dq = torch.empty_like(q)
+    dq = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     p = cuda_lib.ptr
-    cuda_lib.call("vbt_flash_attention_bwd_dq", p(q), p(k), p(v), p(dout), p(lse), p(delta),
-                  p(kv_lens), p(dq), *_tail(*dims, **kw))
+    cuda_lib.call("vbt_flash_attention_bwd_dq", p(q), p(k), p(v), p(out), p(dout), p(lse),
+                  p(kv_lens), p(dq), p(delta), *_tail(*dims, **kw), *strides)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, kv_lens, out, lse, dout, *, scale, is_causal=False,
                             logit_softcap=None, sliding_window=None, delta=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backward kernel for (dk, dv) [B, S, KH, D]; the G query heads of a kv
-    head are summed inside the kernel."""
+    """Backward kernel for (dk, dv) [B, S, KH, D] contiguous; the G query
+    heads of a kv head are summed inside the kernel. delta: the dq kernel's,
+    else `_delta(out, dout)`. q, k, v and dout may be strided views."""
     kw = dict(scale=scale, is_causal=is_causal, logit_softcap=logit_softcap,
               sliding_window=sliding_window)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, dout, **kw)[1:]
-    dims = _check_qkv(q, k, v, kv_lens)
-    B, T, _, H, _, D = dims
-    cuda_lib.check(dout, "dout", torch.bfloat16, (B, T, H, D))
+    dims = _dims(q, k)
+    B, T, S, H, KH, D = dims
+    strides = (*_strides(q, "q", (B, T, H, D)), *_strides(k, "k", (B, S, KH, D)),
+               *_strides(v, "v", (B, S, KH, D)), *_strides(dout, "dout", (B, T, H, D)))
+    cuda_lib.check(kv_lens, "kv_lens", torch.int32, (B,))
     cuda_lib.check(lse, "lse", torch.float32, (B, H, T))
     if delta is None:
         delta = _delta(out, dout)
     cuda_lib.check(delta, "delta", torch.float32, (B, H, T))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk = torch.empty(B, S, KH, D, dtype=k.dtype, device=k.device)
+    dv = torch.empty(B, S, KH, D, dtype=v.dtype, device=v.device)
     p = cuda_lib.ptr
     cuda_lib.call("vbt_flash_attention_bwd_dkv", p(q), p(k), p(v), p(dout), p(lse), p(delta),
-                  p(kv_lens), p(dk), p(dv), *_tail(*dims, **kw))
+                  p(kv_lens), p(dk), p(dv), *_tail(*dims, **kw), *strides)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -235,14 +236,29 @@ flash_attention_bwd_dkv.launches = 0
 
 def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """delta[b, h, t] = sum_d out * dout in f32 (a torch expression, as the
-    JAX package leaves it to XLA)."""
+    JAX package leaves it to XLA): the plain version of what the dq kernel
+    computes, and the dk/dv kernel's input when no dq kernel ran."""
     return (out.float() * dout.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def _backward(q, k, v, kv_lens, out, lse, dout, kw, need_dq: bool, need_dkv: bool):
+    """The kernels' backward: dq first, whose delta the dk/dv kernel gets
+    (`_delta` only when dq is not asked for). q, k and v are read as saved;
+    dout is copied only when it is not contiguous (an expanded gradient, say)."""
+    if not dout.is_contiguous():
+        dout = dout.contiguous()
+    dq = dk = dv = delta = None
+    if need_dq:
+        dq, delta = flash_attention_bwd_dq(q, k, v, kv_lens, out, lse, dout, **kw)
+    if need_dkv:
+        dk, dv = flash_attention_bwd_dkv(q, k, v, kv_lens, out, lse, dout, delta=delta, **kw)
+    return dq, dk, dv
 
 
 class _FlashCore(torch.autograd.Function):
     """Counterpart of the JAX package's `_flash_core` custom_vjp: the forward
     saves q, k, v (as given: views stay views), kv_lens, out and lse; the
-    backward is the two kernels, on contiguous copies of q, k and v."""
+    backward is the two kernels, reading the saved tensors in place."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, scale, is_causal, logit_softcap, sliding_window):
@@ -256,17 +272,12 @@ class _FlashCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_lens, out, lse = ctx.saved_tensors
-        q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
         if not q.is_cuda:  # the plain backward gives all three at once
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, dout, **ctx.kw)
-            return dq, dk, dv, None, None, None, None, None
-        delta = _delta(out, dout)
-        dq = dk = dv = None
-        if ctx.needs_input_grad[0]:
-            dq = flash_attention_bwd_dq(q, k, v, kv_lens, out, lse, dout, delta=delta, **ctx.kw)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dk, dv = flash_attention_bwd_dkv(q, k, v, kv_lens, out, lse, dout, delta=delta,
-                                             **ctx.kw)
+        else:
+            dq, dk, dv = _backward(q, k, v, kv_lens, out, lse, dout, ctx.kw,
+                                   ctx.needs_input_grad[0],
+                                   ctx.needs_input_grad[1] or ctx.needs_input_grad[2])
         return dq, dk, dv, None, None, None, None, None
 
 
