@@ -10,9 +10,12 @@ kernel held against its plain version.
 2. Builds the CUDA kernels from vlm_bridge_tpu_torch/csrc (one nvcc per
    source, sm_90a) and prints what ptxas reports (registers, spills) for the
    flash kernels, the int8 product kernels and the wgmma kernels
-   (tiled_matmul's, and the flash forward's, dq's and dk/dv's three
-   instantiations each, D 64 / 128 / 256); fails if ptxas serialised a wgmma
-   pipeline, if a wgmma kernel spills, or if a flash instantiation is missing.
+   (tiled_matmul's, the flash forward's, dq's and dk/dv's three
+   instantiations each, D 64 / 128 / 256, and the fused decode steps' GEMM
+   core's three: int8, int4, int4 with groups of an odd multiple of 32 rows);
+   fails if ptxas serialised a wgmma pipeline, if a wgmma kernel spills, or if
+   an instantiation is missing. The fused steps print their time beside their
+   mma.sync GEMM core's on the same card (DECODE_STEP_MMA_SYNC_MS).
 3. One phase per kernel: the kernel and its plain PyTorch version on the
    same seeded inputs at the main paths' shapes, their max abs error
    against the stated tolerance, both times (device time: the host queues
@@ -159,6 +162,10 @@ ENCODE_REPS = 3
 # projection with its bias at 16448 rows, o without one, and the projection probe
 TILED_MATMUL_MMA_SYNC_MS = {"qkv": 0.4026, "o": 0.1449, "fc1": 0.5610, "fc2": 0.4733,
                             "o without bias": 0.1408, "probe": 37.753}
+# the fused decode steps before their GEMM core moved to wgmma + TMA (the
+# mma.sync kernels), on the same card, PERF.md rows 5, 5' and 7
+DECODE_STEP_MMA_SYNC_MS = {"fused_stack_step": 4.1980, "fused_stack_step[mlp_int4]": 4.3400,
+                           "fused_bridge_step": 0.5808}
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -183,24 +190,29 @@ def card_line() -> str:
         return "unknown (nvidia-smi unavailable)"
 
 
-PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "i4_gemm", "i8_gemm", "argmax4_block",
+PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "decode_gemm_kernel", "argmax4_block",
               "logits4_block", "tiled_matmul_kernel", "layer_norm_kernel", "ls_attn_kernel")
 
 
 # the wgmma kernels: each instantiation must not spill
 SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel", "fa_bwd_dq_sm90_kernel",
-                 "fa_bwd_dkv_sm90_kernel")
-FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:] for d in (64, 128, 256))
+                 "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel")
+FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:4] for d in (64, 128, 256))
+# the fused steps' GEMM core (csrc/decode_gemm.cuh): int8, and int4 with waits
+# every stage or every half stage (groups of an odd multiple of 32 rows)
+GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4E", "decode_gemm_kernelILb1ELi4E",
+                  "decode_gemm_kernelILb1ELi2E")
 
 
 def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
     """Print what ptxas -v said of the kernels named by `tags` (registers,
     shared memory, spills). Raise if ptxas serialised a kernel's wgmma
-    instructions (tiled_matmul_kernel and the three flash kernels are the
-    wgmma kernels: a serialised pipeline runs them at a fraction of their rate
-    and still agrees with the plain version), or if the build has not all
-    three instantiations (D 64 / 128 / 256) of the flash forward, dq and
-    dk/dv. Returns the instantiations of the wgmma kernels that spill."""
+    instructions (tiled_matmul_kernel, the three flash kernels and the decode
+    GEMM core are the wgmma kernels: a serialised pipeline runs them at a
+    fraction of their rate and still agrees with the plain version), or if the
+    build has not all three instantiations (D 64 / 128 / 256) of the flash
+    forward, dq and dk/dv, or the GEMM core's three. Returns the
+    instantiations of the wgmma kernels that spill."""
     log = build_log.splitlines()
     serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
     if serial:
@@ -217,9 +229,9 @@ def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
             if any(k in name for k in SPILL_CHECKED) and any(
                     int(n) for x in info for n in re.findall(r"(\d+) bytes spill", x)):
                 spills.append(name)
-    missing = [k for k in FLASH_INSTANCES if not any(k in n for n in seen)]
+    missing = [k for k in FLASH_INSTANCES + GEMM_INSTANCES if not any(k in n for n in seen)]
     if missing:
-        raise AssertionError(f"ptxas reported no {missing}: a flash kernel is not built")
+        raise AssertionError(f"ptxas reported no {missing}: a wgmma kernel is not built")
     return spills
 
 
@@ -329,8 +341,9 @@ def phase_stack(params, cfg, dev, gen, t=20, name="fused_stack_step"):
     n_w = sum(stacked[k].numel() * (2 if k.endswith("4") else 1)
               for k in ("wqkv", "wo", "wgu", "wd", "wgu4", "wd4") if k in stacked)
     bd = bound(nbytes(*weights) + live + 2 * nbytes(x), 2.0 * BATCH * n_w)
-    print(f"[{name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (S={S}, t={t}), "
-          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    print(f"[{name}] kernel {ms:.4f} ms (mma.sync core: {DECODE_STEP_MMA_SYNC_MS[name]:.4f}), "
+          f"plain {plain_ms:.4f} ms (S={S}, t={t}), bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
@@ -366,7 +379,8 @@ def phase_bridge(params, cfg, dev, gen, t=20):
     live = nbytes(sk, sv) * (t + 1) // sk.shape[3]
     n_w = sum(bst[k].numel() for k in ("wq", "wo_c", "wqkv", "wo_s", "fc1", "fc2"))
     bd = bound(nbytes(*bst.values(), *cross) + live + 2 * nbytes(x), 2.0 * BATCH * n_w)
-    print(f"[fused_bridge_step] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"[fused_bridge_step] kernel {ms:.4f} ms (mma.sync core: "
+          f"{DECODE_STEP_MMA_SYNC_MS['fused_bridge_step']:.4f}), plain {plain_ms:.4f} ms, "
           f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 

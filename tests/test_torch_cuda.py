@@ -1,6 +1,7 @@
 """PyTorch port kernels on the card: each CUDA kernel against its plain
 version at small widths (the decode steps, with int8 and with int4 MLP
-weights, the greedy head, the three flash-attention kernels with their
+weights, at batch 1 / 3 / 64 / 65 and past a 64-row cache tile, and their
+GEMM core alone, the greedy head, the three flash-attention kernels with their
 autograd function and shape gate, on views and contiguous tensors, the four int8 linear functions with
 `linear`'s dispatch, and the int4 heads and `int4_mlp`).
 These need an NVIDIA GPU with nvcc (sm_90a) and
@@ -804,6 +805,191 @@ def test_stack_step_int4_mlp_kernel_matches_plain(dev, group):
     want = dk.fused_stack_step_plain(0, x, st, *cp, cos, sin, **kw)
     assert bool(torch.isfinite(got.float()).all())
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The fused steps' GEMM core (csrc/decode_gemm.cuh): alone, and the two steps
+# at batch 1 / 3 / 64 / 65, at t = 0 and past one 64-row cache tile
+# ---------------------------------------------------------------------------
+
+# f32 accumulation of the same products in another order, and split K slices
+# added by atomics: each output row within GEMM_TOL of its largest value
+GEMM_TOL = 1e-5
+# K, N: one tile; a partial tile; 324 units over the SMs, so runs of K slices
+# start and end inside tiles and inside scale groups
+GEMM_SHAPES = [(128, 64), (384, 448), (2304, 2304)]
+
+
+def _gemm_case(dev, M, K, N, seed):
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a2 = dk.split_halves(torch.randn(M, K, generator=g, device=dev))
+    w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    return g, a2, w
+
+
+def _rows_near(got, want, tol):
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1).clamp_min(1e-30)
+    assert float((diff / scale).max()) <= tol, float((diff / scale).max())
+
+
+@pytest.mark.parametrize("M", [1, 3, 64, 65])
+@pytest.mark.parametrize("K,N", GEMM_SHAPES, ids=[f"K{k}_N{n}" for k, n in GEMM_SHAPES])
+def test_decode_gemm_kernel_matches_plain(dev, M, K, N):
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    g, a2, w = _gemm_case(dev, M, K, N, seed=30 + M)
+    wf = dk.to_fragments(w)
+    scale = torch.rand(N, generator=g, device=dev) * 0.01
+    bias = torch.randn(N, generator=g, device=dev)
+    n = dk.decode_gemm.launches
+    got = dk.decode_gemm(a2, wf, scale, bias)
+    assert dk.decode_gemm.launches == n + 1
+    _rows_near(got, dk.decode_gemm_plain(a2, wf, scale, bias), GEMM_TOL)
+    _rows_near(dk.decode_gemm(a2, wf, scale), dk.decode_gemm_plain(a2, wf, scale), GEMM_TOL)
+
+
+@pytest.mark.parametrize("M", [1, 3, 64, 65])
+@pytest.mark.parametrize("K,N", GEMM_SHAPES, ids=[f"K{k}_N{n}" for k, n in GEMM_SHAPES])
+@pytest.mark.parametrize("group", [None, 32, 64, 128])
+def test_decode_gemm4_kernel_matches_plain(dev, M, K, N, group):
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    g, a2, w = _gemm_case(dev, M, K, N, seed=40 + M)
+    gs = K if group is None else group
+    if K % gs:
+        pytest.skip(f"K {K} holds no whole group of {gs}")
+    wf4 = dk.to_fragments4((w // 16).clamp(-8, 7))
+    scale = torch.rand(K // gs, N, generator=g, device=dev) * 0.01 + 1e-3
+    scale[0, :5] = 0.0   # a scale of 0 weighs 1e-30 in the kernel, 0 in the plain version
+    n = dk.decode_gemm4.launches
+    got = dk.decode_gemm4(a2, wf4, scale)
+    assert dk.decode_gemm4.launches == n + 1
+    assert bool(torch.isfinite(got).all())
+    _rows_near(got, dk.decode_gemm4_plain(a2, wf4, scale), GEMM_TOL)
+
+
+def _stack_case(dev, B, mlp4, group, seed):
+    from vlm_bridge_tpu_torch.configs import Gemma2Config
+    from vlm_bridge_tpu_torch.models import gemma2
+
+    cfg = Gemma2Config(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=3,
+                       num_heads=4, num_kv_heads=2, head_dim=64, query_pre_attn_scalar=64.0,
+                       sliding_window=128)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = gemma2.quantize_params(gemma2.init(cfg, generator=g, device=dev))
+    st = gemma2.stack_decode_params(q, cfg, mlp_int4=mlp4, mlp_int4_group=group)
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=64, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    # 80 tokens: a 128-row cache, so t = 70 lies past the first 64-row tile
+    caches = [gemma2.StackedKVCache.zeros(cfg, B, 80, device=dev) for _ in range(2)]
+    for c in caches:   # the same history on both sides
+        gc = torch.Generator(device=dev).manual_seed(seed + 1)
+        c.k.copy_(torch.randint(-127, 128, c.k.shape, generator=gc, device=dev,
+                                dtype=torch.int8))
+        c.v.copy_(torch.randint(-127, 128, c.v.shape, generator=gc, device=dev,
+                                dtype=torch.int8))
+        c.k_scale.copy_(0.02 + 0.01 * torch.rand(c.k_scale.shape, generator=gc, device=dev))
+        c.v_scale.copy_(0.02 + 0.01 * torch.rand(c.v_scale.shape, generator=gc, device=dev))
+    return g, st, kw, caches
+
+
+STACK_FORMS = [(False, None), (True, 128), (True, None)]   # int8; int4 group 128; per channel
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 65])
+@pytest.mark.parametrize("t", [0, 70])
+@pytest.mark.parametrize("mlp4,group", STACK_FORMS, ids=["int8", "int4_g128", "int4_channel"])
+def test_stack_step_kernel_at_batch_and_position(dev, B, t, mlp4, group):
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    g, st, kw, (ck, cp) = _stack_case(dev, B, mlp4, group, seed=50 + B)
+    x = torch.randn(B, 256, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev), 64))
+    got = dk.fused_stack_step(t, x, st, *ck, cos, sin, **kw)
+    want = dk.fused_stack_step_plain(t, x, st, *cp, cos, sin, **kw)
+    _close(got, want)
+    assert ((ck.k[:, :, :, t].int() - cp.k[:, :, :, t].int()).abs() <= 1).float().mean() > 0.99
+    assert torch.equal(ck.k[:, :, :, :t], cp.k[:, :, :, :t])   # history untouched
+
+
+def _bridge_case(dev, B, seed):
+    from vlm_bridge_tpu_torch.configs import BridgeConfig
+    from vlm_bridge_tpu_torch.inference.generate import _build_cross_cache
+    from vlm_bridge_tpu_torch.models import bridge
+
+    cfg = BridgeConfig(vision_dim=64, language_dim=256, num_blocks=2, num_heads_cross=2,
+                       num_heads_self=4, ffn_mult=2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bq = bridge.quantize_decode_params(bridge.init(cfg, generator=g, device=dev))
+    bst = bridge.stack_bridge_decode_params(bq, cfg)
+    vision = torch.randn(B, 17, 64, generator=g, device=dev).to(torch.bfloat16)
+    caches = [_build_cross_cache(bq, cfg, vision, 80, torch.bfloat16, kv_quant=True)
+              for _ in range(2)]
+    hist = torch.randn(caches[0].self_k.shape, generator=g, device=dev).to(torch.bfloat16)
+    for c in caches:
+        c.self_k.copy_(hist)
+        c.self_v.copy_(hist.flip(-1))
+    kw = dict(num_heads_cross=2, num_heads_self=4, eps=1e-5)
+    return g, bst, kw, caches
+
+
+def _bridge_args(c):
+    return c.cross_k, c.cross_k_scale, c.cross_v, c.cross_v_scale, c.self_k, c.self_v
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 65])
+@pytest.mark.parametrize("t", [0, 70])
+def test_bridge_step_kernel_at_batch_and_position(dev, B, t):
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    g, bst, kw, (ck, cp) = _bridge_case(dev, B, seed=60 + B)
+    x = torch.randn(B, 256, generator=g, device=dev).to(torch.bfloat16)
+    got = dk.fused_bridge_step(t, x, bst, *_bridge_args(ck), **kw)
+    want = dk.fused_bridge_step_plain(t, x, bst, *_bridge_args(cp), **kw)
+    _close(got, want)
+    _close(ck.self_k[:, :, :, t], cp.self_k[:, :, :, t])
+
+
+def test_decode_steps_run_from_a_fresh_thread(dev):
+    """Each wrapper of the GEMM core called first thing on a new thread: the
+    tensor maps are encoded with the tensors' device made current, and the
+    results agree with the main thread's (split sums are added by atomics, in
+    an order that may differ)."""
+    import threading
+
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    g, a2, w = _gemm_case(dev, 64, 384, 448, seed=70)
+    wf, wf4 = dk.to_fragments(w), dk.to_fragments4((w // 16).clamp(-8, 7))
+    scale = torch.rand(448, generator=g, device=dev) * 0.01
+    scale4 = torch.rand(6, 448, generator=g, device=dev) * 0.01
+    _, st, skw, stack_caches = _stack_case(dev, 64, False, None, seed=71)
+    _, bst, bkw, bridge_caches = _bridge_case(dev, 64, seed=72)
+    xs = torch.randn(64, 256, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([5], device=dev), 64))
+
+    def run():
+        out = [dk.decode_gemm(a2, wf, scale), dk.decode_gemm4(a2, wf4, scale4),
+               dk.fused_stack_step(5, xs, st, *stack_caches[0], cos, sin, **skw),
+               dk.fused_bridge_step(5, xs, bst, *_bridge_args(bridge_caches[0]), **bkw)]
+        torch.cuda.synchronize()
+        return out
+
+    got = []
+    th = threading.Thread(target=lambda: got.append(run()))
+    th.start()
+    th.join()
+    assert len(got) == 1, "the thread raised"
+    want = run()
+    _rows_near(got[0][0], want[0], GEMM_TOL)
+    _rows_near(got[0][1], want[1], GEMM_TOL)
+    _close(got[0][2], want[2])
+    _close(got[0][3], want[3])
 
 
 # ---------------------------------------------------------------------------

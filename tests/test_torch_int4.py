@@ -291,16 +291,17 @@ def _lm_cfg():
 
 
 def test_packed_fragment_order_round_trips():
-    q = torch.from_numpy(np.random.default_rng(14).integers(-7, 8, (96, 64)).astype(np.int8))
+    q = torch.from_numpy(np.random.default_rng(14).integers(-7, 8, (192, 128)).astype(np.int8))
     f = tdk.to_fragments4(q)
-    assert f.dtype == torch.int8 and tuple(f.shape) == tdk.frag4_shape(96, 64) == (2, 3, 32, 16)
+    assert f.dtype == torch.int8 and tuple(f.shape) == tdk.frag4_shape(192, 128) == (2, 3, 128, 16)
     assert torch.equal(tdk.from_fragments4(f), q)
-    # a lane's low nibbles are its int8 fragment bytes of the first 16 rows of each 32
+    # a lane's low nibbles are its int8 fragment bytes of the first 32 rows of
+    # each 64, its high nibbles those of the next 32
     lo, hi = tq.unpack_int4(f)
-    assert torch.equal(lo[:, 0], tdk.to_fragments(q[:16])[:, 0])
-    assert torch.equal(hi[:, 2], tdk.to_fragments(q[80:96])[:, 0])
-    with pytest.raises(ValueError, match="multiples of 32"):
-        tdk.to_fragments4(q[:48])
+    assert torch.equal(lo[:, 0], tdk.to_fragments(q[:32])[:, 0])
+    assert torch.equal(hi[:, 2], tdk.to_fragments(q[160:192])[:, 0])
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tdk.to_fragments4(q[:96])
 
 
 @pytest.mark.parametrize("group", [None, 16])

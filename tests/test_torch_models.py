@@ -68,7 +68,7 @@ def test_gemma2_quantize_stack_embed():
     st = tg.stack_decode_params(qt, P(cfg))
     H, F, QHD = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads * cfg.head_dim
     NQKV = QHD + 2 * cfg.num_kv_heads * cfg.head_dim
-    assert st["wqkv"].shape == (cfg.num_layers, NQKV // 32, H // 16, 32, 16)
+    assert st["wqkv"].shape == (cfg.num_layers, NQKV // 64, H // 32, 128, 16)
     gu = tdk.from_fragments(st["wgu"][2])
     assert gu.shape == (H, 2 * F)
     np.testing.assert_array_equal(gu[:, F:].numpy(),
@@ -78,13 +78,62 @@ def test_gemma2_quantize_stack_embed():
 
 
 def test_fragment_order_round_trips_and_matches_mma_layout():
-    w = torch.arange(64 * 96, dtype=torch.int32).reshape(64, 96)
+    w = torch.arange(64 * 128, dtype=torch.int32).reshape(64, 128)
     wf = tdk.to_fragments(w)
-    assert wf.shape == (3, 4, 32, 16)
+    assert wf.shape == (2, 2, 128, 16)
     assert torch.equal(tdk.from_fragments(wf), w)
-    # lane 9 (g = 2, t = 1) of columns 32..63, rows 16..31: n8 tile j = 1,
-    # bytes for rows 16 + (2, 3, 10, 11) of column 32 + 8 + 2
-    assert wf[1, 1, 9, 4:8].tolist() == [w[r, 42].item() for r in (18, 19, 26, 27)]
+    # lane 9 (g = 2, t = 1) of warp 2 of columns 64..127, rows 32..63: its
+    # wgmma A fragment of the k16 step at row 32 first, for columns
+    # 64 + 16 * 2 + (2, 10) and rows 32 + (2, 3, 10, 11)
+    assert wf[1, 1, 2 * 32 + 9, :8].tolist() == [
+        w[r, n].item() for r, n in ((34, 98), (35, 98), (34, 106), (35, 106),
+                                    (42, 98), (43, 98), (42, 106), (43, 106))]
+    with pytest.raises(ValueError, match="N of 64"):
+        tdk.to_fragments(w[:, :96])
+
+
+def _wgmma_a_lane_values(w: np.ndarray, steps: int) -> np.ndarray:
+    """The wgmma A fragments of W^T written out from the PTX rule for
+    m64nNk16 with A in registers (each warp w of the warpgroup holds rows
+    16 w .. 16 w + 15; lane l, g = l // 4, t = l % 4, holds registers a0..a3 =
+    (row g, k 2t | 2t+1), (row g + 8, k 2t | 2t+1), (row g, k 2t+8 | 2t+9),
+    (row g + 8, k 2t+8 | 2t+9)), where A's row is a weight column and its k a
+    weight row: [N/64, K/(16 steps), 128 lanes, steps, 8 values]."""
+    K, N = w.shape
+    out = np.zeros((N // 64, K // (16 * steps), 128, steps, 8), dtype=w.dtype)
+    for c in range(N // 64):
+        for r in range(K // (16 * steps)):
+            for lane in range(128):
+                warp, g, t = lane // 32, lane % 32 // 4, lane % 4
+                cols = (64 * c + 16 * warp + g, 64 * c + 16 * warp + g + 8)
+                for s in range(steps):
+                    k0 = 16 * (steps * r + s)
+                    vals = []
+                    for kk, col in ((2 * t, cols[0]), (2 * t, cols[1]),
+                                    (2 * t + 8, cols[0]), (2 * t + 8, cols[1])):
+                        vals += [w[k0 + kk, col], w[k0 + kk + 1, col]]
+                    out[c, r, lane, s] = vals
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fragment_bytes_follow_the_wgmma_register_rule(bits):
+    """to_fragments / to_fragments4 against the lane bytes built from the
+    wgmma A-fragment rule alone: int8, a lane's 16 bytes are two k16 steps;
+    int4, its bytes hold four k16 steps, steps 0 and 1 in the low nibbles and
+    2 and 3 in the high ones."""
+    rng = np.random.default_rng(15)
+    if bits == 8:
+        w = rng.integers(-127, 128, (64, 128)).astype(np.int8)
+        want = _wgmma_a_lane_values(w, 2).reshape(2, 2, 128, 16)
+        np.testing.assert_array_equal(tdk.to_fragments(torch.from_numpy(w)).numpy(), want)
+    else:
+        w = rng.integers(-8, 8, (128, 128)).astype(np.int8)
+        vals = _wgmma_a_lane_values(w, 4)                  # [2, 2, 128, 4 steps, 8]
+        lo = vals[:, :, :, :2].reshape(2, 2, 128, 16).astype(np.int32)
+        hi = vals[:, :, :, 2:].reshape(2, 2, 128, 16).astype(np.int32)
+        want = ((lo & 0xF) | (hi << 4)).astype(np.int8)
+        np.testing.assert_array_equal(tdk.to_fragments4(torch.from_numpy(w)).numpy(), want)
 
 
 def test_bridge_quantize_and_stack():

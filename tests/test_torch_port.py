@@ -51,9 +51,10 @@ def _port_files():
     return (sorted((REPO / "vlm_bridge_tpu_torch").rglob("*.py"))
             + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_train_torch.py",
                REPO / "scripts" / "tune_int8_linear_torch.py",
-               REPO / "scripts" / "tune_int4_torch.py", REPO / "scripts" / "vit_ab_torch.py",
+               REPO / "scripts" / "vit_ab_torch.py",
                REPO / "scripts" / "flash_fwd_torch.py", REPO / "scripts" / "flash_bwd_torch.py",
-               REPO / "scripts" / "tiled_matmul_torch.py"])
+               REPO / "scripts" / "tiled_matmul_torch.py",
+               REPO / "scripts" / "decode_gemm_torch.py"])
 
 
 def test_no_import_of_jax_or_the_jax_package():

@@ -194,20 +194,3 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t wb, int s0, int s1) {
                              *reinterpret_cast<const __nv_bfloat162*>(&off));
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// Y[M, N] (f32, zeroed by this call) = (A[M, K] @ W[K, N] int8) * scale[N]
-// (+ bias[N]); A split (hi rows at Ah, lo rows at Ah + M * lda), W row-major
-// [in, out] in fragment order. Defined in i8_gemm.cu. Requires N % 128 ==
-// 0, K % 128 == 0, lda % 8 == 0 and 16-byte aligned A/W.
-int launch_i8_gemm(const bf16* Ah, int lda, const int8_t* W, const float* scale,
-                   const float* bias, float* Y, int M, int N, int K,
-                   cudaStream_t stream);
-
-// Y[M, N] (f32, zeroed by this call) = sum over groups of (A[M, group rows] @
-// W4[group rows, N]) * scale[group, N]; A split as above, W4 int4 in the
-// packed fragment order of ops/decode_kernels.to_fragments4, scale
-// [K / group, N] (group == K: one scale per output column). Defined in
-// i4_gemm.cu. Requires N % 128 == 0, K % 128 == 0, group % 32 == 0,
-// K % group == 0, lda % 8 == 0 and 16-byte aligned A/W4.
-int launch_i4_gemm(const bf16* Ah, int lda, const uint8_t* W4, const float* scale, int group,
-                   float* Y, int M, int N, int K, cudaStream_t stream);

@@ -1,5 +1,6 @@
 // Hopper helpers shared by the wgmma + TMA kernels (tiled_matmul.cu,
-// flash_fwd.cu, flash_bwd.cu): shared-memory addresses, mbarriers, TMA loads and stores
+// flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh): shared-memory addresses,
+// mbarriers, TMA loads (with L2 policies) and stores
 // with their bulk groups, named barriers, the wgmma shared-memory descriptor
 // with its fence / commit / wait, and the host's tensor-map encoder. Built
 // for sm_90a only (wgmma and setmaxnreg exist nowhere else).
@@ -128,6 +129,25 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
+// 3-D box at coordinates (c0 innermost, c1, c2) of the map -> shared memory at
+// dst; completion counts its bytes on `bar` (zeros beyond the tensor)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// an L2 policy under which the lines a load brings in are the first evicted:
+// for data read once, so that it does not push out what is read again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
 // 4-D box at coordinates (c0 innermost, ..., c3) of the map -> shared memory
 // at dst; completion counts its bytes on `bar` (elements beyond the tensor in
 // any dimension read as zero)
@@ -137,6 +157,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// tma_load_4d under the L2 policy `pol`
+__device__ __forceinline__ void tma_load_4d_hint(uint32_t dst, const CUtensorMap* map, int c0,
+                                                 int c1, int c2, int c3, uint32_t bar,
+                                                 uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar),
+      "l"(pol)
       : "memory");
 }
 

@@ -14,15 +14,27 @@
 // per output column (mlp4_group == 0) or per group of mlp4_group rows; the
 // hidden stays f32 (split hi + lo) between the two products, as with int8.
 //
-// Bound: weight bandwidth. A token streams 26 x 78 MB of int8 layer weights
-// at the Gemma-2-2B widths (2.0 GB), against 0.3 MB of activations and a
-// 26 x 8 MB int8 cache read. The design keeps the activations between the
-// projections in small scratch (L2-resident at batch 64; split into bf16
-// hi + lo where they feed a GEMM, common.cuh), runs
-// every projection through the split-K int8 GEMM of i8_gemm.cu, and loops
-// over the layers here on the host: one call from Python per token, with
-// no host synchronisation, so the launches queue back to back. The residual
-// stream stays f32 across all layers, as in the TPU kernel.
+// Bound: weight bandwidth, and the tensor cores close behind. A token
+// streams 26 x 78 MB of int8 layer weights at the Gemma-2-2B widths (2.02 GB:
+// 0.60 ms at 3.35 TB/s), against 0.3 MB of activations and a 26 x 8 MB int8
+// cache read; the products' tensor work (weights x 64 rows x the activations'
+// two bf16 halves) is 0.52 ms at 989 TFLOP/s, and with int4 MLP weights (1.30
+// GB, 0.39 ms) the tensor cores set the floor. The design keeps the
+// activations between the projections in small scratch (L2-resident at batch
+// 64; split into bf16 hi + lo where they feed a GEMM, common.cuh), runs every
+// projection through the swap-AB wgmma + TMA GEMM core of decode_gemm.cuh
+// (i8_gemm.cu, i4_gemm.cu: one wave of stream-K blocks a product, f32 vector
+// reductions into y), and loops over the layers here on the host: one call
+// from Python per token, with no host synchronisation, so the launches queue
+// back to back: 8 a layer, 209 a token (launching them with programmatic
+// dependent launch gained nothing on an H100: PERF.md). y is zero whenever a
+// product starts: the first kernel zeroes it, and each kernel that reads a
+// product's output (attention, the residual norms, GeGLU) writes zeros back,
+// so no memset is launched. The residual stream stays f32 across all layers,
+// as in the TPU kernel.
+// Measured on an H100 (PERF.md, scripts/decode_gemm_torch.py): the step at
+// ~4x its byte bound, the products ~60 % of it, then the attention and the
+// row kernels.
 //
 // Cache layout (this port's own): K/V [L, B, KH, S, D] int8, so one block
 // reads one contiguous [S, D] slab per (row, kv head); scales [L, B, KH, S].
@@ -32,7 +44,7 @@
 // (the block reductions, dot4_i8, kv_scale / kv_code for the per-vector int8
 // of a new K/V row, soft_cap), not their kernels, because they round at
 // other places: here every value between two stages stays f32, stored as
-// bf16 hi + lo halves for the split-K GEMM of i8_gemm.cu over weights in
+// bf16 hi + lo halves for the GEMM core of i8_gemm.cu over weights in
 // fragment order, the residual is f32 across all layers, and the attention
 // kernel writes cache row t itself; there the normed input, q, p * v_scale,
 // the attention output and the MLP hidden are rounded to one bf16 value each,
@@ -40,23 +52,26 @@
 // row-major int8 product kernel of int8_linear.cu, the residual is rounded to
 // bf16 at the end of each half, and the cache is only read.
 
-#include "common.cuh"
+#include "decode_gemm.cuh"   // the int8 / int4 GEMM core, sm90.cuh, common.cuh
 
 namespace {
 
 // x (f32 residual) update and next RMSNorm, one block of 256 threads per
 // batch row, the row held in registers (H <= 256 * ROW_REGS):
-//   x_in != null : x = float(x_in)
-//   y    != null : x += rms(y) * (1 + w_post)
+//   x_in != null : x = float(x_in), and the n_zero floats at zero are zeroed
+//   y    != null : x += rms(y) * (1 + w_post); y's row is zeroed once read
 //   h    != null : h = rms(x) * (1 + w_next), split [2, B, H]
 //   xo   != null : xo = bf16(x)
 __global__ void __launch_bounds__(256)
 residual_rms_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
-                    const float* __restrict__ y, const float* __restrict__ w_post,
+                    float* __restrict__ y, const float* __restrict__ w_post,
                     const float* __restrict__ w_next, bf16* __restrict__ h,
-                    bf16* __restrict__ xo, int H, float eps) {
+                    bf16* __restrict__ xo, int H, float eps, float* __restrict__ zero,
+                    size_t n_zero) {
   __shared__ float red[32];
   const size_t row = (size_t)blockIdx.x * H;
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n_zero; i += (size_t)gridDim.x * 256)
+    zero[i] = 0.f;
   float v[ROW_REGS];
 #pragma unroll
   for (int k = 0; k < ROW_REGS; ++k) {
@@ -68,7 +83,11 @@ residual_rms_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < ROW_REGS; ++k) {
       const int i = threadIdx.x + k * 256;
-      yv[k] = i < H ? y[row + i] : 0.f;
+      yv[k] = 0.f;
+      if (i < H) {
+        yv[k] = y[row + i];
+        y[row + i] = 0.f;   // the next product accumulates into zeros
+      }
       ss += yv[k] * yv[k];
     }
     const float r = rsqrtf(block_sum(ss, red) / H + eps);
@@ -100,9 +119,9 @@ residual_rms_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
 }
 
 // One block per (kv head, batch row); blockDim.x == D. qkv: [B, QHD+2KHD]
-// f32 (scaled projection). Writes the new int8 K/V row t and its scales,
-// then attends over cache rows 0..t; out: split [2, B, QHD].
-__global__ void stack_attn_kernel(const float* __restrict__ qkv, const float* __restrict__ cosv,
+// f32 (scaled projection), zeroed once read. Writes the new int8 K/V row t
+// and its scales, then attends over cache rows 0..t; out: split [2, B, QHD].
+__global__ void stack_attn_kernel(float* __restrict__ qkv, const float* __restrict__ cosv,
                                   const float* __restrict__ sinv, int8_t* __restrict__ kc,
                                   int8_t* __restrict__ vc, float* __restrict__ ks,
                                   float* __restrict__ vs, bf16* __restrict__ out, int NH, int KH,
@@ -114,7 +133,7 @@ __global__ void stack_attn_kernel(const float* __restrict__ qkv, const float* __
   __shared__ float red[32];
   const int kh = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int QHD = NH * D, KHD = KH * D, half = D / 2;
-  const float* row = qkv + (size_t)b * (QHD + 2 * KHD);
+  float* row = qkv + (size_t)b * (QHD + 2 * KHD);
   const float c = cosv[d], s = sinv[d];
   const int dp = d < half ? d + half : d - half;
   const float sign = d < half ? -1.f : 1.f;
@@ -137,6 +156,10 @@ __global__ void stack_attn_kernel(const float* __restrict__ qkv, const float* __
     q[g * D + d] = qr[d] * c + sign * qr[dp] * s;
   }
   __syncthreads();  // cache row t and q visible to the whole block
+  // every value of the block's q heads, k and v read (RoPE reads a partner)
+  row[QHD + kh * D + d] = 0.f;
+  row[QHD + KHD + kh * D + d] = 0.f;
+  for (int g = 0; g < G; ++g) row[(kh * G + g) * D + d] = 0.f;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const int n = t + 1;
@@ -174,15 +197,28 @@ __global__ void stack_attn_kernel(const float* __restrict__ qkv, const float* __
   }
 }
 
-// a[b, f] = gelu_tanh(gu[b, f]) * gu[b, F + f], split [2, B, F]
-__global__ void geglu_kernel(const float* __restrict__ gu, bf16* __restrict__ a, int B, int F) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+// a[b, f] = gelu_tanh(gu[b, f]) * gu[b, F + f], split [2, B, F]; gu zeroed
+// once read. A thread takes four neighbouring f (F % 4 == 0).
+__global__ void geglu_kernel(float* __restrict__ gu, bf16* __restrict__ a, int B, int F) {
+  const size_t i = 4 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
   if (i >= (size_t)B * F) return;
   const size_t b = i / F, f = i % F;
-  const float g = gu[b * 2 * F + f], u = gu[b * 2 * F + F + f];
+  float4* gp = reinterpret_cast<float4*>(gu + b * 2 * F + f);
+  float4* up = reinterpret_cast<float4*>(gu + b * 2 * F + F + f);
+  const float4 g4 = *gp, u4 = *up;
+  *gp = *up = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float g[4] = {g4.x, g4.y, g4.z, g4.w}, u[4] = {u4.x, u4.y, u4.z, u4.w};
   const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float gl = 0.5f * g * (1.f + tanhf(k0 * (g + 0.044715f * g * g * g)));
-  store_split(a, (size_t)B * F, i, gl * u);
+  float v[4];
+  bf16 hi[4], lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = 0.5f * g[e] * (1.f + tanhf(k0 * (g[e] + 0.044715f * g[e] * g[e] * g[e]))) * u[e];
+    hi[e] = __float2bfloat16(v[e]);
+    lo[e] = __float2bfloat16(v[e] - __bfloat162float(hi[e]));
+  }
+  *reinterpret_cast<uint2*>(a + i) = *reinterpret_cast<const uint2*>(hi);
+  *reinterpret_cast<uint2*>(a + (size_t)B * F + i) = *reinterpret_cast<const uint2*>(lo);
 }
 
 }  // namespace
@@ -196,6 +232,7 @@ extern "C" int vbt_fused_stack_step(
     void* x32, void* hbuf, void* abuf, void* ybuf,
     int L, int B, int H, int NH, int KH, int D, int F, int S, int t, int mlp4, int mlp4_group,
     float attn_scale, float softcap, float eps, void* stream_ptr) {
+  VBT_CHECK((cudaError_t)bind_device(x_in));
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const int QHD = NH * D, KHD = KH * D, NQKV = QHD + 2 * KHD;
   float* x = (float*)x32;
@@ -208,51 +245,63 @@ extern "C" int vbt_fused_stack_step(
   const size_t attn_smem = sizeof(float) * (size_t)G * (D + t + 1);
   // int4 MLP: rows of K that share a scale row, and scale rows per layer
   const int gu_group = mlp4_group ? mlp4_group : H, d_group = mlp4_group ? mlp4_group : F;
+  // the products' activations: h (K = H) for q|k|v and gate|up, a for o (K =
+  // QHD) and down (K = F); and the four stacked weights; one tensor map each
+  // for the whole call
+  CUtensorMap map_h, map_o, map_d, w_qkv, w_o, w_gu, w_d;
+  int rc = make_act_map(&map_h, h, H, B, H);
+  if (!rc) rc = make_act_map(&map_o, a, QHD, B, QHD);
+  if (!rc) rc = make_act_map(&map_d, a, F, B, F);
+  if (!rc) rc = make_weight_map(&w_qkv, wqkv, L, H, NQKV, false);
+  if (!rc) rc = make_weight_map(&w_o, wo, L, QHD, H, false);
+  if (!rc) rc = make_weight_map(&w_gu, wgu, L, H, 2 * F, mlp4);
+  if (!rc) rc = make_weight_map(&w_d, wd, L, F, H, mlp4);
+  if (rc) return rc;
 
+  // y starts at zero: every product accumulates into it, every kernel that
+  // reads it writes zeros back
   residual_rms_kernel<<<B, 256, 0, st>>>((const bf16*)x_in, x, nullptr, nullptr, nrm, h,
-                                         nullptr, H, eps);
-  VBT_CHECK_LAUNCH();
+                                         nullptr, H, eps, y,
+                                         (size_t)B * max(max(NQKV, 2 * F), H));
+    VBT_CHECK_LAUNCH();
   for (int l = 0; l < L; ++l) {
     const float* nl = nrm + (size_t)l * 4 * H;
-    int rc = launch_i8_gemm(h, H, (const int8_t*)wqkv + (size_t)l * H * NQKV,
-                            (const float*)qkv_scale + (size_t)l * NQKV, nullptr, y, B, NQKV,
-                            H, st);
+    rc = launch_i8_gemm(map_h, w_qkv, l, (const float*)qkv_scale + (size_t)l * NQKV, nullptr, y,
+                        B, NQKV, H, st);
     if (rc) return rc;
     stack_attn_kernel<<<dim3(KH, B), D, attn_smem, st>>>(
         y, (const float*)cosv, (const float*)sinv, (int8_t*)kc + l * cache_layer,
         (int8_t*)vc + l * cache_layer, (float*)ks + l * scale_layer,
         (float*)vs + l * scale_layer, a, NH, KH, D, S, t, attn_scale, softcap);
     VBT_CHECK_LAUNCH();
-    rc = launch_i8_gemm(a, QHD, (const int8_t*)wo + (size_t)l * QHD * H,
-                        (const float*)o_scale + (size_t)l * H, nullptr, y, B, H, QHD, st);
+    rc = launch_i8_gemm(map_o, w_o, l, (const float*)o_scale + (size_t)l * H, nullptr, y, B, H,
+                        QHD, st);
     if (rc) return rc;
     residual_rms_kernel<<<B, 256, 0, st>>>(nullptr, x, y, nl + H, nl + 2 * H, h, nullptr, H,
-                                           eps);
+                                           eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
     if (mlp4)
-      rc = launch_i4_gemm(h, H, (const uint8_t*)wgu + (size_t)l * H * F,
+      rc = launch_i4_gemm(map_h, w_gu, l,
                           (const float*)gu_scale + (size_t)l * (H / gu_group) * 2 * F, gu_group,
                           y, B, 2 * F, H, st);
     else
-      rc = launch_i8_gemm(h, H, (const int8_t*)wgu + (size_t)l * H * 2 * F,
-                          (const float*)gu_scale + (size_t)l * 2 * F, nullptr, y, B, 2 * F, H,
-                          st);
+      rc = launch_i8_gemm(map_h, w_gu, l, (const float*)gu_scale + (size_t)l * 2 * F, nullptr, y,
+                          B, 2 * F, H, st);
     if (rc) return rc;
     const size_t n = (size_t)B * F;
-    geglu_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(y, a, B, F);
+    geglu_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, st>>>(y, a, B, F);
     VBT_CHECK_LAUNCH();
     if (mlp4)
-      rc = launch_i4_gemm(a, F, (const uint8_t*)wd + (size_t)l * (F / 2) * H,
-                          (const float*)d_scale + (size_t)l * (F / d_group) * H, d_group, y, B,
-                          H, F, st);
+      rc = launch_i4_gemm(map_d, w_d, l, (const float*)d_scale + (size_t)l * (F / d_group) * H,
+                          d_group, y, B, H, F, st);
     else
-      rc = launch_i8_gemm(a, F, (const int8_t*)wd + (size_t)l * F * H,
-                          (const float*)d_scale + (size_t)l * H, nullptr, y, B, H, F, st);
+      rc = launch_i8_gemm(map_d, w_d, l, (const float*)d_scale + (size_t)l * H, nullptr, y, B, H, F,
+                          st);
     if (rc) return rc;
     const bool last = (l == L - 1);
     residual_rms_kernel<<<B, 256, 0, st>>>(nullptr, x, y, nl + 3 * H,
                                            last ? nullptr : nl + 4 * H, last ? nullptr : h,
-                                           last ? (bf16*)x_out : nullptr, H, eps);
+                                           last ? (bf16*)x_out : nullptr, H, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
   }
   return 0;

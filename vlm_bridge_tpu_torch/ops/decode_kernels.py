@@ -34,8 +34,9 @@ common.cuh, not its kernels, which write the cache in place and store split
 activations.
 
 Layouts are this port's own (not the TPU's head-major/64-row/8-row-window
-ones). Every stacked int8 weight [K, N] ([in, out]) is stored in mma.sync
-fragment order, `to_fragments(w)` = [N/32, K/16, 32, 16] (see there):
+ones). Every stacked int8 weight [K, N] ([in, out]) is stored in wgmma
+register-fragment order, `to_fragments(w)` = [N/64, K/32, 128, 16] (see
+there):
   stacked LM weights (models/gemma2.stack_decode_params):
     wqkv [L, *frag(H, QHD+2KHD)] + qkv_scale [L, QHD+2KHD],
     wo [L, *frag(QHD, H)] + o_scale [L, H], wgu [L, *frag(H, 2F)] (gate | up)
@@ -81,52 +82,56 @@ def _ln(v: torch.Tensor, s: torch.Tensor, b: torch.Tensor, eps: float) -> torch.
 
 
 def to_fragments(w: torch.Tensor) -> torch.Tensor:
-    """int8 [K, N] ([in, out]) -> [N/32, K/16, 32, 16], the order in which
-    csrc/i8_gemm.cu streams it: for output columns 32c..32c+31 and rows
-    16r..16r+15, lane l (g = l // 4, t = l % 4) holds, for n8 tiles j = 0..3,
-    w[16r + (2t, 2t+1, 2t+8, 2t+9), 32c + 8j + g]: its mma.sync m16n8k16 B
-    fragments, 16 contiguous bytes."""
+    """int8 [K, N] ([in, out]) -> [N/64, K/32, 128, 16], the order in which
+    csrc/i8_gemm.cu reads it: the weights are wgmma's A operand, W^T, taken
+    from registers, so output columns are its 64-row M side. For columns
+    64c..64c+63 and rows 32r..32r+31, lane l (g = l // 4, t = l % 4) of warp
+    w holds 16 contiguous bytes: for k16 steps s = 0, 1 its A fragment of
+    columns n = 64c + 16w + (g, g + 8) and rows k = 32r + 16s + (2t, 2t+1,
+    2t+8, 2t+9), in the order (k 2t, n g), (2t+1, g), (2t, g+8), (2t+1, g+8),
+    (2t+8, g), (2t+9, g), (2t+8, g+8), (2t+9, g+8): two bf16x2 registers a
+    word once widened."""
     K, N = w.shape
-    if K % 16 or N % 32:
-        raise ValueError(f"weight {K}x{N}: K must be a multiple of 16, N of 32")
-    v = w.reshape(K // 16, 2, 4, 2, N // 32, 4, 8)   # k16, h, t, i, c, j, g
-    return v.permute(4, 0, 6, 2, 5, 1, 3).reshape(N // 32, K // 16, 32, 16).contiguous()
+    if K % 32 or N % 64:
+        raise ValueError(f"weight {K}x{N}: K must be a multiple of 32, N of 64")
+    v = w.reshape(K // 32, 2, 2, 4, 2, N // 64, 4, 2, 8)   # r, s, k8, t, i, c, w, n8, g
+    return v.permute(5, 0, 6, 8, 3, 1, 2, 7, 4).reshape(N // 64, K // 32, 128, 16).contiguous()
 
 
 def from_fragments(wf: torch.Tensor) -> torch.Tensor:
-    """Inverse of `to_fragments`: [N/32, K/16, 32, 16] -> [K, N]."""
+    """Inverse of `to_fragments`: [N/64, K/32, 128, 16] -> [K, N]."""
     C, R = wf.shape[:2]
-    v = wf.reshape(C, R, 8, 4, 4, 2, 2)              # c, k16, g, t, j, h, i
-    return v.permute(1, 5, 3, 6, 0, 4, 2).reshape(16 * R, 32 * C)
+    v = wf.reshape(C, R, 4, 8, 4, 2, 2, 2, 2)              # c, r, w, g, t, s, k8, n8, i
+    return v.permute(1, 5, 6, 4, 8, 0, 2, 7, 3).reshape(32 * R, 64 * C)
 
 
 def frag_shape(K: int, N: int) -> tuple:
-    return (N // 32, K // 16, 32, 16)
+    return (N // 64, K // 32, 128, 16)
 
 
 def to_fragments4(q: torch.Tensor) -> torch.Tensor:
-    """int4 values (int8 in -8..7) [K, N] -> packed [N/32, K/32, 32, 16], the
-    order in which csrc/i4_gemm.cu streams them: the 16 bytes of a lane hold
-    its `to_fragments` bytes of rows 32r..32r+15 in their low nibbles and of
-    rows 32r+16..32r+31 in their high nibbles."""
+    """int4 values (int8 in -8..7) [K, N] -> packed [N/64, K/64, 128, 16], the
+    order in which csrc/i4_gemm.cu reads them: the 16 bytes of a lane hold
+    its `to_fragments` bytes of rows 64r..64r+31 in their low nibbles and of
+    rows 64r+32..64r+63 in their high nibbles (four k16 steps)."""
     K, N = q.shape
-    if K % 32 or N % 32:
-        raise ValueError(f"weight {K}x{N}: K and N must be multiples of 32")
-    v = q.reshape(K // 32, 2, 16, N)
+    if K % 64 or N % 64:
+        raise ValueError(f"weight {K}x{N}: K and N must be multiples of 64")
+    v = q.reshape(K // 64, 2, 32, N)
     return _pack_nibbles(to_fragments(v[:, 0].reshape(K // 2, N)),
                          to_fragments(v[:, 1].reshape(K // 2, N)))
 
 
 def from_fragments4(wf: torch.Tensor) -> torch.Tensor:
-    """Inverse of `to_fragments4`: packed [N/32, K/32, 32, 16] -> int8 [K, N]."""
+    """Inverse of `to_fragments4`: packed [N/64, K/64, 128, 16] -> int8 [K, N]."""
     lo, hi = (from_fragments(h) for h in unpack_int4(wf))
     K2, N = lo.shape
-    return torch.stack([lo.reshape(K2 // 16, 16, N), hi.reshape(K2 // 16, 16, N)],
+    return torch.stack([lo.reshape(K2 // 32, 32, N), hi.reshape(K2 // 32, 32, N)],
                        dim=1).reshape(2 * K2, N)
 
 
 def frag4_shape(K: int, N: int) -> tuple:
-    return (N // 32, K // 32, 32, 16)
+    return (N // 64, K // 64, 128, 16)
 
 
 def _mm4(a: torch.Tensor, wf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -154,6 +159,95 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
+# The fused steps' GEMM core, alone
+# ---------------------------------------------------------------------------
+
+
+def split_halves(a: torch.Tensor) -> torch.Tensor:
+    """f32 [M, K] -> [2, M, K] bf16: hi = bf16(a), lo = bf16(a - hi), the two
+    halves in which the fused steps feed a product (csrc/common.cuh)."""
+    hi = a.to(torch.bfloat16)
+    return torch.stack([hi, (a - hi.float()).to(torch.bfloat16)])
+
+
+def decode_gemm_plain(a2, wf, scale, bias=None):
+    """Plain version of `decode_gemm`."""
+    y = _mm(a2[0].float() + a2[1].float(), wf, scale)
+    return y if bias is None else y + bias
+
+
+def decode_gemm4_plain(a2, wf4, scale):
+    """Plain version of `decode_gemm4`."""
+    return _mm4(a2[0].float() + a2[1].float(), wf4, scale)
+
+
+def _gemm_out(a2, N: int, out):
+    M = a2.shape[1]
+    if out is None:
+        return torch.zeros(M, N, dtype=torch.float32, device=a2.device)
+    cuda_lib.check(out, "out", torch.float32, (M, N))
+    return out
+
+
+def decode_gemm(a2, wf, scale, bias=None, out=None):
+    """y[M, N] = ((a2[0] + a2[1]) @ w_int8) * scale (+ bias): one product of
+    the fused steps alone. a2: [2, M, K] bf16 halves (`split_halves`); wf: w
+    [K, N] in fragment order (`to_fragments`); scale, bias: f32 [N]. CUDA
+    tensors run csrc/i8_gemm.cu, which adds into `out` (zeros if not given:
+    a caller that passes it zeroes it) and returns it; CPU tensors run the
+    plain version."""
+    if not a2.is_cuda:
+        return decode_gemm_plain(a2, wf, scale, bias)
+    _, M, K = a2.shape
+    N = 64 * wf.shape[0]
+    if K % 64 or wf.shape[1] * 32 != K:
+        raise ValueError(f"depth {K} must be a multiple of 64 and match the fragments")
+    c = cuda_lib.check
+    c(a2, "a2", torch.bfloat16, (2, M, K))
+    c(wf, "wf", torch.int8, frag_shape(K, N))
+    c(scale, "scale", torch.float32, (N,))
+    if bias is not None:
+        c(bias, "bias", torch.float32, (N,))
+    y = _gemm_out(a2, N, out)
+    p = cuda_lib.ptr
+    cuda_lib.call("vbt_i8_gemm", p(a2), p(wf), p(scale), 0 if bias is None else p(bias), p(y),
+                  M, N, K)
+    decode_gemm.launches += 1
+    return y
+
+
+decode_gemm.launches = 0
+
+
+def decode_gemm4(a2, wf4, scale, out=None):
+    """y[M, N] = sum over scale groups of ((a2[0] + a2[1])[:, group] @
+    w_int4[group]) * scale[group]: the int4 product of the stack step alone.
+    wf4: w [K, N] in packed fragment order (`to_fragments4`); scale
+    [K / g, N] f32 (one row: per output channel), g a multiple of 32. CUDA
+    tensors run csrc/i4_gemm.cu (adds into `out`, as `decode_gemm`); CPU
+    tensors run the plain version."""
+    if not a2.is_cuda:
+        return decode_gemm4_plain(a2, wf4, scale)
+    _, M, K = a2.shape
+    N, groups = 64 * wf4.shape[0], scale.shape[0]
+    if K % 64 or wf4.shape[1] * 64 != K or K % groups or (K // groups) % 32:
+        raise ValueError(f"depth {K} and {groups} scale groups: K must be a multiple of 64, "
+                         "a group of a multiple of 32 rows")
+    c = cuda_lib.check
+    c(a2, "a2", torch.bfloat16, (2, M, K))
+    c(wf4, "wf4", torch.int8, frag4_shape(K, N))
+    c(scale, "scale", torch.float32, (groups, N))
+    y = _gemm_out(a2, N, out)
+    p = cuda_lib.ptr
+    cuda_lib.call("vbt_i4_gemm", p(a2), p(wf4), p(scale), p(y), K // groups, M, N, K)
+    decode_gemm4.launches += 1
+    return y
+
+
+decode_gemm4.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Whole decoder stack
 # ---------------------------------------------------------------------------
 
@@ -172,10 +266,10 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
     mlp4 = "wgu4" in stacked
     if mlp4:
         gu, gus, wd, ds = (stacked[k] for k in ("wgu4", "gu_scale4", "wd4", "d_scale4"))
-        mm, F = _mm4, 32 * wd.shape[2]
+        mm, F = _mm4, 64 * wd.shape[2]
     else:
         gu, gus, wd, ds = (stacked[k] for k in ("wgu", "gu_scale", "wd", "d_scale"))
-        mm, F = _mm, 16 * wd.shape[2]
+        mm, F = _mm, 32 * wd.shape[2]
     n = t + 1
     xf = x.float()
     for i in range(L):
@@ -224,8 +318,8 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
         return fused_stack_step_plain(t, x, stacked, kc, vc, ks, vs, cos, sin, **kw)
     B, H = x.shape
     L = stacked["wqkv"].shape[0]
-    NQKV = 32 * stacked["wqkv"].shape[1]
-    F = (32 if mlp4 else 16) * stacked["wd4" if mlp4 else "wd"].shape[2]
+    NQKV = 64 * stacked["wqkv"].shape[1]
+    F = (64 if mlp4 else 32) * stacked["wd4" if mlp4 else "wd"].shape[2]
     NH, KH, D = num_heads, num_kv_heads, head_dim
     QHD, KHD = NH * D, KH * D
     S = kc.shape[3]
@@ -234,9 +328,9 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     if D % 32 or D > 1024 or NH % KH or NH // KH > D // 32:
         raise ValueError(f"unsupported head layout NH={NH} KH={KH} D={D}")
     for n in (NQKV, H, 2 * F):
-        if n % 128:
-            raise ValueError(f"projection width {n} must be a multiple of 128")
-    if NQKV != QHD + 2 * KHD or H % 128 or QHD % 128 or F % 128 or H > 4096:
+        if n % 64:
+            raise ValueError(f"projection width {n} must be a multiple of 64")
+    if NQKV != QHD + 2 * KHD or H % 64 or QHD % 64 or F % 64 or H > 4096:
         raise ValueError("stacked weight widths do not match the head layout "
                          "or exceed the row kernels' 4096")
     c = cuda_lib.check
@@ -351,7 +445,7 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
         return fused_bridge_step_plain(t, x, bst, ck, cks, cv, cvs, sk, sv, **kw)
     B, ld = x.shape
     nb = bst["wq"].shape[0]
-    F = 32 * bst["fc1"].shape[1]
+    F = 64 * bst["fc1"].shape[1]
     Hc, Hs = num_heads_cross, num_heads_self
     Dc, Ds = ld // Hc, ld // Hs
     Sv, Smax = ck.shape[3], sk.shape[3]
@@ -359,8 +453,8 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
         raise ValueError(f"position {t} outside the {Smax}-row self cache")
     if Dc * Hc != ld or Ds * Hs != ld or Dc % 32 or Ds % 32 or Dc > 1024 or Ds > 1024:
         raise ValueError(f"unsupported head widths Dc={Dc} Ds={Ds}")
-    if ld % 128 or F % 128 or ld > 4096:
-        raise ValueError(f"widths ld={ld} F={F} must be multiples of 128, ld <= 4096")
+    if ld % 64 or F % 64 or ld > 4096:
+        raise ValueError(f"widths ld={ld} F={F} must be multiples of 64, ld <= 4096")
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (B, ld))
     c(bst["lns"], "lns", torch.float32, (nb, 6, ld))
