@@ -11,11 +11,13 @@ kernel held against its plain version.
    source, sm_90a) and prints what ptxas reports (registers, spills) for the
    flash kernels, the int8 product kernels and the wgmma kernels
    (tiled_matmul's, the flash forward's, dq's and dk/dv's three
-   instantiations each, D 64 / 128 / 256, and the fused decode steps' GEMM
-   core's three: int8, int4, int4 with groups of an odd multiple of 32 rows);
-   fails if ptxas serialised a wgmma pipeline, if a wgmma kernel spills, or if
-   an instantiation is missing. The fused steps print their time beside their
-   mma.sync GEMM core's on the same card (DECODE_STEP_MMA_SYNC_MS).
+   instantiations each, D 64 / 128 / 256, the fused decode steps' GEMM
+   core's three: int8, int4, int4 with groups of an odd multiple of 32 rows,
+   and the greedy heads' three: int8, int4 per row, int4 in groups); fails if
+   ptxas serialised a wgmma pipeline, if a wgmma kernel spills, or if an
+   instantiation is missing. The fused steps and the greedy heads print their
+   time beside their earlier mma.sync kernels' on the same card
+   (DECODE_STEP_MMA_SYNC_MS, HEAD_MMA_SYNC_MS).
 3. One phase per kernel: the kernel and its plain PyTorch version on the
    same seeded inputs at the main paths' shapes, their max abs error
    against the stated tolerance, both times (device time: the host queues
@@ -166,6 +168,9 @@ TILED_MATMUL_MMA_SYNC_MS = {"qkv": 0.4026, "o": 0.1449, "fc1": 0.5610, "fc2": 0.
 # mma.sync kernels), on the same card, PERF.md rows 5, 5' and 7
 DECODE_STEP_MMA_SYNC_MS = {"fused_stack_step": 4.1980, "fused_stack_step[mlp_int4]": 4.3400,
                            "fused_bridge_step": 0.5808}
+# the greedy heads' earlier (wmma / mma.sync tile) kernels on the same card, PERF.md
+# rows 13 and 15 (int4 in groups of 128)
+HEAD_MMA_SYNC_MS = {"int8_matmul_t_argmax": 0.6438, "int4_matmul_t_argmax": 0.5884}
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -190,29 +195,34 @@ def card_line() -> str:
         return "unknown (nvidia-smi unavailable)"
 
 
-PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "decode_gemm_kernel", "argmax4_block",
+PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "decode_gemm_kernel", "greedy_head_kernel",
               "logits4_block", "tiled_matmul_kernel", "layer_norm_kernel", "ls_attn_kernel")
 
 
 # the wgmma kernels: each instantiation must not spill
 SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel", "fa_bwd_dq_sm90_kernel",
-                 "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel")
+                 "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel", "greedy_head_kernel")
 FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:4] for d in (64, 128, 256))
 # the fused steps' GEMM core (csrc/decode_gemm.cuh): int8, and int4 with waits
 # every stage or every half stage (groups of an odd multiple of 32 rows)
 GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4E", "decode_gemm_kernelILb1ELi4E",
                   "decode_gemm_kernelILb1ELi2E")
+# the greedy heads (csrc/greedy_head.cu): int8, int4 per row, int4 in groups
+HEAD_INSTANCES = ("greedy_head_kernelILb0ELb0E", "greedy_head_kernelILb1ELb0E",
+                  "greedy_head_kernelILb1ELb1E")
+REQUIRED = FLASH_INSTANCES + GEMM_INSTANCES + HEAD_INSTANCES
 
 
 def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
     """Print what ptxas -v said of the kernels named by `tags` (registers,
     shared memory, spills). Raise if ptxas serialised a kernel's wgmma
-    instructions (tiled_matmul_kernel, the three flash kernels and the decode
-    GEMM core are the wgmma kernels: a serialised pipeline runs them at a
-    fraction of their rate and still agrees with the plain version), or if the
-    build has not all three instantiations (D 64 / 128 / 256) of the flash
-    forward, dq and dk/dv, or the GEMM core's three. Returns the
-    instantiations of the wgmma kernels that spill."""
+    instructions (tiled_matmul_kernel, the three flash kernels, the decode
+    GEMM core and the greedy heads are the wgmma kernels: a serialised
+    pipeline runs them at a fraction of their rate and still agrees with the
+    plain version), or if the build lacks one of REQUIRED: the three
+    instantiations (D 64 / 128 / 256) of the flash forward, dq and dk/dv, the
+    GEMM core's three and the greedy heads' three. Returns the instantiations
+    of the wgmma kernels that spill."""
     log = build_log.splitlines()
     serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
     if serial:
@@ -229,7 +239,7 @@ def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
             if any(k in name for k in SPILL_CHECKED) and any(
                     int(n) for x in info for n in re.findall(r"(\d+) bytes spill", x)):
                 spills.append(name)
-    missing = [k for k in FLASH_INSTANCES + GEMM_INSTANCES if not any(k in n for n in seen)]
+    missing = [k for k in REQUIRED if not any(k in n for n in seen)]
     if missing:
         raise AssertionError(f"ptxas reported no {missing}: a wgmma kernel is not built")
     return spills
@@ -288,7 +298,8 @@ def phase_argmax_head(params, dev, gen):
     plain_ms = time_ms(lambda: quant.int8_matmul_t_argmax_plain(x, table), 3)
     # table, scales and x read once, ids written; 2 M V H multiply-adds on bf16 tensor cores
     bd = bound(nbytes(table["w_int8"], table["scale"], x, got), 2.0 * BATCH * V * H)
-    print(f"[int8_matmul_t_argmax] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"[int8_matmul_t_argmax] kernel {ms:.4f} ms (the wmma tile kernel: "
+          f"{HEAD_MMA_SYNC_MS['int8_matmul_t_argmax']}), plain {plain_ms:.4f} ms, "
           f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     # no single PyTorch call computes an argmax over a dequantized product
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
@@ -1534,9 +1545,12 @@ def run_vit_kernels(params, served, cfg, dev, card, gcfg, default_run):
         k_ms = time_ms(lambda: quant.int8_matmul(x, nxt()), 10)
         wb = (ws[0]["w_int8"].float() * ws[0]["scale"]).to(torch.bfloat16)
         l_ms = time_ms(lambda: torch.matmul(x, wb), 10)
+        # x, the weights and their scales read once, y written once; 2 M K N on the tensor cores
+        bd = bound(nbytes(x, ws[0]["w_int8"], ws[0]["scale"], got), 2.0 * M * K * N)
         print(f"[int8_matmul] vision {pname} {M}x{K}x{N}: kernel {k_ms:.4f} ms = "
-              f"{2.0 * M * K * N / k_ms / 1e9:.1f} TFLOP/s; torch.matmul on a bf16 copy "
-              f"{l_ms:.4f} ms (not the same function)")
+              f"{2.0 * M * K * N / k_ms / 1e9:.1f} TFLOP/s, bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['bound_by']}; torch.matmul on a bf16 copy {l_ms:.4f} ms (not the same "
+              f"function)")
     return n_routed
 
 
@@ -1756,7 +1770,8 @@ def phase_int4_heads(table, dev, gen):
     ms = time_ms(lambda: quant.int4_matmul_t_argmax(x, tied), 20)
     plain_ms = time_ms(lambda: quant.int4_matmul_t_argmax_plain(x, tied), 3)
     bd = bound(nbytes(tied["w_int4"], tied["scale"], x, got), 2.0 * BATCH * V * H)
-    print(f"[int4_matmul_t_argmax] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"[int4_matmul_t_argmax] kernel {ms:.4f} ms (the mma.sync tile kernel: "
+          f"{HEAD_MMA_SYNC_MS['int4_matmul_t_argmax']}), plain {plain_ms:.4f} ms, "
           f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     res = {"int4_matmul_t_argmax": {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bd,
                                     "library_ms": None}}
@@ -2131,13 +2146,13 @@ def main() -> int:
 
     fa_src, fa_py = "flash_bwd.cu", "vlm_bridge_tpu/ops/flash_attention.py"
     qpy = "vlm_bridge_tpu/ops/quant.py"
-    sources = {"int8_matmul_t_argmax": ("int8_argmax.cu", f"{qpy}:169"),
+    sources = {"int8_matmul_t_argmax": ("greedy_head.cu", f"{qpy}:169"),
                "int8_matmul": ("int8_linear.cu", f"{qpy}:74"),
                "int8_matmul_t": ("int8_argmax.cu", f"{qpy}:133"),
                "int8_mlp": ("int8_linear.cu", f"{qpy}:536"),
                "int8_ffn": ("int8_linear.cu", f"{qpy}:597"),
                "int4_matmul_t": ("int8_argmax.cu", f"{qpy}:426"),
-               "int4_matmul_t_argmax": ("int8_argmax.cu", f"{qpy}:463"),
+               "int4_matmul_t_argmax": ("greedy_head.cu", f"{qpy}:463"),
                "int4_mlp": ("int4_linear.cu", f"{qpy}:842"),
                "fused_stack_step": ("stack_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:707"),
                # the same wrapper and C entry with int4 MLP weights: the TPU

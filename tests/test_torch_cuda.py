@@ -715,6 +715,133 @@ def test_int4_argmax_kernel_ties_and_nan(dev, group):
     assert int(got[1]) == 300 and int(got[3]) == 0 and int(want[3]) == 0
 
 
+# the greedy heads (csrc/greedy_head.cu): batch 1 / 3 / 64 / 65 / 130 (one to
+# three 64-row batch tiles), vocab sizes off the 128-row unit and the 256-row
+# pair, one int8 stage of 128 columns (H 128), 18 (H 2304), and two of which
+# the last reaches half past H (H 192: the table box clipped and x's second
+# box wholly past H, both read as zeros); int4 (H a multiple of 128) per
+# channel, in groups of 64 and of 128
+HEAD_M = [1, 3, 64, 65, 130]
+HEAD_VH = [(1000, 128), (2037, 2304), (1000, 192)]
+HEAD4 = [(v, h, grp) for v, h in HEAD_VH for grp in (None, 64, 128)
+         if h % 128 == 0 and (h // 2) % (grp or 1) == 0]
+
+
+def _ids_match(got, want, y, tol=LOGIT4_TOL):
+    """ids equal the plain version's except where the two ids' plain logits lie
+    within tol x the row's largest: a near-tie may fall either way between two
+    f32 summation orders."""
+    rows = torch.arange(y.shape[0], device=y.device)
+    differ = got != want
+    gap = (y[rows, want.long()] - y[rows, got.long()]).abs()
+    lim = tol * y.nan_to_num(nan=0.0).abs().amax(dim=-1)
+    assert bool((gap[differ] <= lim[differ]).all()), int(differ.sum())
+
+
+@pytest.mark.parametrize("M", HEAD_M)
+@pytest.mark.parametrize("V,H", HEAD_VH, ids=[f"V{v}_H{h}" for v, h in HEAD_VH])
+def test_int8_head_kernel_matches_plain(dev, M, V, H):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(30 + M)
+    x = torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16)
+    table = quant.quantize_int8(torch.randn(V, H, generator=g, device=dev) * 0.05, axis=1)
+    n = quant.int8_matmul_t_argmax.launches
+    got = quant.int8_matmul_t_argmax(x, table)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_t_argmax.launches == n + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M,)
+    _ids_match(got, quant.int8_matmul_t_argmax_plain(x, table), quant.int8_matmul_t_plain(x, table))
+    assert torch.equal(got, quant.int8_matmul_t_argmax(x, table))   # a second call, the same ids
+
+
+@pytest.mark.parametrize("M", HEAD_M)
+@pytest.mark.parametrize("V,H,group", HEAD4, ids=[f"V{v}_H{h}_g{grp}" for v, h, grp in HEAD4])
+def test_int4_head_kernel_matches_plain(dev, M, V, H, group):
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g, table = _i4_table(dev, V, H, group, seed=40 + M)
+    x = torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16)
+    n = quant.int4_matmul_t_argmax.launches
+    got = quant.int4_matmul_t_argmax(x, table)
+    torch.cuda.synchronize()
+    assert quant.int4_matmul_t_argmax.launches == n + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M,)
+    _ids_match(got, quant.int4_matmul_t_argmax_plain(x, table), quant.int4_matmul_t_plain(x, table))
+    assert torch.equal(got, quant.int4_matmul_t_argmax(x, table))
+
+
+HEAD_RULES = [("int8", None), ("int4", None), ("int4", 64), ("int4", 128)]
+
+
+@pytest.mark.parametrize("kind,group", HEAD_RULES, ids=[f"{k}_g{grp}" for k, grp in HEAD_RULES])
+def test_head_kernels_ties_and_nan_across_units(dev, kind, group):
+    """V 2037, H 2304, 70 rows (two batch tiles: 32 units, one a block).
+    Row 1: equal winners at 400 and 1300 (units 3 and 10) -> 400. Row 2: equal
+    winners at 130 and 140 (one 64-row tile) -> 130. Row 3 all NaN -> 0. Row 4:
+    its best row 520 lies in unit 4, where a scale of row 600 is NaN (in
+    groups: one group's of the low half): unit 4 never wins, and the next
+    best, 1700, does."""
+    from vlm_bridge_tpu_torch.ops import quant
+
+    V, H = 2037, 2304
+    g = torch.Generator(device=dev).manual_seed(50)
+    x = torch.randn(70, H, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(V, H, generator=g, device=dev) * 0.05
+    if kind == "int8":
+        table = quant.quantize_int8(w, axis=1)
+        top, put = 127, lambda v, r: table["w_int8"].__setitem__(v, r)
+        scale = table["scale"]
+    else:
+        table = quant.quantize_int4_rows(w, group_size=group)
+        top = 7
+        put = lambda v, r: table["w_int4"].__setitem__(v, quant._pack_nibbles(r[:H // 2], r[H // 2:]))  # noqa: E731
+        scale = table["scale"] if group is None else table["scale"].T   # [V] or [V, H/g]
+    for r, plants in ((1, ((400, 0.05), (1300, 0.05))), (2, ((130, 0.05), (140, 0.05))),
+                      (4, ((520, 0.06), (1700, 0.05)))):
+        row = (torch.sign(x[r].float()) * top).to(torch.int8)
+        for v, sc in plants:
+            put(v, row)
+            scale[v] = sc
+    if group is None:
+        scale[600] = float("nan")
+    else:
+        scale[600, 3] = float("nan")
+    x[3] = float("nan")
+    want = (quant.int8_matmul_t_argmax_plain if kind == "int8" else
+            quant.int4_matmul_t_argmax_plain)(x, table)
+    head = quant.int8_matmul_t_argmax if kind == "int8" else quant.int4_matmul_t_argmax
+    got = head(x, table)
+    torch.cuda.synchronize()
+    assert [int(got[r]) for r in (1, 2, 3, 4)] == [400, 130, 0, 1700]
+    assert [int(want[r]) for r in (1, 2, 3, 4)] == [400, 130, 0, 1700]
+    y = (quant.int8_matmul_t_plain if kind == "int8" else quant.int4_matmul_t_plain)(x, table)
+    keep = torch.ones(70, dtype=torch.bool, device=dev)
+    keep[3] = False
+    _ids_match(got[keep], want[keep], y[keep].nan_to_num(nan=float("-inf")))
+    assert torch.equal(got, head(x, table))
+
+
+def test_head_kernels_run_from_a_fresh_thread(dev):
+    """The C entries bind the tensors' device before encoding their tensor maps."""
+    import threading
+
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(60)
+    x = torch.randn(5, 256, generator=g, device=dev).to(torch.bfloat16)
+    t8 = quant.quantize_int8(torch.randn(700, 256, generator=g, device=dev), axis=1)
+    t4 = quant.quantize_int4_rows(torch.randn(700, 256, generator=g, device=dev), group_size=64)
+    want = [quant.int8_matmul_t_argmax(x, t8), quant.int4_matmul_t_argmax(x, t4)]
+    got = []
+    th = threading.Thread(target=lambda: got.extend(
+        [quant.int8_matmul_t_argmax(x, t8), quant.int4_matmul_t_argmax(x, t4)]))
+    th.start()
+    th.join()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and len(got) == 2
+
+
 I4_MLP = [(5, 128, 512, 256, None), (64, 256, 1024, 512, 128), (130, 128, 256, 128, 64),
           (64, 512, 1024, 512, None)]
 

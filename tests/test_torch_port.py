@@ -54,7 +54,7 @@ def _port_files():
                REPO / "scripts" / "vit_ab_torch.py",
                REPO / "scripts" / "flash_fwd_torch.py", REPO / "scripts" / "flash_bwd_torch.py",
                REPO / "scripts" / "tiled_matmul_torch.py",
-               REPO / "scripts" / "decode_gemm_torch.py"])
+               REPO / "scripts" / "decode_gemm_torch.py", REPO / "scripts" / "head_torch.py"])
 
 
 def test_no_import_of_jax_or_the_jax_package():
@@ -260,7 +260,8 @@ def test_kernel_sources_ship_and_name_what_they_replace():
     csrc = REPO / "vlm_bridge_tpu_torch" / "csrc"
     replaced = {"stack_step.cu": "decode_kernels.py:fused_stack_step",
                 "bridge_step.cu": "decode_kernels.py:fused_bridge_step",
-                "int8_argmax.cu": "quant.py:int8_matmul_t_argmax",
+                "greedy_head.cu": "quant.py:int8_matmul_t_argmax",
+                "int8_argmax.cu": "quant.py:int8_matmul_t",
                 "int8_linear.cu": "quant.py:int8_matmul",
                 "int4_linear.cu": "quant.py:int4_mlp",
                 "flash_fwd.cu": "flash_attention.py:_flash_fwd",
@@ -280,8 +281,9 @@ def test_kernel_sources_ship_and_name_what_they_replace():
         assert f"vlm_bridge_tpu/ops/{target}" in (csrc / "int8_linear.cu").read_text()
     assert "Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t," in \
         (csrc / "int8_argmax.cu").read_text()
-    for target in ("quant.py:int4_matmul_t_argmax,", "quant.py:int4_matmul_t,"):
-        assert f"Replaces: vlm_bridge_tpu/ops/{target}" in (csrc / "int8_argmax.cu").read_text()
+    for target, name in (("quant.py:int4_matmul_t_argmax,", "greedy_head.cu"),
+                         ("quant.py:int4_matmul_t,", "int8_argmax.cu")):
+        assert f"Replaces: vlm_bridge_tpu/ops/{target}" in (csrc / name).read_text()
     i4 = (csrc / "i4_gemm.cu").read_text()
     assert "vlm_bridge_tpu/ops/decode_kernels.py:_stack_kernel" in i4 and "Bound:" in i4
     from vlm_bridge_tpu_torch.ops import cuda_lib
@@ -299,7 +301,8 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                        ("vbt_int8_ffn", "int8_linear.cu"),
                        ("vbt_int8_matmul_t", "int8_argmax.cu"),
                        ("vbt_int4_matmul_t", "int8_argmax.cu"),
-                       ("vbt_int4_matmul_t_argmax", "int8_argmax.cu"),
+                       ("vbt_int8_matmul_t_argmax", "greedy_head.cu"),
+                       ("vbt_int4_matmul_t_argmax", "greedy_head.cu"),
                        ("vbt_int4_mlp", "int4_linear.cu"),
                        ("vbt_fused_stack_step", "stack_step.cu"),
                        ("vbt_fused_attn_step", "layer_step.cu"),

@@ -39,42 +39,6 @@ struct DgShape {
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-// 4 int8 -> two bf16x2 registers b0 = (byte 0, byte 1), b1 = (byte 2, byte 3)
-// without I2F or F2F: byte x becomes the low mantissa of the f32 2^23 +
-// (x + 128), one full-rate add removes the offset, and since the integer x
-// is a bf16 value, the f32's upper half is it (exact for every byte).
-__device__ __forceinline__ void widen4(uint32_t w, uint32_t& b0, uint32_t& b1) {
-  w ^= 0x80808080u;
-  uint32_t f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __float_as_uint(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | i)) - 8388736.f);
-  b0 = __byte_perm(f[0], f[1], 0x7632);
-  b1 = __byte_perm(f[2], f[3], 0x7632);
-}
-
-// 8 int4 (a word of nibbles whose sign bits are flipped, w ^ 0x88888888, so
-// a nibble reads value + 8 in 0..15) -> four bf16x2 registers: lo0 / lo1 the
-// low nibbles of bytes (0, 1) / (2, 3), hi0 / hi1 their high nibbles. Each
-// nibble n is dropped into the mantissa of 128.0, which then reads 128 + n,
-// and one bf16x2 subtract of 136 leaves n - 8 (common.cuh:nib_pair's trick,
-// two bytes spread over a register's halves by one permute). Exact, no
-// conversion issued.
-__device__ __forceinline__ void widen8_nibbles(uint32_t wb, uint32_t& lo0, uint32_t& lo1,
-                                               uint32_t& hi0, uint32_t& hi1) {
-  const uint32_t x0 = __byte_perm(wb, 0u, 0x4140), x1 = __byte_perm(wb, 0u, 0x4342);
-  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
-  auto val = [&](uint32_t bits) {   // (bits & 0x000F000F) | 128.0 pair, less 136
-    bits = (bits & 0x000F000Fu) | 0x43004300u;
-    const __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&bits), off);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  };
-  lo0 = val(x0);
-  lo1 = val(x1);
-  hi0 = val(x0 >> 4);
-  hi1 = val(x1 >> 4);
-}
-
 // D[64, 128] += A[64, 16] . B[16, 128]: A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B K-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -365,17 +329,6 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
 
 // ---- host ----
 
-inline int dg_num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
 // A split activation [2, M, lda] bf16 (hi rows, then lo rows) as the GEMMs'
 // B operand: a (K, M, 2) tensor map in boxes of 64 x 64 x 2, rows past M
 // read as zeros
@@ -423,7 +376,7 @@ int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const f
     allowed = true;
   }
   const int units = (M + 63) / 64 * ((N + DG_BN - 1) / DG_BN) * (K / DG_BK);
-  decode_gemm_kernel<INT4, KSUB><<<min(dg_num_sms(), units), DG_THREADS, S::SMEM, st>>>(
+  decode_gemm_kernel<INT4, KSUB><<<min(sm_count(), units), DG_THREADS, S::SMEM, st>>>(
       act, wts, layer, scale, bias, group, Y, M, N, K);
   VBT_CHECK_LAUNCH();
   return 0;

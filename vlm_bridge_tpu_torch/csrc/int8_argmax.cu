@@ -1,48 +1,30 @@
-// The tied int8 head, E int8 [V, H] with one scale per vocab row:
-//   greedy   ids[m] = argmax_v (x[m] . E[v]) * scale[v]
-//   logits   y[m, v] = (x[m] . E[v]) * scale[v], f32 (the sampled head)
-//
-// Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t_argmax, whose body is
-// _int8_mmt_argmax_kernel. Gemma's final softcap is monotonic, so it is
-// skipped; the [B, V] logits are never written to device memory.
+// The tied heads' logits, the sampled heads' input (the greedy heads, whose
+// logits are never written, are greedy_head.cu's):
+//   int8  y[m, v] = (x[m] . E[v]) * scale[v], f32, E int8 [V, H]
 // Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t, whose body is
-// _int8_mmt_kernel: the same 64 x 128 tile product (`xet_tile`), each tile
-// scaled and written out as f32. Its bound adds the logits' bytes (65.5 MB
-// at M = 64) to the table's.
+// _int8_mmt_kernel: a 64 x 128 tile product (`xet_tile`), each tile scaled
+// and written out as f32.
+// Bound: bytes, the table's (590 MB at V = 256000, H = 2304) plus the
+// logits' (65.5 MB at M = 64).
 //
-// The same two heads over the rows-packed int4 table (E4 int8 [V, H/2], byte
+// The same head over the rows-packed int4 table (E4 int8 [V, H/2], byte
 // (v, k) holding columns k and k + H/2; scales per row [V] or per (H-group,
 // row) [H/g, V]):
-// Replaces: vlm_bridge_tpu/ops/quant.py:int4_matmul_t_argmax, whose body is
-// _int4_mmt_argmax_kernel, and
 // Replaces: vlm_bridge_tpu/ops/quant.py:int4_matmul_t, whose body is
-// _int4_mmt_kernel. Their bound is the 295 MB of nibbles plus 18 MB of
-// group scales (and the logits, for the sampled head). One byte of a table
-// row meets two columns of x, so a tile of the table meets TWO tiles of x
-// (`xet4_tile`): the nibbles are widened to bf16 on their way into shared
-// memory (common.cuh:nib_pair, exact), low nibbles into one tile and high
-// nibbles into another, and each is multiplied with its own x tile by
-// mma.sync. Group scales vary along the contraction: the MMAs of a group run
-// into partial accumulators (one for each half), which are added into the
-// sum times scale[group, v] when the group ends; per-row scales are the case
-// of one group. The weights are never multiplied by their scales in bf16.
-// The argmax rules below hold for both tables.
+// _int4_mmt_kernel. Bound: the 295 MB of nibbles plus 18 MB of group scales
+// and the logits. One byte of a table row meets two columns of x, so
+// a tile of the table meets TWO tiles of x (`xet4_tile`): the nibbles are
+// widened to bf16 on their way into shared memory (common.cuh:nib_pair,
+// exact), low nibbles into one tile and high nibbles into another, and each
+// is multiplied with its own x tile by mma.sync. Group scales vary along the
+// contraction: the MMAs of a group run into partial accumulators (one for
+// each half), which are added into the sum times scale[group, v] when the
+// group ends; per-row scales are the case of one group. The weights are never
+// multiplied by their scales in bf16.
 //
-// Bound: streaming the 590 MB int8 table (V = 256000, H = 2304) once per
-// token; ~0.18 ms at 3.35 TB/s. One block per 128 vocab rows (2000 blocks)
-// keeps every SM streaming; x (64 x 2304 bf16) is re-read from L2.
-//
-// Argmax rules. The V blocks run in parallel, so the reduce is two-pass:
-// each block writes (max, first index reaching it) for its 128 rows, and a
-// second kernel takes, per batch row, the FIRST block whose max is strictly
-// greater than every earlier one. That keeps the first-index tie rule of
-// jnp.argmax. NaN follows the TPU kernel, not the jnp fallback: a block
-// whose logits hold a NaN never wins (its max compares false), and a row
-// where no block wins (all-NaN) returns 0. The blocking therefore belongs
-// to the semantics of a row that is NaN only in part; the plain version in
-// ops/quant.py uses the same 128-row blocks.
+// One block per 128 vocab rows (2000 blocks at V = 256000) keeps every SM
+// streaming; x (64 x 2304 bf16) is re-read from L2.
 
-#include <climits>
 #include <mma.h>
 
 #include "common.cuh"
@@ -111,40 +93,6 @@ __device__ __forceinline__ void xet_tile(const bf16* __restrict__ X,
   __syncthreads();
 }
 
-// Per batch row of the tile Cs[BM][C_LD]: (max, first index reaching it) of
-// Cs * scale over this block's vocab rows, -inf if any is NaN. A null scale
-// stands for 1. Each warp reduces 8 batch rows; a lane covers columns
-// lane + 32 i.
-__device__ __forceinline__ void tile_argmax(const float* Cs, const float* __restrict__ scale,
-                                            float* __restrict__ bval, int* __restrict__ bidx,
-                                            int m0, int v0, int M, int V) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < BM; r += 8) {
-    const int m = m0 + r;
-    if (m >= M) break;
-    bool nan = false;
-    float best = -INFINITY;
-    int arg = INT_MAX;
-    for (int c = lane; c < BV; c += 32) {
-      const int v = v0 + c;
-      if (v >= V) break;
-      const float y = Cs[r * C_LD + c] * (scale != nullptr ? scale[v] : 1.f);
-      if (isnan(y)) nan = true;
-      else if (y > best) { best = y; arg = v; }   // columns rise with c: first index kept
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
-      if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
-    }
-    nan = __any_sync(0xffffffffu, nan);
-    if (lane == 0) {
-      bval[(size_t)blockIdx.x * M + m] = nan ? -INFINITY : best;
-      bidx[(size_t)blockIdx.x * M + m] = arg;
-    }
-  }
-}
-
 // y[m, v0 .. v0+127] = tile * scale (null: 1): consecutive threads write
 // consecutive vocab columns of one batch row.
 __device__ __forceinline__ void tile_store(const float* Cs, const float* __restrict__ scale,
@@ -155,16 +103,6 @@ __device__ __forceinline__ void tile_store(const float* Cs, const float* __restr
     if (m < M && v < V)
       Y[(size_t)m * V + v] = Cs[r * C_LD + c] * (scale != nullptr ? scale[v] : 1.f);
   }
-}
-
-__global__ void __launch_bounds__(256)
-argmax_block_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ E,
-                    const float* __restrict__ scale, float* __restrict__ bval,
-                    int* __restrict__ bidx, int M, int V, int H) {
-  __shared__ __align__(32) unsigned char raw[SMEM];
-  const int v0 = blockIdx.x * BV, m0 = blockIdx.y * BM;
-  xet_tile(X, E, raw, m0, v0, M, V, H);
-  tile_argmax(reinterpret_cast<const float*>(raw), scale, bval, bidx, m0, v0, M, V);
 }
 
 __global__ void __launch_bounds__(256)
@@ -179,10 +117,10 @@ logits_block_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ E,
 
 // ---- the rows-packed int4 table -------------------------------------------
 
-// Resident blocks per SM the compiler must leave registers for in the two int4
-// head kernels (a build-time constant, VBT_NVCC_FLAGS): at 2 (128 registers a
-// thread, ~200 bytes spilled) the heads take 0.72x the time they take at 1
-// (172 registers, one block an SM).
+// Resident blocks per SM the compiler must leave registers for in the int4
+// logits kernel (a build-time constant, VBT_NVCC_FLAGS): at 2 (128 registers a
+// thread, ~200 bytes spilled) it takes 0.72x the time it takes at 1 (172
+// registers, one block an SM).
 #ifndef I4H_MIN_BLOCKS
 #define I4H_MIN_BLOCKS 2
 #endif
@@ -322,16 +260,6 @@ __device__ __forceinline__ void xet4_tile(const bf16* __restrict__ X,
 }
 
 __global__ void __launch_bounds__(256, I4H_MIN_BLOCKS)
-argmax4_block_kernel(const bf16* __restrict__ X, const uint8_t* __restrict__ E,
-                     const float* __restrict__ scale, float* __restrict__ bval,
-                     int* __restrict__ bidx, int M, int V, int H, int group, int hi_rows) {
-  extern __shared__ __align__(32) unsigned char raw4[];
-  const int v0 = blockIdx.x * BV, m0 = blockIdx.y * BM;
-  xet4_tile(X, E, scale, raw4, m0, v0, M, V, H, group, hi_rows);
-  tile_argmax(reinterpret_cast<const float*>(raw4), nullptr, bval, bidx, m0, v0, M, V);
-}
-
-__global__ void __launch_bounds__(256, I4H_MIN_BLOCKS)
 logits4_block_kernel(const bf16* __restrict__ X, const uint8_t* __restrict__ E,
                      const float* __restrict__ scale, float* __restrict__ Y, int M, int V, int H,
                      int group, int hi_rows) {
@@ -363,53 +291,7 @@ int allow_smem4(Kernel kernel) {
   return 0;
 }
 
-// ids[m]: the first block (in vocab order) whose max is strictly greater
-// than all earlier blocks' wins; no winner (all -inf/NaN) -> 0.
-__global__ void argmax_reduce_kernel(const float* __restrict__ bval, const int* __restrict__ bidx,
-                                     int* __restrict__ ids, int M, int nblk) {
-  __shared__ float sv[256];
-  __shared__ int sb[256];
-  const int m = blockIdx.x;
-  float best = -INFINITY;
-  int blk = INT_MAX;
-  for (int k = threadIdx.x; k < nblk; k += blockDim.x) {
-    const float v = bval[(size_t)k * M + m];
-    if (v > best) { best = v; blk = k; }
-  }
-  sv[threadIdx.x] = best;
-  sb[threadIdx.x] = blk;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      const float ov = sv[threadIdx.x + s];
-      const int ob = sb[threadIdx.x + s];
-      if (ov > sv[threadIdx.x] || (ov == sv[threadIdx.x] && ob < sb[threadIdx.x])) {
-        sv[threadIdx.x] = ov;
-        sb[threadIdx.x] = ob;
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0)
-    ids[m] = (sv[0] > -INFINITY) ? bidx[(size_t)sb[0] * M + m] : 0;
-}
-
 }  // namespace
-
-extern "C" int vbt_int8_matmul_t_argmax(const void* x, const void* E, const void* scale,
-                                        void* bval, void* bidx, void* ids, int M, int V, int H,
-                                        void* stream_ptr) {
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  if (H % BK != 0) return (int)cudaErrorInvalidValue;
-  const int nblk = (V + BV - 1) / BV;
-  argmax_block_kernel<<<dim3(nblk, (M + BM - 1) / BM), 256, 0, st>>>(
-      (const bf16*)x, (const int8_t*)E, (const float*)scale, (float*)bval, (int*)bidx, M, V, H);
-  VBT_CHECK_LAUNCH();
-  argmax_reduce_kernel<<<M, 256, 0, st>>>((const float*)bval, (const int*)bidx, (int*)ids, M,
-                                          nblk);
-  VBT_CHECK_LAUNCH();
-  return 0;
-}
 
 // y[M, V] f32 = (x[M, H] bf16 . E[V, H]^T int8) * scale[V]
 extern "C" int vbt_int8_matmul_t(const void* x, const void* E, const void* scale, void* y,
@@ -418,32 +300,6 @@ extern "C" int vbt_int8_matmul_t(const void* x, const void* E, const void* scale
   if (H % BK != 0) return (int)cudaErrorInvalidValue;
   logits_block_kernel<<<dim3((V + BV - 1) / BV, (M + BM - 1) / BM), 256, 0, st>>>(
       (const bf16*)x, (const int8_t*)E, (const float*)scale, (float*)y, M, V, H);
-  VBT_CHECK_LAUNCH();
-  return 0;
-}
-
-// ids[m] = argmax_v of x[M, H] bf16 . dequant4(E4[V, H/2])^T; scale f32 [V]
-// (group == 0) or [H/group, V]. bval/bidx: scratch of ceil(V / 128) * M each.
-extern "C" int vbt_int4_matmul_t_argmax(const void* x, const void* E, const void* scale,
-                                        void* bval, void* bidx, void* ids, int M, int V, int H,
-                                        int group, void* stream_ptr) {
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  int kgroup, hi_rows;
-  int rc = rows_plan(H, group, &kgroup, &hi_rows);
-  if (rc != 0) return rc;
-  static bool allowed = false;
-  if (!allowed) {
-    rc = allow_smem4(argmax4_block_kernel);
-    if (rc != 0) return rc;
-    allowed = true;
-  }
-  const int nblk = (V + BV - 1) / BV;
-  argmax4_block_kernel<<<dim3(nblk, (M + BM - 1) / BM), 256, SMEM4, st>>>(
-      (const bf16*)x, (const uint8_t*)E, (const float*)scale, (float*)bval, (int*)bidx, M, V, H,
-      kgroup, hi_rows);
-  VBT_CHECK_LAUNCH();
-  argmax_reduce_kernel<<<M, 256, 0, st>>>((const float*)bval, (const int*)bidx, (int*)ids, M,
-                                          nblk);
   VBT_CHECK_LAUNCH();
   return 0;
 }

@@ -1,9 +1,10 @@
 // Hopper helpers shared by the wgmma + TMA kernels (tiled_matmul.cu,
-// flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh): shared-memory addresses,
-// mbarriers, TMA loads (with L2 policies) and stores
-// with their bulk groups, named barriers, the wgmma shared-memory descriptor
-// with its fence / commit / wait, and the host's tensor-map encoder. Built
-// for sm_90a only (wgmma and setmaxnreg exist nowhere else).
+// flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh, greedy_head.cu): shared-memory
+// addresses, mbarriers, TMA loads (with L2 policies) and stores with their
+// bulk groups, named barriers, the wgmma shared-memory descriptor with its
+// fence / commit / wait, the widening of int8 and int4 weights into bf16
+// wgmma A fragments, and the host's tensor-map encoder. Built for sm_90a only
+// (wgmma and setmaxnreg exist nowhere else).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder comes through the runtime
@@ -57,6 +58,21 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// tma_load under the L2 policy `pol`
+__device__ __forceinline__ void tma_load_hint(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                              uint32_t bar, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "l"(pol)
+      : "memory");
+}
+
+// 4 bytes global -> shared by cp.async (any 4-byte aligned address)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
 // box of shared memory at src -> the map at coordinates (c0 innermost, c1),
@@ -233,6 +249,21 @@ inline bool make_map_nd(EncodeTiled enc, CUtensorMap* map, const void* base, int
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// a byte matrix of rows x cols (cols contiguous, a multiple of 16) in boxes
+// of box_rows x box_cols, unswizzled or (box_cols 128) under the 128-byte
+// swizzle; loads read zeros beyond the matrix
+inline bool make_byte_map(EncodeTiled enc, CUtensorMap* map, const void* base, int rows, int cols,
+                          int box_rows, int box_cols, bool swizzle128) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---- the flash-attention kernels' shared pieces (flash_fwd.cu, flash_bwd.cu) ----
 
 constexpr float LOG2E = 1.4426950408889634f;
@@ -350,6 +381,65 @@ __device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
   return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// word q (0..3) of a 16-byte value; q a compile-time constant after unrolling
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// 4 int8 -> two bf16x2 registers b0 = (byte 0, byte 1), b1 = (byte 2, byte 3)
+// without I2F or F2F: byte x becomes the low mantissa of the f32 2^23 +
+// (x + 128), one full-rate add removes the offset, and since the integer x
+// is a bf16 value, the f32's upper half is it (exact for every byte).
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& b0, uint32_t& b1) {
+  w ^= 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | i)) - 8388736.f);
+  b0 = __byte_perm(f[0], f[1], 0x7632);
+  b1 = __byte_perm(f[2], f[3], 0x7632);
+}
+
+// 8 int4 (a word of nibbles whose sign bits are flipped, w ^ 0x88888888, so
+// a nibble reads value + 8 in 0..15) -> four bf16x2 registers: lo0 / lo1 the
+// low nibbles of bytes (0, 1) / (2, 3), hi0 / hi1 their high nibbles. Each
+// nibble n is dropped into the mantissa of 128.0, which then reads 128 + n,
+// and one bf16x2 subtract of 136 leaves n - 8 (common.cuh:nib_pair's trick,
+// two bytes spread over a register's halves by one permute). Exact, no
+// conversion issued.
+__device__ __forceinline__ void widen8_nibbles(uint32_t wb, uint32_t& lo0, uint32_t& lo1,
+                                               uint32_t& hi0, uint32_t& hi1) {
+  const uint32_t x0 = __byte_perm(wb, 0u, 0x4140), x1 = __byte_perm(wb, 0u, 0x4342);
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
+  auto val = [&](uint32_t bits) {   // (bits & 0x000F000F) | 128.0 pair, less 136
+    bits = (bits & 0x000F000Fu) | 0x43004300u;
+    const __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&bits), off);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  };
+  lo0 = val(x0);
+  lo1 = val(x1);
+  hi0 = val(x0 >> 4);
+  hi1 = val(x1 >> 4);
+}
+
+// the SMs of the current device (one persistent block each)
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
 }
 
 // Make the device that holds `p` current on the calling thread, with its
