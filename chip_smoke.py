@@ -74,6 +74,10 @@ kernel held against its plain version.
    batch 64 through fused_bridge_step -> gemma2.decode_step_fused ->
    int8_matmul_t_argmax (launches 1300 / 1300), the first tokens against the
    same loop on the plain versions, ms a token beside the stack step's.
+4b''. One fused token step at VLMConfig.gemma2_27b()'s widths, two decoder
+   layers: fused_bridge_step -> the stack step -> the greedy head over the
+   256000-row table, against the plain versions (rows within HIDDEN_TOL,
+   greedy ids equal but for near-ties of the plain logits).
 4c. The int4 recipe: the table re-quantized to the int4 rows-packed layout
    and the stack rebuilt with int4 MLP weights. Phases for the two int4
    heads, `int4_mlp` (per channel and in groups of 128) and the stack step
@@ -171,6 +175,12 @@ DECODE_STEP_MMA_SYNC_MS = {"fused_stack_step": 4.1980, "fused_stack_step[mlp_int
 # the greedy heads' earlier (wmma / mma.sync tile) kernels on the same card, PERF.md
 # rows 13 and 15 (int4 in groups of 128)
 HEAD_MMA_SYNC_MS = {"int8_matmul_t_argmax": 0.6438, "int4_matmul_t_argmax": 0.5884}
+# the int8 linear kernels' earlier (cp.async + mma.sync, split-K through device
+# memory) product on the same card, PERF.md rows 4, 6, 11, 16 and 17
+I8_MMA_SYNC_MS = {"gemma_qkv": 0.0155, "gemma_o": 0.0126, "bridge_self_qkv": 0.0193,
+                  "int8_mlp": 0.0749, "int8_ffn": 0.0477, "fused_attn_step": 0.0556,
+                  "fused_mlp_step": 0.0891, "qkv": 0.5277, "o": 0.1884, "fc1": 0.7004,
+                  "fc2": 0.5966}
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -195,13 +205,15 @@ def card_line() -> str:
         return "unknown (nvidia-smi unavailable)"
 
 
-PTXAS_TAGS = ("fa_", "i8l_product", "i4l_product", "decode_gemm_kernel", "greedy_head_kernel",
-              "logits4_block", "tiled_matmul_kernel", "layer_norm_kernel", "ls_attn_kernel")
+PTXAS_TAGS = ("fa_", "i8mm_kernel", "i4l_product", "decode_gemm_kernel", "greedy_head_kernel",
+              "logits4_block", "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide",
+              "ls_attn_kernel")
 
 
 # the wgmma kernels: each instantiation must not spill
 SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel", "fa_bwd_dq_sm90_kernel",
-                 "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel", "greedy_head_kernel")
+                 "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel", "greedy_head_kernel",
+                 "i8mm_kernel")
 FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:4] for d in (64, 128, 256))
 # the fused steps' GEMM core (csrc/decode_gemm.cuh): int8, and int4 with waits
 # every stage or every half stage (groups of an odd multiple of 32 rows)
@@ -210,7 +222,10 @@ GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4E", "decode_gemm_kernelILb1ELi4E",
 # the greedy heads (csrc/greedy_head.cu): int8, int4 per row, int4 in groups
 HEAD_INSTANCES = ("greedy_head_kernelILb0ELb0E", "greedy_head_kernelILb1ELb0E",
                   "greedy_head_kernelILb1ELb1E")
-REQUIRED = FLASH_INSTANCES + GEMM_INSTANCES + HEAD_INSTANCES
+# the int8 product kernel (csrc/int8_linear.cu): the decode form (one consumer
+# warpgroup, 64 rows) and the tower's (two warpgroups of 128 rows)
+I8MM_INSTANCES = ("i8mm_kernelILi1ELi1E", "i8mm_kernelILi2ELi2E")
+REQUIRED = FLASH_INSTANCES + GEMM_INSTANCES + HEAD_INSTANCES + I8MM_INSTANCES
 
 
 def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
@@ -456,7 +471,9 @@ def phase_int8_linear(params, cfg, dev, gen):
         deq_ms = time_ms(lambda: torch.matmul(x, wd), 50)
         del wd
         bd = bound(wbytes(ws[0]) + nbytes(x, got), 2.0 * BATCH * n_w(ws[0]))
-        print(f"[int8_matmul] {sname} {I}x{O}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        split = quant._split(BATCH, O, I, False, dev)
+        print(f"[int8_matmul] {sname} {I}x{O}: kernel {ms:.4f} ms (the mma.sync kernel: "
+              f"{I8_MMA_SYNC_MS[sname]}; contraction in {split} slices), plain {plain_ms:.4f} ms, "
               f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; torch.matmul on a "
               f"bf16 copy made beforehand {deq_ms:.4f} ms (not the same function)")
         by_shape[sname] = {"ms": ms, "plain_ms": plain_ms, **bd, "dequantized_matmul_ms": deq_ms}
@@ -475,8 +492,8 @@ def phase_int8_linear(params, cfg, dev, gen):
     ms = time_ms(lambda: quant.int8_mlp(x, *nxt()), 52)
     plain_ms = time_ms(lambda: quant.int8_mlp_plain(x, *nxt()), 4)
     bd = bound(wbytes(*mlps[0]) + nbytes(x, got), 2.0 * BATCH * n_w(*mlps[0]))
-    print(f"[int8_mlp] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    print(f"[int8_mlp] kernel {ms:.4f} ms (the mma.sync kernel: {I8_MMA_SYNC_MS['int8_mlp']}), "
+          f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     res["int8_mlp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
                        "library_ms": None}
 
@@ -492,8 +509,8 @@ def phase_int8_linear(params, cfg, dev, gen):
     plain_ms = time_ms(lambda: quant.int8_ffn_plain(x, *nxt()), 4)
     f = ffns[0]
     bd = bound(wbytes(f[0], f[2]) + nbytes(f[1], f[3], x, got), 2.0 * BATCH * n_w(f[0], f[2]))
-    print(f"[int8_ffn] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    print(f"[int8_ffn] kernel {ms:.4f} ms (the mma.sync kernel: {I8_MMA_SYNC_MS['int8_ffn']}), "
+          f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     res["int8_ffn"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
                        "library_ms": None}
     return res
@@ -1530,8 +1547,17 @@ def run_vit_kernels(params, served, cfg, dev, card, gcfg, default_run):
           f"{layer_bytes(params['vision']) / 1e9:.4f} GB on {card}")
     if not err_q <= INT8_TOWER_TOL or not torch.isfinite(qfeat.float()).all():
         raise AssertionError("the int8 tower's features are off")
-    # int8_matmul at these rows: 257 row tiles of 64 (16448 = 257 x 64, no ragged tile), one
-    # slice of the contraction
+    # the serving batch behind the int8 tower (--quantize ...,vision), host clock; its
+    # features carry the int8 noise above, so its tokens are checked for form only
+    t0 = time.perf_counter()
+    toks, lens = generate_tokens({**served, "vision": vq}, cfg, pixel_values=pixels, gen=gcfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_tokens(toks, lens, cfg, NEW_TOKENS)
+    print(f"main path with the int8 vision tower: {BATCH} captions x {NEW_TOKENS} tokens in "
+          f"{dt:.3f} s = {BATCH / dt:.2f} captions/s (encode + decode) on {card}")
+    # int8_matmul at these rows: the tower's form, 65 row tiles of 256 (the last one 64 rows
+    # deep), the contraction in one slice
     M = BATCH * cfg.num_vision_tokens
     x_gen = torch.Generator(device=dev)
     x_gen.manual_seed(SEED + 13)
@@ -1548,10 +1574,83 @@ def run_vit_kernels(params, served, cfg, dev, card, gcfg, default_run):
         # x, the weights and their scales read once, y written once; 2 M K N on the tensor cores
         bd = bound(nbytes(x, ws[0]["w_int8"], ws[0]["scale"], got), 2.0 * M * K * N)
         print(f"[int8_matmul] vision {pname} {M}x{K}x{N}: kernel {k_ms:.4f} ms = "
-              f"{2.0 * M * K * N / k_ms / 1e9:.1f} TFLOP/s, bound {bd['bound_ms']:.4f} ms by "
+              f"{2.0 * M * K * N / k_ms / 1e9:.1f} TFLOP/s (the mma.sync kernel: "
+              f"{I8_MMA_SYNC_MS[pname]}), bound {bd['bound_ms']:.4f} ms by "
               f"{bd['bound_by']}; torch.matmul on a bf16 copy {l_ms:.4f} ms (not the same "
               f"function)")
     return n_routed
+
+
+def phase_gemma2_27b_step(dev, gen, card):
+    """One fused token step at VLMConfig.gemma2_27b()'s widths (hidden 4608,
+    F 36864, 32 / 16 heads of 128, query_pre_attn_scalar 144; the bridge's
+    cross heads of 576 and self heads of 128, F 18432, 257 vision tokens),
+    depth cut to two decoder layers and the bridge's two blocks, seeded random
+    weights, the int8 recipe: fused_bridge_step -> decode_step_stacked (the
+    stack step) -> int8_matmul_t_argmax over the 256000-row table, against the
+    same step through the plain versions. The rows leaving the bridge and the
+    stack are held to HIDDEN_TOL x their largest value and the greedy ids must
+    be equal, a row whose id differs only where the plain logits' top two
+    are a near-tie."""
+    from vlm_bridge_tpu_torch.configs import VLMConfig
+    from vlm_bridge_tpu_torch.inference.generate import _build_cross_cache
+    from vlm_bridge_tpu_torch.models import bridge, gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops import quant
+
+    full = VLMConfig.gemma2_27b()
+    lm, bc = dataclasses.replace(full.lm, num_layers=2), full.bridge
+    lq = gemma2.quantize_params(gemma2.init(lm, generator=gen, device=dev))
+    for lp in lq["layers"].values():   # norms away from their zero init
+        for k in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
+            lp[k] = (torch.randn(lm.hidden_size, generator=gen, device=dev) * 0.1).to(lp[k].dtype)
+    if not gemma2.supports_fused_decode(lq, lm, NEW_TOKENS + 1):
+        raise AssertionError("the fused decode does not serve Gemma-2-27B's widths")
+    stacked = gemma2.stack_decode_params(lq, lm)
+    bq = bridge.quantize_decode_params(bridge.init(bc, generator=gen, device=dev))
+    bst = bridge.stack_bridge_decode_params(bq, bc)
+    vision = torch.randn(BATCH, full.num_vision_tokens, bc.vision_dim, generator=gen,
+                         device=dev).to(torch.bfloat16)
+    tok = torch.randint(0, lm.vocab_size, (BATCH,), generator=gen, device=dev)
+    table = lq["embedding"]
+
+    def step():
+        bcache = _build_cross_cache(bq, bc, vision, NEW_TOKENS + 1, torch.bfloat16, kv_quant=True)
+        kv = gemma2.StackedKVCache.zeros(lm, BATCH, NEW_TOKENS + 1, device=dev)
+        emb = gemma2.embed(lq, tok[:, None]).to(torch.bfloat16)
+        x = dk.fused_bridge_step(0, emb[:, 0].contiguous(), bst, bcache.cross_k,
+                                 bcache.cross_k_scale, bcache.cross_v, bcache.cross_v_scale,
+                                 bcache.self_k, bcache.self_v, num_heads_cross=bc.num_heads_cross,
+                                 num_heads_self=bc.num_heads_self, eps=bc.layer_norm_eps)
+        hidden, _ = gemma2.decode_step_stacked(lq, lm, stacked, x[:, None, :], kv, 0)
+        h = hidden[:, 0].contiguous()
+        ids = quant.int8_matmul_t_argmax(h, table)
+        torch.cuda.synchronize()
+        return x, h, ids
+
+    wrappers = decode_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    x_k, h_k, ids_k = step()
+    got = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    want = {"fused_bridge_step": 1, "fused_stack_step": 1, "int8_matmul_t_argmax": 1}
+    if got != want:
+        raise AssertionError(f"the 27B-width step launched {got}, expected {want}")
+    with plain_decode():
+        x_p, h_p, ids_p = step()
+    err_b = check_close("gemma2_27b fused_bridge_step", x_k, x_p)
+    err_s = check_close("gemma2_27b stack step (final-normed hidden)", h_k, h_p)
+    logits_k, logits_p = quant.int8_matmul_t_plain(h_k, table), quant.int8_matmul_t_plain(h_p, table)
+    ids = torch.stack([ids_k.cpu(), ids_p.cpu()], dim=0)
+    hold_first_step("gemma2_27b greedy ids, kernels vs plain versions",
+                    torch.stack([ids[0], ids[0]], dim=1), torch.stack([ids[1], ids[1]], dim=1),
+                    logits_k, logits_p)
+    print(f"[gemma2_27b] hidden {lm.hidden_size}, F {lm.intermediate_size}, heads "
+          f"{lm.num_heads}/{lm.num_kv_heads} x {lm.head_dim}, bridge cross D "
+          f"{bc.language_dim // bc.num_heads_cross}, self D {bc.language_dim // bc.num_heads_self}: "
+          f"launches {got}; ids equal in {int((ids_k == ids_p).sum())} of {BATCH} rows on {card}")
+    return {"bridge_max_abs_err": err_b, "stack_max_abs_err": err_s,
+            "ids_equal": int((ids_k == ids_p).sum())}
 
 
 def _leaves(tree):
@@ -1629,7 +1728,8 @@ def phase_fused_layer(per_layer, cfg, dev, gen, card, t=20):
     n_w = lp["attn"]["qkv"]["w_int8"].numel() + lp["attn"]["o"]["w_int8"].numel()
     bd = bound(nbytes(*_leaves(lp["attn"]), lp["input_norm"], lp["post_attn_norm"]) + live
                + 2 * nbytes(x) + 2 * BATCH * KH * (D + 4), 2.0 * BATCH * n_w)
-    print(f"[fused_attn_step] t={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"[fused_attn_step] t={t}: kernel {ms:.4f} ms (with the mma.sync product: "
+          f"{I8_MMA_SYNC_MS['fused_attn_step']}), plain {plain_ms:.4f} ms, bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (on {card})")
     res["fused_attn_step"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bd,
                               "library_ms": None}
@@ -1649,7 +1749,8 @@ def phase_fused_layer(per_layer, cfg, dev, gen, card, t=20):
     n_w = sum(lp["mlp"][k]["w_int8"].numel() for k in ("gate", "up", "down"))
     bd = bound(nbytes(*_leaves(lp["mlp"]), lp["pre_ffn_norm"], lp["post_ffn_norm"])
                + 2 * nbytes(x), 2.0 * BATCH * n_w)
-    print(f"[fused_mlp_step] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"[fused_mlp_step] kernel {ms:.4f} ms (with the mma.sync product: "
+          f"{I8_MMA_SYNC_MS['fused_mlp_step']}), plain {plain_ms:.4f} ms, bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (on {card})")
     res["fused_mlp_step"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
                              "library_ms": None}
@@ -2107,6 +2208,12 @@ def main() -> int:
         results.update(phase_fused_layer(per_layer, cfg, dev, i8_gen, card))
         launches.update(run_fused_layers(per_layer, cfg, dev, card, stacked_ids,
                                          results["fused_stack_step"]["ms"]))
+    # the fused token step at Gemma-2-27B's widths (two layers), kernels against plain versions
+    g27 = torch.Generator(device=dev)
+    g27.manual_seed(SEED + 27)
+    with torch.no_grad():
+        phase_gemma2_27b_step(dev, g27, card)
+    torch.cuda.empty_cache()
 
     # the int4 recipe, from the same weights: int4 table, int4 MLP weights in the stack
     i4_gen = torch.Generator(device=dev)

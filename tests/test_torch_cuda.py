@@ -1361,3 +1361,209 @@ def test_vit_routes_through_the_kernels(dev, monkeypatch):
                                                     4 * cfg.num_layers)
     err = float((quantized.float() - base.float()).abs().max() / base.float().abs().max())
     assert err <= 0.1, err
+
+
+# ---------------------------------------------------------------------------
+# The int8 product kernel (csrc/int8_linear.cu: TMA + wgmma over the [in, out]
+# weights) at odd shapes, and the fused steps at Gemma-2-27B's widths
+# ---------------------------------------------------------------------------
+
+# rows: one to two 64-row decode tiles (M <= 128, the contraction split over a
+# cluster), then the tower's form (256-row tiles, 300: a ragged last one);
+# widths: (K, N) of int8_matmul and (H, F) of int8_mlp / int8_ffn, off whole
+# tiles (K % 64 != 0, N % 128 != 0) or whole
+I8MM_M = [1, 3, 64, 65, 130, 300]
+I8MM_WIDTHS = [((2312, 2320), (2320, 1040)), ((256, 1024), (256, 1024))]
+
+
+@pytest.mark.parametrize("M", I8MM_M)
+@pytest.mark.parametrize("mm,ffn", I8MM_WIDTHS, ids=["ragged", "whole"])
+def test_int8_product_kernel_at_odd_shapes(dev, M, mm, ffn):
+    """int8_matmul, int8_mlp and int8_ffn against their plain versions, row by
+    row to I8_TOL, and the same bits on a second call (the slices of a split
+    contraction are added in rank order)."""
+    from vlm_bridge_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(80 + M)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    q = lambda i, o: quant.quantize_int8(mk(i, o) * 0.05, axis=0)  # noqa: E731
+    (K, N), (H, F) = mm, ffn
+    xm, xh = mk(M, K).to(torch.bfloat16), mk(M, H).to(torch.bfloat16)
+    gate, up, down = q(H, F), q(H, F), q(F, H)
+    runs = ((quant.int8_matmul, quant.int8_matmul_plain, (xm, q(K, N))),
+            (quant.int8_mlp, quant.int8_mlp_plain, (xh, gate, up, down)),
+            (quant.int8_ffn, quant.int8_ffn_plain, (xh, gate, mk(F) * 0.1, down, mk(H) * 0.1)))
+    for fn, plain, args in runs:
+        n = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1 and got.dtype == torch.bfloat16
+        _rows_close(got, plain(*args), I8_TOL)
+        assert torch.equal(got, fn(*args))
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 65])
+def test_fused_layer_steps_at_batch(dev, B):
+    """fused_attn_step and fused_mlp_step, whose four products are the int8
+    product kernel's, at batch 1 / 3 / 64 / 65 against their plain versions;
+    the same bits on a second call."""
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    cfg, q, g = _layer_case(dev, 90 + B)
+    lp = q["layers"]["0"]
+    KH, D, S, t = cfg.num_kv_heads, cfg.head_dim, 64, 9
+    kc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    ks = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    vs = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    x = torch.randn(B, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev), D))
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    args = (t, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"], lp["post_attn_norm"],
+            cos, sin, kc, vc, ks, vs)
+    got = dk.fused_attn_step(*args, **kw)
+    _rows_close(got[0], dk.fused_attn_step_plain(*args, **kw)[0], 2 * BF16_STEP)
+    assert all(torch.equal(a, b) for a, b in zip(got, dk.fused_attn_step(*args, **kw)))
+    margs = (x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"], lp["pre_ffn_norm"],
+             lp["post_ffn_norm"])
+    got = dk.fused_mlp_step(*margs, eps=1e-6)
+    _rows_close(got, dk.fused_mlp_step_plain(*margs, eps=1e-6), 2 * BF16_STEP)
+    assert torch.equal(got, dk.fused_mlp_step(*margs, eps=1e-6))
+
+
+def test_int8_product_kernel_runs_from_a_fresh_thread(dev):
+    """The int8 linear functions and fused_mlp_step called first thing on a
+    new thread give the main thread's bits."""
+    import threading
+
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops import quant
+
+    c = _i8_case(dev, 64, 256, 1024, seed=95)
+    cfg, q, g = _layer_case(dev, 96)
+    lp = q["layers"]["1"]
+    xl = torch.randn(64, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+
+    def run():
+        out = [quant.int8_matmul(c["x"], c["gate"]),
+               quant.int8_mlp(c["x"], c["gate"], c["up"], c["down"]),
+               quant.int8_ffn(c["x"], c["gate"], c["b1"], c["down"], c["b2"]),
+               dk.fused_mlp_step(xl, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"],
+                                 lp["pre_ffn_norm"], lp["post_ffn_norm"], eps=1e-6)]
+        torch.cuda.synchronize()
+        return out
+
+    got = []
+    th = threading.Thread(target=lambda: got.append(run()))
+    th.start()
+    th.join()
+    assert len(got) == 1, "the thread raised"
+    assert all(torch.equal(a, b) for a, b in zip(got[0], run()))
+
+
+def _gemma27(dev, seed, B):
+    """Gemma-2-27B's and its bridge's widths (hidden 4608, F 36864, 32 / 16
+    heads of 128, query_pre_attn_scalar 144; bridge cross heads of 576, self
+    of 128, F 18432) at two layers, a 1000-row table and 17 vision tokens."""
+    import dataclasses
+
+    from vlm_bridge_tpu_torch.configs import VLMConfig
+    from vlm_bridge_tpu_torch.models import bridge, gemma2
+
+    full = VLMConfig.gemma2_27b()
+    lm = dataclasses.replace(full.lm, num_layers=2, vocab_size=1000)
+    bc = dataclasses.replace(full.bridge, num_blocks=2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lq = gemma2.quantize_params(gemma2.init(lm, generator=g, device=dev))
+    for lp in lq["layers"].values():   # norms away from their zero init
+        for k in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
+            lp[k] = (torch.randn(lm.hidden_size, generator=g, device=dev) * 0.1).to(lp[k].dtype)
+    bq = bridge.quantize_decode_params(bridge.init(bc, generator=g, device=dev))
+    x = (torch.randn(B, lm.hidden_size, generator=g, device=dev) * 0.02
+         * lm.hidden_size ** 0.5).to(torch.bfloat16)
+    return lm, bc, lq, bq, g, x
+
+
+@pytest.mark.parametrize("mlp4", [False, True], ids=["int8", "int4_g128"])
+def test_stack_step_at_gemma2_27b_widths(dev, mlp4):
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    lm, _, lq, _, g, x = _gemma27(dev, 100 + mlp4, 64)
+    assert gemma2.supports_fused_decode(lq, lm, 51)
+    st = gemma2.stack_decode_params(lq, lm, mlp_int4=mlp4, mlp_int4_group=128 if mlp4 else None)
+    caches = [gemma2.StackedKVCache.zeros(lm, 64, 51, device=dev) for _ in range(2)]
+    t = 20
+    for c in caches:
+        gc = torch.Generator(device=dev).manual_seed(7)
+        c.k[:, :, :, :t] = torch.randint(-127, 128, c.k[:, :, :, :t].shape, generator=gc,
+                                         device=dev, dtype=torch.int8)
+        c.k_scale[..., :t] = 0.02 + 0.01 * torch.rand(c.k_scale[..., :t].shape, generator=gc,
+                                                      device=dev)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev),
+                                                      lm.head_dim, lm.rope_theta))
+    kw = dict(num_heads=lm.num_heads, num_kv_heads=lm.num_kv_heads, head_dim=lm.head_dim,
+              attn_scale=lm.attn_scale, softcap=lm.attn_logit_softcap, eps=lm.rms_norm_eps)
+    got = dk.fused_stack_step(t, x, st, *caches[0], cos, sin, **kw)
+    want = dk.fused_stack_step_plain(t, x, st, *caches[1], cos, sin, **kw)
+    _close(got, want)
+    diff = (caches[0].k[:, :, :, t].int() - caches[1].k[:, :, :, t].int()).abs()
+    assert (diff <= 1).float().mean() > 0.99
+
+
+def test_bridge_step_at_gemma2_27b_widths(dev):
+    from vlm_bridge_tpu_torch.inference.generate import _build_cross_cache
+    from vlm_bridge_tpu_torch.models import bridge
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    _, bc, _, bq, g, x = _gemma27(dev, 102, 64)
+    bst = bridge.stack_bridge_decode_params(bq, bc)
+    vision = torch.randn(64, 17, bc.vision_dim, generator=g, device=dev).to(torch.bfloat16)
+    ck, cp = (_build_cross_cache(bq, bc, vision, 51, torch.bfloat16, kv_quant=True)
+              for _ in range(2))
+    kw = dict(num_heads_cross=bc.num_heads_cross, num_heads_self=bc.num_heads_self,
+              eps=bc.layer_norm_eps)
+    xb = (x.float() * 0.1).to(torch.bfloat16)
+    got = dk.fused_bridge_step(3, xb, bst, *_bridge_args(ck), **kw)
+    want = dk.fused_bridge_step_plain(3, xb, bst, *_bridge_args(cp), **kw)
+    _close(got, want)
+    _close(ck.self_k[:, :, :, 3], cp.self_k[:, :, :, 3])
+
+
+def test_layer_steps_norm_and_head_at_gemma2_27b_widths(dev):
+    """fused_attn_step, fused_mlp_step, layer_norm_fast (rows of 4608, the
+    wide kernel) and the greedy head (H 4608) against their plain versions."""
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops import norm_kernels as nk
+    from vlm_bridge_tpu_torch.ops import quant
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    lm, _, lq, _, g, x = _gemma27(dev, 103, 64)
+    lp = lq["layers"]["1"]
+    B, KH, D, S, t = 64, lm.num_kv_heads, lm.head_dim, 64, 20
+    kc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    ks = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    vs = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev), D,
+                                                      lm.rope_theta))
+    kw = dict(num_heads=lm.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=lm.attn_scale,
+              softcap=lm.attn_logit_softcap, eps=lm.rms_norm_eps)
+    args = (t, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"], lp["post_attn_norm"],
+            cos, sin, kc, vc, ks, vs)
+    _rows_close(dk.fused_attn_step(*args, **kw)[0], dk.fused_attn_step_plain(*args, **kw)[0],
+                2 * BF16_STEP)
+    margs = (x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"], lp["pre_ffn_norm"],
+             lp["post_ffn_norm"])
+    _rows_close(dk.fused_mlp_step(*margs, eps=lm.rms_norm_eps),
+                dk.fused_mlp_step_plain(*margs, eps=lm.rms_norm_eps), 2 * BF16_STEP)
+    rows = (torch.randn(1030, lm.hidden_size, generator=g, device=dev) * 3 + 5).to(torch.bfloat16)
+    scale, bias = (torch.randn(lm.hidden_size, generator=g, device=dev) for _ in range(2))
+    _rows_close(nk.layer_norm_fast(rows, scale, bias, 1e-6),
+                nk.layer_norm_fast_plain(rows, scale, bias, 1e-6), BF16_STEP)
+    table = lq["embedding"]
+    _ids_match(quant.int8_matmul_t_argmax(x, table), quant.int8_matmul_t_argmax_plain(x, table),
+               quant.int8_matmul_t_plain(x, table))

@@ -50,7 +50,7 @@ def test_port_imports_without_jax():
 def _port_files():
     return (sorted((REPO / "vlm_bridge_tpu_torch").rglob("*.py"))
             + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_train_torch.py",
-               REPO / "scripts" / "tune_int8_linear_torch.py",
+               REPO / "scripts" / "int8_linear_torch.py",
                REPO / "scripts" / "vit_ab_torch.py",
                REPO / "scripts" / "flash_fwd_torch.py", REPO / "scripts" / "flash_bwd_torch.py",
                REPO / "scripts" / "tiled_matmul_torch.py",

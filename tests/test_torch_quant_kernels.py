@@ -142,18 +142,63 @@ def test_linear_on_an_int8_dict(case, dt, bias):
                        tl.linear(xt.transpose(0, 1).contiguous(), from_jax(case["w"])))
 
 
-@pytest.mark.parametrize("shape,dual", [
-    ((64, 4096, 2304), False),   # Gemma-2-2B fused qkv
-    ((64, 2304, 2048), False),   # its o projection
-    ((64, 6912, 2304), False),   # bridge self qkv
-    ((64, 9216, 2304), True),    # gate | up
-    ((64, 2304, 9216), False),   # down
-    ((3200, 4096, 2304), False),  # a prefill: the tiles alone fill the card
-    ((1, 16, 8), False),
-])
+def _slices(K: int, split: int) -> list:
+    """The int8 product kernel's slices of the contraction (csrc/int8_linear.cu,
+    unit_of): slice s takes the 64-row stages [s chunks // split, (s + 1)
+    chunks // split), as (first row, end row) pairs."""
+    chunks = -(-K // tq._I8_TILE_K)
+    return [(s * chunks // split * tq._I8_TILE_K,
+             min(K, (s + 1) * chunks // split * tq._I8_TILE_K)) for s in range(split)]
+
+
+SPLIT_CASES = [
+    ((64, 4096, 2304), False),    # Gemma-2-2B fused qkv
+    ((64, 2304, 2048), False),    # its o projection
+    ((64, 6912, 2304), False),    # bridge self qkv
+    ((64, 9216, 2304), True),     # gate | up
+    ((64, 2304, 9216), False),    # down
+    ((64, 8192, 4608), False),    # Gemma-2-27B fused qkv
+    ((64, 4608, 36864), False),   # its down: a deep contraction
+    ((130, 2320, 2312), False),   # past the decode form's rows: the tower's form
+    ((16448, 3072, 1024), False),  # the int8 tower's qkv
+    ((1, 16, 8), False),          # one stage
+    ((3, 2320, 2312), True),      # ragged K and N, GeGLU tiles
+]
+
+
+@pytest.mark.parametrize("shape,dual", SPLIT_CASES, ids=[f"{m}x{n}x{k}{'_dual' * d}"
+                                                        for (m, n, k), d in SPLIT_CASES])
 def test_contraction_split_plan(shape, dual):
-    """The slices cover the contraction, none is empty, and a shape with
-    enough tiles is not split at all."""
+    """The int8 product kernel's plan: at most one cluster's 8 slices, none
+    empty, the slices covering K in order; the tower's rows are not split;
+    a decode shape of few column tiles is; a pure function of its arguments."""
+    m, n, k = shape
+    s = tq.contraction_split(m, n, k, dual=dual, sms=132)
+    assert 1 <= s <= tq._I8_MAX_SPLIT
+    slices = _slices(k, s)
+    assert len(slices) == s and slices[0][0] == 0 and slices[-1][1] == k
+    assert all(a < b for a, b in slices)                                  # none is empty
+    assert all(slices[i][1] == slices[i + 1][0] for i in range(s - 1))    # in order, no gap
+    if m > tq._I8_DECODE_ROWS:
+        assert s == 1
+    if (m, n) == (64, 2304):
+        assert s > 1   # 18 column tiles alone would leave most of 132 SMs idle
+    tiles = -(-m // 64) * -(-n // (64 if dual else 128))
+    assert tiles * s <= max(tiles, tq._I8_BLOCKS_PER_SM * 132)   # one resident wave at most
+    assert s == tq.contraction_split(m, n, k, dual=dual, sms=132)
+    # clusters that would not all run at once: the split shrinks until they do
+    few = (264, 132, 88, 62, 48, 40, 34, 30)
+    s_few = tq.contraction_split(m, n, k, dual=dual, sms=132, clusters=few)
+    assert s_few <= s and (s_few == 1 or tiles <= few[s_few - 1])
+    if s_few < s:
+        assert tiles > few[s_few]   # the next larger split would not run at once
+
+
+@pytest.mark.parametrize("shape,dual", SPLIT_CASES[:5] + [((3200, 4096, 2304), False),
+                                                          ((1, 16, 8), False)])
+def test_int4_contraction_split_plan(shape, dual):
+    """int4_mlp's plan (csrc/int4_linear.cu): the slices cover the
+    contraction, none is empty, and a shape with enough tiles is not split."""
     m, n, k = shape
     s = tq._splits(m, n, k, dual=dual, sms=132)
     chunks = -(-k // tq._TILE_K)
@@ -162,6 +207,23 @@ def test_contraction_split_plan(shape, dual):
     assert per * s >= chunks and per * (s - 1) < chunks
     if m >= 3200:
         assert s == 1
-    if (m, n) == (64, 2304):
-        assert s > 1   # 18 column tiles alone would leave most of 132 SMs idle
-    assert s == tq._splits(m, n, k, dual=dual, sms=132)   # a pure function of its arguments
+    assert s == tq._splits(m, n, k, dual=dual, sms=132)
+
+
+@pytest.mark.parametrize("split", [1, 2, 5, 8])
+def test_sliced_contraction_matches_plain(split):
+    """The kernel's fixed order written out: each slice's f32 sum over its
+    rows of the contraction, the slices added in slice order, then scale and
+    one rounding to bf16; held to one bf16 step of each row's max against
+    the plain version (the order of an f32 sum is all that differs)."""
+    rng = np.random.default_rng(40 + split)
+    Mx, K, N = 7, 2312, 96
+    x = torch.from_numpy(rng.normal(0, 1, (Mx, K)).astype(np.float32)).to(torch.bfloat16)
+    wq = tq.quantize_int8(torch.from_numpy(rng.normal(0, 0.05, (K, N)).astype(np.float32)))
+    total = torch.zeros(Mx, N)
+    for a, b in _slices(K, split):
+        total = total + x[:, a:b].float() @ wq["w_int8"][a:b].float()
+    got = (total * wq["scale"]).to(torch.bfloat16)
+    want = tq.int8_matmul_plain(x, wq)
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    assert bool((diff <= BF16_TOL * want.float().abs().amax(dim=-1)).all())

@@ -27,11 +27,12 @@
 namespace {
 
 // x (f32 residual) update and the next LayerNorm, one block of 256 threads
-// per batch row, the row held in registers (H <= 256 * ROW_REGS):
+// per batch row, the row held in registers, R values a thread (H <= 256 R):
 //   x_in != null : x = float(x_in), and the n_zero floats at zero are zeroed
 //   y    != null : x += y; y's row is zeroed once read
 //   h    != null : h = LN(x) * ln_s + ln_b, split [2, B, H]
 //   xo   != null : xo = bf16(x)
+template <int R>
 __global__ void __launch_bounds__(256)
 residual_ln_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
                    float* __restrict__ y, const float* __restrict__ ln_s,
@@ -42,9 +43,9 @@ residual_ln_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
   const size_t row = (size_t)blockIdx.x * H;
   for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n_zero; i += (size_t)gridDim.x * 256)
     zero[i] = 0.f;
-  float v[ROW_REGS], s = 0.f;
+  float v[R], s = 0.f;
 #pragma unroll
-  for (int k = 0; k < ROW_REGS; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int i = threadIdx.x + k * 256;
     v[k] = 0.f;
     if (i < H) {
@@ -62,13 +63,13 @@ residual_ln_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
     const float mu = block_sum(s, red) / H;
     float ss = 0.f;
 #pragma unroll
-    for (int k = 0; k < ROW_REGS; ++k) {
+    for (int k = 0; k < R; ++k) {
       const int i = threadIdx.x + k * 256;
       if (i < H) ss += (v[k] - mu) * (v[k] - mu);
     }
     const float r = rsqrtf(block_sum(ss, red) / H + eps);
 #pragma unroll
-    for (int k = 0; k < ROW_REGS; ++k) {
+    for (int k = 0; k < R; ++k) {
       const int i = threadIdx.x + k * 256;
       if (i < H) store_split(h, (size_t)gridDim.x * H, row + i, (v[k] - mu) * r * ln_s[i] + ln_b[i]);
     }
@@ -187,6 +188,7 @@ extern "C" int vbt_fused_bridge_step(
     void* x32, void* hbuf, void* abuf, void* ybuf,
     int nb, int B, int ld, int Hc, int Hs, int Sv, int Smax, int F, int t, float eps,
     void* stream_ptr) {
+  if (ld > ROW_MAX) return (int)cudaErrorInvalidValue;
   VBT_CHECK((cudaError_t)bind_device(x_in));
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const int Dc = ld / Hc, Ds = ld / Hs;
@@ -214,9 +216,9 @@ extern "C" int vbt_fused_bridge_step(
 
   // y starts at zero: every product accumulates into it, every kernel that
   // reads it writes zeros back
-  residual_ln_kernel<<<B, 256, 0, st>>>((const bf16*)x_in, x, nullptr, ln, ln + ld, h, nullptr,
-                                        ld, eps, y, (size_t)B * max(3 * ld, F));
-    VBT_CHECK_LAUNCH();
+  VBT_ROW_LAUNCH(residual_ln_kernel, ld, B, 0, st, (const bf16*)x_in, x, nullptr, ln, ln + ld, h,
+                 nullptr, ld, eps, y, (size_t)B * max(3 * ld, F));
+  VBT_CHECK_LAUNCH();
   for (int k = 0; k < nb; ++k) {
     const float* lk = ln + (size_t)k * 6 * ld;
     rc = launch_i8_gemm(map_h, w_q, k, (const float*)q_scale + (size_t)k * ld,
@@ -230,8 +232,8 @@ extern "C" int vbt_fused_bridge_step(
     rc = launch_i8_gemm(map_a, w_oc, k, (const float*)oc_scale + (size_t)k * ld,
                         (const float*)oc_bias + (size_t)k * ld, y, B, ld, ld, st);
     if (rc) return rc;
-    residual_ln_kernel<<<B, 256, 0, st>>>(nullptr, x, y, lk + 2 * ld, lk + 3 * ld, h, nullptr,
-                                          ld, eps, nullptr, 0);
+    VBT_ROW_LAUNCH(residual_ln_kernel, ld, B, 0, st, nullptr, x, y, lk + 2 * ld, lk + 3 * ld, h,
+                   nullptr, ld, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_h, w_qkv, k, (const float*)qkv_scale + (size_t)k * 3 * ld,
                         (const float*)qkv_bias + (size_t)k * 3 * ld, y, B, 3 * ld, ld, st);
@@ -242,8 +244,8 @@ extern "C" int vbt_fused_bridge_step(
     rc = launch_i8_gemm(map_a, w_os, k, (const float*)os_scale + (size_t)k * ld,
                         (const float*)os_bias + (size_t)k * ld, y, B, ld, ld, st);
     if (rc) return rc;
-    residual_ln_kernel<<<B, 256, 0, st>>>(nullptr, x, y, lk + 4 * ld, lk + 5 * ld, h, nullptr,
-                                          ld, eps, nullptr, 0);
+    VBT_ROW_LAUNCH(residual_ln_kernel, ld, B, 0, st, nullptr, x, y, lk + 4 * ld, lk + 5 * ld, h,
+                   nullptr, ld, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_h, w_1, k, (const float*)f1_scale + (size_t)k * F,
                         (const float*)f1_bias + (size_t)k * F, y, B, F, ld, st);
@@ -256,9 +258,9 @@ extern "C" int vbt_fused_bridge_step(
     if (rc) return rc;
     const bool last = (k == nb - 1);
     const float* nxt = ln + (size_t)(k + 1) * 6 * ld;
-    residual_ln_kernel<<<B, 256, 0, st>>>(nullptr, x, y, last ? nullptr : nxt,
-                                          last ? nullptr : nxt + ld, last ? nullptr : h,
-                                          last ? (bf16*)x_out : nullptr, ld, eps, nullptr, 0);
+    VBT_ROW_LAUNCH(residual_ln_kernel, ld, B, 0, st, nullptr, x, y, last ? nullptr : nxt,
+                   last ? nullptr : nxt + ld, last ? nullptr : h,
+                   last ? (bf16*)x_out : nullptr, ld, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
   }
   return 0;

@@ -125,9 +125,20 @@ __device__ __forceinline__ void query_tile_range(int k_start, int BK, int BM, in
   hi = last / BM + 1;
 }
 
-// Row kernels (residual + norm) keep one row of up to 256 * ROW_REGS values
-// in registers, 256 threads a row.
-constexpr int ROW_REGS = 16;
+// Row kernels (residual + norm) keep one row in registers, 256 threads a row
+// and R values a thread: R = 16 up to 4096 values, 32 up to 8192, 64 up to
+// ROW_MAX. A launch picks R by the row's width (row_regs).
+constexpr int ROW_MAX = 256 * 64;
+inline int row_regs(int H) { return H <= 256 * 16 ? 16 : H <= 256 * 32 ? 32 : 64; }
+
+// kernel<R><<<grid, 256, smem, stream>>>(args...) with R = row_regs(H)
+#define VBT_ROW_LAUNCH(kernel, H, grid, smem, stream, ...)                     \
+  do {                                                                          \
+    const int r_ = row_regs(H);                                                 \
+    if (r_ == 16) kernel<16><<<(grid), 256, (smem), (stream)>>>(__VA_ARGS__);   \
+    else if (r_ == 32) kernel<32><<<(grid), 256, (smem), (stream)>>>(__VA_ARGS__); \
+    else kernel<64><<<(grid), 256, (smem), (stream)>>>(__VA_ARGS__);            \
+  } while (0)
 
 // Activations that feed an int8 GEMM are stored split: a = hi + lo with
 // hi = bf16(a) and lo = bf16(a - hi), so the bf16 tensor cores see about 16

@@ -8,267 +8,640 @@
 // vlm_bridge_tpu/ops/quant.py:int8_ffn (body _int8_ffn_kernel). The TPU
 // kernels walk a sequential grid and carry an f32 accumulator in VMEM from
 // one step to the next; here blocks run in parallel, so the contraction is
-// a loop inside the block and, where it is split over blocks, a second
-// kernel adds the slices.
+// a loop inside the block and, where it is split over blocks, the blocks of
+// one cluster add their slices through each other's shared memory.
 //
 // Bound: at decode (M = batch = 64 rows) each weight byte feeds 64
 // multiply-adds, far below the ~295 operations per byte at which the H100's
 // bf16 tensor cores, not its 3.35 TB/s of HBM, become the limit: the least
 // time is the weights' bytes over the memory rate (9.4 MB for Gemma-2-2B's
-// fused qkv, 63.7 MB for its MLP).
+// fused qkv, 63.7 MB for its MLP). In the int8 vision tower (M = 64 x 257 =
+// 16448 rows) every weight byte feeds 16448 multiply-adds: the tensor cores
+// set the floor, 2 M N K over 989 TFLOP/s.
 //
-// Design. One product kernel serves all three functions. A block of four
-// warps owns 64 rows of x and 64 columns of each of two weight sources:
-// the two halves of a 128-column tile of one matrix, or the same 64 columns
-// of gate and up (so the GeGLU's two operands meet in one thread). The
-// weights stay in the layout quantize_int8 gives them, int8 [in, out] with
-// `out` contiguous: no second copy in another order is kept. cp.async
-// brings KC rows of both sources and of x into a ring of STAGES shared
-// memory stages. ldmatrix.trans, which transposes 8x8 blocks of 16-bit
-// units, is run on PAIRS of int8: a lane receives w[2t][2g], w[2t][2g+1],
-// w[2t+1][2g], w[2t+1][2g+1], which are the mma.sync m16n8k16 B fragments of
-// two n8 tiles whose columns interleave (even columns one tile, odd columns
-// the other). The bytes are widened to bf16 in registers (exact, |w| <= 127)
-// and the f32 accumulators of the two tiles give each lane four adjacent
-// output columns. x is bf16 already, one product per fragment.
-//
-// With 64 rows a matrix of 2304 columns gives only 18 blocks, so the
-// contraction is split over grid.y until the card is filled. Every block
-// writes its raw f32 sums to a scratch [split][source][M][N]; an
-// elementwise kernel then adds the slices IN A FIXED ORDER, applies scale,
-// bias and activation, and rounds to bf16. No atomics: the same inputs give
-// the same bits, which sampling with a seed relies on. int8_mlp and
-// int8_ffn are product, epilogue, product, epilogue inside one C call; the
-// bf16 hidden [M, F] (1.2 MB at M = 64) passes through device memory
-// between them.
+// Design (Hopper's own; scripts/int8_linear_torch.py times it). One product
+// kernel, i8mm_kernel, serves the three functions and the per-layer decode
+// steps of layer_step.cu:
+// - The operands are read where they lie, by TMA into an mbarrier ring: x
+//   bf16 [M, K] as wgmma's A operand (K-major, boxes of 64 depths under the
+//   128-byte swizzle, rows past M and depths past K read as zeros), and the
+//   weights int8 [K, N], N contiguous, exactly as quantize_int8(axis=0)
+//   gives them, in byte boxes of 64 rows x 64 columns (rows past K read as
+//   zeros; a box wholly past N is not loaded and its columns are never
+//   stored). No copy of the weights in another order is kept.
+// - The consumer warpgroups widen each stage's weight bytes to bf16 (exact,
+//   |w| <= 127; sm90.cuh:widen4) into a 64 x 128 B tile in shared memory, in
+//   the swizzled MN-major layout that tiled_matmul.cu's TMA gives its B
+//   operand, and run wgmma m64n128k16 with both operands from shared memory
+//   and B read through the transpose bit. The next stage is widened into the
+//   second B tile while the products of this one run; one barrier a stage,
+//   after every thread's fence.proxy.async and every warp's wait.
+// - A unit is a row tile of x, a column tile of the output and a slice of
+//   the contraction. A column tile is 128 columns of one weight, or (GeGLU)
+//   64 columns of gate and the same 64 of up as the B tile's two halves, so
+//   that both GeGLU operands of a column sit in one thread's accumulators.
+// - Decode rows (M <= 128): i8mm_kernel<1, 1>, a block of one consumer
+//   warpgroup (64 rows of x) and one producer warpgroup, two blocks an SM.
+//   With 64 rows a matrix of 2304 columns has only 18 column tiles, so the
+//   contraction is cut into `split` slices (ops/quant.contraction_split: up
+//   to 8, as many clusters as run at once), one block each, launched as one
+//   thread-block cluster: once every block's ring is spent, each copies its
+//   f32 sums of block q's rows into block q's ring by one bulk copy, and
+//   block q adds the slots in rank order 0, 1, ..., applies the epilogue and
+//   stores them. No atomics and no scratch in device memory: the same inputs
+//   give the same bits. Where split is 1 the block applies the epilogue
+//   straight from its accumulators.
+// - The tower's rows (M > 128): i8mm_kernel<2, 2>, persistent, one block an
+//   SM walking 256 x 128 output tiles, column tiles fastest (the blocks in
+//   flight share their rows of x in the L2), the contraction never split.
+//   Two consumer warpgroups of 128 rows each share every widened B tile, so
+//   a weight value is widened once for 256 rows; each runs two m64n128k16 a
+//   k16 step (128 accumulators a thread, setmaxnreg 232; the producer
+//   warpgroup gives its registers up, as in tiled_matmul.cu).
+// - Epilogues on the f32 sums, one instantiation each: raw f32 (the
+//   per-layer steps, which apply the scale themselves), x scale (+ bias),
+//   gelu_erf(x scale + bias), or GeGLU; one rounding to bf16. The unit's
+//   scales and biases are fetched into registers a unit ahead and put in
+//   shared memory as it starts, and its output rows leave through a staging
+//   in shared memory (the spent ring, or the tower's spent B tile), so that
+//   a warp stores whole rows.
+//   int8_mlp and int8_ffn are two product launches in one C call; the bf16
+//   hidden [M, F] (1.2 MB at M = 64) passes through device memory between
+//   them.
+// - Tensor maps are encoded once for each (pointer, shape): a map holds
+//   nothing else, so a cached one is right for whatever tensor lies there.
 
-#include "common.cuh"
+#include <mutex>
+#include <unordered_map>
+
 #include "linear_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-#ifndef I8L_KC
-#define I8L_KC 64
-#endif
-#ifndef I8L_STAGES
-#define I8L_STAGES 3
-#endif
+constexpr int I8_BK = 64;                 // rows of the weights (depths of x) a stage
+constexpr int I8_WBOX = I8_BK * 64;       // a weight box: 64 rows x 64 bytes
+constexpr int I8_BBOX = I8_BK * 64 * 2;   // a 64-column half of the B tile, bf16
+constexpr int I8_BTILE = 2 * I8_BBOX;     // the widened B tile: 64 x 128 bf16
 
-constexpr int BM = 64;                 // rows of x per block
-constexpr int BNH = 64;                // columns per weight source per block
-constexpr int KC = I8L_KC;             // rows of the weights per stage
-constexpr int STAGES = I8L_STAGES;
-constexpr int THREADS = 128;
-constexpr int X_LD = KC + 8;           // bf16 per x row (ldmatrix conflict-free)
-constexpr int W_LD = BNH + 16;         // bytes per weight row (80: conflict-free)
-constexpr int X_STAGE = BM * X_LD;     // bf16 elements
-constexpr int W_STAGE = 2 * KC * W_LD; // bytes, both sources
-constexpr int SMEM_BYTES = STAGES * (X_STAGE * 2 + W_STAGE);
+// A block of WGS consumer warpgroups, each multiplying MT 64-row tiles of x by
+// the whole B tile, and a producer warpgroup. WGS 1: the decode form.
+template <int WGS_, int MT_>
+struct I8Shape {
+  static constexpr int WGS = WGS_, MT = MT_;
+  static constexpr bool DECODE = WGS == 1;
+  static constexpr int BM = 64 * MT * WGS;   // rows of x a unit
+  static constexpr int THREADS = 128 * (WGS + 1);
+  static constexpr int X_BYTES = BM * I8_BK * 2;
+  static constexpr int STAGE_BYTES = X_BYTES + 2 * I8_WBOX;
+  static constexpr int STAGES = 4;
+  static constexpr int MIN_BLOCKS = DECODE ? 2 : 1;   // blocks an SM
+  // the unit's scales and biases (the tower: two units', by unit parity). The
+  // cluster's sums and the staging of output rows lie in the spent ring and B
+  // tiles.
+  static constexpr int PRM_BYTES = (DECODE ? 1 : 2) * 3 * 128 * 4;
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * I8_BTILE + PRM_BYTES;
+  static_assert(STAGE_BYTES % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
+  static_assert(SMEM * MIN_BLOCKS + 1024 * (MIN_BLOCKS - 1) <= 232448, "blocks an SM");
+  // the cluster's slots, split x ceil(64 / split) rows of 128 f32 (at most 70
+  // rows: split 7), in the ring; the block's own sums in the B tiles
+  static_assert(!DECODE || (70 * 128 * 4 <= STAGES * STAGE_BYTES &&
+                            64 * 128 * 4 <= 2 * I8_BTILE), "the sums fit");
+};
 
-// w holds int8 (k, n), (k, n+1), (k+1, n), (k+1, n+1) from low byte to high.
-// even = bf16x2 {(k, n), (k+1, n)}, odd = bf16x2 {(k, n+1), (k+1, n+1)}: one
-// B-fragment register of the even-column tile and of the odd-column tile.
-// Byte x becomes the low mantissa of the f32 2^23 + (x + 128); one add
-// removes the offset (no I2F).
-__device__ __forceinline__ void widen_pairs(uint32_t w, uint32_t& even, uint32_t& odd) {
-  w ^= 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | i)) - 8388736.f;
-  __nv_bfloat162 pe = __floats2bfloat162_rn(f[0], f[2]);
-  __nv_bfloat162 po = __floats2bfloat162_rn(f[1], f[3]);
-  even = *reinterpret_cast<uint32_t*>(&pe);
-  odd = *reinterpret_cast<uint32_t*>(&po);
+struct I8Args {
+  const float* s0;    // per-column scale (gate's under GeGLU); unused under I8_RAW
+  const float* s1;    // up's scale (GeGLU)
+  const float* bias;  // per-column bias, or null
+  void* out;          // [M, N]: f32 under I8_RAW, else bf16
+  int M, N, K;        // N: output columns (F under GeGLU)
+  int epi, split, dual;
+};
+
+// the epilogue EPI of columns n, n + 1 from their f32 sums v (under GeGLU
+// gate's, and up's in u); s0 / s1 / bias point at column n's scales and bias.
+// A compile-time choice: each instantiation's unrolled epilogue holds its own
+// code only (the four in one kernel ran the tower's epilogue several times
+// slower on an H100: PERF.md).
+template <int EPI>
+__device__ __forceinline__ float2 i8_value(float2 v, float2 u, const float* s0, const float* s1,
+                                           const float* bias) {
+  if constexpr (EPI == I8_RAW) {
+    return v;
+  } else if constexpr (EPI == I8_GEGLU) {
+    return make_float2(gelu_tanh_f(v.x * s0[0]) * (u.x * s1[0]),
+                       gelu_tanh_f(v.y * s0[1]) * (u.y * s1[1]));
+  } else {
+    const float2 y = make_float2(v.x * s0[0] + bias[0], v.y * s0[1] + bias[1]);
+    if constexpr (EPI == I8_GELU_ERF) return make_float2(gelu_erf_f(y.x), gelu_erf_f(y.y));
+    return y;
+  }
 }
 
-// P[split][source][M][N] (one source when W1 is null) = raw f32 sums of
-// X[M, K] (bf16, row stride K) . W[K, N] (int8, row stride N) over this
-// block's slice of K. grid = (column tiles, splits, row tiles).
-__global__ void __launch_bounds__(THREADS)
-i8l_product_kernel(const bf16* __restrict__ X, const int8_t* __restrict__ W0,
-                   const int8_t* __restrict__ W1, float* __restrict__ P, int M, int N, int K,
-                   int k_per_split) {
-  extern __shared__ __align__(16) unsigned char i8l_smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(i8l_smem);                       // [STAGES][BM][X_LD]
-  int8_t* Ws = reinterpret_cast<int8_t*>(i8l_smem) + STAGES * X_STAGE * 2;  // [STAGES][2][KC][W_LD]
+// Output rows leave through shared memory, so that a warp's stores are whole
+// rows: a staged row of `rb` bytes (a multiple of 128) keeps its 16-byte chunk
+// c at c ^ (row % 8), which spreads a warp's pair writes (8 rows x 4 lanes)
+// over the 32 banks.
+__device__ __forceinline__ void stage_pair(uint32_t stage, int rb, int row, int col, float2 y,
+                                           bool f32) {
+  const int byte = col * (f32 ? 4 : 2), c = byte >> 4;
+  const uint32_t at = stage + row * rb + (((c ^ (row & 7)) << 4) | (byte & 15));
+  if (f32)
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at), "f"(y.x), "f"(y.y) : "memory");
+  else
+    st_shared(at, pack_bf16(y.x, y.y));
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool dual = W1 != nullptr;
-  const int m0 = blockIdx.z * BM;
-  const int k_begin = blockIdx.y * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const int n_iters = k_end > k_begin ? (k_end - k_begin + KC - 1) / KC : 0;
-  const int8_t* const src0 = W0;
-  const int8_t* const src1 = dual ? W1 : W0;
-  const int col0 = dual ? blockIdx.x * BNH : blockIdx.x * 2 * BNH;  // first column, source 0
-  const int col1 = dual ? col0 : col0 + BNH;                         // first column, source 1
+// rows [0, rows) of a staged block to out rows m0 .. and columns n0 .., 16
+// bytes a thread (nt threads from thread index ti), within M and N
+__device__ __forceinline__ void stage_out(uint32_t stage, int rb, int rows, void* out, int M,
+                                          int N, int m0, int n0, bool f32, int ti, int nt) {
+  const int es = f32 ? 4 : 2, chunks = rb / 16;
+  for (int idx = ti; idx < rows * chunks; idx += nt) {
+    const int r = idx / chunks, c = idx % chunks, n = n0 + c * 16 / es;
+    if (m0 + r >= M || n >= N) continue;
+    const uint4 v = ld_shared_v4(stage + r * rb + ((c ^ (r & 7)) << 4));
+    *reinterpret_cast<uint4*>(static_cast<char*>(out) + ((size_t)(m0 + r) * N + n) * es) = v;
+  }
+}
 
-  auto load_stage = [&](int stage, int k0) {
-    bf16* xs = Xs + stage * X_STAGE;
-    int8_t* ws = Ws + stage * W_STAGE;
-    for (int i = tid; i < BM * KC / 8; i += THREADS) {
-      const int r = i / (KC / 8), c = (i % (KC / 8)) * 8;
-      const bool ok = (m0 + r < M) && (k0 + c < k_end);
-      const bf16* src = ok ? X + (size_t)(m0 + r) * K + k0 + c : X;
-      cp_async16(xs + r * X_LD + c, src, ok);
+// out = EPI(X[M, K] . W[K, N]) over the units [blockIdx.x, units) in steps of
+// gridDim.x; with split > 1 (decode only) one unit a block, the grid in
+// clusters of split
+template <int WGS_, int MT_, int EPI>
+__global__ void __launch_bounds__(I8Shape<WGS_, MT_>::THREADS, I8Shape<WGS_, MT_>::MIN_BLOCKS)
+i8mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w0map,
+            const __grid_constant__ CUtensorMap w1map, const I8Args a) {
+  using S = I8Shape<WGS_, MT_>;
+  constexpr int WGS = S::WGS, MT = S::MT;
+  constexpr bool DECODE = S::DECODE;
+  extern __shared__ unsigned char i8_smem[];
+  __shared__ __align__(8) uint64_t i8_bars[2 * S::STAGES + 1];
+  const uint32_t base = smem_u32(i8_smem);
+  const uint32_t ring = (base + 1023u) & ~1023u;
+  const uint32_t btiles = ring + S::STAGES * S::STAGE_BYTES;   // two B tiles
+  float* const prms = reinterpret_cast<float*>(i8_smem + (btiles + 2 * I8_BTILE - base));
+  const uint32_t full = smem_u32(i8_bars), empty = full + 8 * S::STAGES;
+  const uint32_t recv = empty + 8 * S::STAGES;   // decode: the cluster's sums have landed
+
+  const int tn = a.dual ? 64 : 128;   // output columns a unit
+  const int col_tiles = (a.N + tn - 1) / tn;
+  const int chunks = (a.K + I8_BK - 1) / I8_BK;
+  const int units = (a.M + S::BM - 1) / S::BM * col_tiles * a.split;
+  // unit u: slice u % split of the contraction, column tile (u / split) %
+  // col_tiles, row tile u / split / col_tiles; the slice's stages [c0, c1)
+  struct Unit {
+    int mb, nt, ks, c0, c1;
+  };
+  auto unit_of = [&](int u) {
+    Unit r;
+    r.ks = u % a.split;
+    const int q = u / a.split;
+    r.nt = q % col_tiles;
+    r.mb = q / col_tiles;
+    r.c0 = r.ks * chunks / a.split;
+    r.c1 = (r.ks + 1) * chunks / a.split;
+    return r;
+  };
+  const bool clustered = DECODE && a.split > 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);          // the producer's arrive, plus the bytes
+      mbar_init(empty + 8 * s, 4 * WGS);   // lane 0 of each consumer warp
     }
-    for (int i = tid; i < KC * BNH / 16; i += THREADS) {
-      const int r = i >> 2, c = (i & 3) * 16;
-      const bool row_ok = k0 + r < k_end;
-      const bool ok0 = row_ok && (col0 + c < N);
-      const bool ok1 = row_ok && (col1 + c < N);
-      const size_t off = (size_t)(k0 + r) * N + c;
-      cp_async16(ws + r * W_LD + c, ok0 ? src0 + off + col0 : src0, ok0);
-      cp_async16(ws + KC * W_LD + r * W_LD + c, ok1 ? src1 + off + col1 : src1, ok1);
+    mbar_init(recv, 1);   // this block's expect_tx, plus the bytes the cluster pushes
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  if (wg == WGS) {
+    // ---- the producer: stage i into slot i % STAGES once its last use is done ----
+    if constexpr (!DECODE) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tw == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&xmap)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&w0map)) : "memory");
+      // at decode the weights are read once: they must not push x out of the L2
+      const uint64_t pol = l2_evict_first();
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit t = unit_of(u);
+        const int n0 = t.nt * tn;
+        // the second weight box: up's columns (GeGLU), or the tile's last 64
+        const bool second = a.dual || n0 + 64 < a.N;
+        const CUtensorMap* m1 = a.dual ? &w1map : &w0map;
+        const int n1 = a.dual ? n0 : n0 + 64;
+        for (int c = t.c0; c < t.c1; ++c, ++i) {
+          const int s = i % S::STAGES;
+          if (i >= S::STAGES) mbar_wait(empty + 8 * s, (i / S::STAGES - 1) & 1);
+          const uint32_t st = ring + s * S::STAGE_BYTES, bar = full + 8 * s;
+          mbar_expect_tx(bar, S::X_BYTES + (second ? 2 : 1) * I8_WBOX);
+          tma_load(st, &xmap, c * I8_BK, t.mb * S::BM, bar);
+          const uint32_t wb = st + S::X_BYTES;
+          if constexpr (DECODE) {
+            tma_load_hint(wb, &w0map, n0, c * I8_BK, bar, pol);
+            if (second) tma_load_hint(wb + I8_WBOX, m1, n1, c * I8_BK, bar, pol);
+          } else {   // the tower: every row tile reads the weights again
+            tma_load(wb, &w0map, n0, c * I8_BK, bar);
+            if (second) tma_load(wb + I8_WBOX, m1, n1, c * I8_BK, bar);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (clustered) {   // the consumers' two cluster barriers (below)
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup wg multiplies rows (wg MT + mt) 64 .. of each unit ----
+  if constexpr (!DECODE) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int warp = tw / 32, lane = tw % 32, g = lane / 4, t4 = lane % 4;
+  // [mt][4 j + 2 h + e]: row 16 warp + g + 8 h of 64-row tile mt, B-tile
+  // column 8 j + 2 t4 + e
+  float acc[MT][64];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[mt][x] = 0.f;
+
+  // The weight bytes of the stage at st into the B tile at bt, by all 128 WGS
+  // consumer threads: a thread takes 16-byte pieces of the two 64 x 64 boxes
+  // (a quarter warp: two rows x four pieces, 128 bytes, no bank conflict) and
+  // stores each one's 16 bf16 as two 16-byte chunks of its row of the tile's
+  // half, chunk c at c ^ (row % 8) under the swizzle.
+  auto widen = [&](uint32_t st, uint32_t bt) {
+    const uint32_t wb = st + S::X_BYTES;
+#pragma unroll
+    for (int it = 0; it < 2 * 64 * 4 / (128 * WGS); ++it) {
+      const int q = threadIdx.x + 128 * WGS * it;
+      const int box = q / 256, row = (q / 4) % 64, p = q % 4, sw = row % 8;
+      const uint4 r = ld_shared_v4(wb + box * I8_WBOX + row * 64 + 16 * p);
+      uint32_t b[8];
+      widen4(r.x, b[0], b[1]);
+      widen4(r.y, b[2], b[3]);
+      widen4(r.z, b[4], b[5]);
+      widen4(r.w, b[6], b[7]);
+      const uint32_t d = bt + box * I8_BBOX + row * 128;
+      st_shared_v4(d + (((2 * p) ^ sw) << 4), make_uint4(b[0], b[1], b[2], b[3]));
+      st_shared_v4(d + (((2 * p + 1) ^ sw) << 4), make_uint4(b[4], b[5], b[6], b[7]));
     }
   };
+  // acc += x rows . B tile over the stage's 64 depths, committed; the
+  // products run on while the caller goes on. B: a k16 step is 16 rows (two
+  // 1024-byte atoms); LBO steps between the two 64-column halves. A: 32 bytes
+  // along each swizzled row.
+  auto products = [&](uint32_t st, uint32_t bt) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < I8_BK / 16; ++kk) {
+      const uint64_t db = smem_desc(bt + kk * 2048, I8_BBOX, 1024);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        wgmma_n128(acc[mt], smem_desc(st + (wg * MT + mt) * 64 * 128 + kk * 32, 16, 1024), db, 1);
+    }
+    wgmma_commit();
+  };
+  // the unit's output column of accumulator column group j (e = 0); under
+  // GeGLU groups 0-7 are gate's and 8-15 up's of the same columns
+  auto col_of = [&](int j) { return 8 * (j & (a.dual ? 7 : 15)) + 2 * t4; };
+  auto is_gate = [&](int j) { return !a.dual || j < 8; };
+  // A unit's scales and biases (column threadIdx.x < tn of its tile) are
+  // fetched into registers a unit ahead, so that no thread waits on them, and
+  // put into prm as the unit starts; its epilogue reads them after the
+  // stages' barriers.
+  float pv[3];
+  auto fetch_prm = [&](int u) {
+    const int n = unit_of(u).nt * tn + threadIdx.x;
+    const bool in = u < units && threadIdx.x < tn && n < a.N;
+    pv[0] = EPI != I8_RAW && in ? a.s0[n] : 0.f;
+    pv[1] = a.dual && in ? a.s1[n] : 0.f;
+    pv[2] = a.bias != nullptr && in ? a.bias[n] : 0.f;
+  };
+  auto put_prm = [&](float* prm) {
+    if (threadIdx.x < tn) prm[threadIdx.x] = pv[0], prm[128 + threadIdx.x] = pv[1],
+                          prm[256 + threadIdx.x] = pv[2];
+  };
 
-  float acc[4][2][2][4];  // [m16 tile][source][even/odd columns][fragment]
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][s][p][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_iters) load_stage(s, k_begin + s * KC);
-    cp_async_commit();
+  int u = blockIdx.x, i = 0, k = 0;   // i: the block's stages so far; k: its units
+  fetch_prm(u);
+  if (u < units) {
+    mbar_wait(full, 0);
+    widen(ring, btiles);
+    fence_proxy_async();
+    named_bar(1, 128 * WGS);
   }
-
-  for (int it = 0; it < n_iters; ++it) {
-    cp_async_wait<STAGES - 2>();   // stage `it` has landed (this thread's part)
-    __syncthreads();               // ... everyone's part; stage it - 1 is free
-    const int nxt = it + STAGES - 1;
-    if (nxt < n_iters) load_stage(nxt % STAGES, k_begin + nxt * KC);
-    cp_async_commit();
-
-    const bf16* xs = Xs + (it % STAGES) * X_STAGE;
-    const int8_t* ws = Ws + (it % STAGES) * W_STAGE;
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      // four 8 x 16-byte blocks: source (lane >> 4), rows 16 ks + 8 ((lane >> 3) & 1)
-      // + (lane & 7), this warp's 16 columns
-      uint32_t raw[4];
-      ldmatrix_x4_trans(raw, ws + (lane >> 4) * (KC * W_LD) +
-                                 (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * W_LD +
-                                 warp * 16);
-      uint32_t b[2][2][2];  // [source][even/odd][k 0..7 | k 8..15]
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        widen_pairs(raw[2 * s], b[s][0][0], b[s][1][0]);
-        widen_pairs(raw[2 * s + 1], b[s][0][1], b[s][1][1]);
+  for (; u < units; u += gridDim.x, ++k) {
+    const Unit t = unit_of(u);
+    const bool more_units = u + (int)gridDim.x < units;
+    float* const prm = prms + (k & 1) * 3 * 128;
+    put_prm(prm);
+    fetch_prm(u + gridDim.x);
+    for (int c = t.c0; c < t.c1; ++c, ++i) {
+      const int s = i % S::STAGES;
+      products(ring + s * S::STAGE_BYTES, btiles + (i % 2) * I8_BTILE);
+      if (c + 1 < t.c1 || more_units) {   // the next stage, into the other B tile
+        const int s1 = (i + 1) % S::STAGES;
+        mbar_wait(full + 8 * s1, ((i + 1) / S::STAGES) & 1);
+        widen(ring + s1 * S::STAGE_BYTES, btiles + ((i + 1) % 2) * I8_BTILE);
       }
+      wgmma_wait<0>();
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        uint32_t a[4];
-        ldmatrix_x4(a, xs + (m * 16 + (lane & 15)) * X_LD + ks * 16 + (lane >> 4) * 8);
+      for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+      fence_proxy_async();   // the widened tile, before the tensor cores read it
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      named_bar(1, 128 * WGS);
+    }
+    if (a.split == 1) {   // the epilogue from the accumulators, through a staging of rows
+      const int n0 = t.nt * tn;
+      constexpr bool f32 = EPI == I8_RAW;
+      const int rb = tn * (f32 ? 4 : 2);   // bytes of a staged row
+      // decode: the unit's 64 x tn tile in the spent ring; the tower: each
+      // warpgroup's 64-row tiles in turn, 8 KB at a time, in its half of the
+      // spent B tile (the last stage's; the other holds the next unit's first).
+      // (TMA stores of the tower's rows, which run on under the next unit,
+      // were slower on an H100: PERF.md.)
+      const uint32_t stage = DECODE ? ring : btiles + ((i - 1) % 2) * I8_BTILE + wg * 8192;
+      const int rp = DECODE ? 64 : min(64, 8192 / rb);   // rows a pass
 #pragma unroll
-        for (int s = 0; s < 2; ++s)
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m0 = t.mb * S::BM + (wg * MT + mt) * 64;
+        for (int pass = 0; pass < 64 / rp; ++pass) {
+          named_bar(2 + wg, 128);   // the staging's last rows have left
+          if (warp * 16 / rp == pass) {
 #pragma unroll
-          for (int p = 0; p < 2; ++p) mma_bf16(acc[m][s][p], a, b[s][p][0], b[s][p][1]);
+            for (int j = 0; j < 16; ++j) {
+              const int c = col_of(j), jj = (j + 8) % 16;   // jj: up's under GeGLU
+              if (is_gate(j)) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const float2 y = i8_value<EPI>(
+                      make_float2(acc[mt][4 * j + 2 * h], acc[mt][4 * j + 2 * h + 1]),
+                      make_float2(acc[mt][4 * jj + 2 * h], acc[mt][4 * jj + 2 * h + 1]),
+                      prm + c, prm + 128 + c, prm + 256 + c);
+                  stage_pair(stage, rb, warp * 16 + g + 8 * h - pass * rp, c, y, f32);
+                }
+              }
+            }
+          }
+          named_bar(2 + wg, 128);
+          stage_out(stage, rb, rp, a.out, a.M, a.N, m0 + pass * rp, n0, f32, tw, 128);
+        }
+#pragma unroll
+        for (int x = 0; x < 64; ++x) acc[mt][x] = 0.f;
       }
+      // the tower: the next unit widens into this staging
+      if constexpr (!DECODE) named_bar(1, 128 * WGS);
     }
   }
-  cp_async_wait<0>();
 
-  // tile column j of the even tile is column 2 j of the warp's 16, of the odd
-  // tile 2 j + 1; a lane holds tile columns 2t, 2t + 1 of rows g and g + 8:
-  // four adjacent columns 4t .. 4t + 3
-  const int nsrc = dual ? 2 : 1;
+  if constexpr (DECODE) {
+    if (clustered) {
+      // The cluster's blocks are the unit's slices, rank = slice. Block q owns
+      // rows q rmax .. (q + 1) rmax - 1 of the tile. Each block stages its
+      // sums (rows of 128 f32, 16-byte chunks swizzled by row) in its spent B
+      // tiles; once every ring is spent, it copies block q's rows into block
+      // q's ring (the slot of its own rank) by one bulk copy each, completing
+      // on block q's `recv` barrier, and block q adds the slots in rank
+      // order. The last cluster barrier keeps every block until the copies
+      // out of its staging are done.
+      const Unit t = unit_of(blockIdx.x);
+      const int rows = min(64, a.M - t.mb * 64), rmax = (64 + a.split - 1) / a.split;
+      const uint32_t staging = btiles;
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int col = (s ? col1 : col0) + warp * 16 + 4 * t;
-    if (col >= N) continue;
-    float* base = P + ((size_t)blockIdx.y * nsrc + (dual ? s : 0)) * M * N;
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + m * 16 + g + hh * 8;
-        if (row >= M) continue;
-        const float4 v = make_float4(acc[m][s][0][2 * hh], acc[m][s][1][2 * hh],
-                                     acc[m][s][0][2 * hh + 1], acc[m][s][1][2 * hh + 1]);
-        *reinterpret_cast<float4*>(base + (size_t)row * N + col) = v;
+        for (int h = 0; h < 2; ++h)
+          stage_pair(staging, 512, warp * 16 + g + 8 * h, is_gate(j) ? col_of(j) : 64 + col_of(j),
+                     make_float2(acc[0][4 * j + 2 * h], acc[0][4 * j + 2 * h + 1]), true);
+      fence_proxy_async();   // the staging, before the bulk copies read it
+      cluster_sync();        // every ring of the cluster is spent
+      const int own = max(0, min(rmax, rows - t.ks * rmax));   // rows this block adds
+      if (tw == 0) {
+        if (own > 0) mbar_expect_tx(recv, a.split * own * 512);
+        for (int q = 0; q < a.split; ++q) {
+          const int n = min(rmax, rows - q * rmax);
+          if (n > 0)
+            asm volatile(
+                "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+                " [%0], [%1], %2, [%3];\n" ::"r"(cluster_addr(ring + t.ks * rmax * 512, q)),
+                "r"(staging + q * rmax * 512), "r"(n * 512), "r"(cluster_addr(recv, q))
+                : "memory");
+        }
       }
+      if (own > 0) mbar_wait(recv, 0);
+      const int r0 = t.ks * rmax;
+      const int quads = tn / 4;   // output column quads a row
+      for (int idx = tw; idx < own * quads; idx += 128) {
+        const int lr = idx / quads, c = 4 * (idx % quads), n = t.nt * tn + c;
+        if (n >= a.N) continue;
+        const int sw = (r0 + lr) & 7;   // the pusher's swizzle of tile row r0 + lr
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
+#pragma unroll 4
+        for (int q = 0; q < 8; ++q) {
+          if (q < a.split) {   // in rank order
+            const uint32_t row = ring + (q * rmax + lr) * 512;
+            const uint4 x = ld_shared_v4(row + (((c / 4) ^ sw) << 4));
+            v.x += __uint_as_float(x.x), v.y += __uint_as_float(x.y);
+            v.z += __uint_as_float(x.z), v.w += __uint_as_float(x.w);
+            if (a.dual) {   // up's columns, 64 on
+              const uint4 y = ld_shared_v4(row + (((c / 4 + 16) ^ sw) << 4));
+              w.x += __uint_as_float(y.x), w.y += __uint_as_float(y.y);
+              w.z += __uint_as_float(y.z), w.w += __uint_as_float(y.w);
+            }
+          }
+        }
+        const float2 y0 = i8_value<EPI>(make_float2(v.x, v.y), make_float2(w.x, w.y), prms + c,
+                                        prms + 128 + c, prms + 256 + c);
+        const float2 y1 = i8_value<EPI>(make_float2(v.z, v.w), make_float2(w.z, w.w),
+                                        prms + c + 2, prms + 130 + c, prms + 258 + c);
+        const size_t o = (size_t)(t.mb * 64 + r0 + lr) * a.N + n;   // one 8- or 16-byte store
+        if constexpr (EPI == I8_RAW)
+          *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) =
+              make_float4(y0.x, y0.y, y1.x, y1.y);
+        else
+          *reinterpret_cast<uint2*>(static_cast<bf16*>(a.out) + o) =
+              make_uint2(pack_bf16(y0.x, y0.y), pack_bf16(y1.x, y1.y));
+      }
+      cluster_sync();   // every copy out of this block's staging is done
+    }
   }
 }
+
+// ---- host ----
+
+struct MapKey {
+  const void* p;
+  int rows, cols, box_rows, bytes;
+  bool operator==(const MapKey& o) const {
+    return p == o.p && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
+           bytes == o.bytes;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.p);
+    for (int v : {k.rows, k.cols, k.box_rows, k.bytes}) h = h * 1000003u ^ (size_t)v;
+    return h;
+  }
+};
+
+// The tensor map of a bf16 [rows, cols] matrix in boxes of box_rows x 64
+// columns under the 128-byte swizzle, or (bytes) of an int8 one in unswizzled
+// boxes of box_rows x 64 bytes; encoded once for each key
+int cached_map(CUtensorMap* out, const void* p, int rows, int cols, int box_rows, bool bytes) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{p, rows, cols, box_rows, bytes ? 1 : 0};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = cache.find(key);
+    if (it != cache.end()) {
+      *out = it->second;
+      return 0;
+    }
+  }
+  VBT_CHECK((cudaError_t)bind_device(p));   // the encoder is a driver call
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const bool ok = bytes ? make_byte_map(enc, out, p, rows, cols, box_rows, 64, false)
+                        : make_map(enc, out, p, rows, cols, box_rows);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *out);
+  return 0;
+}
+
+template <typename S, int EPI>
+int i8mm_launch(const bf16* X, const int8_t* W0, const int8_t* W1, const I8Args& a,
+                cudaStream_t st) {
+  auto kernel = i8mm_kernel<S::WGS, S::MT, EPI>;
+  CUtensorMap xm, w0m, w1m;
+  int rc = cached_map(&xm, X, a.M, a.K, S::BM, false);
+  if (!rc) rc = cached_map(&w0m, W0, a.K, a.N, I8_BK, true);
+  if (!rc) rc = cached_map(&w1m, a.dual ? W1 : W0, a.K, a.N, I8_BK, true);
+  if (rc) return rc;
+  static bool allowed = false;   // one flag for each instantiation
+  if (!allowed) {
+    VBT_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM));
+    allowed = true;
+  }
+  const int tn = a.dual ? 64 : 128;
+  const int units = (a.M + S::BM - 1) / S::BM * ((a.N + tn - 1) / tn) * a.split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S::DECODE ? units : min(units, sm_count()));
+  cfg.blockDim = dim3(S::THREADS);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.split > 1 ? 1 : 0;
+  VBT_CHECK(cudaLaunchKernelEx(&cfg, kernel, xm, w0m, w1m, a));
+  VBT_CHECK_LAUNCH();
+  return 0;
+}
+
+// one instantiation for each epilogue
+template <typename S>
+int i8mm_form(const bf16* X, const int8_t* W0, const int8_t* W1, const I8Args& a,
+              cudaStream_t st) {
+  switch (a.epi) {
+    case I8_RAW: return i8mm_launch<S, I8_RAW>(X, W0, W1, a, st);
+    case I8_SCALE: return i8mm_launch<S, I8_SCALE>(X, W0, W1, a, st);
+    case I8_GEGLU: return i8mm_launch<S, I8_GEGLU>(X, W0, W1, a, st);
+    case I8_GELU_ERF: return i8mm_launch<S, I8_GELU_ERF>(X, W0, W1, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the decode form and the tower's
+using I8Decode = I8Shape<1, 1>;
+using I8Tower = I8Shape<2, 2>;
 
 }  // namespace
 
 // Declared in linear_common.cuh: the per-layer decode steps (layer_step.cu)
 // run their four products through it too.
-int launch_i8l_product(const bf16* X, const int8_t* W0, const int8_t* W1, float* P, int M, int N,
-                       int K, int splits, cudaStream_t st) {
-  if (N % 16 != 0 || K % 8 != 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  static bool allowed = false;
-  if (!allowed) {
-    VBT_CHECK(cudaFuncSetAttribute(i8l_product_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES));
-    allowed = true;
-  }
-  const int chunks = (K + KC - 1) / KC;
-  const int k_per_split = ((chunks + splits - 1) / splits) * KC;
-  const int tile = W1 != nullptr ? BNH : 2 * BNH;
-  dim3 grid((N + tile - 1) / tile, splits, (M + BM - 1) / BM);
-  i8l_product_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(X, W0, W1, P, M, N, K, k_per_split);
-  VBT_CHECK_LAUNCH();
-  return 0;
+int launch_i8mm(const bf16* X, const int8_t* W0, const int8_t* W1, int M, int N, int K, int epi,
+                const float* s0, const float* s1, const float* bias, void* out, int split,
+                cudaStream_t st) {
+  const int chunks = (K + I8_BK - 1) / I8_BK;
+  if (M < 1 || K < 8 || N < 16 || K % 8 != 0 || N % 16 != 0 || split < 1 || split > 8 ||
+      split > chunks || (split > 1 && M > 128) || (epi == I8_GEGLU) != (W1 != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const I8Args a{s0, s1, bias, out, M, N, K, epi, split, W1 != nullptr ? 1 : 0};
+  return M <= 128 ? i8mm_form<I8Decode>(X, W0, W1, a, st) : i8mm_form<I8Tower>(X, W0, W1, a, st);
 }
 
-// y[M, N] bf16 = (x[M, K] bf16 . w[K, N] int8) * scale[N]. part: f32 scratch
-// of splits * M * N.
-extern "C" int vbt_int8_matmul(const void* x, const void* w, const void* scale, void* part,
-                               void* y, int M, int K, int N, int splits, void* stream_ptr) {
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  int rc = launch_i8l_product((const bf16*)x, (const int8_t*)w, nullptr, (float*)part, M, N, K,
-                              splits, st);
-  if (rc != 0) return rc;
-  return launch_epilogue<EPI_SCALE>((const float*)part, splits, M, N, (const float*)scale,
-                                    nullptr, nullptr, (bf16*)y, st);
+// The clusters of `split` blocks of the decode form that the current device
+// runs at once (cudaOccupancyMaxActiveClusters), or -1 on an error: the split
+// plan keeps a product's clusters to one wave.
+extern "C" int vbt_int8_clusters(int split, void* stream_ptr) {
+  using S = I8Decode;
+  auto kernel = i8mm_kernel<S::WGS, S::MT, I8_SCALE>;
+  (void)stream_ptr;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM) !=
+      cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * 32);
+  cfg.blockDim = dim3(S::THREADS);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
+  return n;
 }
 
-// Gemma's GeGLU MLP. gate, up: int8 [H, F]; down: int8 [F, H]. part: f32
-// scratch of max(2 * splits1 * M * F, splits2 * M * H); hidden: bf16 [M, F].
+// y[M, N] bf16 = (x[M, K] bf16 . w[K, N] int8) * scale[N], the contraction in
+// `split` slices (1 when M > 128)
+extern "C" int vbt_int8_matmul(const void* x, const void* w, const void* scale, void* y, int M,
+                               int K, int N, int split, void* stream_ptr) {
+  return launch_i8mm((const bf16*)x, (const int8_t*)w, nullptr, M, N, K, I8_SCALE,
+                     (const float*)scale, nullptr, nullptr, y, split, (cudaStream_t)stream_ptr);
+}
+
+// Gemma's GeGLU MLP. gate, up: int8 [H, F]; down: int8 [F, H]; hidden: bf16
+// [M, F]; split1 / split2: the two products' slices.
 extern "C" int vbt_int8_mlp(const void* x, const void* gate, const void* up, const void* gs,
-                            const void* us, const void* down, const void* ds, void* part,
-                            void* hidden, void* y, int M, int H, int F, int splits1,
-                            int splits2, void* stream_ptr) {
+                            const void* us, const void* down, const void* ds, void* hidden,
+                            void* y, int M, int H, int F, int split1, int split2,
+                            void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  int rc = launch_i8l_product((const bf16*)x, (const int8_t*)gate, (const int8_t*)up, (float*)part,
-                          M, F, H, splits1, st);
+  int rc = launch_i8mm((const bf16*)x, (const int8_t*)gate, (const int8_t*)up, M, F, H, I8_GEGLU,
+                       (const float*)gs, (const float*)us, nullptr, hidden, split1, st);
   if (rc != 0) return rc;
-  rc = launch_epilogue<EPI_GEGLU>((const float*)part, splits1, M, F, (const float*)gs,
-                                  (const float*)us, nullptr, (bf16*)hidden, st);
-  if (rc != 0) return rc;
-  rc = launch_i8l_product((const bf16*)hidden, (const int8_t*)down, nullptr, (float*)part, M, H, F,
-                      splits2, st);
-  if (rc != 0) return rc;
-  return launch_epilogue<EPI_SCALE>((const float*)part, splits2, M, H, (const float*)ds,
-                                    nullptr, nullptr, (bf16*)y, st);
+  return launch_i8mm((const bf16*)hidden, (const int8_t*)down, nullptr, M, H, F, I8_SCALE,
+                     (const float*)ds, nullptr, nullptr, y, split2, st);
 }
 
-// The bridge's biased FFN. fc1: int8 [H, F]; fc2: int8 [F, H]. part: f32
-// scratch of max(splits1 * M * F, splits2 * M * H); hidden: bf16 [M, F].
+// The bridge's biased FFN. fc1: int8 [H, F]; fc2: int8 [F, H]; hidden: bf16
+// [M, F]; split1 / split2: the two products' slices.
 extern "C" int vbt_int8_ffn(const void* x, const void* fc1, const void* s1, const void* b1,
-                            const void* fc2, const void* s2, const void* b2, void* part,
-                            void* hidden, void* y, int M, int H, int F, int splits1,
-                            int splits2, void* stream_ptr) {
+                            const void* fc2, const void* s2, const void* b2, void* hidden,
+                            void* y, int M, int H, int F, int split1, int split2,
+                            void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  int rc = launch_i8l_product((const bf16*)x, (const int8_t*)fc1, nullptr, (float*)part, M, F, H,
-                          splits1, st);
+  int rc = launch_i8mm((const bf16*)x, (const int8_t*)fc1, nullptr, M, F, H, I8_GELU_ERF,
+                       (const float*)s1, nullptr, (const float*)b1, hidden, split1, st);
   if (rc != 0) return rc;
-  rc = launch_epilogue<EPI_GELU_ERF>((const float*)part, splits1, M, F, (const float*)s1,
-                                     nullptr, (const float*)b1, (bf16*)hidden, st);
-  if (rc != 0) return rc;
-  rc = launch_i8l_product((const bf16*)hidden, (const int8_t*)fc2, nullptr, (float*)part, M, H, F,
-                      splits2, st);
-  if (rc != 0) return rc;
-  return launch_epilogue<EPI_SCALE>((const float*)part, splits2, M, H, (const float*)s2,
-                                    nullptr, (const float*)b2, (bf16*)y, st);
+  return launch_i8mm((const bf16*)hidden, (const int8_t*)fc2, nullptr, M, H, F, I8_SCALE,
+                     (const float*)s2, nullptr, (const float*)b2, y, split2, st);
 }

@@ -13,7 +13,9 @@
 // between the two passes (a lane holds 8 adjacent values of every 256, loaded
 // as one or two 16-byte pieces), so device memory sees each value once; mean
 // and variance are warp shuffles, no shared memory and no block barrier.
-// H must be a multiple of 8 and at most 256 * LN_CHUNKS.
+// Rows wider than 256 * LN_CHUNKS (Gemma-2-27B's bridge: 4608) take
+// layer_norm_wide_kernel, the same arithmetic in the same order over a row
+// read three times (the L1 holds it). H must be a multiple of 8.
 
 #include "common.cuh"
 
@@ -101,11 +103,54 @@ layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// Rows of any width: the warp walks the row in 256-value chunks in each pass
+// (the mean, the squared deviations, the output), reading it again each time.
+template <typename T>
+__global__ void __launch_bounds__(32 * LN_WARPS)
+layer_norm_wide_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                       const float* __restrict__ bias, T* __restrict__ y, int rows, int H,
+                       float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * H;
+  T* yr = y + (size_t)row * H;
+  float v[8], sum = 0.f;
+  for (int i = lane * 8; i < H; i += 256) {
+    load8(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum += v[e];
+  }
+  const float mean = warp_sum(sum) / H;
+  float sq = 0.f;
+  for (int i = lane * 8; i < H; i += 256) {
+    load8(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] -= mean;
+      sq += v[e] * v[e];
+    }
+  }
+  const float r = rsqrtf(warp_sum(sq) / H + eps);
+  for (int i = lane * 8; i < H; i += 256) {
+    float s8[8], b8[8], o[8];
+    load8(xr + i, v);
+    load8(scale + i, s8);
+    load8(bias + i, b8);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = (v[e] - mean) * r * s8[e] + b8[e];
+    store8(yr + i, o);
+  }
+}
+
 template <typename T>
 int launch(const T* x, const float* scale, const float* bias, T* y, int rows, int H, float eps,
            cudaStream_t st) {
-  layer_norm_kernel<T><<<(rows + LN_WARPS - 1) / LN_WARPS, 32 * LN_WARPS, 0, st>>>(
-      x, scale, bias, y, rows, H, eps);
+  const int blocks = (rows + LN_WARPS - 1) / LN_WARPS;
+  if (H <= 256 * LN_CHUNKS)
+    layer_norm_kernel<T><<<blocks, 32 * LN_WARPS, 0, st>>>(x, scale, bias, y, rows, H, eps);
+  else
+    layer_norm_wide_kernel<T><<<blocks, 32 * LN_WARPS, 0, st>>>(x, scale, bias, y, rows, H, eps);
   VBT_CHECK_LAUNCH();
   return 0;
 }
@@ -113,10 +158,10 @@ int launch(const T* x, const float* scale, const float* bias, T* y, int rows, in
 }  // namespace
 
 // y[rows, H] = LayerNorm(x[rows, H]) in x's type (bf16, or f32 when is_f32);
-// scale, bias: f32 [H]. H % 8 == 0 and H <= 4096.
+// scale, bias: f32 [H]. H % 8 == 0.
 extern "C" int vbt_layer_norm(const void* x, const void* scale, const void* bias, void* y,
                               int rows, int H, int is_f32, float eps, void* stream_ptr) {
-  if (rows < 1 || H < 8 || H % 8 != 0 || H > 256 * LN_CHUNKS) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || H < 8 || H % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream_ptr;
   if (is_f32)
     return launch<float>((const float*)x, (const float*)scale, (const float*)bias, (float*)y,

@@ -18,12 +18,13 @@
 // and o, 63.7 MB for the MLP) plus the live cache rows.
 //
 // Design. The four products are the int8 product kernel of int8_linear.cu
-// (launch_i8l_product: bf16 x, weights as they are, the contraction split
-// over blocks, raw f32 slices to scratch) and the MLP's hidden comes from
-// its GeGLU epilogue (linear_common.cuh). What is new sits between them:
+// (launch_i8mm: bf16 x, weights as they are, TMA + wgmma, the contraction
+// split over the blocks of one cluster and added in rank order): q|k|v, o and
+// down leave their raw f32 sums, and gate|up the MLP's bf16 hidden through
+// its GeGLU epilogue. What is new sits between them:
 //   ls_rms_kernel       the pre-norm, rounded to bf16 as the TPU kernel does;
-//   ls_attn_kernel      one block per (kv head, batch row): adds the q|k|v
-//                       slices in a fixed order, applies the scales, RoPE,
+//   ls_attn_kernel      one block per (kv head, batch row): applies the
+//                       q|k|v scales and RoPE,
 //                       quantizes the new K and V per vector and hands them
 //                       back (the cache is read, never written: the caller
 //                       writes row t), then attends over rows s < t and the
@@ -33,9 +34,10 @@
 //                       self term is left. q and p * v_scale are rounded to
 //                       bf16 before their products and the output to bf16,
 //                       where the TPU kernel casts;
-//   ls_residual_kernel  adds the o / down slices in a fixed order, applies
-//                       the scales, the post-norm and the residual, and
-//                       rounds once to bf16.
+//   ls_residual_kernel  applies the o / down scales, the post-norm and the
+//                       residual, and rounds once to bf16.
+// The row kernels hold a row in registers, R values a thread (common.cuh:
+// row_regs; rows up to ROW_MAX wide).
 // No atomics anywhere: the same inputs give the same bits. The stack step
 // (stack_step.cu) computes the same layer with f32 (hi + lo) activations
 // between its stages and an f32 residual across layers; here the residual
@@ -55,49 +57,45 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // h[row] = bf16(rms(x[row]) * (1 + w)); one block of 256 threads a row. The
 // norm weights are bf16, as the model holds them on the card.
+template <int R>
 __global__ void __launch_bounds__(256)
 ls_rms_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
               bf16* __restrict__ h, int H, float eps) {
   __shared__ float red[32];
   const size_t row = (size_t)blockIdx.x * H;
-  float v[ROW_REGS], ss = 0.f;
+  float v[R], ss = 0.f;
 #pragma unroll
-  for (int k = 0; k < ROW_REGS; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int i = threadIdx.x + k * 256;
     v[k] = i < H ? __bfloat162float(x[row + i]) : 0.f;
     ss += v[k] * v[k];
   }
   const float r = rsqrtf(block_sum(ss, red) / H + eps);
 #pragma unroll
-  for (int k = 0; k < ROW_REGS; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int i = threadIdx.x + k * 256;
     if (i < H) h[row + i] = __float2bfloat16(v[k] * r * (1.f + __bfloat162float(w[i])));
   }
 }
 
-// x_out[row] = bf16(x[row] + rms(y) * (1 + w)), y = (sum of the slices) * scale.
+// x_out[row] = bf16(x[row] + rms(y) * (1 + w)), y = part[row] * scale.
+template <int R>
 __global__ void __launch_bounds__(256)
-ls_residual_kernel(const bf16* __restrict__ x, const float* __restrict__ part, int splits,
+ls_residual_kernel(const bf16* __restrict__ x, const float* __restrict__ part,
                    const float* __restrict__ scale, const bf16* __restrict__ w,
                    bf16* __restrict__ x_out, int H, float eps) {
   __shared__ float red[32];
   const size_t row = (size_t)blockIdx.x * H;
-  const size_t slice = (size_t)gridDim.x * H;
-  float y[ROW_REGS], ss = 0.f;
+  float y[R], ss = 0.f;
 #pragma unroll
-  for (int k = 0; k < ROW_REGS; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int i = threadIdx.x + k * 256;
-    float a = 0.f;
-    if (i < H) {
-      for (int sp = 0; sp < splits; ++sp) a += part[sp * slice + row + i];   // fixed order
-      a *= scale[i];
-    }
-    y[k] = a;
-    ss += a * a;
+    y[k] = i < H ? part[row + i] * scale[i] : 0.f;
+    ss += y[k] * y[k];
   }
   const float r = rsqrtf(block_sum(ss, red) / H + eps);
 #pragma unroll
-  for (int k = 0; k < ROW_REGS; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int i = threadIdx.x + k * 256;
     if (i < H)
       x_out[row + i] = __float2bfloat16(__bfloat162float(x[row + i]) +
@@ -106,8 +104,8 @@ ls_residual_kernel(const bf16* __restrict__ x, const float* __restrict__ part, i
 }
 
 // One block per (kv head, batch row); blockDim.x == D. part: the q|k|v
-// product's slices [splits][B][NQKV]. Shared memory: (2 G + 1) D + G t floats.
-__global__ void ls_attn_kernel(const float* __restrict__ part, int splits,
+// product's f32 sums [B][NQKV]. Shared memory: (2 G + 1) D + G t floats.
+__global__ void ls_attn_kernel(const float* __restrict__ part,
                                const float* __restrict__ qkv_scale,
                                const float* __restrict__ cosv, const float* __restrict__ sinv,
                                const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
@@ -126,11 +124,7 @@ __global__ void ls_attn_kernel(const float* __restrict__ part, int splits,
   const int kh = blockIdx.x, b = blockIdx.y, B = gridDim.y, d = threadIdx.x;
   const int QHD = NH * D, KHD = KH * D, NQKV = QHD + 2 * KHD, half = D / 2;
 
-  auto column = [&](int col) {
-    float a = 0.f;
-    for (int sp = 0; sp < splits; ++sp) a += part[((size_t)sp * B + b) * NQKV + col];   // fixed order
-    return a * qkv_scale[col];
-  };
+  auto column = [&](int col) { return part[(size_t)b * NQKV + col] * qkv_scale[col]; };
   for (int g = 0; g < G; ++g) raw[g * D + d] = column((kh * G + g) * D + d);
   raw[G * D + d] = column(QHD + kh * D + d);
   const float vnew = column(QHD + KHD + kh * D + d);
@@ -203,7 +197,7 @@ __global__ void ls_attn_kernel(const float* __restrict__ part, int splits,
 // cos, sin: f32 [D]; kc, vc: int8 [B, KH, S, D] and ks, vs: f32 [B, KH, S],
 // read at rows s < t only; attn: bf16 [B, NH D]; k_new, v_new: int8
 // [B, KH D]; k_sc, v_sc: f32 [KH, B]; part: f32 scratch of
-// max(splits_qkv * B * (NH + 2 KH) D, splits_o * B * H).
+// B * max((NH + 2 KH) D, H); splits_qkv / splits_o: the products' slices.
 extern "C" int vbt_fused_attn_step(
     const void* x, const void* wqkv, const void* qkv_scale, const void* wo, const void* o_scale,
     const void* in_norm, const void* post_norm, const void* cosv, const void* sinv,
@@ -216,32 +210,32 @@ extern "C" int vbt_fused_attn_step(
   const int G = NH / KH, QHD = NH * D, NQKV = QHD + 2 * KH * D;
   const size_t attn_smem = sizeof(float) * ((size_t)(2 * G + 1) * D + (size_t)G * t);
   if (t < 0 || t >= S || D % 32 != 0 || D > 1024 || G * KH != NH || G > D / 32 ||
-      H > 256 * ROW_REGS || attn_smem > 48 * 1024)
+      H > ROW_MAX || attn_smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
-  ls_rms_kernel<<<B, 256, 0, st>>>((const bf16*)x, (const bf16*)in_norm, (bf16*)h, H, eps);
+  VBT_ROW_LAUNCH(ls_rms_kernel, H, B, 0, st, (const bf16*)x, (const bf16*)in_norm, (bf16*)h, H,
+                 eps);
   VBT_CHECK_LAUNCH();
-  int rc = launch_i8l_product((const bf16*)h, (const int8_t*)wqkv, nullptr, (float*)part, B,
-                              NQKV, H, splits_qkv, st);
+  int rc = launch_i8mm((const bf16*)h, (const int8_t*)wqkv, nullptr, B, NQKV, H, I8_RAW, nullptr,
+                       nullptr, nullptr, part, splits_qkv, st);
   if (rc != 0) return rc;
   ls_attn_kernel<<<dim3(KH, B), D, attn_smem, st>>>(
-      (const float*)part, splits_qkv, (const float*)qkv_scale, (const float*)cosv,
+      (const float*)part, (const float*)qkv_scale, (const float*)cosv,
       (const float*)sinv, (const int8_t*)kc, (const int8_t*)vc, (const float*)ks,
       (const float*)vs, (bf16*)attn, (int8_t*)k_new, (int8_t*)v_new, (float*)k_sc, (float*)v_sc,
       NH, KH, D, S, t, attn_scale, softcap);
   VBT_CHECK_LAUNCH();
-  rc = launch_i8l_product((const bf16*)attn, (const int8_t*)wo, nullptr, (float*)part, B, H, QHD,
-                          splits_o, st);
+  rc = launch_i8mm((const bf16*)attn, (const int8_t*)wo, nullptr, B, H, QHD, I8_RAW, nullptr,
+                   nullptr, nullptr, part, splits_o, st);
   if (rc != 0) return rc;
-  ls_residual_kernel<<<B, 256, 0, st>>>((const bf16*)x, (const float*)part, splits_o,
-                                        (const float*)o_scale, (const bf16*)post_norm,
-                                        (bf16*)x_out, H, eps);
+  VBT_ROW_LAUNCH(ls_residual_kernel, H, B, 0, st, (const bf16*)x, (const float*)part,
+                 (const float*)o_scale, (const bf16*)post_norm, (bf16*)x_out, H, eps);
   VBT_CHECK_LAUNCH();
   return 0;
 }
 
 // The MLP half of one layer. x, x_out, h: bf16 [B, H]; gate, up: int8 [H, F];
 // down: int8 [F, H]; scales f32; norms bf16 [H]; hidden: bf16 [B, F];
-// part: f32 scratch of max(2 * splits1 * B * F, splits2 * B * H).
+// part: f32 scratch of B * H; splits1 / splits2: the products' slices.
 extern "C" int vbt_fused_mlp_step(
     const void* x, const void* gate, const void* up, const void* gs, const void* us,
     const void* down, const void* ds, const void* pre_norm, const void* post_norm,
@@ -249,21 +243,18 @@ extern "C" int vbt_fused_mlp_step(
     int B, int H, int F, int splits1, int splits2, float eps,
     void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  if (H > 256 * ROW_REGS) return (int)cudaErrorInvalidValue;
-  ls_rms_kernel<<<B, 256, 0, st>>>((const bf16*)x, (const bf16*)pre_norm, (bf16*)h, H, eps);
+  if (H > ROW_MAX) return (int)cudaErrorInvalidValue;
+  VBT_ROW_LAUNCH(ls_rms_kernel, H, B, 0, st, (const bf16*)x, (const bf16*)pre_norm, (bf16*)h, H,
+                 eps);
   VBT_CHECK_LAUNCH();
-  int rc = launch_i8l_product((const bf16*)h, (const int8_t*)gate, (const int8_t*)up,
-                              (float*)part, B, F, H, splits1, st);
+  int rc = launch_i8mm((const bf16*)h, (const int8_t*)gate, (const int8_t*)up, B, F, H, I8_GEGLU,
+                       (const float*)gs, (const float*)us, nullptr, hidden, splits1, st);
   if (rc != 0) return rc;
-  rc = launch_epilogue<EPI_GEGLU>((const float*)part, splits1, B, F, (const float*)gs,
-                                  (const float*)us, nullptr, (bf16*)hidden, st);
+  rc = launch_i8mm((const bf16*)hidden, (const int8_t*)down, nullptr, B, H, F, I8_RAW, nullptr,
+                   nullptr, nullptr, part, splits2, st);
   if (rc != 0) return rc;
-  rc = launch_i8l_product((const bf16*)hidden, (const int8_t*)down, nullptr, (float*)part, B, H,
-                          F, splits2, st);
-  if (rc != 0) return rc;
-  ls_residual_kernel<<<B, 256, 0, st>>>((const bf16*)x, (const float*)part, splits2,
-                                        (const float*)ds, (const bf16*)post_norm, (bf16*)x_out, H,
-                                        eps);
+  VBT_ROW_LAUNCH(ls_residual_kernel, H, B, 0, st, (const bf16*)x, (const float*)part,
+                 (const float*)ds, (const bf16*)post_norm, (bf16*)x_out, H, eps);
   VBT_CHECK_LAUNCH();
   return 0;
 }

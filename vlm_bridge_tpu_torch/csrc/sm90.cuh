@@ -1,9 +1,10 @@
 // Hopper helpers shared by the wgmma + TMA kernels (tiled_matmul.cu,
-// flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh, greedy_head.cu): shared-memory
-// addresses, mbarriers, TMA loads (with L2 policies) and stores with their
-// bulk groups, named barriers, the wgmma shared-memory descriptor with its
-// fence / commit / wait, the widening of int8 and int4 weights into bf16
-// wgmma A fragments, and the host's tensor-map encoder. Built for sm_90a only
+// flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh, greedy_head.cu, int8_linear.cu):
+// shared-memory addresses, mbarriers, TMA loads (with L2 policies) and stores
+// with their bulk groups, named barriers, the wgmma shared-memory descriptor
+// with its fence / commit / wait, the widening of int8 and int4 weights into
+// bf16, cluster barriers and another block's shared-memory addresses, and the
+// host's tensor-map encoder. Built for sm_90a only
 // (wgmma and setmaxnreg exist nowhere else).
 #pragma once
 
@@ -198,6 +199,24 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
+// ---- thread-block clusters ----
+
+// Every thread of every block of the cluster arrives, then waits: shared-memory
+// writes before it are seen by the other blocks' reads after it. All threads of
+// a block call it, each warp converged.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address, in the shared memory of the cluster's block `rank`, of what lies
+// at `addr` in this block's
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
 // ---- host: tensor maps ----
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -298,6 +317,24 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint6
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : TM_D8(0), TM_D8(8), TM_D8(16), TM_D8(24), TM_D8(32), TM_D8(40), TM_D8(48), TM_D8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64, 128] (+)= A[64, 16] . B[16, 128]: A K-major, B MN-major (trans-b), both
+// read from shared memory through their descriptors; scale_d == 0 ignores D
+// (tiled_matmul.cu, int8_linear.cu).
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : TM_D8(0), TM_D8(8), TM_D8(16), TM_D8(24),
+        TM_D8(32), TM_D8(40), TM_D8(48), TM_D8(56)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -57,11 +57,12 @@
 namespace {
 
 // x (f32 residual) update and next RMSNorm, one block of 256 threads per
-// batch row, the row held in registers (H <= 256 * ROW_REGS):
+// batch row, the row held in registers, R values a thread (H <= 256 R):
 //   x_in != null : x = float(x_in), and the n_zero floats at zero are zeroed
 //   y    != null : x += rms(y) * (1 + w_post); y's row is zeroed once read
 //   h    != null : h = rms(x) * (1 + w_next), split [2, B, H]
 //   xo   != null : xo = bf16(x)
+template <int R>
 __global__ void __launch_bounds__(256)
 residual_rms_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
                     float* __restrict__ y, const float* __restrict__ w_post,
@@ -72,16 +73,16 @@ residual_rms_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
   const size_t row = (size_t)blockIdx.x * H;
   for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n_zero; i += (size_t)gridDim.x * 256)
     zero[i] = 0.f;
-  float v[ROW_REGS];
+  float v[R];
 #pragma unroll
-  for (int k = 0; k < ROW_REGS; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int i = threadIdx.x + k * 256;
     v[k] = i >= H ? 0.f : (x_in != nullptr ? __bfloat162float(x_in[row + i]) : x[row + i]);
   }
   if (y != nullptr) {
-    float yv[ROW_REGS], ss = 0.f;
+    float yv[R], ss = 0.f;
 #pragma unroll
-    for (int k = 0; k < ROW_REGS; ++k) {
+    for (int k = 0; k < R; ++k) {
       const int i = threadIdx.x + k * 256;
       yv[k] = 0.f;
       if (i < H) {
@@ -92,13 +93,13 @@ residual_rms_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
     }
     const float r = rsqrtf(block_sum(ss, red) / H + eps);
 #pragma unroll
-    for (int k = 0; k < ROW_REGS; ++k) {
+    for (int k = 0; k < R; ++k) {
       const int i = threadIdx.x + k * 256;
       if (i < H) v[k] += yv[k] * r * (1.f + w_post[i]);
     }
   }
 #pragma unroll
-  for (int k = 0; k < ROW_REGS; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int i = threadIdx.x + k * 256;
     if (i < H) {
       x[row + i] = v[k];
@@ -108,10 +109,10 @@ residual_rms_kernel(const bf16* __restrict__ x_in, float* __restrict__ x,
   if (h != nullptr) {
     float ss = 0.f;
 #pragma unroll
-    for (int k = 0; k < ROW_REGS; ++k) ss += v[k] * v[k];
+    for (int k = 0; k < R; ++k) ss += v[k] * v[k];
     const float r = rsqrtf(block_sum(ss, red) / H + eps);
 #pragma unroll
-    for (int k = 0; k < ROW_REGS; ++k) {
+    for (int k = 0; k < R; ++k) {
       const int i = threadIdx.x + k * 256;
       if (i < H) store_split(h, (size_t)gridDim.x * H, row + i, v[k] * r * (1.f + w_next[i]));
     }
@@ -232,6 +233,7 @@ extern "C" int vbt_fused_stack_step(
     void* x32, void* hbuf, void* abuf, void* ybuf,
     int L, int B, int H, int NH, int KH, int D, int F, int S, int t, int mlp4, int mlp4_group,
     float attn_scale, float softcap, float eps, void* stream_ptr) {
+  if (H > ROW_MAX) return (int)cudaErrorInvalidValue;
   VBT_CHECK((cudaError_t)bind_device(x_in));
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const int QHD = NH * D, KHD = KH * D, NQKV = QHD + 2 * KHD;
@@ -260,10 +262,9 @@ extern "C" int vbt_fused_stack_step(
 
   // y starts at zero: every product accumulates into it, every kernel that
   // reads it writes zeros back
-  residual_rms_kernel<<<B, 256, 0, st>>>((const bf16*)x_in, x, nullptr, nullptr, nrm, h,
-                                         nullptr, H, eps, y,
-                                         (size_t)B * max(max(NQKV, 2 * F), H));
-    VBT_CHECK_LAUNCH();
+  VBT_ROW_LAUNCH(residual_rms_kernel, H, B, 0, st, (const bf16*)x_in, x, nullptr, nullptr, nrm,
+                 h, nullptr, H, eps, y, (size_t)B * max(max(NQKV, 2 * F), H));
+  VBT_CHECK_LAUNCH();
   for (int l = 0; l < L; ++l) {
     const float* nl = nrm + (size_t)l * 4 * H;
     rc = launch_i8_gemm(map_h, w_qkv, l, (const float*)qkv_scale + (size_t)l * NQKV, nullptr, y,
@@ -277,8 +278,8 @@ extern "C" int vbt_fused_stack_step(
     rc = launch_i8_gemm(map_o, w_o, l, (const float*)o_scale + (size_t)l * H, nullptr, y, B, H,
                         QHD, st);
     if (rc) return rc;
-    residual_rms_kernel<<<B, 256, 0, st>>>(nullptr, x, y, nl + H, nl + 2 * H, h, nullptr, H,
-                                           eps, nullptr, 0);
+    VBT_ROW_LAUNCH(residual_rms_kernel, H, B, 0, st, nullptr, x, y, nl + H, nl + 2 * H, h,
+                   nullptr, H, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
     if (mlp4)
       rc = launch_i4_gemm(map_h, w_gu, l,
@@ -299,9 +300,9 @@ extern "C" int vbt_fused_stack_step(
                           st);
     if (rc) return rc;
     const bool last = (l == L - 1);
-    residual_rms_kernel<<<B, 256, 0, st>>>(nullptr, x, y, nl + 3 * H,
-                                           last ? nullptr : nl + 4 * H, last ? nullptr : h,
-                                           last ? (bf16*)x_out : nullptr, H, eps, nullptr, 0);
+    VBT_ROW_LAUNCH(residual_rms_kernel, H, B, 0, st, nullptr, x, y, nl + 3 * H,
+                   last ? nullptr : nl + 4 * H, last ? nullptr : h,
+                   last ? (bf16*)x_out : nullptr, H, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
   }
   return 0;

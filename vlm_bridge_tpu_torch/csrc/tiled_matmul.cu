@@ -51,7 +51,7 @@
 
 #include <type_traits>
 
-#include "sm90.cuh"   // mbarriers, TMA, wgmma descriptors and fences, tensor maps
+#include "sm90.cuh"   // mbarriers, TMA, wgmma (wgmma_n128) and its fences, tensor maps
 
 namespace {
 
@@ -74,23 +74,6 @@ constexpr int RING = STAGES * STAGE_BYTES;
 // and ordering barriers, and slack to align the ring to 1024
 constexpr int SMEM = RING + 2 * OUT_WG_BYTES + 2 * BN * 4 + (2 * STAGES + 2) * 8 + 1024;
 static_assert(SMEM <= 232448, "shared memory of one block");
-
-// D[64, 128] (+)= A[64, 16] . B[16, 128]: A K-major, B MN-major (trans-b), both
-// read from shared memory through their descriptors; scale_d == 0 ignores D.
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : TM_D8(0), TM_D8(8), TM_D8(16), TM_D8(24),
-        TM_D8(32), TM_D8(40), TM_D8(48), TM_D8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // GELU(x) = 0.5 x (1 + erf(x / sqrt 2)) = 0.5 x (2 - erfc(a)) for x >= 0 and
 // 0.5 x erfc(a) for x < 0, a = |x| / sqrt 2, with erfc from Abramowitz &

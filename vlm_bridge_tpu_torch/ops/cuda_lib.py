@@ -37,9 +37,10 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 SIGNATURES = {
     "vbt_int8_matmul_t_argmax": [_P] * 6 + [_I] * 3 + [_P],
     "vbt_int8_matmul_t": [_P] * 4 + [_I] * 3 + [_P],
-    "vbt_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
-    "vbt_int8_mlp": [_P] * 10 + [_I] * 5 + [_P],
-    "vbt_int8_ffn": [_P] * 10 + [_I] * 5 + [_P],
+    "vbt_int8_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "vbt_int8_mlp": [_P] * 9 + [_I] * 5 + [_P],
+    "vbt_int8_ffn": [_P] * 9 + [_I] * 5 + [_P],
+    "vbt_int8_clusters": [_I, _P],
     "vbt_int4_matmul_t_argmax": [_P] * 6 + [_I] * 4 + [_P],
     "vbt_int4_matmul_t": [_P] * 4 + [_I] * 4 + [_P],
     "vbt_int4_mlp": [_P] * 10 + [_I] * 7 + [_P],

@@ -27,8 +27,8 @@ residual stream to x.dtype at the end of each half, twice a layer; the stack
 step keeps f32 between its stages (hi + lo halves) and across all layers.
 Their plain versions round at the same places. In the sources, the per-layer
 steps run their four products through the int8 linear layers' product kernel
-and GeGLU epilogue (csrc/int8_linear.cu, linear_common.cuh: row-major
-weights, no second layout); with the stack step (csrc/stack_step.cu) they
+and its GeGLU epilogue (csrc/int8_linear.cu: row-major weights, no second
+layout); with the stack step (csrc/stack_step.cu) they
 share the per-vector int8 and soft-cap helpers and the block reductions of
 common.cuh, not its kernels, which write the cache in place and store split
 activations.
@@ -58,6 +58,10 @@ there):
   bridge caches: cross K/V [nb, B, Hc, Sv, Dc] int8 + scales
     [nb, B, Hc, Sv]; self K/V [nb, B, Hs, Smax, Ds] in the activation dtype.
 The caches are updated in place at row t.
+
+The steps' residual and norm kernels hold a row in registers, 256 threads a
+row and up to 64 values a thread: rows up to ROW_MAX wide (every
+configuration of configs.py; Gemma-2-27B's 4608 takes 32 values a thread).
 """
 
 from __future__ import annotations
@@ -66,7 +70,14 @@ import torch
 
 from vlm_bridge_tpu_torch.ops import cuda_lib
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, gelu_tanh
-from vlm_bridge_tpu_torch.ops.quant import _pack_nibbles, _sms, _splits, unpack_int4
+from vlm_bridge_tpu_torch.ops.quant import _pack_nibbles, _split, unpack_int4
+
+ROW_MAX = 256 * 64   # csrc/common.cuh: ROW_MAX
+
+
+def _check_row_width(h: int) -> None:
+    if h > ROW_MAX:
+        raise ValueError(f"rows of {h} values: the row kernels hold at most {ROW_MAX}")
 
 
 def _rms(v: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -330,9 +341,9 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     for n in (NQKV, H, 2 * F):
         if n % 64:
             raise ValueError(f"projection width {n} must be a multiple of 64")
-    if NQKV != QHD + 2 * KHD or H % 64 or QHD % 64 or F % 64 or H > 4096:
-        raise ValueError("stacked weight widths do not match the head layout "
-                         "or exceed the row kernels' 4096")
+    if NQKV != QHD + 2 * KHD or H % 64 or QHD % 64 or F % 64:
+        raise ValueError("stacked weight widths do not match the head layout")
+    _check_row_width(H)
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (B, H))
     if mlp4:
@@ -453,8 +464,9 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
         raise ValueError(f"position {t} outside the {Smax}-row self cache")
     if Dc * Hc != ld or Ds * Hs != ld or Dc % 32 or Ds % 32 or Dc > 1024 or Ds > 1024:
         raise ValueError(f"unsupported head widths Dc={Dc} Ds={Ds}")
-    if ld % 64 or F % 64 or ld > 4096:
-        raise ValueError(f"widths ld={ld} F={F} must be multiples of 64, ld <= 4096")
+    if ld % 64 or F % 64:
+        raise ValueError(f"widths ld={ld} F={F} must be multiples of 64")
+    _check_row_width(ld)
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (B, ld))
     c(bst["lns"], "lns", torch.float32, (nb, 6, ld))
@@ -578,8 +590,9 @@ def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, si
         raise ValueError(f"position {t} outside the {S}-row cache")
     if D % 32 or D > 1024 or NH % KH or NH // KH > D // 32:
         raise ValueError(f"unsupported head layout NH={NH} KH={KH} D={D}")
-    if H % 16 or H > 4096 or NQKV % 16 or QHD % 8:
+    if H % 16 or NQKV % 16 or QHD % 8:
         raise ValueError(f"unsupported widths H={H} q|k|v={NQKV}")
+    _check_row_width(H)
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (B, H))
     for name, wq, shape in (("wqkv", wqkv, (H, NQKV)), ("wo", wo, (QHD, H))):
@@ -594,9 +607,8 @@ def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, si
                                 ("ks", ks, torch.float32, (B, KH, S)),
                                 ("vs", vs, torch.float32, (B, KH, S))):
         c(tt, name, dt, shape)
-    dev, sms = x.device, _sms(x.device)
-    s_qkv = _splits(B, NQKV, H, dual=False, sms=sms)
-    s_o = _splits(B, H, QHD, dual=False, sms=sms)
+    dev = x.device
+    s_qkv, s_o = _split(B, NQKV, H, False, dev), _split(B, H, QHD, False, dev)
     x_out = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     k_new = torch.empty(B, KHD, dtype=torch.int8, device=dev)
     v_new = torch.empty(B, KHD, dtype=torch.int8, device=dev)
@@ -604,7 +616,7 @@ def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, si
     v_sc = torch.empty(KH, B, dtype=torch.float32, device=dev)
     h = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     attn = torch.empty(B, QHD, dtype=torch.bfloat16, device=dev)
-    part = torch.empty(max(s_qkv * B * NQKV, s_o * B * H), dtype=torch.float32, device=dev)
+    part = torch.empty(B * max(NQKV, H), dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.call(
         "vbt_fused_attn_step", p(x), p(wqkv["w_int8"]), p(wqkv["scale"]), p(wo["w_int8"]),
@@ -642,8 +654,9 @@ def fused_mlp_step(x, gate_q: dict, up_q: dict, down_q: dict, pre_norm, post_nor
         return fused_mlp_step_plain(x, gate_q, up_q, down_q, pre_norm, post_norm, eps=eps)
     M, H = x.shape
     F = gate_q["w_int8"].shape[1]
-    if H % 16 or F % 16 or H > 4096:
+    if H % 16 or F % 16:
         raise ValueError(f"unsupported widths H={H} F={F}")
+    _check_row_width(H)
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (M, H))
     for name, wq, shape in (("gate", gate_q, (H, F)), ("up", up_q, (H, F)),
@@ -652,13 +665,12 @@ def fused_mlp_step(x, gate_q: dict, up_q: dict, down_q: dict, pre_norm, post_nor
         c(wq["scale"], f"{name}.scale", torch.float32, shape[1:])
     c(pre_norm, "pre_norm", torch.bfloat16, (H,))
     c(post_norm, "post_norm", torch.bfloat16, (H,))
-    dev, sms = x.device, _sms(x.device)
-    s1 = _splits(M, F, H, dual=True, sms=sms)
-    s2 = _splits(M, H, F, dual=False, sms=sms)
+    dev = x.device
+    s1, s2 = _split(M, F, H, True, dev), _split(M, H, F, False, dev)
     x_out = torch.empty(M, H, dtype=torch.bfloat16, device=dev)
     h = torch.empty(M, H, dtype=torch.bfloat16, device=dev)
     hidden = torch.empty(M, F, dtype=torch.bfloat16, device=dev)
-    part = torch.empty(max(2 * s1 * M * F, s2 * M * H), dtype=torch.float32, device=dev)
+    part = torch.empty(M * H, dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.call(
         "vbt_fused_mlp_step", p(x), p(gate_q["w_int8"]), p(up_q["w_int8"]), p(gate_q["scale"]),

@@ -181,24 +181,67 @@ def int8_ffn_plain(x: torch.Tensor, fc1_q: dict, b1: torch.Tensor, fc2_q: dict,
     return (_mm(h, fc2_q) + b2.float()).to(x.dtype)
 
 
-# columns of one weight a block of csrc/int8_linear.cu covers, rows of x per
-# block, rows of the weights per pipeline stage
+# int4_mlp's product kernel (csrc/int4_linear.cu): columns of one weight a
+# block covers, rows of x per block, packed rows of the weights per stage
 _TILE_N, _TILE_M, _TILE_K = 128, 64, 64
-# blocks per SM the contraction is split for, when the tiles alone give fewer
+# blocks per SM its contraction is split for, when the tiles alone give fewer
 _BLOCKS_PER_SM = 2
 _MAX_SPLITS = 16
 
 
 def _splits(M: int, N: int, K: int, *, dual: bool, sms: int) -> int:
-    """How many slices of the contraction the product kernel runs, each in a
-    block of its own, so that a small batch still fills the card. The slices
-    are added in a fixed order, so the result does not depend on the
-    count's timing, only on the shapes and the card."""
+    """How many slices of the contraction int4_mlp's product kernel runs,
+    each in a block of its own, so that a small batch still fills the card.
+    The slices are added in a fixed order, so the result does not depend on
+    the count's timing, only on the shapes and the card."""
     tiles = -(-N // (_TILE_N // 2 if dual else _TILE_N)) * -(-M // _TILE_M)
     chunks = -(-K // _TILE_K)
     want = max(1, min(_MAX_SPLITS, chunks, (_BLOCKS_PER_SM * sms) // tiles))
     per = -(-chunks // want)
     return -(-chunks // per)
+
+
+# The int8 product kernel (csrc/int8_linear.cu): rows of x up to which it runs
+# its decode form (64-row tiles, the contraction split), output columns a tile
+# (128 of one weight; 64 of gate and 64 of up), rows of the weights a stage;
+# decode blocks resident on one SM, and the most slices (the blocks of one
+# thread-block cluster, up to the portable 8)
+_I8_DECODE_ROWS, _I8_TILE_M, _I8_TILE_N, _I8_TILE_K = 128, 64, 128, 64
+_I8_BLOCKS_PER_SM, _I8_MAX_SPLIT = 2, 8
+
+
+def contraction_split(M: int, N: int, K: int, *, dual: bool, sms: int,
+                      clusters: Optional[tuple] = None) -> int:
+    """How many slices the int8 product kernel cuts the contraction of
+    x[M, K] . w[K, N] into (dual: gate and up of N columns each): one block
+    a slice, the slices of a column tile one thread-block cluster, so that a
+    decode batch still has about _I8_BLOCKS_PER_SM blocks an SM streaming
+    weights. clusters[s - 1]: how many clusters of s blocks the card runs at
+    once (`_cluster_slots`); the split is the largest whose clusters all run
+    at once. The tower's rows (M > _I8_DECODE_ROWS) are never split. A pure
+    function of the shapes and the card."""
+    if M > _I8_DECODE_ROWS:
+        return 1
+    tiles = -(-M // _I8_TILE_M) * -(-N // (_I8_TILE_N // 2 if dual else _I8_TILE_N))
+    chunks = -(-K // _I8_TILE_K)
+    split = max(1, min(_I8_MAX_SPLIT, chunks, (_I8_BLOCKS_PER_SM * sms) // tiles))
+    while split > 1 and clusters is not None and tiles > clusters[split - 1]:
+        split -= 1
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_slots(device: torch.device) -> tuple:
+    """Clusters of 1 to 8 blocks of the int8 product kernel's decode form
+    that `device` runs at once."""
+    fn = cuda_lib.lib().vbt_int8_clusters
+    with torch.cuda.device(device):
+        return tuple(int(fn(s, None)) for s in range(1, _I8_MAX_SPLIT + 1))
+
+
+def _split(M: int, N: int, K: int, dual: bool, device: torch.device) -> int:
+    return contraction_split(M, N, K, dual=dual, sms=_sms(device),
+                             clusters=_cluster_slots(device) if M <= _I8_DECODE_ROWS else None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,12 +267,10 @@ def int8_matmul(x: torch.Tensor, wq: dict) -> torch.Tensor:
     O = wq["w_int8"].shape[1]
     cuda_lib.check(x, "x", torch.bfloat16, (M, I))
     _check_kn(wq, "w", I, O)
-    splits = _splits(M, O, I, dual=False, sms=_sms(x.device))
-    part = torch.empty(splits * M * O, dtype=torch.float32, device=x.device)
+    split = _split(M, O, I, False, x.device)
     y = torch.empty(M, O, dtype=torch.bfloat16, device=x.device)
     p = cuda_lib.ptr
-    cuda_lib.call("vbt_int8_matmul", p(x), p(wq["w_int8"]), p(wq["scale"]), p(part), p(y),
-                  M, I, O, splits)
+    cuda_lib.call("vbt_int8_matmul", p(x), p(wq["w_int8"]), p(wq["scale"]), p(y), M, I, O, split)
     int8_matmul.launches += 1
     return y
 
@@ -251,16 +292,13 @@ def int8_mlp(x: torch.Tensor, gate_q: dict, up_q: dict, down_q: dict) -> torch.T
     _check_kn(gate_q, "gate", H, F)
     _check_kn(up_q, "up", H, F)
     _check_kn(down_q, "down", F, H)
-    sms = _sms(x.device)
-    s1 = _splits(M, F, H, dual=True, sms=sms)
-    s2 = _splits(M, H, F, dual=False, sms=sms)
-    part = torch.empty(max(2 * s1 * M * F, s2 * M * H), dtype=torch.float32, device=x.device)
+    s1, s2 = _split(M, F, H, True, x.device), _split(M, H, F, False, x.device)
     hidden = torch.empty(M, F, dtype=torch.bfloat16, device=x.device)
     y = torch.empty(M, H, dtype=torch.bfloat16, device=x.device)
     p = cuda_lib.ptr
     cuda_lib.call("vbt_int8_mlp", p(x), p(gate_q["w_int8"]), p(up_q["w_int8"]),
                   p(gate_q["scale"]), p(up_q["scale"]), p(down_q["w_int8"]), p(down_q["scale"]),
-                  p(part), p(hidden), p(y), M, H, F, s1, s2)
+                  p(hidden), p(y), M, H, F, s1, s2)
     int8_mlp.launches += 1
     return y
 
@@ -284,15 +322,12 @@ def int8_ffn(x: torch.Tensor, fc1_q: dict, b1: torch.Tensor, fc2_q: dict,
     _check_kn(fc2_q, "fc2", F, H)
     cuda_lib.check(b1, "b1", torch.float32, (F,))
     cuda_lib.check(b2, "b2", torch.float32, (H,))
-    sms = _sms(x.device)
-    s1 = _splits(M, F, H, dual=False, sms=sms)
-    s2 = _splits(M, H, F, dual=False, sms=sms)
-    part = torch.empty(max(s1 * M * F, s2 * M * H), dtype=torch.float32, device=x.device)
+    s1, s2 = _split(M, F, H, False, x.device), _split(M, H, F, False, x.device)
     hidden = torch.empty(M, F, dtype=torch.bfloat16, device=x.device)
     y = torch.empty(M, H, dtype=torch.bfloat16, device=x.device)
     p = cuda_lib.ptr
     cuda_lib.call("vbt_int8_ffn", p(x), p(fc1_q["w_int8"]), p(fc1_q["scale"]), p(b1),
-                  p(fc2_q["w_int8"]), p(fc2_q["scale"]), p(b2), p(part), p(hidden), p(y),
+                  p(fc2_q["w_int8"]), p(fc2_q["scale"]), p(b2), p(hidden), p(y),
                   M, H, F, s1, s2)
     int8_ffn.launches += 1
     return y
