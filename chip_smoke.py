@@ -13,10 +13,11 @@ kernel held against its plain version.
    (tiled_matmul's, the flash forward's, dq's and dk/dv's three
    instantiations each, D 64 / 128 / 256, the fused decode steps' GEMM
    core's three: int8, int4, int4 with groups of an odd multiple of 32 rows,
-   and the greedy heads' three: int8, int4 per row, int4 in groups); fails if
+   and the tied heads' six: int8, int4 per row, int4 in groups, each with the
+   greedy heads' argmax and the sampled heads' logits epilogue); fails if
    ptxas serialised a wgmma pipeline, if a wgmma kernel spills, or if an
-   instantiation is missing. The fused steps and the greedy heads print their
-   time beside their earlier mma.sync kernels' on the same card
+   instantiation is missing. The fused steps and the four heads print their
+   time beside their earlier mma.sync / wmma kernels' on the same card
    (DECODE_STEP_MMA_SYNC_MS, HEAD_MMA_SYNC_MS).
 3. One phase per kernel: the kernel and its plain PyTorch version on the
    same seeded inputs at the main paths' shapes, their max abs error
@@ -172,9 +173,10 @@ TILED_MATMUL_MMA_SYNC_MS = {"qkv": 0.4026, "o": 0.1449, "fc1": 0.5610, "fc2": 0.
 # mma.sync kernels), on the same card, PERF.md rows 5, 5' and 7
 DECODE_STEP_MMA_SYNC_MS = {"fused_stack_step": 4.1980, "fused_stack_step[mlp_int4]": 4.3400,
                            "fused_bridge_step": 0.5808}
-# the greedy heads' earlier (wmma / mma.sync tile) kernels on the same card, PERF.md
-# rows 13 and 15 (int4 in groups of 128)
-HEAD_MMA_SYNC_MS = {"int8_matmul_t_argmax": 0.6438, "int4_matmul_t_argmax": 0.5884}
+# the heads' earlier (wmma / mma.sync tile) kernels on the same card, PERF.md rows
+# 12-15 (int4 in groups of 128)
+HEAD_MMA_SYNC_MS = {"int8_matmul_t_argmax": 0.6438, "int4_matmul_t_argmax": 0.5884,
+                    "int8_matmul_t": 0.6303, "int4_matmul_t": 0.5704}
 # the int8 linear kernels' earlier (cp.async + mma.sync, split-K through device
 # memory) product on the same card, PERF.md rows 4, 6, 11, 16 and 17
 I8_MMA_SYNC_MS = {"gemma_qkv": 0.0155, "gemma_o": 0.0126, "bridge_self_qkv": 0.0193,
@@ -205,23 +207,23 @@ def card_line() -> str:
         return "unknown (nvidia-smi unavailable)"
 
 
-PTXAS_TAGS = ("fa_", "i8mm_kernel", "i4l_product", "decode_gemm_kernel", "greedy_head_kernel",
-              "logits4_block", "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide",
-              "ls_attn_kernel")
+PTXAS_TAGS = ("fa_", "i8mm_kernel", "i4l_product", "decode_gemm_kernel", "tied_head_kernel",
+              "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide", "ls_attn_kernel")
 
 
 # the wgmma kernels: each instantiation must not spill
 SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel", "fa_bwd_dq_sm90_kernel",
-                 "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel", "greedy_head_kernel",
+                 "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel", "tied_head_kernel",
                  "i8mm_kernel")
 FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:4] for d in (64, 128, 256))
 # the fused steps' GEMM core (csrc/decode_gemm.cuh): int8, and int4 with waits
 # every stage or every half stage (groups of an odd multiple of 32 rows)
 GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4E", "decode_gemm_kernelILb1ELi4E",
                   "decode_gemm_kernelILb1ELi2E")
-# the greedy heads (csrc/greedy_head.cu): int8, int4 per row, int4 in groups
-HEAD_INSTANCES = ("greedy_head_kernelILb0ELb0E", "greedy_head_kernelILb1ELb0E",
-                  "greedy_head_kernelILb1ELb1E")
+# the tied heads (csrc/tied_head.cu): int8, int4 per row, int4 in groups, each
+# greedy (argmax) and sampled (logits)
+HEAD_INSTANCES = tuple(f"tied_head_kernelILb{i4}ELb{gr}ELb{lg}E"
+                       for i4, gr in ((0, 0), (1, 0), (1, 1)) for lg in (0, 1))
 # the int8 product kernel (csrc/int8_linear.cu): the decode form (one consumer
 # warpgroup, 64 rows) and the tower's (two warpgroups of 128 rows)
 I8MM_INSTANCES = ("i8mm_kernelILi1ELi1E", "i8mm_kernelILi2ELi2E")
@@ -232,11 +234,11 @@ def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
     """Print what ptxas -v said of the kernels named by `tags` (registers,
     shared memory, spills). Raise if ptxas serialised a kernel's wgmma
     instructions (tiled_matmul_kernel, the three flash kernels, the decode
-    GEMM core and the greedy heads are the wgmma kernels: a serialised
+    GEMM core and the tied heads are the wgmma kernels: a serialised
     pipeline runs them at a fraction of their rate and still agrees with the
     plain version), or if the build lacks one of REQUIRED: the three
     instantiations (D 64 / 128 / 256) of the flash forward, dq and dk/dv, the
-    GEMM core's three and the greedy heads' three. Returns the instantiations
+    GEMM core's three and the tied heads' six. Returns the instantiations
     of the wgmma kernels that spill."""
     log = build_log.splitlines()
     serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
@@ -422,6 +424,14 @@ def rows_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> 
     return err
 
 
+def same_bits(name: str, got: torch.Tensor, again: torch.Tensor) -> None:
+    """A second call of a kernel whose sums run in one fixed order gives the same bits."""
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{name}: a second call gave other bits")
+    print(f"[{name}] a second call: the same bits")
+
+
 def cycle(items):
     """A closure's next argument set, round robin: successive timed calls read
     other layers' weights, as the decode loop does, so none finds its weights
@@ -525,11 +535,13 @@ def phase_logits_head(params, dev, gen):
     got, want = quant.int8_matmul_t(x, E), quant.int8_matmul_t_plain(x, E)
     torch.cuda.synchronize()
     err = rows_close("int8_matmul_t", got, want, LOGIT_TOL)
+    same_bits("int8_matmul_t", got, quant.int8_matmul_t(x, E))
     ms = time_ms(lambda: quant.int8_matmul_t(x, E), 50)
     plain_ms = time_ms(lambda: quant.int8_matmul_t_plain(x, E), 3)
     # table, scales and x read once, the f32 logits written once
     bd = bound(nbytes(E["w_int8"], E["scale"], x, got), 2.0 * BATCH * V * H)
-    print(f"[int8_matmul_t] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"[int8_matmul_t] kernel {ms:.4f} ms (the wmma tile kernel: "
+          f"{HEAD_MMA_SYNC_MS['int8_matmul_t']}), plain {plain_ms:.4f} ms, bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
@@ -1882,10 +1894,12 @@ def phase_int4_heads(table, dev, gen):
     got, want = quant.int4_matmul_t(x, table), quant.int4_matmul_t_plain(x, table)
     torch.cuda.synchronize()
     err = rows_close("int4_matmul_t", got, want, LOGIT4_TOL)
+    same_bits("int4_matmul_t", got, quant.int4_matmul_t(x, table))
     ms = time_ms(lambda: quant.int4_matmul_t(x, table), 50)
     plain_ms = time_ms(lambda: quant.int4_matmul_t_plain(x, table), 3)
     bd = bound(nbytes(table["w_int4"], table["scale"], x, got), 2.0 * BATCH * V * H)
-    print(f"[int4_matmul_t] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"[int4_matmul_t] kernel {ms:.4f} ms (the mma.sync tile kernel: "
+          f"{HEAD_MMA_SYNC_MS['int4_matmul_t']}), plain {plain_ms:.4f} ms, bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     res["int4_matmul_t"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
                             "library_ms": None}
@@ -2253,13 +2267,13 @@ def main() -> int:
 
     fa_src, fa_py = "flash_bwd.cu", "vlm_bridge_tpu/ops/flash_attention.py"
     qpy = "vlm_bridge_tpu/ops/quant.py"
-    sources = {"int8_matmul_t_argmax": ("greedy_head.cu", f"{qpy}:169"),
+    sources = {"int8_matmul_t_argmax": ("tied_head.cu", f"{qpy}:169"),
                "int8_matmul": ("int8_linear.cu", f"{qpy}:74"),
-               "int8_matmul_t": ("int8_argmax.cu", f"{qpy}:133"),
+               "int8_matmul_t": ("tied_head.cu", f"{qpy}:133"),
                "int8_mlp": ("int8_linear.cu", f"{qpy}:536"),
                "int8_ffn": ("int8_linear.cu", f"{qpy}:597"),
-               "int4_matmul_t": ("int8_argmax.cu", f"{qpy}:426"),
-               "int4_matmul_t_argmax": ("greedy_head.cu", f"{qpy}:463"),
+               "int4_matmul_t": ("tied_head.cu", f"{qpy}:426"),
+               "int4_matmul_t_argmax": ("tied_head.cu", f"{qpy}:463"),
                "int4_mlp": ("int4_linear.cu", f"{qpy}:842"),
                "fused_stack_step": ("stack_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:707"),
                # the same wrapper and C entry with int4 MLP weights: the TPU

@@ -1,7 +1,7 @@
 """PyTorch port kernels on the card: each CUDA kernel against its plain
 version at small widths (the decode steps, with int8 and with int4 MLP
 weights, at batch 1 / 3 / 64 / 65 and past a 64-row cache tile, and their
-GEMM core alone, the greedy head, the three flash-attention kernels with their
+GEMM core alone, the greedy and sampled heads, the three flash-attention kernels with their
 autograd function and shape gate, on views and contiguous tensors, the four int8 linear functions with
 `linear`'s dispatch, and the int4 heads and `int4_mlp`).
 These need an NVIDIA GPU with nvcc (sm_90a) and
@@ -500,6 +500,18 @@ def test_head_product_keeps_the_f32_accumulator(dev):
     assert float(capped.abs().max()) <= 30.0
 
 
+# the heads (csrc/tied_head.cu), greedy and sampled: batch 1 / 3 / 64 / 65 / 130 (one to
+# three 64-row batch tiles), vocab sizes off the 128-row unit and the 256-row
+# pair, one int8 stage of 128 columns (H 128), 18 (H 2304), and two of which
+# the last reaches half past H (H 192: the table box clipped and x's second
+# box wholly past H, both read as zeros); int4 (H a multiple of 128) per
+# channel, in groups of 64 and of 128
+HEAD_M = [1, 3, 64, 65, 130]
+HEAD_VH = [(1000, 128), (2037, 2304), (1000, 192)]
+HEAD4 = [(v, h, grp) for v, h in HEAD_VH for grp in (None, 64, 128)
+         if h % 128 == 0 and (h // 2) % (grp or 1) == 0]
+
+
 # ---------------------------------------------------------------------------
 # int8_matmul / int8_mlp / int8_ffn / int8_matmul_t
 # ---------------------------------------------------------------------------
@@ -555,19 +567,50 @@ def test_int8_linear_kernels_match_plain(dev, M, H, F):
         assert torch.equal(got, fn(*args))    # fixed-order reduce: the same bits again
 
 
-@pytest.mark.parametrize("M,V,H", [(5, 1000, 128), (64, 4096, 256), (70, 130, 64)])
+def _sampled_head_checks(head, plain, entry, x, table, group, tol):
+    """One call of a sampled head against its plain version (one launch, the
+    f32 logits row by row within tol), the same bits from a second call, and
+    its C entry into a sentinel-filled buffer that runs past the logits by the
+    rest of the last 64-row batch tile and a 128-row vocab unit: the logits
+    land in front, and nothing past row M (nor past V in the last row) is
+    written."""
+    from vlm_bridge_tpu_torch.ops import cuda_lib
+
+    (M, H), V = x.shape, table["scale"].shape[-1]
+    n = head.launches
+    got = head(x, table)
+    torch.cuda.synchronize()
+    assert head.launches == n + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, V)
+    _rows_close(got, plain(x, table), tol)
+    assert torch.equal(got.view(torch.int32), head(x, table).view(torch.int32))
+    sentinel = -12345.0
+    buf = torch.full((-(-M // 64) * 64 * V + 128,), sentinel, device=x.device)
+    int8 = entry == "vbt_int8_matmul_t"
+    w = table["w_int8"] if int8 else table["w_int4"]
+    extra = () if int8 else (group or 0,)
+    cuda_lib.call(entry, *(cuda_lib.ptr(t) for t in (x, w, table["scale"], buf)), M, V, H, *extra)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:M * V].view(torch.int32), got.view(-1).view(torch.int32))
+    assert bool((buf[M * V:] == sentinel).all())
+
+
+# The sampled heads (csrc/tied_head.cu: the greedy heads' kernel with the logits
+# epilogue): their first cases, then the greedy heads' grid, HEAD_M x HEAD_VH
+# (int8) and x HEAD4 (int4)
+I8_LOGITS = [(5, 1000, 128), (64, 4096, 256), (70, 130, 64)] + [
+    (m, v, h) for v, h in HEAD_VH for m in HEAD_M]
+
+
+@pytest.mark.parametrize("M,V,H", I8_LOGITS, ids=[f"M{m}_V{v}_H{h}" for m, v, h in I8_LOGITS])
 def test_int8_matmul_t_kernel_matches_plain(dev, M, V, H):
     from vlm_bridge_tpu_torch.ops import quant
 
     g = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16)
     table = quant.quantize_int8(torch.randn(V, H, generator=g, device=dev) * 0.05, axis=1)
-    n = quant.int8_matmul_t.launches
-    got = quant.int8_matmul_t(x, table)
-    torch.cuda.synchronize()
-    assert quant.int8_matmul_t.launches == n + 1
-    assert got.dtype == torch.float32 and tuple(got.shape) == (M, V)
-    _rows_close(got, quant.int8_matmul_t_plain(x, table), LOGIT_TOL)
+    _sampled_head_checks(quant.int8_matmul_t, quant.int8_matmul_t_plain, "vbt_int8_matmul_t",
+                         x, table, None, LOGIT_TOL)
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -669,19 +712,18 @@ def _i4_table(dev, V, H, group, seed=20):
                                        group_size=group)
 
 
-@pytest.mark.parametrize("M,V,H,group", I4_ROWS,
-                         ids=[f"M{m}_V{v}_H{h}_g{g}" for m, v, h, g in I4_ROWS])
+I4_LOGITS = I4_ROWS + [(m, v, h, grp) for v, h, grp in HEAD4 for m in HEAD_M]
+
+
+@pytest.mark.parametrize("M,V,H,group", I4_LOGITS,
+                         ids=[f"M{m}_V{v}_H{h}_g{g}" for m, v, h, g in I4_LOGITS])
 def test_int4_matmul_t_kernel_matches_plain(dev, M, V, H, group):
     from vlm_bridge_tpu_torch.ops import quant
 
     g, table = _i4_table(dev, V, H, group)
     x = torch.randn(M, H, generator=g, device=dev).to(torch.bfloat16)
-    n = quant.int4_matmul_t.launches
-    got = quant.int4_matmul_t(x, table)
-    torch.cuda.synchronize()
-    assert quant.int4_matmul_t.launches == n + 1
-    assert got.dtype == torch.float32 and tuple(got.shape) == (M, V)
-    _rows_close(got, quant.int4_matmul_t_plain(x, table), LOGIT4_TOL)
+    _sampled_head_checks(quant.int4_matmul_t, quant.int4_matmul_t_plain, "vbt_int4_matmul_t",
+                         x, table, group, LOGIT4_TOL)
 
 
 @pytest.mark.parametrize("group", [None, 64])
@@ -713,18 +755,6 @@ def test_int4_argmax_kernel_ties_and_nan(dev, group):
     gap = (y[rows, want.long()] - y[rows, got.long()]).abs()
     assert not bool(differ.any()) or float(gap[differ].max()) <= LOGIT4_TOL * float(y[differ].abs().max())
     assert int(got[1]) == 300 and int(got[3]) == 0 and int(want[3]) == 0
-
-
-# the greedy heads (csrc/greedy_head.cu): batch 1 / 3 / 64 / 65 / 130 (one to
-# three 64-row batch tiles), vocab sizes off the 128-row unit and the 256-row
-# pair, one int8 stage of 128 columns (H 128), 18 (H 2304), and two of which
-# the last reaches half past H (H 192: the table box clipped and x's second
-# box wholly past H, both read as zeros); int4 (H a multiple of 128) per
-# channel, in groups of 64 and of 128
-HEAD_M = [1, 3, 64, 65, 130]
-HEAD_VH = [(1000, 128), (2037, 2304), (1000, 192)]
-HEAD4 = [(v, h, grp) for v, h in HEAD_VH for grp in (None, 64, 128)
-         if h % 128 == 0 and (h // 2) % (grp or 1) == 0]
 
 
 def _ids_match(got, want, y, tol=LOGIT4_TOL):
@@ -781,7 +811,9 @@ def test_head_kernels_ties_and_nan_across_units(dev, kind, group):
     winners at 130 and 140 (one 64-row tile) -> 130. Row 3 all NaN -> 0. Row 4:
     its best row 520 lies in unit 4, where a scale of row 600 is NaN (in
     groups: one group's of the low half): unit 4 never wins, and the next
-    best, 1700, does."""
+    best, 1700, does. The sampled head on the same inputs: NaN in row 3 and in
+    column 600 (every group's fold carries it), nowhere else, as in the plain
+    version, which it matches elsewhere within LOGIT_TOL / LOGIT4_TOL."""
     from vlm_bridge_tpu_torch.ops import quant
 
     V, H = 2037, 2304
@@ -820,6 +852,14 @@ def test_head_kernels_ties_and_nan_across_units(dev, kind, group):
     keep[3] = False
     _ids_match(got[keep], want[keep], y[keep].nan_to_num(nan=float("-inf")))
     assert torch.equal(got, head(x, table))
+    logits = (quant.int8_matmul_t if kind == "int8" else quant.int4_matmul_t)(x, table)
+    nan = torch.zeros(70, V, dtype=torch.bool, device=dev)
+    nan[3], nan[:, 600] = True, True
+    assert torch.equal(torch.isnan(logits), nan) and torch.equal(torch.isnan(y), nan)
+    cols = torch.ones(V, dtype=torch.bool, device=dev)
+    cols[600] = False
+    _rows_close(logits[keep][:, cols], y[keep][:, cols],
+                LOGIT_TOL if kind == "int8" else LOGIT4_TOL)
 
 
 def test_head_kernels_run_from_a_fresh_thread(dev):
@@ -832,14 +872,16 @@ def test_head_kernels_run_from_a_fresh_thread(dev):
     x = torch.randn(5, 256, generator=g, device=dev).to(torch.bfloat16)
     t8 = quant.quantize_int8(torch.randn(700, 256, generator=g, device=dev), axis=1)
     t4 = quant.quantize_int4_rows(torch.randn(700, 256, generator=g, device=dev), group_size=64)
-    want = [quant.int8_matmul_t_argmax(x, t8), quant.int4_matmul_t_argmax(x, t4)]
+    heads = (quant.int8_matmul_t_argmax, quant.int4_matmul_t_argmax, quant.int8_matmul_t,
+             quant.int4_matmul_t)
+    tables = (t8, t4, t8, t4)
+    want = [head(x, t) for head, t in zip(heads, tables)]
     got = []
-    th = threading.Thread(target=lambda: got.extend(
-        [quant.int8_matmul_t_argmax(x, t8), quant.int4_matmul_t_argmax(x, t4)]))
+    th = threading.Thread(target=lambda: got.extend(head(x, t) for head, t in zip(heads, tables)))
     th.start()
     th.join()
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want)) and len(got) == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and len(got) == 4
 
 
 I4_MLP = [(5, 128, 512, 256, None), (64, 256, 1024, 512, 128), (130, 128, 256, 128, 64),

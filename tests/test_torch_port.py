@@ -260,8 +260,7 @@ def test_kernel_sources_ship_and_name_what_they_replace():
     csrc = REPO / "vlm_bridge_tpu_torch" / "csrc"
     replaced = {"stack_step.cu": "decode_kernels.py:fused_stack_step",
                 "bridge_step.cu": "decode_kernels.py:fused_bridge_step",
-                "greedy_head.cu": "quant.py:int8_matmul_t_argmax",
-                "int8_argmax.cu": "quant.py:int8_matmul_t",
+                "tied_head.cu": "quant.py:int8_matmul_t_argmax",
                 "int8_linear.cu": "quant.py:int8_matmul",
                 "int4_linear.cu": "quant.py:int4_mlp",
                 "flash_fwd.cu": "flash_attention.py:_flash_fwd",
@@ -275,15 +274,15 @@ def test_kernel_sources_ship_and_name_what_they_replace():
     fa_bwd = (csrc / "flash_bwd.cu").read_text()
     assert "vlm_bridge_tpu/ops/flash_attention.py:_flash_bwd" in fa_bwd and "Bound:" in fa_bwd
     assert not (csrc / "flash_attention.cu").exists()   # the mma.sync backward is gone
+    assert not (csrc / "int8_argmax.cu").exists()   # so are the wmma / mma.sync logits tiles
     assert "vlm_bridge_tpu/ops/decode_kernels.py:fused_mlp_step" in \
         (csrc / "layer_step.cu").read_text()
     for target in ("quant.py:int8_mlp", "quant.py:int8_ffn"):
         assert f"vlm_bridge_tpu/ops/{target}" in (csrc / "int8_linear.cu").read_text()
-    assert "Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t," in \
-        (csrc / "int8_argmax.cu").read_text()
-    for target, name in (("quant.py:int4_matmul_t_argmax,", "greedy_head.cu"),
-                         ("quant.py:int4_matmul_t,", "int8_argmax.cu")):
-        assert f"Replaces: vlm_bridge_tpu/ops/{target}" in (csrc / name).read_text()
+    heads = (csrc / "tied_head.cu").read_text()
+    for target in ("int8_matmul_t,", "int4_matmul_t,", "int4_matmul_t_argmax,"):
+        assert f"Replaces: vlm_bridge_tpu/ops/quant.py:{target}" in heads
+    assert "Bound: bytes." in heads and "65.5 MB of logits" in heads
     i4 = (csrc / "i4_gemm.cu").read_text()
     assert "vlm_bridge_tpu/ops/decode_kernels.py:_stack_kernel" in i4 and "Bound:" in i4
     from vlm_bridge_tpu_torch.ops import cuda_lib
@@ -299,10 +298,10 @@ def test_kernel_sources_ship_and_name_what_they_replace():
         assert f'extern "C" int {entry}(' in (csrc / src).read_text()
     for entry, src in (("vbt_int8_matmul", "int8_linear.cu"), ("vbt_int8_mlp", "int8_linear.cu"),
                        ("vbt_int8_ffn", "int8_linear.cu"),
-                       ("vbt_int8_matmul_t", "int8_argmax.cu"),
-                       ("vbt_int4_matmul_t", "int8_argmax.cu"),
-                       ("vbt_int8_matmul_t_argmax", "greedy_head.cu"),
-                       ("vbt_int4_matmul_t_argmax", "greedy_head.cu"),
+                       ("vbt_int8_matmul_t", "tied_head.cu"),
+                       ("vbt_int4_matmul_t", "tied_head.cu"),
+                       ("vbt_int8_matmul_t_argmax", "tied_head.cu"),
+                       ("vbt_int4_matmul_t_argmax", "tied_head.cu"),
                        ("vbt_int4_mlp", "int4_linear.cu"),
                        ("vbt_fused_stack_step", "stack_step.cu"),
                        ("vbt_fused_attn_step", "layer_step.cu"),

@@ -1,5 +1,5 @@
 // Hopper helpers shared by the wgmma + TMA kernels (tiled_matmul.cu,
-// flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh, greedy_head.cu, int8_linear.cu):
+// flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh, tied_head.cu, int8_linear.cu):
 // shared-memory addresses, mbarriers, TMA loads (with L2 policies) and stores
 // with their bulk groups, named barriers, the wgmma shared-memory descriptor
 // with its fence / commit / wait, the widening of int8 and int4 weights into

@@ -1,10 +1,18 @@
-// The greedy heads: ids[m] = argmax_v of the tied table's logits, which are
-// never written to device memory.
+// The tied heads: x . E^T of the batch's hidden rows with the tied table, read
+// where it lies (the same dict is the embedding the model gathers from), in
+// one kernel whose epilogue is the only part that differs between them.
 //   int8  E int8 [V, H] with one scale per vocab row:
-//         ids[m] = argmax_v (x[m] . E[v]) * scale[v]
+//         y[m, v] = (x[m] . E[v]) * scale[v]
 //   int4  the rows-packed table E4 int8 [V, H/2] (byte (v, k) holds columns k
 //         and k + H/2, the low nibble first) with scales per row [V] or per
 //         (H-group, row) [H/g, V]
+// The sampled heads (LOGITS) write y as f32 logits [M, V], one launch a call;
+// the greedy heads take ids[m] = argmax_v y[m, v] and never write y.
+// Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t, whose body is
+// _int8_mmt_kernel,
+// Replaces: vlm_bridge_tpu/ops/quant.py:int4_matmul_t, whose body is
+// _int4_mmt_kernel (the soft-cap stays with their caller, logits_from_hidden,
+// as in JAX),
 // Replaces: vlm_bridge_tpu/ops/quant.py:int8_matmul_t_argmax, whose body is
 // _int8_mmt_argmax_kernel, and
 // Replaces: vlm_bridge_tpu/ops/quant.py:int4_matmul_t_argmax, whose body is
@@ -12,8 +20,9 @@
 //
 // Bound: bytes. At M = 64, V = 256000, H = 2304 a call streams the 590 MB int8
 // table once (0.1765 ms at 3.35 TB/s), or 295 MB of nibbles and 18 MB of group
-// scales (0.0936 ms). The products, 2 M V H = 75.5 GFLOP, take 0.076 ms at
-// 989 TFLOP/s: with int4 the tensor cores come close to the bytes.
+// scales (0.0936 ms); the sampled heads also write 65.5 MB of logits (+0.0196
+// ms). The products, 2 M V H = 75.5 GFLOP, take 0.076 ms at 989 TFLOP/s: with
+// int4 the tensor cores come close to the bytes.
 //
 // Design (scripts/head_torch.py times it):
 // - Persistent blocks, one an SM. A unit is a 128-row vocab block
@@ -45,6 +54,13 @@
 //   scale rows of a warpgroup's 128 columns come by cp.async (4 bytes a copy:
 //   any V) four stages ahead, and each thread turns its column's into the
 //   factors once. Per-row scales multiply the sum once, as the int8 head's do.
+// - The logits (LOGITS) leave from the accumulator as they lie: lane (g, t) of
+//   warp wq holds batch rows 16 wq + g and + 8, vocab columns 8 j + 2 t and
+//   + 1 of the unit, so each pair goes out as one float2 (a quad of lanes
+//   writes 32 bytes of a row: whole sectors), streaming past the L2 (st.cs:
+//   the logits are read once, by the sampler, after the call). Rows past M and
+//   columns past V are not written. A unit's sums come from one fixed order,
+//   so two calls give the same bits.
 // - The argmax runs in registers: a batch row of the accumulator lies in one
 //   warp, 32 vocab columns a lane, so each lane takes its columns' max and two
 //   shuffles merge the four lanes of a row. A unit writes its (max, first
@@ -59,6 +75,7 @@
 // a NaN never wins (its max compares false), and a row where no block wins
 // (all-NaN) returns 0. The blocking belongs to the semantics of a row that is
 // NaN only in part; the plain versions in ops/quant.py use the same 128 rows.
+// The logits follow the plain version: a NaN in x or in a scale gives NaN.
 
 #include <climits>
 
@@ -66,37 +83,37 @@
 
 namespace {
 
-constexpr int GH_WGS = 2;                       // consumer warpgroups, a unit each
-constexpr int GH_THREADS = 128 * GH_WGS + 32;   // + the producer warp
-constexpr int GH_UNIT = 128;                    // vocab rows of a unit (ARGMAX_BLOCK_V)
-constexpr int GH_XBOX = 64 * 64 * 2;            // an x box: 64 batch rows x 64 columns bf16
-constexpr int GH_BTILE = GH_UNIT * 64 * 2;      // a widened B tile: 128 rows x 64 columns bf16
-constexpr int GH_SMEM_MAX = 232448;
+constexpr int TH_WGS = 2;                       // consumer warpgroups, a unit each
+constexpr int TH_THREADS = 128 * TH_WGS + 32;   // + the producer warp
+constexpr int TH_UNIT = 128;                    // vocab rows of a unit (ARGMAX_BLOCK_V)
+constexpr int TH_XBOX = 64 * 64 * 2;            // an x box: 64 batch rows x 64 columns bf16
+constexpr int TH_BTILE = TH_UNIT * 64 * 2;      // a widened B tile: 128 rows x 64 columns bf16
+constexpr int TH_SMEM_MAX = 232448;
 // grouped int4: stages whose scales are on their way (cp.async) ahead of the
 // one in hand, and the stages the scale buffers hold
-constexpr int GH_AHEAD = 4, GH_RING = GH_AHEAD + 1;
+constexpr int TH_AHEAD = 4, TH_RING = TH_AHEAD + 1;
 
 template <bool INT4, bool GROUPED>
-struct GhShape {
+struct ThShape {
   // table bytes of a unit row a stage (int8: under the 128-byte swizzle when 128)
   static constexpr int BK = INT4 ? 64 : 128;
   // a stage's sub-steps of 64 columns: int8 its chunks, int4 the low and the
   // high nibbles; each has its x box
   static constexpr int SUB = INT4 ? 2 : BK / 64;
-  static constexpr int X_BYTES = SUB * GH_XBOX;
-  static constexpr int TBOX = GH_UNIT * BK;   // a unit's table box
-  static constexpr int STAGE_BYTES = X_BYTES + GH_WGS * TBOX;
+  static constexpr int X_BYTES = SUB * TH_XBOX;
+  static constexpr int TBOX = TH_UNIT * BK;   // a unit's table box
+  static constexpr int STAGE_BYTES = X_BYTES + TH_WGS * TBOX;
   // a warpgroup's scales, rows of its 128 columns: grouped int4, the low and
-  // the high row of GH_RING stages, then two stages' factor rows; else two
+  // the high row of TH_RING stages, then two stages' factor rows; else two
   // pairs' per-row scales of its unit
-  static constexpr int S_BYTES = (GROUPED ? GH_RING * 2 + 4 : 2) * GH_UNIT * 4;
+  static constexpr int S_BYTES = (GROUPED ? TH_RING * 2 + 4 : 2) * TH_UNIT * 4;
   // the alignment slack, two B tiles a warpgroup, the scales
-  static constexpr int FIXED = 1024 + GH_WGS * (2 * GH_BTILE + S_BYTES);
+  static constexpr int FIXED = 1024 + TH_WGS * (2 * TH_BTILE + S_BYTES);
   // as many stages as fit, at most 8 (their barriers are static)
-  static constexpr int STAGES_FIT = (GH_SMEM_MAX - 256 - FIXED) / STAGE_BYTES;
+  static constexpr int STAGES_FIT = (TH_SMEM_MAX - 256 - FIXED) / STAGE_BYTES;
   static constexpr int STAGES = STAGES_FIT > 8 ? 8 : STAGES_FIT;
   static constexpr int SMEM = FIXED + STAGES * STAGE_BYTES;
-  static_assert(STAGE_BYTES % 1024 == 0 && (GH_WGS * S_BYTES) % 1024 == 0,
+  static_assert(STAGE_BYTES % 1024 == 0 && (TH_WGS * S_BYTES) % 1024 == 0,
                 "each stage keeps the swizzle's 1024-byte alignment");
   static_assert(STAGES >= 2, "shared memory for two stages");
 };
@@ -134,23 +151,24 @@ __device__ __forceinline__ void merge(float& b, int& a, float ob, int oa) {
   else if (!isnan(b) && (ob > b || (ob == b && oa < a))) b = ob, a = oa;
 }
 
-// GROUPED: int4 scales per (H-group, row), scale_rows = H / group of them
-template <bool INT4, bool GROUPED>
-__global__ void __launch_bounds__(GH_THREADS, 1)
-greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap tmap,
-                   const float* __restrict__ scale, float* __restrict__ bval,
-                   int* __restrict__ bidx, int M, int V, int H, int scale_rows) {
-  using S = GhShape<INT4, GROUPED>;
+// GROUPED: int4 scales per (H-group, row), scale_rows = H / group of them.
+// LOGITS: out is y [M, V]; else out is bval [units, M], beside bidx.
+template <bool INT4, bool GROUPED, bool LOGITS>
+__global__ void __launch_bounds__(TH_THREADS, 1)
+tied_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap tmap,
+                 const float* __restrict__ scale, float* __restrict__ out,
+                 int* __restrict__ bidx, int M, int V, int H, int scale_rows) {
+  using S = ThShape<INT4, GROUPED>;
   constexpr int stages = S::STAGES;
-  extern __shared__ unsigned char gh_smem[];
-  __shared__ __align__(8) uint64_t gh_bars[2 * 8];   // each stage's loaded and consumed barriers
-  const uint32_t base = smem_u32(gh_smem);
+  extern __shared__ unsigned char th_smem[];
+  __shared__ __align__(8) uint64_t th_bars[2 * 8];   // each stage's loaded and consumed barriers
+  const uint32_t base = smem_u32(th_smem);
   const uint32_t btiles = (base + 1023u) & ~1023u;              // [wg][2][128 x 64 bf16]
-  const uint32_t scales = btiles + GH_WGS * 2 * GH_BTILE;       // [wg][S_BYTES]
-  const uint32_t ring = scales + GH_WGS * S::S_BYTES;
-  const uint32_t full = smem_u32(gh_bars), empty = full + 8 * stages;
+  const uint32_t scales = btiles + TH_WGS * 2 * TH_BTILE;       // [wg][S_BYTES]
+  const uint32_t ring = scales + TH_WGS * S::S_BYTES;
+  const uint32_t full = smem_u32(th_bars), empty = full + 8 * stages;
 
-  const int nu = (V + GH_UNIT - 1) / GH_UNIT;
+  const int nu = (V + TH_UNIT - 1) / TH_UNIT;
   const int units = (M + 63) / 64 * nu;
   // stages of a unit (int8 at 128 bytes: the last may reach past H, read as zeros)
   const int chunks = ((INT4 ? H / 2 : H) + S::BK - 1) / S::BK;
@@ -162,14 +180,14 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * GH_WGS);   // lane 0 of each consumer warp
+      mbar_init(empty + 8 * s, 4 * TH_WGS);   // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp_id == 4 * GH_WGS) {
+  if (warp_id == 4 * TH_WGS) {
     // ---- the producer: step i into stage i % stages once its last use is done ----
     if (lane == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&xmap)) : "memory");
@@ -182,10 +200,10 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
         const int mb = w.mb, vb = w.vb;
         mbar_expect_tx(bar, S::X_BYTES + (w.two ? 2 : 1) * S::TBOX);
         for (int j = 0; j < S::SUB; ++j)   // int8: chunk j of the stage; int4: the low, the high half
-          tma_load(st + j * GH_XBOX, &xmap, INT4 ? j * (H / 2) + w.c * 64 : (w.c * S::SUB + j) * 64,
+          tma_load(st + j * TH_XBOX, &xmap, INT4 ? j * (H / 2) + w.c * 64 : (w.c * S::SUB + j) * 64,
                    mb * 64, bar);
         for (int k = 0; k < (w.two ? 2 : 1); ++k)
-          tma_load_hint(st + S::X_BYTES + k * S::TBOX, &tmap, w.c * S::BK, (vb + k) * GH_UNIT, bar,
+          tma_load_hint(st + S::X_BYTES + k * S::TBOX, &tmap, w.c * S::BK, (vb + k) * TH_UNIT, bar,
                         pol);
       }
     }
@@ -195,9 +213,9 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
   // ---- consumers: warpgroup wg takes the pair's unit wg ----
   const int wg = warp_id / 4, wq = warp_id % 4, g = lane / 4, t = lane % 4;
   const int tw = threadIdx.x % 128;
-  const uint32_t bt = btiles + wg * 2 * GH_BTILE;   // this warpgroup's two B tiles
+  const uint32_t bt = btiles + wg * 2 * TH_BTILE;   // this warpgroup's two B tiles
   const uint32_t sc = scales + wg * S::S_BYTES;
-  const float* scs = reinterpret_cast<const float*>(gh_smem + (sc - base));
+  const float* scs = reinterpret_cast<const float*>(th_smem + (sc - base));
   // [4 j + 2 h + e]: batch row 16 wq + g + 8 h, vocab column 8 j + 2 t + e of the unit
   float acc[64];
 #pragma unroll
@@ -212,7 +230,7 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
   auto widen = [&](uint32_t st, int j, uint32_t dst) {
     const uint32_t tb = st + S::X_BYTES + wg * S::TBOX;
 #pragma unroll
-    for (int it = 0; it < GH_UNIT * 64 / 16 / 128; ++it) {
+    for (int it = 0; it < TH_UNIT * 64 / 16 / 128; ++it) {
       // 128-byte rows (under the swizzle): a lane a row, so a quarter warp's 8
       // lanes hit 8 chunk positions; 64-byte rows: 2 rows x 4 pieces of 16 bytes
       const int q = tw + 128 * it, row = S::BK == 128 ? q % 128 : q / 4,
@@ -253,21 +271,21 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
   };
   // grouped int4: the sum is kept in the unit of the scale of the half in
   // hand. Each stage, a thread turns its column's scales into two factor rows
-  // (GH_RING * 2 + 2 (i % 2) and the next): low / high, and high / the next
+  // (TH_RING * 2 + 2 (i % 2) and the next): low / high, and high / the next
   // stage's low (the unit's last stage: its high, the final factor). A
   // scale below 1e-30 in magnitude counts as 1e-30; a NaN stays a NaN.
-  float* fac = const_cast<float*>(scs) + GH_RING * 2 * GH_UNIT;
+  float* fac = const_cast<float*>(scs) + TH_RING * 2 * TH_UNIT;
   auto factors = [&](int i, bool last) {
     const float* raw = scs + tw;
     auto nz = [](float v) { return fabsf(v) < 1e-30f ? 1e-30f : v; };
-    const float lo = nz(raw[(i % GH_RING) * 2 * GH_UNIT]);
-    const float hi = nz(raw[((i % GH_RING) * 2 + 1) * GH_UNIT]);
-    const float lo1 = nz(raw[((i + 1) % GH_RING) * 2 * GH_UNIT]);
-    fac[(i % 2) * 2 * GH_UNIT + tw] = __fdividef(lo, hi);
-    fac[((i % 2) * 2 + 1) * GH_UNIT + tw] = last ? hi : __fdividef(hi, lo1);
+    const float lo = nz(raw[(i % TH_RING) * 2 * TH_UNIT]);
+    const float hi = nz(raw[((i % TH_RING) * 2 + 1) * TH_UNIT]);
+    const float lo1 = nz(raw[((i + 1) % TH_RING) * 2 * TH_UNIT]);
+    fac[(i % 2) * 2 * TH_UNIT + tw] = __fdividef(lo, hi);
+    fac[((i % 2) * 2 + 1) * TH_UNIT + tw] = last ? hi : __fdividef(hi, lo1);
   };
   auto rescale = [&](int row) {   // acc *= factor row `row`, column by column
-    const float* fp = fac + row * GH_UNIT + 2 * t;
+    const float* fp = fac + row * TH_UNIT + 2 * t;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const float2 f = *reinterpret_cast<const float2*>(fp + 8 * j);
@@ -277,21 +295,52 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
   };
   // scales into the warpgroup's buffers by cp.async (4 bytes a copy: any V),
   // one commit group: grouped int4, stage n's low and high rows of its unit's
-  // columns into rows 2 (k % GH_RING) and the one after; else the per-row
+  // columns into rows 2 (k % TH_RING) and the one after; else the per-row
   // scales of the pair that starts at n into row k % 2
   auto fetch = [&](const Walk& n, int k) {
-    const int v = (n.vb + wg) * GH_UNIT + tw;   // past V: WG 1 of a pair of one unit
+    const int v = (n.vb + wg) * TH_UNIT + tw;   // past V: WG 1 of a pair of one unit
     if (!n.done() && v < V) {
       if constexpr (GROUPED) {
         const int gi = n.gi;
-        const uint32_t d = sc + ((k % GH_RING) * 2 * GH_UNIT + tw) * 4;
+        const uint32_t d = sc + ((k % TH_RING) * 2 * TH_UNIT + tw) * 4;
         cp_async4(d, scale + (size_t)gi * V + v);
-        cp_async4(d + GH_UNIT * 4, scale + (size_t)(scale_rows / 2 + gi) * V + v);
+        cp_async4(d + TH_UNIT * 4, scale + (size_t)(scale_rows / 2 + gi) * V + v);
       } else {
-        cp_async4(sc + ((k % 2) * GH_UNIT + tw) * 4, scale + v);
+        cp_async4(sc + ((k % 2) * TH_UNIT + tw) * 4, scale + v);
       }
     }
     cp_async_commit();
+  };
+  // LOGITS: acc times the factors at rsa (the per-row scales, or grouped
+  // int4's final factor; a shared address) of unit vb, batch tile mb, into y:
+  // a float2 a lane where the row stride keeps them 8-byte aligned (V even),
+  // else one by one. The lane's place (t, g, wq) is read again from %tid.x:
+  // kept from the mainloop it stays live across the unit, and the grouped
+  // instantiation then spills at its 168 registers.
+  auto store_logits = [&](int vb, int mb, uint32_t rsa) {
+    uint32_t tx;
+    asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(tx));
+    const int lt = tx % 4, lg = (tx % 32) / 4, lw = (tx / 32) % 4;
+    const bool pairs = V % 2 == 0;
+    const int v0 = vb * TH_UNIT + 2 * lt;   // the lane's first vocab column, then + 8 j
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mb * 64 + 16 * lw + lg + 8 * h;
+      float* yp = out + (size_t)m * V + v0;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 f = ld_shared_f2(rsa + 4 * (8 * j + 2 * lt));
+        const float y0 = acc[4 * j + 2 * h] * f.x, y1 = acc[4 * j + 2 * h + 1] * f.y;
+        const int v = v0 + 8 * j;
+        if (pairs && v + 1 < V) {
+          __stcs(reinterpret_cast<float2*>(yp + 8 * j), make_float2(y0, y1));
+        } else {
+          if (v < V) __stcs(yp + 8 * j, y0);
+          if (v + 1 < V) __stcs(yp + 8 * j + 1, y1);
+        }
+      }
+    }
   };
   // logits acc times the factors rs (the per-row scales, or grouped int4's
   // final factor) of unit vb, batch tile mb: (max, first index) per batch row
@@ -304,7 +353,7 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
       const float2 f = *reinterpret_cast<const float2*>(rs + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {   // this lane's vocab columns, in order
-        const int v = vb * GH_UNIT + 8 * j + 2 * t + e;
+        const int v = vb * TH_UNIT + 8 * j + 2 * t + e;
         if (v < V) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
@@ -323,7 +372,7 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
               __shfl_xor_sync(0xffffffffu, arg[h], o));
       const int m = mb * 64 + 16 * wq + g + 8 * h;
       if (t == 0 && m < M) {
-        bval[(size_t)vb * M + m] = isnan(best[h]) ? -INFINITY : best[h];
+        out[(size_t)vb * M + m] = isnan(best[h]) ? -INFINITY : best[h];
         bidx[(size_t)vb * M + m] = arg[h];
       }
     }
@@ -337,8 +386,8 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
   int pair_no = 0;   // pairs done (the per-row scales of pair p are in row p % 2)
   {
     Walk n = w;
-    for (int k = 0; k < (GROUPED ? GH_AHEAD : 1); ++k, n.next()) fetch(n, k);
-    if constexpr (GROUPED) cp_async_wait<GH_AHEAD - 2>();   // stages 0 and 1's
+    for (int k = 0; k < (GROUPED ? TH_AHEAD : 1); ++k, n.next()) fetch(n, k);
+    if constexpr (GROUPED) cp_async_wait<TH_AHEAD - 2>();   // stages 0 and 1's
     else cp_async_wait<0>();
   }
   mbar_wait(full, 0);
@@ -351,20 +400,20 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
     Walk n = w;
     n.next();
     const bool more = !n.done();
-    if constexpr (GROUPED) {   // this stage's factors; stage i + GH_AHEAD's scales
+    if constexpr (GROUPED) {   // this stage's factors; stage i + TH_AHEAD's scales
       factors(i, w.last());
       Walk n2 = n;
-      for (int k = 1; k < GH_AHEAD; ++k) n2.next();
-      fetch(n2, i + GH_AHEAD);
+      for (int k = 1; k < TH_AHEAD; ++k) n2.next();
+      fetch(n2, i + TH_AHEAD);
     }
 #pragma unroll
     for (int j = 0; j < S::SUB; ++j, ++k) {
-      const uint32_t cur = bt + (k % 2) * GH_BTILE, nxt = bt + ((k + 1) % 2) * GH_BTILE;
+      const uint32_t cur = bt + (k % 2) * TH_BTILE, nxt = bt + ((k + 1) % 2) * TH_BTILE;
       if constexpr (GROUPED) {   // into the unit of this half's scale
         if (j == 1) rescale((i % 2) * 2);
         else if (w.c != 0) rescale(((i + 1) % 2) * 2 + 1);
       }
-      products(acc, st + j * GH_XBOX, cur);
+      products(acc, st + j * TH_XBOX, cur);
       if (j + 1 < S::SUB) {
         widen(st, j + 1, nxt);
       } else if (more) {
@@ -375,7 +424,7 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
       fence_proxy_async();       // the next tile, before the tensor cores read it
       if (j == S::SUB - 1) {
         if (lane == 0) mbar_arrive(empty + 8 * s);
-        if constexpr (GROUPED) cp_async_wait<GH_AHEAD - 2>();   // stage i + 2's have landed
+        if constexpr (GROUPED) cp_async_wait<TH_AHEAD - 2>();   // stage i + 2's have landed
         else cp_async_wait<0>();
       }
       named_bar(1 + wg, 128);
@@ -386,9 +435,15 @@ greedy_head_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
       fetch(n2, pair_no + 1);
     }
     if (w.last()) {
-      if (wg == 0 || w.two)
-        epilogue(w.vb + wg, w.mb,
-                 GROUPED ? fac + ((i % 2) * 2 + 1) * GH_UNIT : scs + (pair_no % 2) * GH_UNIT);
+      if (wg == 0 || w.two) {
+        if constexpr (LOGITS)
+          store_logits(w.vb + wg, w.mb,
+                       sc + 4 * (GROUPED ? TH_RING * 2 * TH_UNIT + ((i % 2) * 2 + 1) * TH_UNIT
+                                         : (pair_no % 2) * TH_UNIT));
+        else
+          epilogue(w.vb + wg, w.mb,
+                   GROUPED ? fac + ((i % 2) * 2 + 1) * TH_UNIT : scs + (pair_no % 2) * TH_UNIT);
+      }
 #pragma unroll
       for (int x = 0; x < 64; ++x) acc[x] = 0.f;
       ++pair_no;
@@ -428,47 +483,78 @@ __global__ void argmax_reduce_kernel(const float* __restrict__ bval, const int* 
     ids[m] = (sv[0] > -INFINITY) ? bidx[(size_t)sb[0] * M + m] : 0;
 }
 
-// One call: the head kernel over min(SMs, units) blocks, then the reduce.
-// scale_rows: grouped int4's scale rows (H / group), else 0.
-template <bool INT4, bool GROUPED>
-int gh_launch(const void* x, const void* E, const void* scale, void* bval, void* bidx, void* ids,
+// One call: the head kernel over min(SMs, units) blocks, then (argmax) the
+// reduce. scale_rows: grouped int4's scale rows (H / group), else 0. LOGITS:
+// out is y, and bidx, ids are not used.
+template <bool INT4, bool GROUPED, bool LOGITS>
+int th_launch(const void* x, const void* E, const void* scale, void* out, void* bidx, void* ids,
               int M, int V, int H, int scale_rows, cudaStream_t st) {
+  using S = ThShape<INT4, GROUPED>;
   VBT_CHECK((cudaError_t)bind_device(x));
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xm, tm;
   if (!make_map(enc, &xm, x, M, H, 64) ||
-      !make_byte_map(enc, &tm, E, V, INT4 ? H / 2 : H, GH_UNIT, GhShape<INT4, GROUPED>::BK,
-                     GhShape<INT4, GROUPED>::BK == 128))
+      !make_byte_map(enc, &tm, E, V, INT4 ? H / 2 : H, TH_UNIT, S::BK, S::BK == 128))
     return (int)cudaErrorInvalidValue;
   static bool allowed = false;   // one flag for each instantiation
   if (!allowed) {
-    VBT_CHECK(cudaFuncSetAttribute(greedy_head_kernel<INT4, GROUPED>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   GhShape<INT4, GROUPED>::SMEM));
+    VBT_CHECK(cudaFuncSetAttribute(tied_head_kernel<INT4, GROUPED, LOGITS>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM));
     allowed = true;
   }
-  const int nblk = (V + GH_UNIT - 1) / GH_UNIT, units = (M + 63) / 64 * nblk;
-  greedy_head_kernel<INT4, GROUPED>
-      <<<min(sm_count(), units), GH_THREADS, GhShape<INT4, GROUPED>::SMEM, st>>>(
-          xm, tm, (const float*)scale, (float*)bval, (int*)bidx, M, V, H, scale_rows);
+  const int nblk = (V + TH_UNIT - 1) / TH_UNIT, units = (M + 63) / 64 * nblk;
+  tied_head_kernel<INT4, GROUPED, LOGITS><<<min(sm_count(), units), TH_THREADS, S::SMEM, st>>>(
+      xm, tm, (const float*)scale, (float*)out, (int*)bidx, M, V, H, scale_rows);
   VBT_CHECK_LAUNCH();
-  argmax_reduce_kernel<<<M, 256, 0, st>>>((const float*)bval, (const int*)bidx, (int*)ids, M,
-                                          nblk);
-  VBT_CHECK_LAUNCH();
+  if constexpr (!LOGITS) {
+    argmax_reduce_kernel<<<M, 256, 0, st>>>((const float*)out, (const int*)bidx, (int*)ids, M,
+                                            nblk);
+    VBT_CHECK_LAUNCH();
+  }
   return 0;
 }
 
+// What the kernel takes: int8 H a multiple of 64 (a stage of 128 columns whose
+// last 64 lie past H reads them as zeros); int4 H a multiple of 128 and a group
+// (0: one scale a row) that is a multiple of 64 dividing H / 2. Returns grouped
+// int4's scale rows (H / group), 0 for per-row scales, or -1 for a shape it
+// does not take.
+int th_scale_rows(bool int4, int M, int V, int H, int group) {
+  if (M < 1 || V < 1 || H < 64 || H % (int4 ? 128 : 64) != 0) return -1;
+  if (!int4 || group == 0) return 0;
+  return group % 64 != 0 || (H / 2) % group != 0 ? -1 : H / group;
+}
+
 }  // namespace
+
+// y[M, V] f32 = (x[M, H] bf16 . E[V, H]^T int8) * scale[V]
+extern "C" int vbt_int8_matmul_t(const void* x, const void* E, const void* scale, void* y,
+                                 int M, int V, int H, void* stream_ptr) {
+  if (th_scale_rows(false, M, V, H, 0) < 0) return (int)cudaErrorInvalidValue;
+  return th_launch<false, false, true>(x, E, scale, y, nullptr, nullptr, M, V, H, 0,
+                                       (cudaStream_t)stream_ptr);
+}
+
+// y[M, V] f32 = x[M, H] bf16 . dequant4(E4[V, H/2])^T; scale f32 [V] (group ==
+// 0) or [H/group, V]
+extern "C" int vbt_int4_matmul_t(const void* x, const void* E, const void* scale, void* y,
+                                 int M, int V, int H, int group, void* stream_ptr) {
+  const int rows = th_scale_rows(true, M, V, H, group);
+  if (rows < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream_ptr;
+  return rows ? th_launch<true, true, true>(x, E, scale, y, nullptr, nullptr, M, V, H, rows, st)
+              : th_launch<true, false, true>(x, E, scale, y, nullptr, nullptr, M, V, H, 0, st);
+}
 
 // ids[m] = argmax_v of x[M, H] bf16 . (E[V, H] int8)^T * scale[V]; bval/bidx:
 // scratch of ceil(V / 128) * M each.
 extern "C" int vbt_int8_matmul_t_argmax(const void* x, const void* E, const void* scale,
                                         void* bval, void* bidx, void* ids, int M, int V, int H,
                                         void* stream_ptr) {
-  if (M < 1 || V < 1 || H < 64 || H % 64 != 0) return (int)cudaErrorInvalidValue;
-  return gh_launch<false, false>(x, E, scale, bval, bidx, ids, M, V, H, 0,
-                                 (cudaStream_t)stream_ptr);
+  if (th_scale_rows(false, M, V, H, 0) < 0) return (int)cudaErrorInvalidValue;
+  return th_launch<false, false, false>(x, E, scale, bval, bidx, ids, M, V, H, 0,
+                                        (cudaStream_t)stream_ptr);
 }
 
 // ids[m] = argmax_v of x[M, H] bf16 . dequant4(E4[V, H/2])^T; scale f32 [V]
@@ -476,12 +562,9 @@ extern "C" int vbt_int8_matmul_t_argmax(const void* x, const void* E, const void
 extern "C" int vbt_int4_matmul_t_argmax(const void* x, const void* E, const void* scale,
                                         void* bval, void* bidx, void* ids, int M, int V, int H,
                                         int group, void* stream_ptr) {
-  if (M < 1 || V < 1 || H < 128 || H % 128 != 0) return (int)cudaErrorInvalidValue;
-  if (group == 0)
-    return gh_launch<true, false>(x, E, scale, bval, bidx, ids, M, V, H, 0,
-                                  (cudaStream_t)stream_ptr);
-  if (group % 64 != 0 || (H / 2) % group != 0) return (int)cudaErrorInvalidValue;
-  return gh_launch<true, true>(x, E, scale, bval, bidx, ids, M, V, H, H / group,
-                               (cudaStream_t)stream_ptr);
+  const int rows = th_scale_rows(true, M, V, H, group);
+  if (rows < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream_ptr;
+  return rows ? th_launch<true, true, false>(x, E, scale, bval, bidx, ids, M, V, H, rows, st)
+              : th_launch<true, false, false>(x, E, scale, bval, bidx, ids, M, V, H, 0, st);
 }
-

@@ -9,8 +9,8 @@ sources, so a changed source rebuilds and an unchanged one is loaded as it
 is. `build_log` keeps what `-Xptxas -v` printed (registers, shared memory
 and spills per kernel), also when the library was built by an earlier
 process: the log is kept beside it. `VBT_NVCC_FLAGS` in the environment adds
-compiler flags (for instance `-DI4H_MIN_BLOCKS=3`, to time a kernel's
-variants against each other); they are part of the key.
+compiler flags (for instance a `-D` define, to time a kernel's variants
+against each other); they are part of the key.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 vlm_bridge_tpu.ops.quant).
 
 Int8: symmetric per-channel, w ~= w_int8 * scale. Five functions have a CUDA
-kernel: `int8_matmul`, `int8_mlp`, `int8_ffn` (csrc/int8_linear.cu),
-`int8_matmul_t` (csrc/int8_argmax.cu) and the greedy head
-`int8_matmul_t_argmax` (csrc/greedy_head.cu).
+kernel: `int8_matmul`, `int8_mlp`, `int8_ffn` (csrc/int8_linear.cu), and the
+sampled head `int8_matmul_t` and the greedy head `int8_matmul_t_argmax`
+(csrc/tied_head.cu: one kernel, two epilogues).
 
 Int4: symmetric, values -7..7, two to a byte. `quantize_int4` packs a weight
 [K, N] along its contraction axis (byte (k, n) holds rows k and k + K/2;
@@ -13,8 +13,8 @@ scales per output channel or per group of `group_size` rows);
 columns k and k + H/2; scales per row, or per (row, H-group) stored
 transposed [H/g, V]). The dicts carry the JAX package's keys and, bit for
 bit, its bytes and scales. Three functions have a CUDA kernel: the heads
-`int4_matmul_t` (csrc/int8_argmax.cu) and `int4_matmul_t_argmax`
-(csrc/greedy_head.cu), and `int4_mlp` (csrc/int4_linear.cu). The kernels read the packed layouts as
+`int4_matmul_t` and `int4_matmul_t_argmax` (csrc/tied_head.cu), and
+`int4_mlp` (csrc/int4_linear.cu). The kernels read the packed layouts as
 they are: the rows-packed table, gate/up packed over the whole of H
 ("global") and the down projection packed block by block
 (`repack_down_blockwise`); no copy in another order is kept.
@@ -38,7 +38,7 @@ from vlm_bridge_tpu_torch.ops import cuda_lib
 
 # Vocab rows per block of the greedy head. It fixes which logits a NaN
 # disqualifies (a block holding a NaN never wins), so the kernel and the
-# plain version share it (csrc/greedy_head.cu: GH_UNIT).
+# plain version share it (csrc/tied_head.cu: TH_UNIT).
 ARGMAX_BLOCK_V = 128
 
 
