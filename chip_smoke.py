@@ -183,6 +183,9 @@ I8_MMA_SYNC_MS = {"gemma_qkv": 0.0155, "gemma_o": 0.0126, "bridge_self_qkv": 0.0
                   "int8_mlp": 0.0749, "int8_ffn": 0.0477, "fused_attn_step": 0.0556,
                   "fused_mlp_step": 0.0891, "qkv": 0.5277, "o": 0.1884, "fc1": 0.7004,
                   "fc2": 0.5966}
+# int4_mlp's earlier (cp.async + mma.sync, split-K through device memory and a
+# second epilogue kernel) form on the same card, PERF.md row 18
+INT4_MLP_MMA_SYNC_MS = {"per_channel": 0.0728, f"group{INT4_GROUP}": 0.0925}
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
 
 
@@ -207,7 +210,7 @@ def card_line() -> str:
         return "unknown (nvidia-smi unavailable)"
 
 
-PTXAS_TAGS = ("fa_", "i8mm_kernel", "i4l_product", "decode_gemm_kernel", "tied_head_kernel",
+PTXAS_TAGS = ("fa_", "i8mm_kernel", "decode_gemm_kernel", "tied_head_kernel",
               "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide", "ls_attn_kernel")
 
 
@@ -225,8 +228,11 @@ GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4E", "decode_gemm_kernelILb1ELi4E",
 HEAD_INSTANCES = tuple(f"tied_head_kernelILb{i4}ELb{gr}ELb{lg}E"
                        for i4, gr in ((0, 0), (1, 0), (1, 1)) for lg in (0, 1))
 # the int8 product kernel (csrc/int8_linear.cu): the decode form (one consumer
-# warpgroup, 64 rows) and the tower's (two warpgroups of 128 rows)
-I8MM_INSTANCES = ("i8mm_kernelILi1ELi1E", "i8mm_kernelILi2ELi2E")
+# warpgroup, 64 rows) and the tower's (two warpgroups of 128 rows); its int4
+# path (int4_mlp), per channel and in groups, with the GeGLU and the scale
+# epilogue
+I8MM_INSTANCES = ("i8mm_kernelILi1ELi1E", "i8mm_kernelILi2ELi2E") + tuple(
+    f"i8mm_kernelILi1ELi1ELi{epi}ELb1ELb{gr}E" for gr in (0, 1) for epi in (1, 2))
 REQUIRED = FLASH_INSTANCES + GEMM_INSTANCES + HEAD_INSTANCES + I8MM_INSTANCES
 
 
@@ -1908,7 +1914,8 @@ def phase_int4_heads(table, dev, gen):
 
 def phase_int4_mlp(params, per_layer, cfg, dev, gen, card):
     """int4_mlp, per channel and in groups of INT4_GROUP, against its plain
-    version at M = BATCH on every layer's own MLP weights; then the probe:
+    version at M = BATCH on every layer's own MLP weights (the first layer's
+    twice: the same bits); then the probe:
     PROBE_TOKENS passes over all layers for int4_mlp (both schemes) and
     int8_mlp in turns, device ms per token. Returns (result row, launches
     of the probe)."""
@@ -1932,17 +1939,21 @@ def phase_int4_mlp(params, per_layer, cfg, dev, gen, card):
             * (x.float() @ m0["up"].float())) @ m0["down"].float())
     by_scheme, worst = {}, 0.0
     for sname, ws in schemes.items():
+        for li, w in enumerate(ws):
+            got = quant.int4_mlp(x, *w, block_f=PROBE_BLOCK_F)
+            want = quant.int4_mlp_plain(x, *w, block_f=PROBE_BLOCK_F)
+            torch.cuda.synchronize()
+            worst = max(worst, rows_close(f"int4_mlp {sname} layer {li}", got, want, I8_TOL))
         got = quant.int4_mlp(x, *ws[0], block_f=PROBE_BLOCK_F)
-        want = quant.int4_mlp_plain(x, *ws[0], block_f=PROBE_BLOCK_F)
-        torch.cuda.synchronize()
-        worst = max(worst, rows_close(f"int4_mlp {sname}", got, want, I8_TOL))
+        same_bits(f"int4_mlp {sname}", got, quant.int4_mlp(x, *ws[0], block_f=PROBE_BLOCK_F))
         rel = float((got.float() - y32).norm() / y32.norm())
         nxt = cycle(ws)
         ms = time_ms(lambda: quant.int4_mlp(x, *nxt(), block_f=PROBE_BLOCK_F), 52)
         plain_ms = time_ms(lambda: quant.int4_mlp_plain(x, *nxt(), block_f=PROBE_BLOCK_F), 4)
         wb = sum(nbytes(q["w_int4"], q["scale"]) for q in ws[0])
         bd = bound(wb + nbytes(x, got), 2.0 * BATCH * 2 * sum(q["w_int4"].numel() for q in ws[0]))
-        print(f"[int4_mlp] {sname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        print(f"[int4_mlp] {sname}: kernel {ms:.4f} ms (the mma.sync kernel: "
+              f"{INT4_MLP_MMA_SYNC_MS[sname]}), plain {plain_ms:.4f} ms, bound "
               f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; output against the float MLP: "
               f"relative error {rel:.4f}")
         by_scheme[sname] = {"ms": ms, "plain_ms": plain_ms, **bd, "rel_err_vs_float": rel}
@@ -1969,8 +1980,10 @@ def phase_int4_mlp(params, per_layer, cfg, dev, gen, card):
     times = {k: [] for k in variants}
     for _ in range(PROBE_REPS):
         for k, run in variants.items():
-            # 520 wrapper calls a run: a longer spin keeps the host ahead of the card
-            times[k].append(time_ms(run, 1, spin_cycles=80_000_000) / PROBE_TOKENS)
+            # 520 wrapper calls and 1040 element-wise ops a run, ~45 ms of host
+            # time: a spin of ~130 ms keeps the host ahead of the card (80M
+            # cycles, ~45 ms, timed the host's issuing of the int4 runs)
+            times[k].append(time_ms(run, 1, spin_cycles=250_000_000) / PROBE_TOKENS)
     probe_launches = quant.int4_mlp.launches
     med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     print(f"int4 MLP probe, {L} layers x {PROBE_TOKENS} tokens at M = {BATCH}, {PROBE_REPS} "
@@ -2274,7 +2287,7 @@ def main() -> int:
                "int8_ffn": ("int8_linear.cu", f"{qpy}:597"),
                "int4_matmul_t": ("tied_head.cu", f"{qpy}:426"),
                "int4_matmul_t_argmax": ("tied_head.cu", f"{qpy}:463"),
-               "int4_mlp": ("int4_linear.cu", f"{qpy}:842"),
+               "int4_mlp": ("int8_linear.cu", f"{qpy}:842"),
                "fused_stack_step": ("stack_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:707"),
                # the same wrapper and C entry with int4 MLP weights: the TPU
                # kernel's mlp4 stage (decode_kernels.py:579), here i4_gemm.cu

@@ -1,12 +1,14 @@
-"""The int8 linear kernels alone on one GPU (ops/quant.int8_matmul, int8_mlp,
-int8_ffn and the per-layer decode steps built on the same product), from this
-checkout and from another one in turns.
+"""The linear kernels of csrc/int8_linear.cu alone on one GPU (ops/quant.
+int8_matmul, int8_mlp, int8_ffn, int4_mlp and the per-layer decode steps
+built on the same product), from this checkout and from another one in turns.
 
     python3 scripts/int8_linear_torch.py [--root DIR]
 
 Shapes: at M = 64 rows (the decode batch) Gemma-2-2B's fused qkv (2304 x
 4096), o (2048 x 2304), the bridge's fused self qkv (2304 x 6912), int8_mlp
-(H 2304, F 9216), int8_ffn (2304, 9216), fused_attn_step (t = 20) and
+(H 2304, F 9216) and int4_mlp (the same MLP, block_f 512, per channel and in
+groups of 128; both MLPs also at M = 1), int8_ffn (2304, 9216),
+fused_attn_step (t = 20) and
 fused_mlp_step, and the stack step (fused_stack_step, 26 layers, t = 20) whose
 row kernels this checkout changed; at M = 16448 (64 images x 257 tokens) the
 int8 vision tower's four projections (qkv 1024 x 3072, o 1024 x 1024, fc1
@@ -18,7 +20,7 @@ inputs read and outputs written once over 3.35 TB/s, or 2 M N K over 989
 TFLOP/s, whichever is larger), the wrapper's host microseconds a call (the
 host clock over CALLS calls issued back to back, the card behind), and for
 int8_matmul a bf16 torch.matmul on a dequantized copy made beforehand,
-labelled as not the same function. Then what ptxas reported for the int8
+labelled as not the same function. Then what ptxas reported for the
 product kernels (registers, spills).
 
 --root DIR times DIR's port as well: the script runs itself once a port, in
@@ -47,8 +49,9 @@ DECODE_MM = {"gemma_qkv": (2304, 4096), "gemma_o": (2048, 2304), "bridge_self_qk
 TOWER_MM = {"qkv": (1024, 3072), "o": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
 H, F = 2304, 9216
 REPS, CALLS = 3, 200
-KERNEL_TAGS = ("i8mm_kernel", "i8l_product", "i8l_epilogue", "ls_rms", "ls_residual",
+KERNEL_TAGS = ("i8mm_kernel", "i4l_product", "i8l_epilogue", "ls_rms", "ls_residual",
                "residual_rms")
+INT4_BLOCK_F, INT4_GROUP = 512, 128
 
 
 def load_chip_smoke():
@@ -123,7 +126,31 @@ def one_port(root: Path) -> dict:
               f"({ms / bd['bound_ms']:.2f}x); host {us:.1f} us a call"
               + "".join(f"; {k} {v:.4f}" for k, v in (extra or {}).items()), flush=True)
 
+    def wq4(k, n, group, packing):   # random nibbles, as quantize_int4 lays them out
+        return {"w_int4": torch.randint(-128, 128, (k // 2, n), generator=gen, device=dev,
+                                        dtype=torch.int8),
+                "scale": torch.rand((n,) if group is None else (k // group, n), generator=gen,
+                                    device=dev) * 1e-3 + 1e-4,
+                "packing": packing, "group_size": group}
+
     with torch.no_grad():
+        for M in (M_DECODE, 1):
+            x = x_of(M, H)
+            mlps = sets(lambda: (wq(H, F), wq(H, F), wq(F, H)), 3 * H * F)
+            bd = cs.bound(sum(cs.nbytes(*q.values()) for q in mlps[0]) + 2 * cs.nbytes(x),
+                          2.0 * M * 3 * H * F)
+            record(f"int8_mlp M{M}", quant.int8_mlp, quant.int8_mlp_plain, (x, *mlps[0]),
+                   cs.cycle([(x, *m) for m in mlps]), bd)
+            for sname, group in (("per_channel", None), (f"group{INT4_GROUP}", INT4_GROUP)):
+                ws = sets(lambda: (wq4(H, F, group, "global"), wq4(H, F, group, "global"),
+                                   wq4(F, H, group, f"blockwise{INT4_BLOCK_F}")), 3 * H * F // 2)
+                fn = lambda *a: quant.int4_mlp(*a, block_f=INT4_BLOCK_F)  # noqa: E731
+                plain = lambda *a: quant.int4_mlp_plain(*a, block_f=INT4_BLOCK_F)  # noqa: E731
+                bd = cs.bound(sum(cs.nbytes(q["w_int4"], q["scale"]) for q in ws[0])
+                              + 2 * cs.nbytes(x), 2.0 * M * 3 * H * F)
+                record(f"int4_mlp {sname} M{M}", fn, plain, (x, *ws[0]),
+                       cs.cycle([(x, *w) for w in ws]), bd)
+            del mlps, ws
         for name, (K, N) in {**DECODE_MM, **TOWER_MM}.items():
             M = M_DECODE if name in DECODE_MM else M_TOWER
             ws = sets(lambda: wq(K, N), K * N) if M == M_DECODE else [wq(K, N) for _ in range(2)]
@@ -140,10 +167,6 @@ def one_port(root: Path) -> dict:
                    {"torch.matmul on a dequantized bf16 copy (not the same function)": deq})
         x = x_of(M_DECODE, H)
         mlps = sets(lambda: (wq(H, F), wq(H, F), wq(F, H)), 3 * H * F)
-        bd = cs.bound(sum(cs.nbytes(*q.values()) for q in mlps[0]) + 2 * cs.nbytes(x),
-                      2.0 * M_DECODE * 3 * H * F)
-        record("int8_mlp M64", quant.int8_mlp, quant.int8_mlp_plain, (x, *mlps[0]),
-               cs.cycle([(x, *m) for m in mlps]), bd)
         ffns = sets(lambda: (wq(H, F), torch.randn(F, generator=gen, device=dev) * 0.1,
                              wq(F, H), torch.randn(H, generator=gen, device=dev) * 0.1),
                     2 * H * F)

@@ -884,8 +884,14 @@ def test_head_kernels_run_from_a_fresh_thread(dev):
     assert all(torch.equal(a, b) for a, b in zip(got, want)) and len(got) == 4
 
 
+# M, H, F, block_f, group: rows 1 / 5 / 64 / 65 / 128 / 130 (one, two, three
+# 64-row tiles), Gemma-2-2B's MLP at full width (gate | up unsplit: 144 column
+# tiles; down split over a cluster), down over 8 stages in 8 slices (H 256),
+# block_f 128 (a half of 64 packed rows), per channel and groups of 64 / 128
 I4_MLP = [(5, 128, 512, 256, None), (64, 256, 1024, 512, 128), (130, 128, 256, 128, 64),
-          (64, 512, 1024, 512, None)]
+          (64, 512, 1024, 512, None), (1, 256, 1024, 256, None), (1, 2304, 9216, 512, 128),
+          (64, 2304, 9216, 512, None), (64, 2304, 9216, 512, 128), (65, 256, 1024, 512, 64),
+          (128, 512, 1024, 128, 64), (128, 256, 1024, 128, None), (130, 2304, 9216, 512, 128)]
 
 
 def _i4_mlp_case(dev, M, H, F, block_f, group, seed=22):
@@ -910,6 +916,45 @@ def test_int4_mlp_kernel_matches_plain(dev, M, H, F, block_f, group):
     assert quant.int4_mlp.launches == n + 1 and got.dtype == torch.bfloat16
     _rows_close(got, quant.int4_mlp_plain(*args, block_f=block_f), I8_TOL)
     assert torch.equal(got, quant.int4_mlp(*args, block_f=block_f))   # fixed-order reduce
+
+
+def _i4_splits(dev, M, H, F, group):
+    """The slices of int4_mlp's two products on this card."""
+    from vlm_bridge_tpu_torch.ops import quant
+
+    sms = quant._sms(dev)
+    slots = quant._cluster_slots(dev, "int4" if group is None else "int4_grouped")
+    return (quant.int4_split(M, F, H // 2, dual=True, sms=sms, clusters=slots),
+            quant.int4_split(M, H, F // 2, dual=False, sms=sms, clusters=slots))
+
+
+def test_int4_mlp_cases_cover_split_1_and_8(dev):
+    """I4_MLP holds a product run unsplit and one split over a cluster of 8."""
+    splits = {s for M, H, F, _, group in I4_MLP for s in _i4_splits(dev, M, H, F, group)}
+    assert {1, 8} <= splits, splits
+
+
+def test_int4_mlp_runs_from_a_fresh_thread(dev):
+    """int4_mlp called first thing on a new thread (per channel and in groups)
+    gives the main thread's bits: its C entry binds the device before
+    encoding the tensor maps."""
+    import threading
+
+    from vlm_bridge_tpu_torch.ops import quant
+
+    cases = [_i4_mlp_case(dev, 64, 256, 1024, 512, group, seed=97) for group in (None, 64)]
+
+    def run():
+        out = [quant.int4_mlp(*c, block_f=512) for c in cases]
+        torch.cuda.synchronize()
+        return out
+
+    got = []
+    th = threading.Thread(target=lambda: got.append(run()))
+    th.start()
+    th.join()
+    assert len(got) == 1, "the thread raised"
+    assert all(torch.equal(a, b) for a, b in zip(got[0], run()))
 
 
 def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):

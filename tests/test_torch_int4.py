@@ -282,6 +282,144 @@ def test_int4_mlp_refuses_what_the_jax_function_refuses():
 
 
 # ---------------------------------------------------------------------------
+# int4_mlp's kernel (csrc/int8_linear.cu, the product kernel's int4 path)
+# written out: its split plan and its walk over stages, sub-steps and slices
+# ---------------------------------------------------------------------------
+
+TILE_K = 64   # packed rows a stage (tq._I8_TILE_K)
+
+# (M, N, Kp, dual): Gemma-2-2B's gate | up (F 9216 over H/2 = 1152 packed rows)
+# and down (H 2304 over F/2 = 4608) at the decode batch, one row and 128 rows,
+# rows past the int8 decode form's 128, a ragged column tile, the tiny shapes
+# below; Gemma-2-2B's other products (fused qkv, o, the bridge's self qkv) as
+# if packed, a shape with enough tiles that it is not split, and one stage
+INT4_SPLIT_CASES = [(64, 9216, 1152, True), (64, 2304, 4608, False), (1, 9216, 1152, True),
+                    (1, 2304, 4608, False), (130, 2304, 4608, False), (300, 2320, 1152, False),
+                    (65, 1040, 512, True), (5, 256, 512, False), (5, 1024, 128, True),
+                    (128, 9216, 1152, True), (128, 2304, 4608, False), (64, 4096, 1152, False),
+                    (64, 2304, 1024, False), (64, 6912, 1152, False), (3200, 4096, 1152, False),
+                    (1, 16, 64, False)]
+
+
+def _int4_slices(Kp: int, split: int) -> list:
+    """The product kernel's slices (unit_of): slice s takes the stages
+    [s stages // split, (s + 1) stages // split), as packed-row ranges."""
+    stages = Kp // TILE_K
+    return [(s * stages // split * TILE_K, (s + 1) * stages // split * TILE_K)
+            for s in range(split)]
+
+
+@pytest.mark.parametrize("shape", INT4_SPLIT_CASES,
+                         ids=[f"{m}x{n}x{k}{'_dual' * d}" for m, n, k, d in INT4_SPLIT_CASES])
+def test_int4_split_plan(shape):
+    """At most one cluster's 8 slices, none empty, covering the packed rows in
+    order; no more blocks than one resident wave; a split whose clusters would
+    not all run at once shrinks; a pure function of its arguments."""
+    m, n, kp, dual = shape
+    assert TILE_K == tq._I8_TILE_K
+    s = tq.int4_split(m, n, kp, dual=dual, sms=132)
+    assert 1 <= s <= 8
+    slices = _int4_slices(kp, s)
+    assert slices[0][0] == 0 and slices[-1][1] == kp
+    assert all(a < b for a, b in slices)
+    assert all(slices[i][1] == slices[i + 1][0] for i in range(s - 1))
+    tiles = -(-m // 64) * -(-n // (64 if dual else 128))
+    assert tiles * s <= max(tiles, 2 * 132)
+    if (m, n, kp) == (64, 2304, 4608):
+        assert s == 8      # 18 column tiles: down is split over a whole cluster
+    if (m, n, kp) == (64, 9216, 1152):
+        assert s == 1      # 144 tiles of gate | up fill the card alone
+    if m > 128 and tiles < 132:
+        assert s > 1       # the int4 path splits past the int8 decode form's rows
+    if tiles >= 2 * 132:
+        assert s == 1      # enough tiles for every SM's two blocks: not split
+    assert s == tq.int4_split(m, n, kp, dual=dual, sms=132)
+    few = (264, 132, 88, 62, 48, 40, 34, 30)
+    s_few = tq.int4_split(m, n, kp, dual=dual, sms=132, clusters=few)
+    assert s_few <= s and (s_few == 1 or tiles <= few[s_few - 1])
+
+
+def _nibbles(packed: np.ndarray):
+    w = packed.astype(np.int32)
+    return (((w & 0xF) ^ 8) - 8).astype(np.float32), (w >> 4).astype(np.float32)
+
+
+def _kernel_walk(x, q: dict, half: int, split: int) -> np.ndarray:
+    """The f32 sums one int4 product of the kernel leaves for its epilogue:
+    slice by slice, stage by stage (64 packed rows from p0), the low nibbles
+    against x at depth lo(p0) = p0 // half * 2 half + p0 % half, then the high
+    ones against lo(p0) + half; in groups, the sum kept in the unit of the
+    sub-step's scale (times old over new at each change, times the last at
+    the end; a scale below 1e-30 counts as 1e-30); the slices added in rank
+    order. All in f32, as the kernel's accumulators are."""
+    lo_n, hi_n = _nibbles(np.asarray(q["w_int4"]))
+    scale, group = np.asarray(q["scale"], np.float32), q["group_size"]
+    kp = lo_n.shape[0]
+
+    def nz(v):
+        return np.where(np.abs(v) < 1e-30, np.float32(1e-30), v).astype(np.float32)
+
+    total = np.zeros((x.shape[0], lo_n.shape[1]), np.float32)
+    for s0, s1 in _int4_slices(kp, split):
+        subs = [(p0, h) for p0 in range(s0, s1, TILE_K) for h in (0, 1)]
+        depth = [p0 // half * 2 * half + p0 % half + h * half for p0, h in subs]
+        acc = np.zeros_like(total)
+        for n, ((p0, h), d0) in enumerate(zip(subs, depth)):
+            w = (hi_n if h else lo_n)[p0:p0 + TILE_K]
+            acc = (acc + x[:, d0:d0 + TILE_K] @ w).astype(np.float32)
+            if group is not None:
+                cur = nz(scale[d0 // group])
+                f = cur / nz(scale[depth[n + 1] // group]) if n + 1 < len(subs) else cur
+                acc = (acc * f).astype(np.float32)
+        total = (total + acc).astype(np.float32)
+    return total
+
+
+def _gelu_tanh(v):
+    return (0.5 * v * (1.0 + np.tanh(0.7978845608028654 * (v + 0.044715 * v ** 3)))).astype(
+        np.float32)
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("block_f,group,splits", [(256, None, (1, 1)), (512, None, (2, 3)),
+                                                  (256, 64, (2, 8)), (512, 64, (1, 5))])
+def test_int4_kernel_walk_matches_jax(monkeypatch, block_f, group, splits):
+    """The kernel's walk (`_kernel_walk`) through both products, GeGLU with
+    the per-channel scales (or 1 where groups scaled the sums), the hidden
+    rounded to bf16, down's sums times its scale, rounded to bf16: held to
+    JAX's int4_mlp, its Pallas kernel in interpret mode, within one bf16 step
+    (2^-7) of max|ref| (the hidden may round the other way on a tie)."""
+    monkeypatch.setattr(jq, "INTERPRET", True)
+    M, H, F = 5, 256, 1024
+    rng = np.random.default_rng(30 + block_f + (group or 0))
+    x = _bf16_exact(rng.normal(0, 1, (M, H)))
+    gate, up = (jq.quantize_int4(jnp.asarray(_weights(s, (H, F))), group_size=group)
+                for s in (31, 32))
+    down = jq.repack_down_blockwise(
+        jq.quantize_int4(jnp.asarray(_weights(33, (F, H))), group_size=group), block_f=block_f)
+    want = np.asarray(jq.int4_mlp(jnp.asarray(x, jnp.bfloat16), gate, up, down,
+                                  block_f=block_f).astype(jnp.float32))
+    gate, up, down = (_np(q) for q in (gate, up, down))
+    g = _kernel_walk(x, gate, H // 2, splits[0])
+    u = _kernel_walk(x, up, H // 2, splits[0])
+    if group is None:
+        g, u = g * gate["scale"], u * up["scale"]
+    hidden = _bf16(_gelu_tanh(g) * u)
+    y = _kernel_walk(hidden, down, block_f // 2, splits[1])
+    got = _bf16(y if group is not None else y * down["scale"])
+    err = float(np.abs(got - want).max())
+    assert err <= BF16_TOL * float(np.abs(want).max()), err
+    # a walk that took the high nibbles' x from lo(p0) + H/2 for down, as if
+    # down were packed globally, is far off: the test sees the index map
+    wrong = _bf16(_kernel_walk(hidden, down, F // 2, splits[1])
+                  * (1.0 if group is not None else down["scale"]))
+    assert float(np.abs(wrong - want).max()) > 10 * BF16_TOL * float(np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
 # the stack step with int4 MLP weights
 # ---------------------------------------------------------------------------
 

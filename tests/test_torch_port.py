@@ -262,7 +262,6 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                 "bridge_step.cu": "decode_kernels.py:fused_bridge_step",
                 "tied_head.cu": "quant.py:int8_matmul_t_argmax",
                 "int8_linear.cu": "quant.py:int8_matmul",
-                "int4_linear.cu": "quant.py:int4_mlp",
                 "flash_fwd.cu": "flash_attention.py:_flash_fwd",
                 "layer_step.cu": "decode_kernels.py:fused_attn_step",
                 "tiled_matmul.cu": "matmul_kernels.py:_tiled_matmul_jit",
@@ -275,10 +274,12 @@ def test_kernel_sources_ship_and_name_what_they_replace():
     assert "vlm_bridge_tpu/ops/flash_attention.py:_flash_bwd" in fa_bwd and "Bound:" in fa_bwd
     assert not (csrc / "flash_attention.cu").exists()   # the mma.sync backward is gone
     assert not (csrc / "int8_argmax.cu").exists()   # so are the wmma / mma.sync logits tiles
+    assert not (csrc / "int4_linear.cu").exists()   # and the mma.sync int4 MLP
     assert "vlm_bridge_tpu/ops/decode_kernels.py:fused_mlp_step" in \
         (csrc / "layer_step.cu").read_text()
     for target in ("quant.py:int8_mlp", "quant.py:int8_ffn"):
         assert f"vlm_bridge_tpu/ops/{target}" in (csrc / "int8_linear.cu").read_text()
+    assert "Replaces: vlm_bridge_tpu/ops/quant.py:int4_mlp" in (csrc / "int8_linear.cu").read_text()
     heads = (csrc / "tied_head.cu").read_text()
     for target in ("int8_matmul_t,", "int4_matmul_t,", "int4_matmul_t_argmax,"):
         assert f"Replaces: vlm_bridge_tpu/ops/quant.py:{target}" in heads
@@ -302,7 +303,7 @@ def test_kernel_sources_ship_and_name_what_they_replace():
                        ("vbt_int4_matmul_t", "tied_head.cu"),
                        ("vbt_int8_matmul_t_argmax", "tied_head.cu"),
                        ("vbt_int4_matmul_t_argmax", "tied_head.cu"),
-                       ("vbt_int4_mlp", "int4_linear.cu"),
+                       ("vbt_int4_mlp", "int8_linear.cu"),
                        ("vbt_fused_stack_step", "stack_step.cu"),
                        ("vbt_fused_attn_step", "layer_step.cu"),
                        ("vbt_fused_mlp_step", "layer_step.cu"),

@@ -194,22 +194,6 @@ def test_contraction_split_plan(shape, dual):
         assert tiles > few[s_few]   # the next larger split would not run at once
 
 
-@pytest.mark.parametrize("shape,dual", SPLIT_CASES[:5] + [((3200, 4096, 2304), False),
-                                                          ((1, 16, 8), False)])
-def test_int4_contraction_split_plan(shape, dual):
-    """int4_mlp's plan (csrc/int4_linear.cu): the slices cover the
-    contraction, none is empty, and a shape with enough tiles is not split."""
-    m, n, k = shape
-    s = tq._splits(m, n, k, dual=dual, sms=132)
-    chunks = -(-k // tq._TILE_K)
-    per = -(-chunks // s)
-    assert 1 <= s <= tq._MAX_SPLITS
-    assert per * s >= chunks and per * (s - 1) < chunks
-    if m >= 3200:
-        assert s == 1
-    assert s == tq._splits(m, n, k, dual=dual, sms=132)
-
-
 @pytest.mark.parametrize("split", [1, 2, 5, 8])
 def test_sliced_contraction_matches_plain(split):
     """The kernel's fixed order written out: each slice's f32 sum over its

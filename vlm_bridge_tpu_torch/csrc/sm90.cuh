@@ -1,6 +1,6 @@
 // Hopper helpers shared by the wgmma + TMA kernels (tiled_matmul.cu,
 // flash_fwd.cu, flash_bwd.cu, decode_gemm.cuh, tied_head.cu, int8_linear.cu):
-// shared-memory addresses, mbarriers, TMA loads (with L2 policies) and stores
+// shared-memory addresses, mbarriers, TMA and bulk loads (with L2 policies) and stores
 // with their bulk groups, named barriers, the wgmma shared-memory descriptor
 // with its fence / commit / wait, the widening of int8 and int4 weights into
 // bf16, cluster barriers and another block's shared-memory addresses, and the
@@ -68,6 +68,17 @@ __device__ __forceinline__ void tma_load_hint(uint32_t dst, const CUtensorMap* m
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
       " [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "l"(pol)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of device memory at src -> shared memory at dst,
+// both 16-byte aligned; completion counts the bytes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -448,10 +459,10 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& b0, uint32_t& b1) {
 // 8 int4 (a word of nibbles whose sign bits are flipped, w ^ 0x88888888, so
 // a nibble reads value + 8 in 0..15) -> four bf16x2 registers: lo0 / lo1 the
 // low nibbles of bytes (0, 1) / (2, 3), hi0 / hi1 their high nibbles. Each
-// nibble n is dropped into the mantissa of 128.0, which then reads 128 + n,
-// and one bf16x2 subtract of 136 leaves n - 8 (common.cuh:nib_pair's trick,
-// two bytes spread over a register's halves by one permute). Exact, no
-// conversion issued.
+// nibble n is dropped into the mantissa of 128.0 (bf16 0x4300, whose
+// mantissa step is 1), which then reads 128 + n, and one bf16x2 subtract of
+// 136 leaves n - 8 (two bytes spread over a register's halves by one
+// permute). Exact, no conversion issued.
 __device__ __forceinline__ void widen8_nibbles(uint32_t wb, uint32_t& lo0, uint32_t& lo1,
                                                uint32_t& hi0, uint32_t& hi1) {
   const uint32_t x0 = __byte_perm(wb, 0u, 0x4140), x1 = __byte_perm(wb, 0u, 0x4342);

@@ -41,9 +41,10 @@ SIGNATURES = {
     "vbt_int8_mlp": [_P] * 9 + [_I] * 5 + [_P],
     "vbt_int8_ffn": [_P] * 9 + [_I] * 5 + [_P],
     "vbt_int8_clusters": [_I, _P],
+    "vbt_int4_clusters": [_I, _I, _P],
     "vbt_int4_matmul_t_argmax": [_P] * 6 + [_I] * 4 + [_P],
     "vbt_int4_matmul_t": [_P] * 4 + [_I] * 4 + [_P],
-    "vbt_int4_mlp": [_P] * 10 + [_I] * 7 + [_P],
+    "vbt_int4_mlp": [_P] * 9 + [_I] * 7 + [_P],
     "vbt_tiled_matmul": [_P] * 4 + [_I] * 5 + [_P],
     "vbt_layer_norm": [_P] * 4 + [_I] * 3 + [_F] + [_P],
     "vbt_fused_attn_step": [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P],

@@ -14,8 +14,9 @@ columns k and k + H/2; scales per row, or per (row, H-group) stored
 transposed [H/g, V]). The dicts carry the JAX package's keys and, bit for
 bit, its bytes and scales. Three functions have a CUDA kernel: the heads
 `int4_matmul_t` and `int4_matmul_t_argmax` (csrc/tied_head.cu), and
-`int4_mlp` (csrc/int4_linear.cu). The kernels read the packed layouts as
-they are: the rows-packed table, gate/up packed over the whole of H
+`int4_mlp` (csrc/int8_linear.cu: the int8 product kernel with nibbles
+widened into its B tile). The kernels read the packed layouts as they are:
+the rows-packed table, gate/up packed over the whole of H
 ("global") and the down projection packed block by block
 (`repack_down_blockwise`); no copy in another order is kept.
 
@@ -181,26 +182,6 @@ def int8_ffn_plain(x: torch.Tensor, fc1_q: dict, b1: torch.Tensor, fc2_q: dict,
     return (_mm(h, fc2_q) + b2.float()).to(x.dtype)
 
 
-# int4_mlp's product kernel (csrc/int4_linear.cu): columns of one weight a
-# block covers, rows of x per block, packed rows of the weights per stage
-_TILE_N, _TILE_M, _TILE_K = 128, 64, 64
-# blocks per SM its contraction is split for, when the tiles alone give fewer
-_BLOCKS_PER_SM = 2
-_MAX_SPLITS = 16
-
-
-def _splits(M: int, N: int, K: int, *, dual: bool, sms: int) -> int:
-    """How many slices of the contraction int4_mlp's product kernel runs,
-    each in a block of its own, so that a small batch still fills the card.
-    The slices are added in a fixed order, so the result does not depend on
-    the count's timing, only on the shapes and the card."""
-    tiles = -(-N // (_TILE_N // 2 if dual else _TILE_N)) * -(-M // _TILE_M)
-    chunks = -(-K // _TILE_K)
-    want = max(1, min(_MAX_SPLITS, chunks, (_BLOCKS_PER_SM * sms) // tiles))
-    per = -(-chunks // want)
-    return -(-chunks // per)
-
-
 # The int8 product kernel (csrc/int8_linear.cu): rows of x up to which it runs
 # its decode form (64-row tiles, the contraction split), output columns a tile
 # (128 of one weight; 64 of gate and 64 of up), rows of the weights a stage;
@@ -208,6 +189,16 @@ def _splits(M: int, N: int, K: int, *, dual: bool, sms: int) -> int:
 # thread-block cluster, up to the portable 8)
 _I8_DECODE_ROWS, _I8_TILE_M, _I8_TILE_N, _I8_TILE_K = 128, 64, 128, 64
 _I8_BLOCKS_PER_SM, _I8_MAX_SPLIT = 2, 8
+
+
+def _decode_split(M: int, N: int, stages: int, dual: bool, sms: int,
+                  clusters: Optional[tuple]) -> int:
+    """The decode form's split of `stages` stages over M rows x N columns."""
+    tiles = -(-M // _I8_TILE_M) * -(-N // (_I8_TILE_N // 2 if dual else _I8_TILE_N))
+    split = max(1, min(_I8_MAX_SPLIT, stages, (_I8_BLOCKS_PER_SM * sms) // tiles))
+    while split > 1 and clusters is not None and tiles > clusters[split - 1]:
+        split -= 1
+    return split
 
 
 def contraction_split(M: int, N: int, K: int, *, dual: bool, sms: int,
@@ -222,21 +213,31 @@ def contraction_split(M: int, N: int, K: int, *, dual: bool, sms: int,
     function of the shapes and the card."""
     if M > _I8_DECODE_ROWS:
         return 1
-    tiles = -(-M // _I8_TILE_M) * -(-N // (_I8_TILE_N // 2 if dual else _I8_TILE_N))
-    chunks = -(-K // _I8_TILE_K)
-    split = max(1, min(_I8_MAX_SPLIT, chunks, (_I8_BLOCKS_PER_SM * sms) // tiles))
-    while split > 1 and clusters is not None and tiles > clusters[split - 1]:
-        split -= 1
-    return split
+    return _decode_split(M, N, -(-K // _I8_TILE_K), dual, sms, clusters)
+
+
+def int4_split(M: int, N: int, Kp: int, *, dual: bool, sms: int,
+               clusters: Optional[tuple] = None) -> int:
+    """`contraction_split` for the product kernel's int4 path (int4_mlp):
+    the contraction is Kp packed rows, two rows of x each, in stages of
+    _I8_TILE_K packed rows, and every M takes the decode form (64-row tiles),
+    so rows past _I8_DECODE_ROWS are split where their tiles leave SMs
+    idle. A pure function of the shapes and the card."""
+    return _decode_split(M, N, -(-Kp // _I8_TILE_K), dual, sms, clusters)
 
 
 @functools.lru_cache(maxsize=None)
-def _cluster_slots(device: torch.device) -> tuple:
-    """Clusters of 1 to 8 blocks of the int8 product kernel's decode form
-    that `device` runs at once."""
-    fn = cuda_lib.lib().vbt_int8_clusters
+def _cluster_slots(device: torch.device, form: str = "int8") -> tuple:
+    """Clusters of 1 to 8 blocks of the product kernel's decode form that
+    `device` runs at once: the int8 form, or the int4 one per channel
+    ("int4") or in groups ("int4_grouped")."""
+    lib = cuda_lib.lib()
     with torch.cuda.device(device):
-        return tuple(int(fn(s, None)) for s in range(1, _I8_MAX_SPLIT + 1))
+        if form == "int8":
+            return tuple(int(lib.vbt_int8_clusters(s, None)) for s in range(1, _I8_MAX_SPLIT + 1))
+        grouped = int(form == "int4_grouped")
+        return tuple(int(lib.vbt_int4_clusters(s, grouped, None))
+                     for s in range(1, _I8_MAX_SPLIT + 1))
 
 
 def _split(M: int, N: int, K: int, dual: bool, device: torch.device) -> int:
@@ -629,23 +630,23 @@ def int4_mlp(x: torch.Tensor, gate_q: dict, up_q: dict, down_q: dict, *,
         cuda_lib.check(q["w_int4"], f"{name}.w_int4", torch.int8, (K // 2, N))
         cuda_lib.check(q["scale"], f"{name}.scale", torch.float32,
                        (N,) if group is None else (K // group, N))
-    half_h, half_b = H // 2, block_f // 2
-    if half_h % _TILE_K or half_b % _TILE_K or F % block_f or H % 16 or F % 16:
+    half_h, half_b, tk = H // 2, block_f // 2, _I8_TILE_K
+    if half_h % tk or half_b % tk or F % block_f or H % 16 or F % 16:
         raise ValueError(f"int4_mlp: H/2 ({half_h}) and block_f/2 ({half_b}) must be multiples "
-                         f"of {_TILE_K}, block_f must divide F ({F}), widths multiples of 16")
-    if group is not None and (group % _TILE_K or half_h % group or half_b % group):
-        raise ValueError(f"int4_mlp: group_size {group} must be a multiple of {_TILE_K} that "
+                         f"of {tk}, block_f must divide F ({F}), widths multiples of 16")
+    if group is not None and (group % tk or half_h % group or half_b % group):
+        raise ValueError(f"int4_mlp: group_size {group} must be a multiple of {tk} that "
                          f"divides H/2 ({half_h}) and block_f/2 ({half_b})")
     sms = _sms(x.device)
-    s1 = _splits(M, F, half_h, dual=True, sms=sms)
-    s2 = _splits(M, H, F // 2, dual=False, sms=sms)
-    part = torch.empty(max(2 * s1 * M * F, s2 * M * H), dtype=torch.float32, device=x.device)
+    slots = _cluster_slots(x.device, "int4" if group is None else "int4_grouped")
+    s1 = int4_split(M, F, half_h, dual=True, sms=sms, clusters=slots)
+    s2 = int4_split(M, H, F // 2, dual=False, sms=sms, clusters=slots)
     hidden = torch.empty(M, F, dtype=torch.bfloat16, device=x.device)
     y = torch.empty(M, H, dtype=torch.bfloat16, device=x.device)
     p = cuda_lib.ptr
     cuda_lib.call("vbt_int4_mlp", p(x), p(gate_q["w_int4"]), p(up_q["w_int4"]),
                   p(gate_q["scale"]), p(up_q["scale"]), p(down_q["w_int4"]), p(down_q["scale"]),
-                  p(part), p(hidden), p(y), M, H, F, block_f, group or 0, s1, s2)
+                  p(hidden), p(y), M, H, F, block_f, group or 0, s1, s2)
     int4_mlp.launches += 1
     return y
 
