@@ -1,8 +1,9 @@
 """Run the PyTorch port once on one GPU: the int8 greedy caption-serving path,
 the kernel-routed vision encode and the int8 vision tower, the sampled
 per-layer int8 decode path, the per-layer fused decode, the int4 serving
-recipe through the batched eval harness and the bridge train step, every
-kernel held against its plain version.
+recipe through the batched eval harness, the bridge train step and the
+trainer's entry point with its checkpoints served back, every kernel held
+against its plain version.
 
     python3 chip_smoke.py
 
@@ -98,6 +99,23 @@ kernel held against its plain version.
    timed steps and one eval step. Checks finite losses, that the bridge
    moved, that no frozen tensor got a gradient, and that the three flash
    kernels were launched as often as the configuration implies.
+5a. The trainer's entry point (training/orchestrator.py) on the same model:
+   execute_full_training over train / val / test splits written with numpy
+   (TrainingConfig() defaults, 3 steps, a val split of 16, 4 sample
+   captions), then a resumed run to epoch 2 (starts at epoch 1, step 3, the
+   restored bridge and AdamW state bit-equal to the saved ones; ends at step
+   6). Checks the flash launches of the 6 train steps (6 x 78 / 28 / 28) and
+   that eval steps and sample captions reach the forward, train/loss at every
+   step in the log read back with read_scalars, the three slots with their
+   meta.json, export_pth -> load_pth bit for bit; vlm-eval-torch --checkpoint
+   <dir>/best with the int8 recipe over 3 batches of 64 x 50 (early stop on
+   and off) against generate_tokens on the in-memory bridge (64 of 64 rows,
+   every id); exact mode (f32, greedy, 4 x 16) against the fast per-layer
+   path by the first step's logits and the near-tie rule, twice the same
+   ids; debug_forward on the trained bridge without NaN or Inf. Prints the
+   orchestrator's samples/s beside the bare step's, the epoch's device-busy
+   share, slot save / load seconds, exact mode's ms a token and the
+   captions/s served from the checkpoint.
 6. Prints a JSON line of per-kernel results, then, as the last line,
    {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 """
@@ -152,6 +170,11 @@ LOGIT4_TOL = 2e-5
 EVAL_BATCHES, EVAL_SAMPLED_BATCHES = 5, 2   # batches of the int4 path through vlm-eval-torch
 PROBE_TOKENS, PROBE_REPS, PROBE_BLOCK_F, INT4_GROUP = 20, 3, 512, 128
 GREEDY_CHECK_TOKENS, PROFILE_TOKENS = 6, 5
+# the training entry point: train steps per epoch, the val split and the
+# sample captions of TrainingConfig's validation, eval batches served from the
+# checkpoint, exact mode's batch and tokens
+ENTRY_STEPS, ENTRY_VAL, ENTRY_SAMPLES, ENTRY_EVAL_BATCHES = 3, 16, 4, 3
+EXACT_BATCH, EXACT_TOKENS = 4, 16
 # The per-layer fused steps against their plain versions: both round h, q,
 # p * v_scale, the attention output and the MLP hidden to bf16 at the same
 # places, over f32 sums taken in another order, so a few of those values land
@@ -1023,7 +1046,318 @@ def run_train(params, cfg, dev, card):
     # random weights: the loss sits near ln(vocab) with or without dropout
     if abs(float(ev["loss"]) - math.log(cfg.lm.vocab_size)) > 1.0:
         raise AssertionError(f"eval loss {float(ev['loss'])} far from ln(vocab)")
-    return launches
+    return launches, TRAIN_BATCH / mean_ms * 1e3
+
+
+@contextlib.contextmanager
+def counting_phases(counters, phases: dict, name: str, owner, attr: str):
+    """Within this block owner.attr (a step or generate function) adds the
+    launches of `counters` it makes to phases[name]."""
+    fn = getattr(owner, attr)
+
+    def run(*args, **kwargs):
+        before = [c.launches for c in counters]
+        out = fn(*args, **kwargs)
+        got = [c.launches - b for c, b in zip(counters, before)]
+        phases[name] = [a + b for a, b in zip(phases.get(name, [0] * len(counters)), got)]
+        return out
+
+    setattr(owner, attr, run)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, fn)
+
+
+def device_busy(fn):
+    """(wall ms, device-busy ms) of fn() under torch.profiler, recording the
+    card's activity only: recording the host's ops as well slows a
+    launch-bound loop several times over."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def run_training_entry(params, cfg, dev, card, bare_rate):
+    """The trainer's entry point at full width: execute_full_training on
+    numpy-written train / val / test splits (TrainingConfig() defaults, 3
+    steps, a val split of 16 and 4 sample captions), then a resumed run to
+    epoch 2; the flash launches of the 6 train steps, the log, the three
+    slots, .pth export; the best slot served by vlm-eval-torch --checkpoint
+    against generate_tokens on the in-memory bridge (64 of 64 rows, every
+    id); exact mode against the fast per-layer path and debug_forward on the
+    trained bridge. `params` is the model run_train used (its f32 bridge is
+    the master copy the orchestrator trains in place). Returns the flash
+    kernels' launches in the 6 train steps."""
+    import numpy as np
+
+    from vlm_bridge_tpu_torch.configs import TrainingConfig
+    from vlm_bridge_tpu_torch.data.loader import VLDataset
+    from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
+    from vlm_bridge_tpu_torch.inference import evaluate
+    from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
+    from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+    from vlm_bridge_tpu_torch.params import torch_bridge
+    from vlm_bridge_tpu_torch.runtime.tb_writer import read_scalars
+    from vlm_bridge_tpu_torch.tools.loading import prestack_decode_params
+    from vlm_bridge_tpu_torch.training import orchestrator as orch
+    from vlm_bridge_tpu_torch.training import train_step as ts
+
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    def cpu_tree(tree):
+        return ts.tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+    n_eval = ENTRY_EVAL_BATCHES * BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_synthetic_split(root, 4 * TRAIN_BATCH, cfg.image_size, "train", repeat=5)
+        write_synthetic_split(root, ENTRY_VAL, cfg.image_size, "val", repeat=5)
+        write_synthetic_split(root, n_eval, cfg.image_size, "test")
+        tc = TrainingConfig(data_dir=str(root), checkpoint_dir=str(root / "ckpt"),
+                            log_dir=str(root / "logs"), max_steps_per_epoch=ENTRY_STEPS,
+                            num_epochs=1, log_every_n_steps=1,
+                            num_validation_samples=ENTRY_SAMPLES)
+        store_times = {"save": [], "load": []}
+        phases = {}
+
+        def train(tc, resume=False):
+            ctx = orch.prepare_environment(tc, params=params)
+            for op in ("save", "load"):
+                fn = getattr(ctx.store, op)
+
+                def timed(*a, _fn=fn, _op=op, **kw):
+                    t0 = time.perf_counter()
+                    out = _fn(*a, **kw)
+                    store_times[_op].append(time.perf_counter() - t0)
+                    return out
+                setattr(ctx.store, op, timed)
+            if resume:   # what execute_full_training will load, checked first
+                orch.load_checkpoint(ctx, tc.resume_from_checkpoint)
+            with counting_phases(counters, phases, "train", ctx, "train_step"), \
+                    counting_phases(counters, phases, "eval", ctx, "eval_step"), \
+                    counting_phases(counters, phases, "samples", orch, "generate_tokens"):
+                for fn in counters:
+                    fn.launches = 0
+                res = orch.execute_full_training(tc, ctx=ctx)
+                torch.cuda.synchronize()
+            return ctx, res
+
+        ctx, res = train(tc)
+        if res["epochs_run"] != 1 or ctx.state.step != ENTRY_STEPS:
+            raise AssertionError(f"first run: {res['epochs_run']} epochs, step {ctx.state.step}")
+        saved_bridge = cpu_tree(ctx.state.bridge_params)
+        saved_opt = cpu_tree(ctx.opt.state_dict(ctx.state.opt_state, ctx.state.bridge_params))
+        del ctx, res
+        torch.cuda.empty_cache()
+
+        tc2 = dataclasses.replace(tc, num_epochs=2, resume_from_checkpoint="latest")
+        ctx = orch.prepare_environment(tc2, params=params)
+        orch.load_checkpoint(ctx, "latest")
+        if (ctx.start_epoch, ctx.state.step) != (1, ENTRY_STEPS):
+            raise AssertionError(f"resume starts at epoch {ctx.start_epoch}, step {ctx.state.step}")
+        restored = ctx.opt.state_dict(ctx.state.opt_state, ctx.state.bridge_params)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(ts.tree_leaves(restored),
+                                                           ts.tree_leaves(saved_opt)))
+        same &= all(torch.equal(a.detach().cpu(), b) for a, b in zip(
+            ts.tree_leaves(ctx.state.bridge_params), ts.tree_leaves(saved_bridge)))
+        print(f"[training entry] resumed at epoch {ctx.start_epoch}, step {ctx.state.step}; "
+              f"bridge, AdamW moments, step and counts bit-equal to the saved ones: {same}")
+        if not same:
+            raise AssertionError("the restored optimizer state or bridge differs from the "
+                                 "saved one")
+        del ctx, restored
+        busy = {}
+        real_epoch = orch.run_training_epoch
+
+        def profiled_epoch(ctx, epoch):
+            out = [None]
+
+            def go():
+                out[0] = real_epoch(ctx, epoch)
+            busy["wall"], busy["busy"] = device_busy(go)
+            return out[0]
+        orch.run_training_epoch = profiled_epoch
+        try:
+            ctx, res = train(tc2, resume=True)
+        finally:
+            orch.run_training_epoch = real_epoch
+        if res["epochs_run"] != 1 or ctx.state.step != 2 * ENTRY_STEPS:
+            raise AssertionError(f"resumed run: {res['epochs_run']} epochs, step {ctx.state.step}")
+
+        per_step = expected_flash_launches(cfg, tc)
+        want = [2 * ENTRY_STEPS * per_step[fn.__name__] for fn in counters]
+        print(f"[training entry] flash launches (fwd, dq, dk/dv): train steps {phases['train']} "
+              f"(expected {want}), eval steps {phases['eval']}, validation samples "
+              f"{phases['samples']}")
+        if phases["train"] != want or not phases["eval"][0] > 0 or not phases["samples"][0] > 0:
+            raise AssertionError("the orchestrator's steps did not reach the flash kernels as "
+                                 "the configuration implies")
+
+        scalars = {}
+        for f in sorted((root / "logs").glob("events.out.tfevents.*")):
+            for tag, rows in read_scalars(f).items():
+                scalars.setdefault(tag, []).extend(rows)
+        losses = dict(scalars["train/loss"])
+        if sorted(losses) != list(range(1, 2 * ENTRY_STEPS + 1)) or not all(
+                math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train/loss in the log: {scalars['train/loss']}")
+        for slot in ("latest", "best", "best_weights_only"):
+            if not (root / "ckpt" / slot / "meta.json").exists():
+                raise AssertionError(f"slot {slot} or its meta.json is missing")
+        # the best slot holds the bridge of the epoch it names: epoch 0's (saved
+        # after the first run) or, if epoch 1 improved, the one in memory now
+        meta = json.loads((root / "ckpt" / "best" / "meta.json").read_text())
+        if meta["epoch"] == 1:
+            saved_bridge = cpu_tree(ctx.state.bridge_params)
+        best, _ = ctx.store.load("best", template={"bridge_params": ctx.state.bridge_params})
+        best_is_saved = all(torch.equal(a.cpu(), b) for a, b in zip(
+            ts.tree_leaves(best["bridge_params"]), ts.tree_leaves(saved_bridge)))
+        print(f"[training entry] best slot: {meta}")
+        if meta["epoch"] not in (0, 1) or not best_is_saved:
+            raise AssertionError(f"best slot: {meta}, equal to that epoch's bridge: "
+                                 f"{best_is_saved}")
+        ctx.store.export_pth("best", cfg.bridge, root / "bridge.pth")
+        back = torch_bridge.load_pth(root / "bridge.pth", cfg.bridge, device=dev)
+        pth_same = all(torch.equal(a, b) for a, b in zip(ts.tree_leaves(back),
+                                                         ts.tree_leaves(best["bridge_params"])))
+        sps = {k: [v for _, v in scalars[k]] for k in ("epoch/samples_per_sec",
+                                                       "epoch/samples_per_sec_steady")}
+        print(f"[training entry] train/loss at steps 1-{2 * ENTRY_STEPS}: "
+              f"{[round(losses[k], 4) for k in sorted(losses)]}; slots latest / best / "
+              f"best_weights_only with meta.json; export_pth -> load_pth bit for bit: {pth_same}")
+        print(f"[training entry] orchestrator, batch {TRAIN_BATCH} x 256 tokens: "
+              f"epoch/samples_per_sec {sps['epoch/samples_per_sec']} (epoch wall clock: "
+              f"loader, {ENTRY_STEPS} steps, the loss fetch), samples_per_sec_steady "
+              f"{sps['epoch/samples_per_sec_steady']} (fenced windows; the second epoch "
+              f"ran under torch.profiler, the card's activity only), against the bare step's "
+              f"{bare_rate:.2f} "
+              f"samples/s in run_train; the resumed epoch under torch.profiler: device busy "
+              f"{busy['busy']:.1f} ms of {busy['wall']:.1f} ms = "
+              f"{100 * busy['busy'] / busy['wall']:.1f} %; slot save "
+              f"{[round(t, 3) for t in store_times['save']]} s (each save of the two runs in "
+              f"order: latest, then best and best_weights_only when the epoch improved), slot "
+              f"load {[round(t, 3) for t in store_times['load']]} s (full, full, weights only), "
+              f"on {card}")
+        if not pth_same:
+            raise AssertionError("export_pth -> load_pth does not give the best slot's bridge")
+
+        # vlm-eval-torch --checkpoint <dir>/best against generate_tokens on the
+        # bridge of that epoch as it was in memory, quantized the same way
+        frozen = ctx.frozen
+        del ctx, res, back
+        torch.cuda.empty_cache()
+        recorded = []
+        real_generate = evaluate.generate_tokens
+
+        def recording(*a, **kw):
+            out = real_generate(*a, **kw)
+            if not recorded:
+                recorded.append(out[0].cpu())
+            return out
+
+        rates = {}
+        evaluate.generate_tokens = recording
+        try:
+            for early_stop in ("--early-stop", "--no-early-stop"):
+                out = root / f"eval{early_stop}.json"
+                recorded.clear()
+                rc = evaluate.main([
+                    "--data-dir", tmp, "--split", "test", "--batch-size", str(BATCH),
+                    "--max-length", str(NEW_TOKENS), "--preset", "default", "--seed", str(SEED),
+                    "--checkpoint", str(root / "ckpt" / "best"),
+                    "--quantize", "embedding,mlp,attn,bridge", "--kv-int8", early_stop,
+                    "--output", str(out)])
+                torch.cuda.synchronize()
+                r = json.loads(out.read_text())
+                if rc != 0 or r["num_samples"] != n_eval:
+                    raise AssertionError(f"vlm-eval-torch --checkpoint: rc {rc}, {r}")
+                rates[early_stop] = r["captions_per_sec"]
+                ids_ckpt = recorded[0]
+        finally:
+            evaluate.generate_tokens = real_generate
+        with torch.no_grad():
+            trained = ts.tree_map(lambda t: t.to(dev), saved_bridge)
+            served = {**frozen, "lm": gemma2.quantize_params(frozen["lm"],
+                                                             ("embedding", "mlp", "attn")),
+                      "bridge": bridge.quantize_decode_params(trained)}
+            gcfg = GenerationConfig(max_length=NEW_TOKENS, greedy=True, kv_quant=True)
+            served = prestack_decode_params(served, cfg, gcfg)
+            ds = VLDataset(tmp, "test")
+            pixels_u8 = torch.from_numpy(np.array(ds.pixels[:BATCH])).to(dev)
+            ids_mem, _ = generate_tokens(served, cfg, gen=gcfg, pixel_values=normalize_on_device(
+                pixels_u8, dtype=torch.bfloat16))
+            ids_mem = ids_mem.cpu()
+            del served
+            torch.cuda.empty_cache()
+        rows_eq = int((ids_ckpt == ids_mem).all(dim=1).sum())
+        print(f"[training entry] vlm-eval-torch --checkpoint best (int8 recipe, {n_eval} "
+              f"captions x {NEW_TOKENS} tokens, batch {BATCH}): "
+              f"{rates['--early-stop']:.2f} captions/s with early stop, "
+              f"{rates['--no-early-stop']:.2f} without (steady state, first batch left out); "
+              f"ids equal to generate_tokens on the in-memory bridge in {rows_eq} of {BATCH} rows, "
+              f"on {card}")
+        if rows_eq != BATCH:
+            raise AssertionError("the checkpoint served by vlm-eval-torch decodes other ids than "
+                                 "the in-memory bridge")
+
+        # exact mode (f32 activations, the reference attention by request) against
+        # the fast per-layer path, and debug_forward, on the trained bridge
+        with torch.no_grad():
+            params_t = {**frozen, "bridge": trained}
+            pix = normalize_on_device(pixels_u8[:EXACT_BATCH], dtype=torch.float32)
+            exact = GenerationConfig(max_length=EXACT_TOKENS, greedy=True, exact=True)
+            hidden_seen = []
+            real_fh = gemma2.forward_hidden
+
+            def recording_fh(*a, **kw):
+                h = real_fh(*a, **kw)
+                hidden_seen.append(h[:, 0].clone())
+                return h
+            gemma2.forward_hidden = recording_fh
+            try:
+                before = [fn.launches for fn in counters]
+                t0 = time.perf_counter()
+                toks_x, lens_x = generate_tokens(params_t, cfg, pixel_values=pix, gen=exact)
+                torch.cuda.synchronize()
+                exact_ms = (time.perf_counter() - t0) * 1e3 / EXACT_TOKENS
+                toks_x2, _ = generate_tokens(params_t, cfg, pixel_values=pix, gen=exact)
+            finally:
+                gemma2.forward_hidden = real_fh
+            if [fn.launches for fn in counters] != before:
+                raise AssertionError("exact mode launched a flash kernel")
+            logits_x = gemma2.logits_from_hidden(frozen["lm"], cfg.lm,
+                                                 hidden_seen[0][:, None])[:, 0]
+            fast = GenerationConfig(max_length=EXACT_TOKENS, greedy=True)
+            with record_decode_hidden("decode_step") as hidden_f:
+                toks_f, _ = generate_tokens(params_t, cfg, gen=fast, pixel_values=pix.to(
+                    torch.bfloat16))
+            logits_f = gemma2.logits_from_hidden(frozen["lm"], cfg.lm, hidden_f[0][:, None])[:, 0]
+            print(f"[training entry] exact mode, batch {EXACT_BATCH} x {EXACT_TOKENS} tokens, "
+                  f"f32: {exact_ms:.2f} ms a token on {card}; two calls give the same ids: "
+                  f"{bool(torch.equal(toks_x, toks_x2))}")
+            check_tokens(toks_x, lens_x, cfg, EXACT_TOKENS, rows=EXACT_BATCH)
+            if not torch.equal(toks_x, toks_x2):
+                raise AssertionError("exact mode gave other ids on a second call")
+            hold_first_step("exact mode against the fast per-layer path", toks_x.cpu(),
+                            toks_f.cpu(), logits_x.float(), logits_f.float())
+            text = gemma2.embed(frozen["lm"], toks_x.long()).float()
+            vision = full_model.encode_image(params_t, cfg, pix, reference_attention=True)
+            _, stats = bridge.debug_forward(trained, cfg.bridge, text, vision)
+            anomaly = bridge.has_anomaly(stats)
+            print(f"[training entry] debug_forward on the trained bridge: has_anomaly {anomaly}; "
+                  f"block_1 after_ffn mean {float(stats['block_1']['after_ffn']['mean']):.4g} "
+                  f"std {float(stats['block_1']['after_ffn']['std']):.4g}; "
+                  f"{bridge.num_params(trained):,} bridge parameters")
+            if anomaly:
+                raise AssertionError("debug_forward found a NaN or an Inf in the trained bridge")
+    return {fn.__name__: n for fn, n in zip(counters, phases["train"])}
 
 
 def run_serve(params, cfg, dev, card, gcfg):
@@ -1193,7 +1527,7 @@ def hold_first_step(name, got, ref, logits_k, logits_p):
     top2 = torch.topk(logits_p, 2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
     differ = (got[:, 1] != ref[:, 1]).to(gap.device)
-    print(f"{name}: first tokens equal in {rows_eq} of {BATCH} rows; share of all tokens equal: "
+    print(f"{name}: first tokens equal in {rows_eq} of {got.shape[0]} rows; share of all tokens equal: "
           f"{share:.4f}; first-step logits max_abs_err={err:.6g} tol={tol:.6g}; smallest top-2 "
           f"gap of the plain path's logits {float(gap.min()):.6g}, largest gap in a row that "
           f"differs {float(gap[differ].max()) if bool(differ.any()) else 0.0:.6g}")
@@ -1267,8 +1601,8 @@ def plain_vit_attention():
     from vlm_bridge_tpu_torch.ops.attention import _attention_reference
 
     saved = dinov2.dot_product_attention
-    dinov2.dot_product_attention = lambda q, k, v, *, scale: _attention_reference(
-        q, k, v, scale=scale)
+    dinov2.dot_product_attention = lambda q, k, v, *, scale, reference=False: (
+        _attention_reference(q, k, v, scale=scale))
     try:
         yield
     finally:
@@ -2002,24 +2336,28 @@ def phase_int4_mlp(params, per_layer, cfg, dev, gen, card):
     return row, probe_launches
 
 
-def write_synthetic_split(root, n: int, crop: int) -> None:
-    """<root>/test: a captions.jsonl manifest of n samples and the pixel
+def write_synthetic_split(root, n: int, crop: int, split: str = "test",
+                          repeat: int = 1) -> None:
+    """<root>/<split>: a captions.jsonl manifest of n samples and the pixel
     cache's two files (data/pixel_cache.py), written with numpy alone. The
     image files themselves are absent, which the cache's fingerprint
-    records, so VLDataset attaches the memmap and decodes no image."""
+    records, so VLDataset attaches the memmap and decodes no image. Each
+    caption is one sentence `repeat` times (5: ~240 bytes, the train path's
+    256-token bucket)."""
     import numpy as np
 
     from vlm_bridge_tpu_torch.data import pixel_cache
 
-    split = Path(root) / "test"
+    seed = SEED + 10 + ("test", "train", "val").index(split)
+    split = Path(root) / split
     split.mkdir(parents=True)
     samples = [{"image_path": f"images/{i:06d}.jpg", "original_id": i,
-                "caption": f"a {('red', 'blue', 'green')[i % 3]} shape number {i} on a plain "
-                           "background"} for i in range(n)]
+                "caption": " ".join([f"a {('red', 'blue', 'green')[i % 3]} shape number {i} on "
+                                     "a plain background"] * repeat)} for i in range(n)]
     (split / "captions.jsonl").write_text("".join(json.dumps(r) + "\n" for r in samples))
     out = np.lib.format.open_memmap(split / pixel_cache.CACHE_NAME, mode="w+", dtype=np.uint8,
                                     shape=(n, crop, crop, 3))
-    out[:] = np.random.default_rng(SEED + 10).integers(0, 256, size=out.shape, dtype=np.uint8)
+    out[:] = np.random.default_rng(seed).integers(0, 256, size=out.shape, dtype=np.uint8)
     out.flush()
     del out
     (split / pixel_cache.META_NAME).write_text(json.dumps(
@@ -2137,13 +2475,13 @@ def seeded_pixels(cfg, dev):
     return normalize_on_device(pixels_u8, dtype=torch.bfloat16)
 
 
-def check_tokens(toks, lens, cfg, n_tokens):
+def check_tokens(toks, lens, cfg, n_tokens, rows=BATCH):
     """Shape, id range, BOS column and lengths of a generation; returns the
     tokens on the CPU."""
     from vlm_bridge_tpu_torch.inference.generate import _eos_lengths
 
     toks_c, lens_c = toks.cpu(), lens.cpu()
-    if tuple(toks_c.shape) != (BATCH, n_tokens + 1):
+    if tuple(toks_c.shape) != (rows, n_tokens + 1):
         raise AssertionError(f"tokens shape {tuple(toks_c.shape)}")
     if not ((toks_c >= 0) & (toks_c < cfg.lm.vocab_size)).all():
         raise AssertionError("token ids out of range")
@@ -2276,7 +2614,11 @@ def main() -> int:
     flash_gen.manual_seed(SEED + 5)
     with torch.no_grad():
         results.update(phase_flash(dev, flash_gen))
-    launches.update(run_train(params, cfg, dev, card))
+    train_launches, bare_rate = run_train(params, cfg, dev, card)
+    launches.update(train_launches)
+    # the entry point's 6 train steps, beside the bare step's count in `launches`
+    for name, n in run_training_entry(params, cfg, dev, card, bare_rate).items():
+        results[name]["entry_launches"] = n
 
     fa_src, fa_py = "flash_bwd.cu", "vlm_bridge_tpu/ops/flash_attention.py"
     qpy = "vlm_bridge_tpu/ops/quant.py"

@@ -3,7 +3,9 @@ version at small widths (the decode steps, with int8 and with int4 MLP
 weights, at batch 1 / 3 / 64 / 65 and past a 64-row cache tile, and their
 GEMM core alone, the greedy and sampled heads, the three flash-attention kernels with their
 autograd function and shape gate, on views and contiguous tensors, the four int8 linear functions with
-`linear`'s dispatch, and the int4 heads and `int4_mlp`).
+`linear`'s dispatch, and the int4 heads and `int4_mlp`), the orchestrator's
+tiny run reaching the flash kernels, and exact mode on f32 tensors asking for
+the reference attention.
 These need an NVIDIA GPU with nvcc (sm_90a) and
 skip elsewhere; run them on the card with
 
@@ -1654,3 +1656,107 @@ def test_layer_steps_norm_and_head_at_gemma2_27b_widths(dev):
     table = lq["embedding"]
     _ids_match(quant.int8_matmul_t_argmax(x, table), quant.int8_matmul_t_argmax_plain(x, table),
                quant.int8_matmul_t_plain(x, table))
+
+
+def _wide_tiny_config():
+    """Tiny widths whose every attention has head dim 64, so the ViT, the
+    bridge self-attention and Gemma-2 reach the flash kernels on the card."""
+    from vlm_bridge_tpu_torch.configs import BridgeConfig, DinoV2Config, Gemma2Config, VLMConfig
+
+    return VLMConfig(
+        vision=DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, mlp_ratio=2,
+                            patch_size=14, image_size=70),
+        lm=Gemma2Config(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                        num_heads=2, num_kv_heads=1, head_dim=64, query_pre_attn_scalar=64.0,
+                        sliding_window=128),
+        # cross attention at head dim 32 takes the reference path, as the
+        # default preset's (288) does
+        bridge=BridgeConfig(vision_dim=128, language_dim=128, num_blocks=2, num_heads_cross=4,
+                            num_heads_self=2, ffn_mult=2, dropout=0.0),
+        image_size=70)
+
+
+def test_orchestrator_tiny_run_reaches_the_flash_kernels(dev, tmp_path):
+    """execute_full_training on the card (bf16 activations): the train steps
+    launch all three flash kernels, validation and its sample captions launch
+    the forward; the slots and the event file are written."""
+    from vlm_bridge_tpu_torch.configs import TrainingConfig
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+    from vlm_bridge_tpu_torch.runtime.tb_writer import read_scalars
+    from vlm_bridge_tpu_torch.tools.memorize import build_memorization_dataset
+    from vlm_bridge_tpu_torch.training import orchestrator
+
+    build_memorization_dataset(tmp_path / "data", train_repeats=2)
+    tc = TrainingConfig(data_dir=str(tmp_path / "data"), batch_size=4, num_epochs=1,
+                        max_steps_per_epoch=3, log_every_n_steps=1, num_validation_samples=2,
+                        max_text_len=32, pad_to_buckets=(32,), num_workers=2,
+                        checkpoint_dir=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "logs"))
+    cfg = _wide_tiny_config()
+    tc.model_config = lambda: cfg
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    ctx = orchestrator.prepare_environment(tc, device="cuda")
+    phases = {}
+
+    def counting(name, fn):
+        def run(*a, **kw):
+            before = [c.launches for c in counted]
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            got = [c.launches - b for c, b in zip(counted, before)]
+            phases[name] = [x + y for x, y in zip(phases.get(name, [0, 0, 0]), got)]
+            return out
+        return run
+
+    ctx.train_step = counting("train", ctx.train_step)
+    ctx.eval_step = counting("eval", ctx.eval_step)
+    real_generate = orchestrator.generate_tokens
+    orchestrator.generate_tokens = counting("samples", real_generate)
+    try:
+        res = orchestrator.execute_full_training(tc, ctx=ctx)
+    finally:
+        orchestrator.generate_tokens = real_generate
+    per_step = [cfg.lm.num_layers * 2 + cfg.bridge.num_blocks + cfg.vision.num_layers,
+                cfg.lm.num_layers + cfg.bridge.num_blocks, cfg.lm.num_layers + cfg.bridge.num_blocks]
+    assert phases["train"] == [3 * n for n in per_step]
+    assert phases["eval"][0] > 0 and phases["eval"][1:] == [0, 0]
+    assert phases["samples"][0] > 0 and phases["samples"][1:] == [0, 0]
+    assert res["epochs_run"] == 1 and ctx.state.step == 3
+    for slot in ("latest", "best", "best_weights_only"):
+        assert (tmp_path / "ckpt" / slot / "meta.json").exists()
+    (events,) = list((tmp_path / "logs").glob("events.out.tfevents.*"))
+    losses = [v for _, v in read_scalars(events)["train/loss"]]
+    assert len(losses) == 3 and all(v == v for v in losses)
+
+
+def test_exact_mode_on_f32_cuda_requests_the_reference_attention(dev):
+    """f32 on the card: the flash kernels refuse it, so exact mode names
+    `_attention_reference` itself (the encode included: its pixels are f32);
+    the same f32 call without the request still raises, and nothing is
+    launched."""
+    from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
+    from vlm_bridge_tpu_torch.models import full_model
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+    from vlm_bridge_tpu_torch.ops.attention import _attention_reference, dot_product_attention
+
+    cfg = _wide_tiny_config()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = full_model.init(cfg, generator=g, frozen_dtype=torch.float32, device=dev)
+    pixels = torch.randn(2, 70, 70, 3, generator=g, device=dev)
+    before = fa.flash_attention_fwd.launches
+    gen = GenerationConfig(max_length=4, greedy=True, exact=True)
+    toks, lens = generate_tokens(params, cfg, pixel_values=pixels, gen=gen)
+    vision = full_model.encode_image(params, cfg, pixels, reference_attention=True)
+    again, _ = generate_tokens(params, cfg, vision_features=vision, gen=gen)
+    assert toks.shape == (2, 5) and torch.equal(toks, again)
+    assert fa.flash_attention_fwd.launches == before
+    q = torch.randn(2, 5, 2, 64, generator=g, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        dot_product_attention(q, q, q)
+    torch.testing.assert_close(dot_product_attention(q, q, q, reference=True),
+                               _attention_reference(q, q, q, scale=64 ** -0.5),
+                               rtol=0, atol=0)
+    # the exact first token is the cached fast decode's (f32 per-layer path)
+    fast, _ = generate_tokens(params, cfg, vision_features=vision, activation_dtype=torch.float32,
+                              gen=GenerationConfig(max_length=1, greedy=True))
+    assert fa.flash_attention_fwd.launches == before
+    assert torch.equal(fast[:, 1], toks[:, 1])

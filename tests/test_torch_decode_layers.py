@@ -344,9 +344,11 @@ def test_robust_sweep(slice_setup):
                                        generator=torch.Generator().manual_seed(1), **kw)
     assert other["results"]["greedy"] == out["results"]["greedy"]
     # a strategy that fails is kept as a result, and the sweep goes on
-    bad = (("exact", TG.GenerationConfig(exact=True)), ("greedy", TG.GenerationConfig(greedy=True)))
+    # (int4 MLP weights serve the fused stack only: on these float layers it raises)
+    bad = (("int4", TG.GenerationConfig(greedy=True, mlp_int4=True)),
+           ("greedy", TG.GenerationConfig(greedy=True)))
     res = TR.generate_caption_robust(params, P(cfg), px, tok, strategies=bad, **kw)
-    assert res["results"]["exact"].startswith("ERROR:") and res["chosen"] == "greedy"
+    assert res["results"]["int4"].startswith("ERROR:") and res["chosen"] == "greedy"
     ids = np.array([[2, 72, 105, 1, 0]])
     assert TR.decode_captions(tok, ids, np.array([3])) == JR.decode_captions(tok, ids,
                                                                              np.array([3]))

@@ -92,17 +92,19 @@ def test_first_tokens_match_jax_interpret_kernels(slice_setup, monkeypatch):
 
 def test_force_plain_and_unported_modes_raise(slice_setup):
     """The package has no switch to its plain versions (a CPU tensor is what
-    selects them); modes that are not ported raise, and so does a path that
-    needs per-layer weights when only stacked ones are there."""
+    selects them); exact mode and bridge_causal, which raised before they were
+    ported, decode (tests/test_torch_exact.py holds them to JAX); a path that
+    needs per-layer weights raises when only stacked ones are there."""
     from vlm_bridge_tpu_torch.tools.loading import prestack_decode_params
 
     cfg, q, qt, pixels = slice_setup
     assert not hasattr(TG.GenerationConfig(), "force_plain")
     px = torch.from_numpy(pixels[:1])
-    for gen in (TG.GenerationConfig(greedy=True, kv_quant=True, exact=True),
-                TG.GenerationConfig(greedy=True, kv_quant=True, bridge_causal=True)):
-        with pytest.raises(NotImplementedError):
-            TG.generate_tokens(qt, P(cfg), pixel_values=px, gen=gen)
+    for gen in (TG.GenerationConfig(max_length=2, greedy=True, kv_quant=True, exact=True),
+                TG.GenerationConfig(max_length=2, greedy=True, kv_quant=True,
+                                    bridge_causal=True)):
+        toks, lens = TG.generate_tokens(qt, P(cfg), pixel_values=px, gen=gen)
+        assert toks.shape == (1, 3) and int(toks[0, 0]) == cfg.lm.bos_token_id
     # int4 MLP weights serve the fused stack only: off that path they raise, and
     # on it a scale group that the widths do not hold is refused (tests/test_torch_int4.py
     # runs the recipe)
@@ -120,7 +122,8 @@ def test_force_plain_and_unported_modes_raise(slice_setup):
                            activation_dtype=torch.float32)[0].numpy(),
         _port(cfg, qt, pixels[:1])[0])
     for gen in (dataclasses.replace(fused, force_jnp=True),
-                dataclasses.replace(fused, kv_quant=False)):
+                dataclasses.replace(fused, kv_quant=False),
+                dataclasses.replace(fused, exact=True)):
         with pytest.raises(ValueError, match="per-layer weights"):
             TG.generate_tokens(stacked, P(cfg), pixel_values=px, gen=gen)
 
@@ -143,5 +146,9 @@ def test_caption_cli_on_cpu(tmp_path, capsys):
     assert [r["image"].rsplit("/", 1)[-1] for r in lines] == ["img0.png", "img1.png", "img2.png"]
     assert all(isinstance(r["caption"], str) for r in lines)
     assert "captions/s on cpu" in capsys.readouterr().out
+    # --checkpoint reads a CheckpointStore slot (tests/test_torch_training_loop.py
+    # serves a trained one); HF snapshots are not ported yet
+    with pytest.raises(FileNotFoundError, match="no checkpoint slot"):
+        caption.main([str(tmp_path), "--device", "cpu", "--checkpoint", str(tmp_path / "x")])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        caption.main([str(tmp_path), "--device", "cpu", "--checkpoint", "x"])
+        caption.main([str(tmp_path), "--device", "cpu", "--hf-lm-path", "x"])

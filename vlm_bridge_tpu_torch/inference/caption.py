@@ -6,8 +6,9 @@
 
 IMAGES is a file, a directory or a glob. Decoding is greedy unless --sample
 is given; the sampling stream is a generator seeded with --seed. --device cpu
-runs the kernels' plain versions. The weights are a seeded random init until
-the HF and checkpoint loaders are ported.
+runs the kernels' plain versions. The frozen towers are a seeded random init
+(--seed); `--checkpoint <dir>/<slot>` serves a trained bridge from a
+CheckpointStore slot. HF snapshots are not ported yet and raise.
 """
 
 from __future__ import annotations

@@ -9,9 +9,13 @@ is the int4 serving recipe: the fused stack step with int4 MLP weights and
 the int4 head. `--device cpu` runs the kernels' plain versions. Images stream
 through the BatchLoader's prefetch queue as uint8 and are normalized on the
 device; the trailing partial batch is padded by repetition and trimmed after
-decode, so every batch has one shape. `--mesh` is not ported yet and raises;
-`--exact` and `--bridge-causal` raise as `generate_tokens` does; the weights
-are a seeded random init until the HF and checkpoint loaders are ported.
+decode, so every batch has one shape. `--exact` is the reference-parity
+decode (f32, full re-forward per token, no early stop); its bridge is
+causal when the checkpoint's meta.json says it was trained so
+(`--bridge-causal` / `--no-bridge-causal` override). `--checkpoint
+<dir>/<slot>` serves a trained bridge over the seeded random init of the
+frozen towers (the same --seed as the training run's gives its towers).
+`--mesh` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -179,7 +183,8 @@ def main(argv=None) -> int:
                     help="temperature/top-p sampling instead of greedy")
     ap.add_argument("--temperature", type=float, default=0.7)
     ap.add_argument("--top-p", type=float, default=0.9)
-    ap.add_argument("--exact", action="store_true", help="reference-parity decode (not ported yet)")
+    ap.add_argument("--exact", action="store_true",
+                    help="reference-parity decode: f32, full re-forward per token")
     ap.add_argument("--output", default=None, help="write result JSON here")
     ap.add_argument("--dump-samples", default=None,
                     help="write every (generated, reference) pair as JSONL")
@@ -190,7 +195,8 @@ def main(argv=None) -> int:
                          "--no-early-stop decodes the fixed length, for like-for-like "
                          "throughput comparison")
     ap.add_argument("--bridge-causal", action=argparse.BooleanOptionalAction, default=None,
-                    help="causal bridge self-attention in --exact mode (not ported yet)")
+                    help="causal bridge self-attention in --exact mode (default: the "
+                         "checkpoint's meta.json bridge_causal, else off)")
     ap.add_argument("--mlp-int4", action=argparse.BooleanOptionalAction, default=False,
                     help="int4 Gemma MLP weights in the fused stack decode (with --quantize "
                          "mlp,attn + --kv-int8); pair with '--quantize embedding4,...' for "
@@ -214,12 +220,23 @@ def main(argv=None) -> int:
                              "cache budget: pass --quantize including mlp,attn (e.g. "
                              "embedding4,mlp,attn,bridge)")
 
+    if args.early_stop and args.exact:
+        print("[vlm-eval-torch] --early-stop is ignored in --exact mode (the parity decode is "
+              "a fixed-length masked buffer)", flush=True)
     early_stop = (not args.exact) if args.early_stop is None else (args.early_stop
                                                                    and not args.exact)
+    # exact mode masks the bridge as the checkpoint was trained (meta.json),
+    # unless --bridge-causal / --no-bridge-causal says otherwise
+    bridge_causal = args.bridge_causal
+    if bridge_causal is None:
+        bridge_causal = bool(getattr(args, "_ckpt_meta", {}).get("bridge_causal", False))
+        if bridge_causal and args.exact:
+            print("[vlm-eval-torch] checkpoint was trained with bridge_causal; exact mode uses "
+                  "the causal bridge mask", flush=True)
     gen = GenerationConfig(max_length=args.max_length, greedy=args.greedy,
                            temperature=args.temperature, top_p=args.top_p, exact=args.exact,
                            early_stop=early_stop, kv_quant=args.kv_int8,
-                           bridge_causal=bool(args.bridge_causal), mlp_int4=args.mlp_int4)
+                           bridge_causal=bridge_causal, mlp_int4=args.mlp_int4)
     # serving stacks the decode weights once at load time, not per batch
     params = prestack_decode_params(params, cfg, gen)
     device = torch.device(args.device)

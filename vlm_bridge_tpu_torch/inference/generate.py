@@ -1,6 +1,6 @@
-"""Batched caption generation, fast mode (port of
-vlm_bridge_tpu.inference.generate).
+"""Batched caption generation (port of vlm_bridge_tpu.inference.generate).
 
+Fast mode:
 The image is encoded once and each bridge block's cross-attention K/V are
 computed once; then a Python loop over preallocated caches runs, per token:
 embed the last token -> both bridge blocks (causal self cache) -> every
@@ -22,8 +22,21 @@ int4_matmul_t or int4_matmul_t_argmax. On CUDA tensors all of these launch
 the port's kernels.
 
 gen.mlp_int4 serves only the fused path and raises anywhere else: nothing
-serves int8 MLP weights under the int4 label. Exact mode and meshes are not
-ported yet and raise.
+serves int8 MLP weights under the int4 label.
+
+With gen.early_stop the loop ends once every row has emitted EOS, but it
+learns that two steps late (`_AllDone`): each step's flag is copied to a
+pinned host buffer behind an event, and the host waits only for the event
+of the step before the last one it queued. The extra steps write pads to
+rows that are done, so the tokens are those of early_stop=False.
+
+Exact mode (gen.exact, the reference-parity decode): a fixed [B, L] token
+buffer re-run in full at every step, the `position < t` mask on the bridge
+and the LM, the bridge causal or not as the checkpoint was trained
+(gen.bridge_causal), no KV cache, f32 activations unless a dtype is given.
+Every attention of it runs `_attention_reference` by request (the flash
+kernels take bf16 only). Samples come from the same generator stream, one
+draw a token, that fast mode uses.
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ class GenerationConfig:
     temperature: float = 0.7
     top_p: float = 0.9
     greedy: bool = False
-    exact: bool = False           # reference-parity mode: not ported yet
+    exact: bool = False           # reference-parity mode: full re-forward per token
     topk_window: int = 128
     bypass_bridge: bool = False   # A/B debugging: feed raw Gemma embeddings,
                                   # skipping the bridge
@@ -57,7 +70,7 @@ class GenerationConfig:
     force_jnp: bool = False       # pin the per-layer decode path (the JAX
                                   # package's jnp path) where the fused stack
                                   # step would serve
-    bridge_causal: bool = False   # exact mode only: not ported yet
+    bridge_causal: bool = False   # exact mode only: causal bridge self-attention
     mlp_int4: bool = False        # fused stack decode only: the Gemma MLP
                                   # weights re-quantized to int4 when stacking
     mlp_int4_group: Optional[int] = 128  # rows of the contraction a scale
@@ -175,11 +188,35 @@ def _bridge_decode_step(bridge_params, cfg: BridgeConfig, cache: BridgeCache,
     return x, cache
 
 
-def _check_supported(gen: GenerationConfig) -> None:
-    if gen.exact:
-        raise NotImplementedError("exact generation mode is not ported yet")
-    if gen.bridge_causal:
-        raise NotImplementedError("bridge_causal belongs to exact mode, which is not ported yet")
+class _AllDone:
+    """Whether every row has emitted EOS, read LAG steps late so that the
+    decode loop never waits for the step it just queued. push(t, done) after
+    step t copies done.all() into a host buffer (pinned, non_blocking,
+    behind an event on CUDA); seen(t) at the top of step t reads step
+    t - LAG's flag, waiting at most for that step, while step t - 1 keeps
+    the device busy."""
+
+    LAG = 2
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.flags = [torch.zeros((), dtype=torch.bool, pin_memory=self.cuda)
+                      for _ in range(self.LAG)]
+        self.events = [torch.cuda.Event() for _ in range(self.LAG)] if self.cuda else None
+
+    def push(self, t: int, done: torch.Tensor) -> None:
+        slot = t % self.LAG
+        self.flags[slot].copy_(done.all(), non_blocking=True)
+        if self.cuda:
+            self.events[slot].record()
+
+    def seen(self, t: int) -> bool:
+        if t < self.LAG:
+            return False
+        slot = (t - self.LAG) % self.LAG
+        if self.cuda:
+            self.events[slot].synchronize()
+        return bool(self.flags[slot])
 
 
 def _fused_decode_available(params, cfg: VLMConfig, gen: GenerationConfig) -> bool:
@@ -246,8 +283,9 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
     bos = torch.full((B,), lm_cfg.bos_token_id, dtype=torch.int32, device=dev)
     toks = torch.full((B, gen.max_length), lm_cfg.pad_token_id, dtype=torch.int32, device=dev)
     tok, done = bos, torch.zeros(B, dtype=torch.bool, device=dev)
+    all_done = _AllDone(dev) if gen.early_stop else None
     for t in range(gen.max_length):
-        if gen.early_stop and bool(done.all()):
+        if all_done is not None and all_done.seen(t):
             break
         emb = gemma2.embed(lm, tok.long()[:, None]).to(activation_dtype)
         if gen.bypass_bridge:
@@ -282,7 +320,43 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
         done = done | (nxt == lm_cfg.eos_token_id)
         toks[:, t] = nxt
         tok = nxt
+        if all_done is not None:
+            all_done.push(t, done)
     tokens = torch.cat([bos[:, None], toks], dim=1)
+    return tokens, _eos_lengths(tokens, lm_cfg.eos_token_id)
+
+
+@torch.no_grad()
+def _generate_exact(params, cfg: VLMConfig, vision: torch.Tensor, gen: GenerationConfig,
+                    activation_dtype, generator: Optional[torch.Generator]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's _generate_exact: step t re-runs the bridge and the
+    LM over the whole buffer under the `position < t` mask and samples from
+    position t - 1's logits."""
+    B = vision.shape[0]
+    L = gen.max_length + 1
+    lm_cfg, dev = cfg.lm, vision.device
+    vision = vision.to(activation_dtype)
+    tokens = torch.full((B, L), lm_cfg.pad_token_id, dtype=torch.int32, device=dev)
+    tokens[:, 0] = lm_cfg.bos_token_id
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    positions = torch.arange(L, device=dev)[None, :]
+    for t in range(1, L):
+        mask = (positions < t).int().expand(B, L)
+        if gen.bypass_bridge:
+            bridged = gemma2.embed(params["lm"], tokens.long())
+        else:
+            bridged = full_model.bridge_text(
+                params, cfg, tokens.long(), vision, attn_mask=mask, bridge_pad_mask=True,
+                bridge_causal=gen.bridge_causal, reference_attention=True)
+        hidden = gemma2.forward_hidden(params["lm"], lm_cfg, bridged.to(activation_dtype),
+                                       attn_mask=mask, remat=False, reference_attention=True)
+        logits = gemma2.logits_from_hidden(params["lm"], lm_cfg, hidden[:, t - 1:t])[:, 0]
+        nxt = sample_token(generator, logits, temperature=gen.temperature, top_p=gen.top_p,
+                           greedy=gen.greedy, topk_window=gen.topk_window)
+        nxt = torch.where(done, torch.full_like(nxt, lm_cfg.pad_token_id), nxt)
+        done = done | (nxt == lm_cfg.eos_token_id)
+        tokens[:, t] = nxt
     return tokens, _eos_lengths(tokens, lm_cfg.eos_token_id)
 
 
@@ -299,7 +373,16 @@ def generate_tokens(params, cfg: VLMConfig, *, pixel_values: Optional[torch.Tens
     generator: the sampling stream, a torch.Generator on that device (None:
     torch's global generator); greedy decoding draws nothing."""
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
-    _check_supported(gen)
+    if gen.exact:
+        if "layers" not in params["lm"]:
+            raise ValueError("exact mode re-runs the LM layer by layer: params['lm'] needs its "
+                             "per-layer weights, not only stacked_decode")
+        if gen.mlp_int4:
+            raise ValueError("mlp_int4 serves only the fused stack decode, not exact mode")
+        if vision_features is None:
+            vision_features = full_model.encode_image(params, cfg, pixel_values,
+                                                      reference_attention=True)
+        return _generate_exact(params, cfg, vision_features, gen, activation_dtype, generator)
     use_fused = _fused_decode_available(params, cfg, gen)
     if gen.mlp_int4 and not use_fused:
         raise ValueError(

@@ -5,8 +5,9 @@ the vision tokens, non-causal or causal text self attention, exact-GELU FFN;
 dropout on each attention output and on the FFN's activation and output),
 the int8 serving transformation `quantize_decode_params`,
 `supports_fused_decode` and the block stacking for
-ops.decode_kernels.fused_bridge_step (in this port's own layout).
-`debug_forward` is not ported yet.
+ops.decode_kernels.fused_bridge_step (in this port's own layout), and the
+deterministic `debug_forward` with its per-block statistics and
+`has_anomaly`.
 """
 
 from __future__ import annotations
@@ -55,6 +56,16 @@ def init(cfg: BridgeConfig, *, generator: torch.Generator, dtype=torch.float32,
             "ln_ffn": ln(),
         }
     return {"blocks": blocks}
+
+
+def num_params(params: dict) -> int:
+    return sum(p.numel() for p in _leaves(params))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
 
 
 def quantize_decode_params(params: dict) -> dict:
@@ -147,7 +158,7 @@ def _w(w, dtype):
 
 
 def _mha(proj: dict, q_in, kv_in, num_heads: int, dtype, key_mask=None,
-         is_causal: bool = False) -> torch.Tensor:
+         is_causal: bool = False, reference: bool = False) -> torch.Tensor:
     """Projection + attention core of cross and self attention. key_mask:
     optional [B, S] (1 = attendable key), a right-padding prefix mask by the
     loader's contract, so the per-row lengths go along for the flash
@@ -173,14 +184,14 @@ def _mha(proj: dict, q_in, kv_in, num_heads: int, dtype, key_mask=None,
         mask = key_mask[:, None, :].bool()
         kv_lengths = key_mask.sum(dim=-1).to(torch.int32)
     out = dot_product_attention(q, k, v, scale=D ** -0.5, mask=mask, is_causal=is_causal,
-                                kv_lengths=kv_lengths)
+                                kv_lengths=kv_lengths, reference=reference)
     return linear(out.reshape(B, T, d_model), _w(proj["o"], dtype), proj["o_bias"].to(dtype))
 
 
 def forward(params: dict, cfg: BridgeConfig, text_embeddings: torch.Tensor,
             vision_features: torch.Tensor, *, generator: Optional[torch.Generator] = None,
             train: bool = False, text_mask: Optional[torch.Tensor] = None,
-            causal: bool = False) -> torch.Tensor:
+            causal: bool = False, reference_attention: bool = False) -> torch.Tensor:
     """Enhanced text embeddings [B, T, language_dim] from text_embeddings
     [B, T, language_dim] and vision_features [B, S, vision_dim].
 
@@ -199,11 +210,13 @@ def forward(params: dict, cfg: BridgeConfig, text_embeddings: torch.Tensor,
     for b in range(cfg.num_blocks):
         bp = params["blocks"][str(b)]
         h = layer_norm(x, bp["ln_cross"]["scale"], bp["ln_cross"]["bias"], eps)
-        x = x + drop(_mha(bp["cross"], h, vision, cfg.num_heads_cross, dtype))
+        x = x + drop(_mha(bp["cross"], h, vision, cfg.num_heads_cross, dtype,
+                          reference=reference_attention))
 
         h = layer_norm(x, bp["ln_self"]["scale"], bp["ln_self"]["bias"], eps)
         x = x + drop(_mha(bp["self"], h, h, cfg.num_heads_self, dtype,
-                          key_mask=text_mask, is_causal=causal))
+                          key_mask=text_mask, is_causal=causal,
+                          reference=reference_attention))
 
         h = layer_norm(x, bp["ln_ffn"]["scale"], bp["ln_ffn"]["bias"], eps)
         h = linear(h, _w(bp["ffn"]["fc1"], dtype), bp["ffn"]["fc1_bias"].to(dtype))
@@ -211,3 +224,51 @@ def forward(params: dict, cfg: BridgeConfig, text_embeddings: torch.Tensor,
         h = drop(linear(h, _w(bp["ffn"]["fc2"], dtype), bp["ffn"]["fc2_bias"].to(dtype)))
         x = x + h
     return x
+
+
+def _stat(t: torch.Tensor) -> dict:
+    f = t.float()
+    return {"mean": f.mean(), "std": f.std(correction=0), "abs_max": f.abs().max(),
+            "nan_count": torch.isnan(f).sum(), "inf_count": torch.isinf(f).sum()}
+
+
+@torch.no_grad()
+def debug_forward(params: dict, cfg: BridgeConfig, text_embeddings: torch.Tensor,
+                  vision_features: torch.Tensor, *,
+                  text_mask: Optional[torch.Tensor] = None):
+    """Deterministic forward (no dropout) that also returns per-block
+    activation statistics, reduced on the device: (output, stats) where
+    stats["block_{b}"][stage] for stage in input / after_cross / after_self /
+    after_ffn holds 0-dim tensors mean, std (population), abs_max, nan_count
+    and inf_count. Attention runs through `_attention_reference` in the
+    activation dtype, so f32 works on the card as well as bf16."""
+    dtype = text_embeddings.dtype
+    x = text_embeddings
+    vision = vision_features.to(dtype)
+    eps = cfg.layer_norm_eps
+    stats = {}
+    for b in range(cfg.num_blocks):
+        bp = params["blocks"][str(b)]
+        s = {"input": _stat(x)}
+        h = layer_norm(x, bp["ln_cross"]["scale"], bp["ln_cross"]["bias"], eps)
+        x = x + _mha(bp["cross"], h, vision, cfg.num_heads_cross, dtype, reference=True)
+        s["after_cross"] = _stat(x)
+        h = layer_norm(x, bp["ln_self"]["scale"], bp["ln_self"]["bias"], eps)
+        x = x + _mha(bp["self"], h, h, cfg.num_heads_self, dtype, key_mask=text_mask,
+                     reference=True)
+        s["after_self"] = _stat(x)
+        h = layer_norm(x, bp["ln_ffn"]["scale"], bp["ln_ffn"]["bias"], eps)
+        h = linear(h, _w(bp["ffn"]["fc1"], dtype), bp["ffn"]["fc1_bias"].to(dtype))
+        h = linear(gelu_exact(h), _w(bp["ffn"]["fc2"], dtype), bp["ffn"]["fc2_bias"].to(dtype))
+        x = x + h
+        s["after_ffn"] = _stat(x)
+        stats[f"block_{b}"] = s
+    return x, stats
+
+
+def has_anomaly(stats: dict) -> bool:
+    """True if any block's statistics count a NaN or an Inf (one host read
+    of all the counts together)."""
+    counts = [s[k] for block in stats.values() for s in block.values()
+              for k in ("nan_count", "inf_count")]
+    return bool(torch.stack(counts).sum() > 0)

@@ -154,18 +154,22 @@ def _mlp(mp: dict, x: torch.Tensor) -> torch.Tensor:
     return _proj(h, mp["fc2"], mp["fc2_bias"])
 
 
-def _attention(lp: dict, cfg: DinoV2Config, x: torch.Tensor) -> torch.Tensor:
+def _attention(lp: dict, cfg: DinoV2Config, x: torch.Tensor,
+               reference: bool = False) -> torch.Tensor:
     B, T, h = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     qkv = _proj(x, lp["attn"]["qkv"], lp["attn"]["qkv_bias"])
     q, k, v = (qkv[..., :h].reshape(B, T, H, D), qkv[..., h:2 * h].reshape(B, T, H, D),
                qkv[..., 2 * h:].reshape(B, T, H, D))
-    out = dot_product_attention(q, k, v, scale=D ** -0.5)
+    out = dot_product_attention(q, k, v, scale=D ** -0.5, reference=reference)
     return _proj(out.reshape(B, T, h), lp["attn"]["o"], lp["attn"]["o_bias"])
 
 
-def forward(params: dict, cfg: DinoV2Config, pixel_values: torch.Tensor) -> torch.Tensor:
-    """pixel_values: [B, H, W, C] (NHWC, normalized) -> [B, 1 + N, hidden]."""
+def forward(params: dict, cfg: DinoV2Config, pixel_values: torch.Tensor, *,
+            reference_attention: bool = False) -> torch.Tensor:
+    """pixel_values: [B, H, W, C] (NHWC, normalized) -> [B, 1 + N, hidden].
+    reference_attention=True runs attention through `_attention_reference`
+    (exact-mode generation asks for it)."""
     B, H_img, W_img, C = pixel_values.shape
     P = cfg.patch_size
     if H_img != W_img or H_img % P != 0:
@@ -188,7 +192,7 @@ def forward(params: dict, cfg: DinoV2Config, pixel_values: torch.Tensor) -> torc
     for i in range(cfg.num_layers):
         lp = params["layers"][str(i)]
         h = layer_norm(x, lp["norm1"]["scale"], lp["norm1"]["bias"], eps)
-        x = x + _attention(lp, cfg, h) * lp["layerscale1"].to(x.dtype)
+        x = x + _attention(lp, cfg, h, reference_attention) * lp["layerscale1"].to(x.dtype)
         h = layer_norm(x, lp["norm2"]["scale"], lp["norm2"]["bias"], eps)
         x = x + _mlp(lp["mlp"], h) * lp["layerscale2"].to(x.dtype)
     return layer_norm(x, params["final_norm"]["scale"], params["final_norm"]["bias"], eps)

@@ -38,22 +38,27 @@ def init(cfg: VLMConfig, *, generator: torch.Generator, frozen_dtype=torch.bfloa
 
 
 @torch.no_grad()
-def encode_image(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor) -> torch.Tensor:
-    """Frozen vision forward. pixel_values: [B, H, W, C] normalized."""
-    return dinov2_mod.forward(params["vision"], cfg.vision, pixel_values)
+def encode_image(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor, *,
+                 reference_attention: bool = False) -> torch.Tensor:
+    """Frozen vision forward. pixel_values: [B, H, W, C] normalized.
+    reference_attention: see dinov2.forward."""
+    return dinov2_mod.forward(params["vision"], cfg.vision, pixel_values,
+                              reference_attention=reference_attention)
 
 
 def bridge_text(params: dict, cfg: VLMConfig, input_ids: torch.Tensor,
                 vision_features: torch.Tensor, *, attn_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, train: bool = False,
-                bridge_pad_mask: bool = True, bridge_causal: bool = False) -> torch.Tensor:
-    """Embed text and run the bridge. Returns bridged embeddings [B, T, h]."""
+                bridge_pad_mask: bool = True, bridge_causal: bool = False,
+                reference_attention: bool = False) -> torch.Tensor:
+    """Embed text and run the bridge. Returns bridged embeddings [B, T, h].
+    reference_attention: see bridge.forward."""
     with torch.no_grad():
         embeds = gemma2_mod.embed(params["lm"], input_ids)
     text_mask = attn_mask if (bridge_pad_mask and attn_mask is not None) else None
     return bridge_mod.forward(params["bridge"], cfg.bridge, embeds, vision_features,
                               generator=generator, train=train, text_mask=text_mask,
-                              causal=bridge_causal)
+                              causal=bridge_causal, reference_attention=reference_attention)
 
 
 def forward(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor, input_ids: torch.Tensor,

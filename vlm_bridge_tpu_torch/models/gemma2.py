@@ -320,7 +320,8 @@ def _qkv_proj(attn: dict, x: torch.Tensor, cfg: Gemma2Config):
 
 
 def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, *,
-                     cos, sin, attn_mask, positions, kv_lengths=None, return_kv: bool = False):
+                     cos, sin, attn_mask, positions, kv_lengths=None, return_kv: bool = False,
+                     reference: bool = False):
     """positions=None means "queries are the trailing T of S positions", the
     convention the attention op and the flash kernels assume. kv_lengths:
     per-row valid key counts when attn_mask is a right-padding prefix mask
@@ -334,7 +335,8 @@ def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: in
     out = dot_product_attention(
         q, k, v, scale=cfg.attn_scale, mask=attn_mask, is_causal=True,
         logit_softcap=cfg.attn_logit_softcap, sliding_window=window,
-        q_positions=positions, kv_positions=positions, kv_lengths=kv_lengths)
+        q_positions=positions, kv_positions=positions, kv_lengths=kv_lengths,
+        reference=reference)
     out = linear(out.reshape(B, T, H * D), lp["attn"]["o"])
     return (out, k, v) if return_kv else out
 
@@ -352,11 +354,13 @@ def _mlp_block(lp: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, cos, sin,
-           attn_mask, positions, kv_lengths=None, *, return_kv: bool = False):
+           attn_mask, positions, kv_lengths=None, reference: bool = False, *,
+           return_kv: bool = False):
     eps = cfg.rms_norm_eps
     h = rms_norm(x, lp["input_norm"], eps)
     h = _attention_block(lp, cfg, h, layer_idx, cos=cos, sin=sin, attn_mask=attn_mask,
-                         positions=positions, kv_lengths=kv_lengths, return_kv=return_kv)
+                         positions=positions, kv_lengths=kv_lengths, return_kv=return_kv,
+                         reference=reference)
     if return_kv:
         h, k, v = h
     x = x + rms_norm(h, lp["post_attn_norm"], eps)
@@ -369,14 +373,16 @@ def _layer(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, cos, si
 def forward_hidden(params: dict, cfg: Gemma2Config, inputs_embeds: torch.Tensor, *,
                    attn_mask: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
-                   remat: bool = False) -> torch.Tensor:
+                   remat: bool = False, reference_attention: bool = False) -> torch.Tensor:
     """Full-sequence forward from embeddings to final-norm hidden states.
 
     inputs_embeds: [B, T, H] RAW embeddings (the sqrt-hidden normalizer is
     applied here, cast to the activation dtype first). attn_mask: [B, T]
     with 1 = real token; pads are masked from keys. remat=True recomputes
     each layer in the backward (torch.utils.checkpoint) instead of keeping
-    its activations. Returns hidden [B, T, H]."""
+    its activations. reference_attention=True runs every layer's attention
+    through `_attention_reference` (exact-mode generation asks for it).
+    Returns hidden [B, T, H]."""
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     default_positions = positions is None
@@ -398,7 +404,7 @@ def forward_hidden(params: dict, cfg: Gemma2Config, inputs_embeds: torch.Tensor,
 
     for i in range(cfg.num_layers):
         args = (params["layers"][str(i)], cfg, x, i, cos, sin, key_mask, attn_positions,
-                kv_lengths)
+                kv_lengths, reference_attention)
         if remat and torch.is_grad_enabled():
             # no random draw inside a layer, so no generator state to carry
             x = checkpoint(_layer, *args, use_reentrant=False, preserve_rng_state=False)

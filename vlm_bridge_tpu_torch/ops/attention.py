@@ -4,6 +4,11 @@
 Gemma-2: shapes the flash kernels take go to ops.flash_attention, everything
 else to the plain `_attention_reference`. Decode attention folds the int8 cache scales into the algebra as
 the JAX function does.
+
+`reference=True` is a request, never a fallback: it names
+`_attention_reference` for a call whatever its shape. Exact-mode generation
+and the bridge's `debug_forward` make it, so that f32 tensors on the card,
+which the bf16 flash kernels refuse, run the plain f32 attention.
 """
 
 from __future__ import annotations
@@ -83,7 +88,7 @@ def dot_product_attention(q, k, v, *, scale: Optional[float] = None,
                           logit_softcap: Optional[float] = None,
                           sliding_window: Optional[int] = None,
                           q_positions=None, kv_positions=None,
-                          kv_lengths=None) -> torch.Tensor:
+                          kv_lengths=None, reference: bool = False) -> torch.Tensor:
     """Multi-head scaled dot-product attention (arguments as in the JAX
     package: q [B, T, H, D], k/v [B, S, KH, D], mask True = attend).
 
@@ -95,11 +100,12 @@ def dot_product_attention(q, k, v, *, scale: Optional[float] = None,
     build or launch; on CPU tensors the kernels' plain versions through the
     same autograd function. Everything else (another head dim, a dense mask,
     explicit positions) takes `_attention_reference`, which applies `mask`
-    exactly and ignores `kv_lengths`."""
+    exactly and ignores `kv_lengths`. reference=True asks for
+    `_attention_reference` whatever the shape."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if flash_supported(q, mask=mask, q_positions=q_positions, kv_positions=kv_positions,
-                       kv_lengths=kv_lengths):
+    if not reference and flash_supported(q, mask=mask, q_positions=q_positions,
+                                         kv_positions=kv_positions, kv_lengths=kv_lengths):
         return fa.flash_attention(q, k, v, scale=scale, is_causal=is_causal,
                                   logit_softcap=logit_softcap, sliding_window=sliding_window,
                                   kv_lengths=kv_lengths)

@@ -16,8 +16,11 @@ exactly.
 `from_jax` gives frozen tensors (requires_grad False): the vision and lm
 subtrees of a train step, or a whole tree for serving. `bridge_from_jax`
 turns a JAX TrainState's `bridge_params` into the port's f32 master copy,
-whose leaves require grad. `config_from_jax` turns one of the JAX package's
-config dataclasses into the port's class of the same name.
+whose leaves require grad, and `opt_state_from_jax` its optax state (the
+clip -> AdamW chain, optionally inside MultiSteps) into the tree of
+`BridgeOptimizer.state_dict`, so a JAX run's moments, step and accumulation
+can be compared with the port's or trained on. `config_from_jax` turns one of
+the JAX package's config dataclasses into the port's class of the same name.
 """
 
 from __future__ import annotations
@@ -54,6 +57,39 @@ def bridge_from_jax(tree, device=None):
     if isinstance(tree, dict):
         return {k: bridge_from_jax(v, device) for k, v in tree.items()}
     return _tensor(tree, device).float().requires_grad_(True)
+
+
+def _find(node, *fields):
+    """The first node of an optax state (nested tuples / NamedTuples) that
+    has all `fields`."""
+    if all(hasattr(node, f) for f in fields):
+        return node
+    if isinstance(node, tuple):
+        for child in node:
+            found = _find(child, *fields)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state, device=None) -> dict:
+    """A JAX TrainState's opt_state (numpy leaves or arrays) -> the tree
+    that BridgeOptimizer.load_state_dict takes: the AdamW moments mu / nu,
+    its step (the adam count), the schedule's count (optimizer steps) and,
+    under MultiSteps, the mini step and the running mean of the gradients."""
+    adam = _find(opt_state, "mu", "nu", "count")
+    if adam is None:
+        raise ValueError("no AdamW state (mu, nu, count) in this optax state")
+    multi = _find(opt_state, "mini_step", "acc_grads")
+    count = int(np.asarray(adam.count))
+    out = {"mu": from_jax(adam.mu, device), "nu": from_jax(adam.nu, device),
+           "adam_step": torch.tensor(float(count), dtype=torch.float32),
+           "count": torch.tensor(count, dtype=torch.int64),
+           "mini_step": torch.tensor(0 if multi is None else int(np.asarray(multi.mini_step)),
+                                     dtype=torch.int64)}
+    if multi is not None:
+        out["acc"] = from_jax(multi.acc_grads, device)
+    return out
 
 
 def config_from_jax(cfg):

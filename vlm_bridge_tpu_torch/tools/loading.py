@@ -1,9 +1,12 @@
 """Shared CLI plumbing (port of vlm_bridge_tpu.tools.loading): model flags
-and their resolution (preset -> seeded random init on the device -> int8
-quantization -> tokenizer). HF snapshots and bridge checkpoints are not
-ported yet and raise."""
+and their resolution (preset -> seeded random init on the device -> a
+trained bridge from a CheckpointStore slot -> int8 quantization ->
+tokenizer). HF snapshots are not ported yet (params/hf_loader.py) and
+raise."""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import torch
 
@@ -20,7 +23,8 @@ PRESETS = {"default": VLMConfig.default, "tiny": VLMConfig.tiny_test,
 
 def add_model_args(ap) -> None:
     """Attach the common model/weights/device argument set."""
-    ap.add_argument("--checkpoint", default=None, help="bridge checkpoint (not ported yet)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="bridge checkpoint slot (e.g. checkpoints/exp/best)")
     ap.add_argument("--hf-vision-path", default=None, help="HF DINOv2 snapshot (not ported yet)")
     ap.add_argument("--hf-lm-path", default=None, help="HF Gemma-2 snapshot (not ported yet)")
     ap.add_argument("--tokenizer-path", default=None)
@@ -37,8 +41,9 @@ def add_model_args(ap) -> None:
     ap.add_argument("--seed", type=int, default=0, help="seed of the random init")
 
 
-def resolve_device(name: str) -> torch.device:
-    if name == "cuda" and not torch.cuda.is_available():
+def resolve_device(name) -> torch.device:
+    """torch.device(name); a CUDA device without a card raises (no fallback)."""
+    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but torch.cuda.is_available() is False")
     return torch.device(name)
 
@@ -48,15 +53,26 @@ def load_from_args(args):
     from vlm_bridge_tpu_torch.data.tokenizer import get_tokenizer
     from vlm_bridge_tpu_torch.models import bridge, dinov2, full_model, gemma2
 
-    for flag in ("checkpoint", "hf_vision_path", "hf_lm_path"):
+    for flag in ("hf_vision_path", "hf_lm_path"):
         if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet")
+            raise NotImplementedError(f"--{flag.replace('_', '-')}: params/hf_loader.py is not "
+                                      "ported yet")
     device = resolve_device(args.device)
     cfg = PRESETS[args.preset]()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
     params = full_model.init(cfg, generator=gen, frozen_dtype=dtype, device=device)
+    if args.checkpoint:
+        from vlm_bridge_tpu_torch.runtime.checkpoint import CheckpointStore
+
+        p = Path(args.checkpoint)
+        restored, meta = CheckpointStore(p.parent).load(
+            p.name, template={"bridge_params": params["bridge"]})
+        params["bridge"] = restored["bridge_params"]
+        # what the trainer recorded (bridge_causal) for CLIs that match the
+        # generation to how the bridge was trained
+        args._ckpt_meta = meta
     if args.quantize:
         parts = args.quantize.split(",")
         lm_parts = tuple(p for p in parts if p not in ("bridge", "vision"))

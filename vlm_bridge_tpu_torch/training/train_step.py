@@ -120,6 +120,61 @@ class BridgeOptimizer:
         state["count"] += 1
 
 
+    def state_dict(self, state: dict, bridge_params: dict) -> dict:
+        """The optimizer state as a tree of tensors (for CheckpointStore):
+        AdamW's moments "mu" / "nu" in the bridge tree's nesting (zeros before
+        the first update), its step "adam_step", the schedule's "count", the
+        accumulation's "mini_step" and, with k > 1, its running mean "acc".
+        The moments are the live tensors, not copies."""
+        adamw = state["adamw"]
+        leaves = tree_leaves(bridge_params)
+
+        def moment(key):
+            return _unflatten(bridge_params, [
+                adamw.state[p][key] if p in adamw.state else torch.zeros_like(p)
+                for p in leaves])
+
+        first = adamw.state.get(leaves[0], {})
+        out = {"mu": moment("exp_avg"), "nu": moment("exp_avg_sq"),
+               "adam_step": first.get("step", torch.zeros((), dtype=torch.float32)),
+               "count": torch.tensor(state["count"], dtype=torch.int64),
+               "mini_step": torch.tensor(state["mini_step"], dtype=torch.int64)}
+        if state["acc"] is not None:
+            out["acc"] = _unflatten(bridge_params, state["acc"])
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict, tree: dict, bridge_params: dict) -> None:
+        """Set `state` (BridgeOptimizer.init's, over the same bridge leaves)
+        from a state_dict tree, copying every tensor bit for bit."""
+        adamw = state["adamw"]
+        leaves = tree_leaves(bridge_params)
+        mus, nus = tree_leaves(tree["mu"]), tree_leaves(tree["nu"])
+        step = tree["adam_step"].detach().to("cpu", torch.float32)
+        adamw.state.clear()
+        if float(step) > 0:
+            for p, mu, nu in zip(leaves, mus, nus):
+                adamw.state[p] = {"step": step.clone(),
+                                  "exp_avg": mu.detach().to(p.device, copy=True),
+                                  "exp_avg_sq": nu.detach().to(p.device, copy=True)}
+        state["count"] = int(tree["count"])
+        state["mini_step"] = int(tree["mini_step"])
+        if state["acc"] is not None:
+            for a, saved in zip(state["acc"], tree_leaves(tree["acc"])):
+                a.copy_(saved)
+
+
+def _unflatten(like: dict, leaves: list) -> dict:
+    """The inverse of tree_leaves: `leaves` in the nesting of `like`."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+    return build(like)
+
+
 def make_optimizer(tc: TrainingConfig, steps_per_epoch: int) -> BridgeOptimizer:
     return BridgeOptimizer(tc, steps_per_epoch)
 
