@@ -1,9 +1,10 @@
 """Run the PyTorch port once on one GPU: the int8 greedy caption-serving path,
 the kernel-routed vision encode and the int8 vision tower, the sampled
 per-layer int8 decode path, the per-layer fused decode, the int4 serving
-recipe through the batched eval harness, the bridge train step and the
-trainer's entry point with its checkpoints served back, every kernel held
-against its plain version.
+recipe through the batched eval harness, the bridge train step, the
+trainer's entry point with its checkpoints served back, full-width HF
+snapshots served, the debug and parity tools, and the process group, every
+kernel held against its plain version.
 
     python3 chip_smoke.py
 
@@ -116,6 +117,31 @@ against its plain version.
    orchestrator's samples/s beside the bare step's, the epoch's device-busy
    share, slot save / load seconds, exact mode's ms a token and the
    captions/s served from the checkpoint.
+5b. HF snapshots (params/hf_loader.py): seeded random f32 weights in the
+   published naming (Gemma-2-2B as Gemma2ForCausalLM keys in three shards
+   with model.safetensors.index.json, DINOv2-large as Dinov2Model keys at its
+   native grid of 37; ~11.7 GB, written with struct + json after a check of
+   the room free there, which fails the run if short), then load_from_args
+   with --hf-vision-path, --hf-lm-path and the int8 recipe. Checks every
+   unquantized leaf bit for bit against the source cast to bf16 (and
+   pos_embed_interp_16 against the host's f32 bicubic), the served trees
+   (per-layer and stacked) leaf for leaf against the same weights converted in
+   memory, greedy serving 64 x 50 on the fused path (the decode kernels 50
+   launches each; a second call's drift printed: the fused steps' stream-K
+   sums are f32 atomics) and on the per-layer int8 path id for id against the
+   in-memory conversion (64 of 64 rows). Prints bytes written and read,
+   seconds and GB/s, captions/s.
+5c. vlm-debug-torch on one seeded image (30 traced steps, the strategy sweep,
+   the bypass A/B: no NaN / Inf, every strategy answered), ms a traced step;
+   vlm-parity-torch record on two seeded images from the snapshot and a .pth
+   of the trained bridge, check of that transcript (2/2) and of one with a
+   token changed (rc 1). The snapshot is deleted after.
+5d. A process group of one over NCCL (parallel.init_multihost): the
+   orchestrator's 2 steps and a validation epoch bit-equal to the same run
+   without a group, the bridge gradients' all-reduce timed, vlm-eval-torch
+   --mesh 1 id for id against the run without --mesh over 2 batches (int8
+   weights on the per-layer path); the group destroyed; then entry()'s
+   masked-CE forward once.
 6. Prints a JSON line of per-kernel results, then, as the last line,
    {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 """
@@ -175,6 +201,12 @@ GREEDY_CHECK_TOKENS, PROFILE_TOKENS = 6, 5
 # checkpoint, exact mode's batch and tokens
 ENTRY_STEPS, ENTRY_VAL, ENTRY_SAMPLES, ENTRY_EVAL_BATCHES = 3, 16, 4, 3
 EXACT_BATCH, EXACT_TOKENS = 4, 16
+# the HF snapshot: Gemma-2-2B's shards and the room asked for beyond the files' bytes;
+# the debugger's traced steps, the parity tool's images and tokens; the orchestrator's
+# steps and vlm-eval-torch's batches in the process group
+HF_LM_SHARDS, HF_ROOM_MARGIN = 3, 2e9
+DEBUG_STEPS, PARITY_TOKENS = 30, 20
+DIST_STEPS, DIST_EVAL_BATCHES = 2, 2
 # The per-layer fused steps against their plain versions: both round h, q,
 # p * v_scale, the attention output and the MLP hidden to bf16 at the same
 # places, over f32 sums taken in another order, so a few of those values land
@@ -1358,6 +1390,536 @@ def run_training_entry(params, cfg, dev, card, bare_rate):
             if anomaly:
                 raise AssertionError("debug_forward found a NaN or an Inf in the trained bridge")
     return {fn.__name__: n for fn, n in zip(counters, phases["train"])}
+
+
+# ---------------------------------------------------------------------------
+# HF snapshots, the diagnostic tools and the process group
+# ---------------------------------------------------------------------------
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """CPU tensors (name -> tensor) as one .safetensors file: an 8-byte
+    little-endian header length, the JSON header (dtype, shape, byte
+    offsets), then the raw bytes in order. Returns the bytes written."""
+    import os
+    import struct
+
+    names = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}
+    header, at = {}, 0
+    for name, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [at, at + size]}
+        at += size
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().data)
+        f.flush()
+        os.fsync(f.fileno())
+    return 8 + len(head) + at
+
+
+def hf_source(cfg, dev):
+    """Seeded random f32 state dicts of the published Gemma2ForCausalLM and
+    Dinov2Model naming at cfg's widths, drawn on the card, held on the host:
+    weights N(0, 0.02), norms, biases and LayerScales N(0, 0.1)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 15)
+
+    def w(*shape, std=0.02):
+        return (torch.randn(*shape, generator=g, device=dev) * std).cpu()
+
+    lm, v = cfg.lm, cfg.vision
+    H, hd, I = lm.hidden_size, lm.head_dim, lm.intermediate_size
+    src_lm = {"model.embed_tokens.weight": w(lm.vocab_size, H)}
+    for i in range(lm.num_layers):
+        p = f"model.layers.{i}."
+        for n in ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
+                  "post_feedforward_layernorm"):
+            src_lm[p + n + ".weight"] = w(H, std=0.1)
+        src_lm[p + "self_attn.q_proj.weight"] = w(lm.num_heads * hd, H)
+        src_lm[p + "self_attn.k_proj.weight"] = w(lm.num_kv_heads * hd, H)
+        src_lm[p + "self_attn.v_proj.weight"] = w(lm.num_kv_heads * hd, H)
+        src_lm[p + "self_attn.o_proj.weight"] = w(H, lm.num_heads * hd)
+        src_lm[p + "mlp.gate_proj.weight"] = w(I, H)
+        src_lm[p + "mlp.up_proj.weight"] = w(I, H)
+        src_lm[p + "mlp.down_proj.weight"] = w(H, I)
+    src_lm["model.norm.weight"] = w(H, std=0.1)
+    h, P = v.hidden_size, v.patch_size
+    src_v = {"embeddings.cls_token": w(1, 1, h), "embeddings.mask_token": w(1, h),
+             "embeddings.position_embeddings": w(1, v.native_grid ** 2 + 1, h),
+             "embeddings.patch_embeddings.projection.weight": w(h, v.num_channels, P, P),
+             "embeddings.patch_embeddings.projection.bias": w(h, std=0.1)}
+    for i in range(v.num_layers):
+        p = f"encoder.layer.{i}."
+        for n in ("norm1", "norm2"):
+            src_v[p + n + ".weight"] = 1 + w(h, std=0.1)
+            src_v[p + n + ".bias"] = w(h, std=0.1)
+        for n in ("query", "key", "value"):
+            src_v[p + f"attention.attention.{n}.weight"] = w(h, h)
+            src_v[p + f"attention.attention.{n}.bias"] = w(h, std=0.1)
+        src_v[p + "attention.output.dense.weight"] = w(h, h)
+        src_v[p + "attention.output.dense.bias"] = w(h, std=0.1)
+        src_v[p + "layer_scale1.lambda1"] = w(h, std=0.1)
+        src_v[p + "mlp.fc1.weight"] = w(h * v.mlp_ratio, h)
+        src_v[p + "mlp.fc1.bias"] = w(h * v.mlp_ratio, std=0.1)
+        src_v[p + "mlp.fc2.weight"] = w(h, h * v.mlp_ratio)
+        src_v[p + "mlp.fc2.bias"] = w(h, std=0.1)
+        src_v[p + "layer_scale2.lambda1"] = w(h, std=0.1)
+    src_v["layernorm.weight"] = 1 + w(h, std=0.1)
+    src_v["layernorm.bias"] = w(h, std=0.1)
+    return src_lm, src_v
+
+
+def hf_expected(src_lm, src_v, cfg) -> dict:
+    """Every float leaf of the served tree that --quantize
+    embedding,mlp,attn,bridge leaves as it is (the LM's norms, the whole
+    vision tower), path -> the source tensor cast to bf16, derived here from
+    the published naming; pos_embed_interp_{grid} is HF's f32 bicubic
+    (F.interpolate, A = -0.75) on the host, then cast."""
+    def bf(t):
+        return t.to(torch.bfloat16)
+
+    want = {("lm", "final_norm"): bf(src_lm["model.norm.weight"])}
+    norms = {"input_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
+             "pre_ffn_norm": "pre_feedforward_layernorm",
+             "post_ffn_norm": "post_feedforward_layernorm"}
+    for i in range(cfg.lm.num_layers):
+        for k, n in norms.items():
+            want[("lm", "layers", str(i), k)] = bf(src_lm[f"model.layers.{i}.{n}.weight"])
+    v, vc = src_v, cfg.vision
+    pos = v["embeddings.position_embeddings"]
+    grid, n, h = cfg.image_size // vc.patch_size, vc.native_grid, vc.hidden_size
+    patch = torch.nn.functional.interpolate(
+        pos[:, 1:].reshape(1, n, n, h).permute(0, 3, 1, 2), size=(grid, grid), mode="bicubic",
+        align_corners=False).permute(0, 2, 3, 1).reshape(1, grid * grid, h)
+    want.update({
+        ("vision", "patch_embed", "kernel"):
+            bf(v["embeddings.patch_embeddings.projection.weight"].permute(2, 3, 1, 0)),
+        ("vision", "patch_embed", "bias"): bf(v["embeddings.patch_embeddings.projection.bias"]),
+        ("vision", "cls_token"): bf(v["embeddings.cls_token"]),
+        ("vision", "pos_embed"): bf(pos),
+        ("vision", f"pos_embed_interp_{grid}"): bf(torch.cat([pos[:, :1], patch], dim=1)),
+        ("vision", "final_norm", "scale"): bf(v["layernorm.weight"]),
+        ("vision", "final_norm", "bias"): bf(v["layernorm.bias"])})
+    for i in range(vc.num_layers):
+        p, a, L = f"encoder.layer.{i}.", f"encoder.layer.{i}.attention.attention.", (
+            "vision", "layers", str(i))
+        for k in ("norm1", "norm2"):
+            want[L + (k, "scale")] = bf(v[p + k + ".weight"])
+            want[L + (k, "bias")] = bf(v[p + k + ".bias"])
+        want[L + ("attn", "qkv")] = bf(torch.cat(
+            [v[a + k + ".weight"].t() for k in ("query", "key", "value")], dim=1))
+        want[L + ("attn", "qkv_bias")] = bf(torch.cat(
+            [v[a + k + ".bias"] for k in ("query", "key", "value")]))
+        want[L + ("attn", "o")] = bf(v[p + "attention.output.dense.weight"].t())
+        want[L + ("attn", "o_bias")] = bf(v[p + "attention.output.dense.bias"])
+        for k in ("fc1", "fc2"):
+            want[L + ("mlp", k)] = bf(v[p + f"mlp.{k}.weight"].t())
+            want[L + ("mlp", k + "_bias")] = bf(v[p + f"mlp.{k}.bias"])
+        want[L + ("layerscale1",)] = bf(v[p + "layer_scale1.lambda1"])
+        want[L + ("layerscale2",)] = bf(v[p + "layer_scale2.lambda1"])
+    return want
+
+
+def float_leaves(tree, path=()):
+    """(path, tensor) of every tensor leaf outside an int8 / int4 dict."""
+    if isinstance(tree, dict):
+        if "w_int8" in tree or "w_int4" in tree:
+            return
+        for k, v in tree.items():
+            yield from float_leaves(v, path + (k,))
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+
+
+def all_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from all_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def run_hf_snapshot(snap: Path, cfg, dev, card):
+    """A full-width snapshot of seeded random weights in the published naming
+    and dtype (Gemma-2-2B as Gemma2ForCausalLM keys in three f32 shards with
+    an index, DINOv2-large as Dinov2Model keys in f32 at its native grid of
+    37) written under `snap`, then load_from_args with --hf-vision-path,
+    --hf-lm-path and the int8 recipe: the unquantized leaves bit for bit
+    against the source cast to bf16, pos_embed_interp_16 against the host's
+    f32 bicubic, the served trees leaf for leaf against the same weights
+    converted in memory, greedy serving (64 x 50) on the fused path timed and
+    called twice, and on the per-layer path id for id against the in-memory
+    conversion. Returns the snapshot's two directories."""
+    import argparse
+    import shutil
+
+    from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
+    from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
+    from vlm_bridge_tpu_torch.params import hf_loader
+    from vlm_bridge_tpu_torch.tools.loading import (add_model_args, load_from_args,
+                                                    prestack_decode_params)
+
+    src_lm, src_v = hf_source(cfg, dev)
+    need = nbytes(*src_lm.values(), *src_v.values())
+    free = shutil.disk_usage(snap).free
+    print(f"[hf snapshot] {need / 1e9:.3f} GB of f32 tensors to write under {snap}, "
+          f"{free / 1e9:.1f} GB free there", flush=True)
+    if free < need + HF_ROOM_MARGIN:
+        raise AssertionError(f"too little room for the snapshot: {free / 1e9:.1f} GB free, "
+                             f"{(need + HF_ROOM_MARGIN) / 1e9:.1f} GB needed")
+    lm_dir, v_dir = snap / "gemma-2-2b", snap / "dinov2-large"
+    lm_dir.mkdir()
+    v_dir.mkdir()
+    t0 = time.perf_counter()
+    written = write_safetensors(v_dir / "model.safetensors", src_v)
+    per_shard, shard, shards = nbytes(*src_lm.values()) // HF_LM_SHARDS, [], []
+    for name, t in src_lm.items():
+        shard.append(name)
+        if nbytes(*(src_lm[n] for n in shard)) >= per_shard and len(shards) < HF_LM_SHARDS - 1:
+            shards.append(shard)
+            shard = []
+    shards.append(shard)
+    weight_map = {}
+    for k, names in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        written += write_safetensors(lm_dir / fname, {n: src_lm[n] for n in names})
+        weight_map.update(dict.fromkeys(names, fname))
+    (lm_dir / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": nbytes(*src_lm.values())}, "weight_map": weight_map}))
+    write_s = time.perf_counter() - t0
+    read = sum(f.stat().st_size for d in (lm_dir, v_dir) for f in d.glob("*.safetensors"))
+
+    ap = argparse.ArgumentParser()
+    add_model_args(ap)
+    args = ap.parse_args(["--preset", "default", "--seed", str(SEED), "--hf-vision-path",
+                          str(v_dir), "--hf-lm-path", str(lm_dir), "--quantize",
+                          "embedding,mlp,attn,bridge"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loaded, _ = load_from_args(args)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    print(f"[hf snapshot] wrote {written:,} bytes in {len(shards)} Gemma shards + 1 DINOv2 "
+          f"file in {write_s:.2f} s = {written / write_s / 1e9:.2f} GB/s; load_from_args "
+          f"(seeded init, then the snapshots read, cast to bf16 on the host and placed, then "
+          f"the int8 recipe) read {read:,} bytes in {load_s:.2f} s = "
+          f"{read / load_s / 1e9:.2f} GB/s, on {card}", flush=True)
+
+    want = hf_expected(src_lm, src_v, cfg)
+    got = {("lm",) + p: t for p, t in float_leaves(loaded["lm"])}
+    got.update({("vision",) + p: t for p, t in float_leaves(loaded["vision"])})
+    if set(got) != set(want):
+        raise AssertionError(f"unquantized leaves {sorted(set(got) ^ set(want))[:6]} are not "
+                             "those expected")
+    off = [p for p, t in got.items() if t.dtype != torch.bfloat16
+           or not torch.equal(t.cpu(), want[p])]
+    grid = cfg.image_size // cfg.vision.patch_size
+    print(f"[hf snapshot] {len(got)} unquantized leaves (the LM's norms, the vision tower, "
+          f"pos_embed_interp_{grid} from the host's f32 bicubic) bit for bit against the source "
+          f"cast to bf16: {len(got) - len(off)} of {len(got)}")
+    if off:
+        raise AssertionError(f"leaves differ from the source: {off[:6]}")
+
+    # the same weights converted in memory, served the same way
+    with torch.no_grad():
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        mem = full_model.init(cfg, generator=g, device=dev)
+        mem["vision"] = hf_loader.dinov2_from_state_dict(src_v, cfg.vision,
+                                                         target_grids=(grid,), device=dev)
+        mem["lm"] = gemma2.quantize_params(hf_loader.gemma2_from_state_dict(
+            src_lm, cfg.lm, device=dev), parts=("embedding", "mlp", "attn"))
+        mem["bridge"] = bridge.quantize_decode_params(mem["bridge"])
+    del src_lm, src_v
+    gcfg = GenerationConfig(max_length=NEW_TOKENS, greedy=True, kv_quant=True)
+    loaded_st = prestack_decode_params(loaded, cfg, gcfg)
+    mem_st = prestack_decode_params(mem, cfg, gcfg)
+    for a_tree, b_tree, what in ((loaded, mem, "per-layer"), (loaded_st, mem_st, "stacked")):
+        la, lb = list(all_leaves(a_tree)), list(all_leaves(b_tree))
+        if [p for p, _ in la] != [p for p, _ in lb]:
+            raise AssertionError(f"the loaded and the in-memory {what} trees differ in leaves")
+        diff = [p for (p, a), (_, b) in zip(la, lb)
+                if (a != b if not isinstance(a, torch.Tensor) else not torch.equal(a, b))]
+        if diff:
+            raise AssertionError(f"the loaded and the in-memory {what} trees differ at {diff[:6]}")
+    del la, lb
+    pixels = seeded_pixels(cfg, dev)
+    wrappers = decode_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    with record_decode_hidden("decode_step_stacked") as first:
+        t0 = time.perf_counter()
+        toks, lens = generate_tokens(loaded_st, cfg, pixel_values=pixels, gen=gcfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    toks_l = check_tokens(toks, lens, cfg, NEW_TOKENS)
+    # the fused steps sum their stream-K partials with f32 atomics in the L2
+    # (csrc/decode_gemm.cuh:red_add4): two calls on the same inputs need not
+    # give the same bits, so the id-for-id check below runs the per-layer path
+    with record_decode_hidden("decode_step_stacked") as second:
+        toks2, _ = generate_tokens(loaded_st, cfg, pixel_values=pixels, gen=gcfg)
+    drift = max(float((a.float() - b.float()).abs().max()) for a, b in zip(first, second))
+    same_rows = int((toks2.cpu() == toks_l).all(dim=1).sum())
+    print(f"[hf snapshot] greedy serving from the loaded snapshot, int8 recipe (fused stack), "
+          f"{BATCH} x {NEW_TOKENS}: {BATCH / dt:.2f} captions/s (encode + decode) on {card}; "
+          f"launches {launches}; a second call on the same inputs: largest final-hidden "
+          f"difference {drift:.6g}, ids equal in {same_rows} of {BATCH} rows")
+    if any(launches.get(n) != NEW_TOKENS for n in ("fused_stack_step", "fused_bridge_step",
+                                                    "int8_matmul_t_argmax")):
+        raise AssertionError("serving from the loaded snapshot did not run the decode kernels")
+    del loaded_st, mem_st, first, second
+    torch.cuda.empty_cache()
+    # id for id: the int8 weights as per-layer dicts with the bf16 KV cache
+    # (int8_matmul / int8_mlp / int8_ffn / the greedy head: one summation
+    # order each), from the snapshot and from the in-memory conversion
+    per_layer = GenerationConfig(max_length=NEW_TOKENS, greedy=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks_p, lens_p = generate_tokens(loaded, cfg, pixel_values=pixels, gen=per_layer)
+    torch.cuda.synchronize()
+    dt_p = time.perf_counter() - t0
+    launches_p = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    toks_p = check_tokens(toks_p, lens_p, cfg, NEW_TOKENS)
+    toks_m, _ = generate_tokens(mem, cfg, pixel_values=pixels, gen=per_layer)
+    rows = int((toks_m.cpu() == toks_p).all(dim=1).sum())
+    print(f"[hf snapshot] the per-layer int8 path, {BATCH} x {NEW_TOKENS}: "
+          f"{BATCH / dt_p:.2f} captions/s, launches {launches_p}; ids equal to the in-memory "
+          f"conversion's in {rows} of {BATCH} rows")
+    if rows != BATCH or not all(launches_p.get(n) for n in ("int8_matmul", "int8_mlp",
+                                                            "int8_matmul_t_argmax")):
+        raise AssertionError("serving from the loaded snapshot is off")
+    return v_dir, lm_dir
+
+
+def run_debug_and_parity(v_dir: Path, lm_dir: Path, params, cfg, dev, card) -> None:
+    """vlm-debug-torch on one seeded image at full width (DEBUG_STEPS traced
+    steps, the strategy sweep, the bypass A/B), then vlm-parity-torch record
+    on two seeded images from the snapshot and a .pth of the trained bridge
+    (CheckpointStore.export_pth), check of that transcript (2/2), and check of
+    a transcript with one token changed (refused, rc 1)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from vlm_bridge_tpu_torch.runtime.checkpoint import CheckpointStore
+    from vlm_bridge_tpu_torch.tools import debug_generation as dbg
+    from vlm_bridge_tpu_torch.tools import parity
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        rng = np.random.default_rng(SEED + 20)
+        images = []
+        for i, (hgt, wid) in enumerate(((240, 320), (300, 260))):
+            images.append(work / f"seeded_{i}.png")
+            Image.fromarray(rng.integers(0, 256, (hgt, wid, 3), np.uint8)).save(images[-1])
+
+        traces, real = [], dbg.GenerationDebugger.debug_generation
+
+        def timed(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = real(self, *a, **kw)
+            torch.cuda.synchronize()
+            traces.append((time.perf_counter() - t0, len(rep.steps)))
+            return rep
+        dbg.GenerationDebugger.debug_generation = timed
+        try:
+            rc = dbg.main(["--preset", "default", "--seed", str(SEED), "--image", str(images[0]),
+                           "--max-length", str(DEBUG_STEPS), "--report", str(work / "r.json")])
+        finally:
+            dbg.GenerationDebugger.debug_generation = real
+        rep = json.loads((work / "r.json").read_text())
+        bad = sum(s["nan_count"] + s["inf_count"] for s in rep["steps"])
+        print(f"[debug] vlm-debug-torch, VLMConfig.default(), one seeded image: rc {rc}, "
+              f"{len(rep['steps'])} step traces, NaN + Inf logits {bad}, strategies "
+              f"{sorted(rep['strategies'])}, bridge A/B {sorted(rep['bridge_ab'])}, issues "
+              f"{rep['issues']}; the traced decode {1e3 * traces[0][0] / traces[0][1]:.2f} ms a "
+              f"step (exact mode's f32 forward over the {DEBUG_STEPS + 1}-position buffer, the "
+              f"image's encode included) on {card}")
+        if (rc != 0 or len(rep["steps"]) != DEBUG_STEPS or bad or len(rep["strategies"]) != 5
+                or any(c.startswith("ERROR") for c in rep["strategies"].values())
+                or set(rep["bridge_ab"]) != {"with_bridge", "bypass_bridge"}):
+            raise AssertionError("the generation debugger's report is off")
+
+        CheckpointStore(work / "ckpt").save("best", bridge_params=params["bridge"])
+        CheckpointStore(work / "ckpt").export_pth("best", cfg.bridge, work / "bridge.pth")
+        files = ["--preset", "default", "--hf-vision-path", str(v_dir), "--hf-lm-path",
+                 str(lm_dir), "--pth", str(work / "bridge.pth"), "--dtype", "f32",
+                 "--max-length", str(PARITY_TOKENS)]
+        transcript = work / "transcript.jsonl"
+
+        def run(argv):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = parity.main(argv)
+            torch.cuda.synchronize()
+            print("\n".join("[parity] " + line for line in out.getvalue().splitlines()))
+            return rc, out.getvalue(), time.perf_counter() - t0
+
+        rc, _, rec_s = run(["record", *map(str, images), "--output", str(transcript), *files])
+        rows = [json.loads(line) for line in transcript.read_text().splitlines()]
+        rc_ok, out_ok, chk_s = run(["check", "--transcript", str(transcript), "--data-dir", "/",
+                                    *files])
+        rows[1]["tokens"][2] = (rows[1]["tokens"][2] + 1) % cfg.lm.vocab_size
+        transcript.write_text("".join(json.dumps(r) + "\n" for r in rows))
+        rc_bad, out_bad, _ = run(["check", "--transcript", str(transcript), "--data-dir", "/",
+                                  *files])
+        print(f"[parity] record rc {rc} ({rec_s:.1f} s: f32 snapshot load + {len(rows)} exact "
+              f"decodes of {PARITY_TOKENS} tokens), check rc {rc_ok} ({chk_s:.1f} s), the "
+              f"transcript with one token changed rc {rc_bad}, on {card}")
+        if (rc != 0 or rc_ok != 0 or f"{len(rows)}/{len(rows)} matched" not in out_ok
+                or rc_bad != 1 or f"{len(rows) - 1}/{len(rows)} matched" not in out_bad):
+            raise AssertionError("vlm-parity-torch record / check is off")
+
+
+def run_distributed(params, cfg, dev, card, bare_rate) -> None:
+    """A process group of one over NCCL on the card: the orchestrator's
+    DIST_STEPS steps at batch 8 x 256 bit-equal to the same run without a
+    group (losses, validation, the final bridge), vlm-eval-torch --mesh 1
+    on DIST_EVAL_BATCHES batches id for id against the run without --mesh,
+    (the int8 per-layer path, one summation order a kernel), and the
+    gradients' all-reduce timed; the group is destroyed at the end.
+    Then entry()'s forward once."""
+    import torch.distributed as dist
+
+    from vlm_bridge_tpu_torch.configs import TrainingConfig
+    from vlm_bridge_tpu_torch.entry import entry
+    from vlm_bridge_tpu_torch.inference import evaluate
+    from vlm_bridge_tpu_torch.ops import flash_attention as fa
+    from vlm_bridge_tpu_torch.parallel import init_multihost, process_info
+    from vlm_bridge_tpu_torch.parallel.distributed import all_reduce_sum
+    from vlm_bridge_tpu_torch.runtime.tb_writer import read_scalars
+    from vlm_bridge_tpu_torch.training import orchestrator as orch
+    from vlm_bridge_tpu_torch.training import train_step as ts
+
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    leaves = ts.tree_leaves(params["bridge"])
+    start = [p.detach().clone() for p in leaves]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_synthetic_split(root, DIST_STEPS * TRAIN_BATCH, cfg.image_size, "train", repeat=5)
+        write_synthetic_split(root, TRAIN_BATCH, cfg.image_size, "val", repeat=5)
+        write_synthetic_split(root, DIST_EVAL_BATCHES * BATCH, cfg.image_size, "test")
+
+        def train(name):
+            with torch.no_grad():
+                for p, s in zip(leaves, start):
+                    p.copy_(s)
+            tc = TrainingConfig(data_dir=str(root), checkpoint_dir=str(root / name / "ckpt"),
+                                log_dir=str(root / name / "logs"), max_steps_per_epoch=DIST_STEPS,
+                                num_epochs=1, log_every_n_steps=1,
+                                num_validation_samples=ENTRY_SAMPLES)
+            ctx = orch.prepare_environment(tc, params=params)
+            for fn in counters:
+                fn.launches = 0
+            res = orch.execute_full_training(tc, ctx=ctx)
+            torch.cuda.synchronize()
+            (events,) = (root / name / "logs").glob("events.out.tfevents.*")
+            scalars = read_scalars(events)
+            return {"history": res["history"], "losses": scalars["train/loss"],
+                    "steady": [v for _, v in scalars["epoch/samples_per_sec_steady"]],
+                    "bridge": [p.detach().clone() for p in ts.tree_leaves(ctx.state.bridge_params)],
+                    "launches": [fn.launches for fn in counters],
+                    "distributed": ctx.mesh.distributed}
+
+        plain = train("plain")
+        port = _free_port()
+        if not init_multihost(f"127.0.0.1:{port}", 1, 0):
+            raise AssertionError("init_multihost did not join a group")
+        try:
+            print(f"[distributed] {process_info()}", flush=True)
+            nccl = train("nccl")
+            same_bridge = all(torch.equal(a, b) for a, b in zip(plain["bridge"], nccl["bridge"]))
+            print(f"[distributed] orchestrator, {DIST_STEPS} steps of batch {TRAIN_BATCH} x 256 "
+                  f"and a validation epoch, without a group and in an NCCL group of one: "
+                  f"train/loss {plain['losses']} and {nccl['losses']}; history equal "
+                  f"{plain['history'] == nccl['history']}; final bridge bit-equal {same_bridge}; "
+                  f"flash launches {plain['launches']} and {nccl['launches']}")
+            if (plain["distributed"] or not nccl["distributed"] or plain["losses"] != nccl["losses"]
+                    or plain["history"] != nccl["history"] or not same_bridge
+                    or plain["launches"] != nccl["launches"] or not all(plain["launches"])):
+                raise AssertionError("the NCCL world-of-one run differs from the plain one")
+
+            grads = [torch.randn_like(p) for p in leaves]
+            all_reduce_sum(grads)
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            ev0.record()
+            for _ in range(10):
+                all_reduce_sum(grads)
+            ev1.record()
+            torch.cuda.synchronize()
+            ar_ms = ev0.elapsed_time(ev1) / 10
+            del grads
+            print(f"[distributed] the bridge gradients' all-reduce ({nbytes(*leaves) / 1e9:.3f} "
+                  f"GB of f32 through one flat buffer, NCCL, one rank): {ar_ms:.4f} ms a step; "
+                  f"steady samples/s {nccl['steady']} in the group against {plain['steady']} "
+                  f"without it and {bare_rate:.2f} for run_train's bare step, on {card}")
+
+            recorded = {}
+            real_generate = evaluate.generate_tokens
+
+            def recording(*a, **kw):
+                out = real_generate(*a, **kw)
+                recorded.setdefault(key, []).append(out[0].cpu())
+                return out
+            evaluate.generate_tokens = recording
+            results = {}
+            try:
+                for key in ("plain", "mesh"):
+                    argv = ["--data-dir", tmp, "--split", "test", "--batch-size", str(BATCH),
+                            "--max-length", str(NEW_TOKENS), "--preset", "default", "--seed",
+                            str(SEED), "--quantize", "embedding,mlp,attn,bridge",
+                            "--no-early-stop", "--output", str(root / f"{key}.json")]
+                    if key == "mesh":
+                        argv += ["--mesh", "1"]
+                    if evaluate.main(argv) != 0:
+                        raise AssertionError(f"vlm-eval-torch ({key}) failed")
+                    results[key] = json.loads((root / f"{key}.json").read_text())
+            finally:
+                evaluate.generate_tokens = real_generate
+            ids_eq = len(recorded["plain"]) == len(recorded["mesh"]) == DIST_EVAL_BATCHES and all(
+                torch.equal(a, b) for a, b in zip(recorded["plain"], recorded["mesh"]))
+            print(f"[distributed] vlm-eval-torch --mesh 1 in the group, {DIST_EVAL_BATCHES} "
+                  f"batches of {BATCH} x {NEW_TOKENS} (int8 weights, the per-layer path, whose "
+                  f"kernels give the same bits each call): ids equal to the run "
+                  f"without --mesh: {ids_eq}; metrics equal "
+                  f"{results['plain']['metrics'] == results['mesh']['metrics']}; captions/s "
+                  f"{results['mesh']['captions_per_sec']:.2f} against "
+                  f"{results['plain']['captions_per_sec']:.2f}, on {card}")
+            if not ids_eq or results["plain"]["metrics"] != results["mesh"]["metrics"]:
+                raise AssertionError("vlm-eval-torch --mesh 1 decodes other ids")
+        finally:
+            dist.destroy_process_group()
+    fn, example = entry()
+    with torch.no_grad():
+        loss = float(fn(*example))
+    torch.cuda.synchronize()
+    print(f"[entry] entry()'s masked-CE forward, VLMConfig.default(), batch 8 x 256: loss "
+          f"{loss:.4f}")
+    if not math.isfinite(loss):
+        raise AssertionError("entry()'s loss is not finite")
+    del fn, example
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def run_serve(params, cfg, dev, card, gcfg):
@@ -2619,6 +3181,13 @@ def main() -> int:
     # the entry point's 6 train steps, beside the bare step's count in `launches`
     for name, n in run_training_entry(params, cfg, dev, card, bare_rate).items():
         results[name]["entry_launches"] = n
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as snap:
+        v_dir, lm_dir = run_hf_snapshot(Path(snap), cfg, dev, card)
+        torch.cuda.empty_cache()
+        run_debug_and_parity(v_dir, lm_dir, params, cfg, dev, card)
+    torch.cuda.empty_cache()
+    run_distributed(params, cfg, dev, card, bare_rate)
 
     fa_src, fa_py = "flash_bwd.cu", "vlm_bridge_tpu/ops/flash_attention.py"
     qpy = "vlm_bridge_tpu/ops/quant.py"

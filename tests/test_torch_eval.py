@@ -280,16 +280,20 @@ def test_vlm_eval_torch_mlp_int4_guards(split_dirs, tmp_path):
     with pytest.raises(ValueError, match="mlp_int4_group"):
         TE.main(_cli(jdir, "--mlp-int4", "--kv-int8", "--quantize",
                      "embedding4,mlp,attn,bridge"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # --mesh D needs a process group of D processes; a model axis is not ported
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 processes"):
         TE.main(_cli(jdir, "--mesh", "2"))
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        TE.main(_cli(jdir, "--mesh", "1,2"))
     with pytest.raises(SystemExit, match="not --exact"):
         TE.main(_cli(jdir, "--mlp-int4", "--kv-int8", "--exact"))
     # --checkpoint reads a CheckpointStore slot (tests/test_torch_training_loop.py
-    # serves a trained one); HF snapshots are not ported yet
+    # serves a trained one); --hf-*-path reads a snapshot directory
+    # (tests/test_torch_hf_loader.py loads real ones)
     with pytest.raises(FileNotFoundError, match="no checkpoint slot"):
         TE.main(_cli(jdir, "--checkpoint", str(tmp_path / "store" / "best")))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TE.main(_cli(jdir, "--hf-vision-path", "x"))
+    with pytest.raises(FileNotFoundError, match="no .safetensors files"):
+        TE.main(_cli(jdir, "--hf-vision-path", str(tmp_path / "x")))
     with pytest.raises(ValueError, match="mutually exclusive"):
         TE.main(_cli(jdir, "--quantize", "embedding,embedding4"))
 

@@ -147,8 +147,9 @@ def test_caption_cli_on_cpu(tmp_path, capsys):
     assert all(isinstance(r["caption"], str) for r in lines)
     assert "captions/s on cpu" in capsys.readouterr().out
     # --checkpoint reads a CheckpointStore slot (tests/test_torch_training_loop.py
-    # serves a trained one); HF snapshots are not ported yet
+    # serves a trained one); --hf-*-path reads a snapshot directory
+    # (tests/test_torch_hf_loader.py loads real ones)
     with pytest.raises(FileNotFoundError, match="no checkpoint slot"):
         caption.main([str(tmp_path), "--device", "cpu", "--checkpoint", str(tmp_path / "x")])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        caption.main([str(tmp_path), "--device", "cpu", "--hf-lm-path", "x"])
+    with pytest.raises(FileNotFoundError, match="no .safetensors files"):
+        caption.main([str(tmp_path), "--device", "cpu", "--hf-lm-path", str(tmp_path / "x")])

@@ -183,7 +183,7 @@ def test_resume_restores_counters_and_continues(data_dir, tmp_path, jax_params):
 def test_init_params_are_the_serving_clis_towers():
     """`--checkpoint` serves a trained bridge over the frozen towers' seeded
     init: the trainer's init_params and the CLIs' load_from_args must make
-    the same towers from the same seed. HF paths raise, stated."""
+    the same towers from the same seed. An HF path with no snapshot raises."""
     import argparse
 
     from vlm_bridge_tpu_torch.tools.loading import add_model_args, load_from_args
@@ -198,7 +198,7 @@ def test_init_params_are_the_serving_clis_towers():
     for part in ("vision", "lm"):
         a, b = ts.tree_leaves(trained[part]), ts.tree_leaves(served[part])
         assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)), part
-    with pytest.raises(NotImplementedError, match="hf_loader"):
+    with pytest.raises(FileNotFoundError, match="no .safetensors files"):
         init_params(tcfg.TrainingConfig(model_preset="tiny_test", hf_lm_path="x"), device="cpu")
 
 

@@ -1,5 +1,6 @@
 """Tokenizer abstraction (the port's own copy of vlm_bridge_tpu.data.tokenizer,
-held equal to it by tests/test_torch_port.py).
+held equal to it by tests/test_torch_port.py and, for GemmaTokenizer, by
+tests/test_torch_hf_loader.py).
 
 Production path: the Gemma tokenizer loaded from a local HF snapshot (zero
 egress environments cannot download it). Test/offline path: a deterministic
@@ -49,26 +50,52 @@ class ByteTokenizer:
 
 
 class GemmaTokenizer:
-    """HF Gemma tokenizer from a local path (adds BOS automatically)."""
+    """HF Gemma tokenizer from a local snapshot (adds BOS automatically).
+
+    The JAX package loads it with transformers' AutoTokenizer; the port
+    imports no transformers, so this reads the snapshot's files itself:
+    `tokenizer.json` through the `tokenizers` library (the fast tokenizer
+    AutoTokenizer wraps), the special tokens from `special_tokens_map.json`
+    / `tokenizer_config.json`, and the config's clean_up_tokenization_spaces."""
 
     def __init__(self, path: str | Path):
-        from transformers import AutoTokenizer
+        import json
 
-        self._tok = AutoTokenizer.from_pretrained(str(path))
+        from tokenizers import Tokenizer
+
+        path = Path(path)
+        self._tok = Tokenizer.from_file(str(path / "tokenizer.json"))
+        special = {}
+        for name in ("tokenizer_config.json", "special_tokens_map.json"):
+            if (path / name).exists():
+                special.update(json.loads((path / name).read_text()))
+        self._cleanup = bool(special.get("clean_up_tokenization_spaces", False))
+
+        def token_id(key):
+            tok = special.get(key)
+            if isinstance(tok, dict):
+                tok = tok.get("content")
+            return None if tok is None else self._tok.token_to_id(tok)
+
+        self.eos_token_id = token_id("eos_token")
+        self.bos_token_id = token_id("bos_token")
         # pad = eos convention from the reference (data_loader.py:76-77)
-        if self._tok.pad_token is None:
-            self._tok.pad_token = self._tok.eos_token
-        self.pad_token_id = self._tok.pad_token_id
-        self.eos_token_id = self._tok.eos_token_id
-        self.bos_token_id = self._tok.bos_token_id
-        self.vocab_size = len(self._tok)
+        pad = token_id("pad_token")
+        self.pad_token_id = self.eos_token_id if pad is None else pad
+        self.vocab_size = self._tok.get_vocab_size(with_added_tokens=True)
 
     def encode(self, text: str, max_length: Optional[int] = None) -> List[int]:
-        return self._tok.encode(
-            text, truncation=max_length is not None, max_length=max_length)
+        ids = self._tok.encode(text).ids
+        return ids if max_length is None else ids[:max_length]
 
     def decode(self, ids: Sequence[int]) -> str:
-        return self._tok.decode(ids, skip_special_tokens=True)
+        text = self._tok.decode(list(ids), skip_special_tokens=True)
+        if self._cleanup:   # transformers' clean_up_tokenization
+            for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                         (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+                         (" 're", "'re")):
+                text = text.replace(a, b)
+        return text
 
 
 def get_tokenizer(path: Optional[str] = None):

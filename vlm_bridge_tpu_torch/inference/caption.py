@@ -7,8 +7,9 @@
 IMAGES is a file, a directory or a glob. Decoding is greedy unless --sample
 is given; the sampling stream is a generator seeded with --seed. --device cpu
 runs the kernels' plain versions. The frozen towers are a seeded random init
-(--seed); `--checkpoint <dir>/<slot>` serves a trained bridge from a
-CheckpointStore slot. HF snapshots are not ported yet and raise.
+(--seed), or HF snapshots with --hf-vision-path / --hf-lm-path;
+`--checkpoint <dir>/<slot>` serves a trained bridge from a CheckpointStore
+slot.
 """
 
 from __future__ import annotations

@@ -15,7 +15,14 @@ causal when the checkpoint's meta.json says it was trained so
 (`--bridge-causal` / `--no-bridge-causal` override). `--checkpoint
 <dir>/<slot>` serves a trained bridge over the seeded random init of the
 frozen towers (the same --seed as the training run's gives its towers).
-`--mesh` is not ported yet and raises.
+
+`--mesh D` is data-parallel decode over a process group of D processes
+(launched by torchrun, or MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK in
+the environment; D must be the group's size): every rank loads each global
+batch, decodes its block of rows through the same single-device kernels, the
+ids are gathered in rank order, and rank 0 detokenizes and scores. `--mesh
+D,M` with M > 1 (tensor parallelism of the frozen LM) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ from vlm_bridge_tpu_torch.inference.generate import (GenerationConfig, generate_
                                                      resolve_activation_dtype)
 from vlm_bridge_tpu_torch.inference.metrics import evaluate_captions
 from vlm_bridge_tpu_torch.inference.robust import decode_captions
+from vlm_bridge_tpu_torch.models import gemma2
+from vlm_bridge_tpu_torch.parallel import batch_sharding, distributed, init_multihost
+from vlm_bridge_tpu_torch.tools.loading import (add_model_args, load_from_args, mesh_from_args,
+                                                prestack_decode_params)
 
 
 @torch.no_grad()
@@ -52,6 +63,7 @@ def evaluate_split(
     device=None,
     verbose: bool = True,
     dump_samples: Optional[str | Path] = None,
+    mesh=None,
 ) -> Dict[str, object]:
     """Caption every image in a split; score against the references.
 
@@ -62,6 +74,10 @@ def evaluate_split(
     generator: the sampling stream, one torch.Generator on `device` advanced
     batch after batch (None: a generator seeded with 0); greedy draws
     nothing. device: where the batches go (None: the parameters' device).
+    mesh: a data-parallel mesh (parallel.auto_mesh): this rank decodes its
+    rows of every batch (batch_size must split over the data axis), the ids
+    are gathered, and only rank 0 detokenizes and scores (the other ranks
+    return num_samples and timings, with empty metrics and samples).
     """
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
     if device is None:
@@ -70,6 +86,9 @@ def evaluate_split(
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
+    rows = slice(None) if mesh is None else batch_sharding(mesh, batch_size)
+    gather = mesh is not None and mesh.distributed
+    scorer = mesh is None or mesh.rank == 0
     ds = VLDataset(data_dir, split)
     loader = BatchLoader(ds, batch_size=batch_size, tokenizer=tokenizer, shuffle=False,
                          drop_last=False, num_workers=4)
@@ -87,11 +106,12 @@ def evaluate_split(
         nonlocal n_done
         real, caps, toks_dev, lens_dev = entry
         toks, lens = toks_dev.cpu().numpy(), lens_dev.cpu().numpy()  # fence
-        candidates.extend(decode_captions(tokenizer, toks[:real], lens[:real]))
-        refs.extend([[c] for c in caps[:real]])
+        if scorer:
+            candidates.extend(decode_captions(tokenizer, toks[:real], lens[:real]))
+            refs.extend([[c] for c in caps[:real]])
         n_done += real
         now = time.time()
-        if verbose:
+        if verbose and scorer:
             dt = f" (+{now - t_last[0]:.2f}s)" if t_last[0] else ""
             print(f"  evaluated {n_done}/{len(ds)}{dt}", flush=True)
         t_last[0] = now
@@ -112,11 +132,13 @@ def evaluate_split(
             pixels_np = pixels_np[:real]
         if real == 0:
             break
-        pixels_np = pad_to_batch(pixels_np, batch_size)
+        pixels_np = pad_to_batch(pixels_np, batch_size)[rows]
         pixels = normalize_on_device(torch.from_numpy(pixels_np).to(device),
                                      dtype=activation_dtype)
         toks, lens = generate_tokens(params, cfg, pixel_values=pixels, generator=generator,
                                      gen=gen, activation_dtype=activation_dtype)
+        if gather:   # queued behind the decode: the fence stays in _drain
+            toks, lens = distributed.all_gather_rows(toks), distributed.all_gather_rows(lens)
         n_dispatched += real
         if pending is None:
             # the first batch pays the one-time costs: fence it and start the
@@ -133,7 +155,7 @@ def evaluate_split(
         _drain(pending)
     t_end = time.time()
 
-    metrics = evaluate_captions(candidates, refs)
+    metrics = evaluate_captions(candidates, refs) if scorer else {}
     gen_time = t_end - t_start
     total_cps = n_done / gen_time if gen_time > 0 else 0.0
     if t_steady0 is not None and n_done > first_real:
@@ -152,11 +174,11 @@ def evaluate_split(
         "device": str(device),
         "samples": list(zip(candidates[:10], [r[0] for r in refs[:10]])),
     }
-    if dump_samples:
+    if dump_samples and scorer:
         with open(dump_samples, "w") as f:
             for cand, ref in zip(candidates, refs):
                 f.write(json.dumps({"generated": cand, "reference": ref[0]}) + "\n")
-    if verbose:
+    if verbose and scorer:
         m = metrics
         print(f"[eval:{split}] n={n_done} bleu4={m['bleu4']:.4f} bleu1={m['bleu1']:.4f} "
               f"cider_d={m['cider_d']:.4f} ({cps:.2f} captions/s on {device})")
@@ -166,10 +188,6 @@ def evaluate_split(
 def main(argv=None) -> int:
     """`vlm-eval-torch` CLI: batched caption evaluation over a dataset split."""
     import argparse
-
-    from vlm_bridge_tpu_torch.models import gemma2
-    from vlm_bridge_tpu_torch.tools.loading import (add_model_args, load_from_args,
-                                                    prestack_decode_params)
 
     ap = argparse.ArgumentParser(prog="vlm-eval-torch",
                                  description="batched caption eval (BLEU/CIDEr), PyTorch port")
@@ -201,13 +219,25 @@ def main(argv=None) -> int:
                     help="int4 Gemma MLP weights in the fused stack decode (with --quantize "
                          "mlp,attn + --kv-int8); pair with '--quantize embedding4,...' for "
                          "the int4 head")
-    ap.add_argument("--mesh", default=None, help="device mesh (not ported yet)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA[,MODEL]: data-parallel decode over a process group of DATA "
+                         "processes (torchrun, or MASTER_ADDR / MASTER_PORT / WORLD_SIZE / "
+                         "RANK); MODEL > 1 is not ported")
     add_model_args(ap)
     args = ap.parse_args(argv)
+    own_group = False
     if args.mesh:
-        raise NotImplementedError("--mesh: not ported yet")
+        own_group = not distributed.is_initialized() and init_multihost(device=args.device)
+    try:
+        return _evaluate_from_args(args)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
 
+
+def _evaluate_from_args(args) -> int:
     cfg, params, tokenizer = load_from_args(args)
+    mesh, params = mesh_from_args(args, params)
 
     if args.mlp_int4:
         # the int4 MLP serves ONLY the fused stack decode; anything else would
@@ -239,13 +269,14 @@ def main(argv=None) -> int:
                            bridge_causal=bridge_causal, mlp_int4=args.mlp_int4)
     # serving stacks the decode weights once at load time, not per batch
     params = prestack_decode_params(params, cfg, gen)
-    device = torch.device(args.device)
+    device = params["lm"]["final_norm"].device
     generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed)
+    generator.manual_seed(args.seed if mesh is None else mesh.rank_seed(args.seed))
     result = evaluate_split(params, cfg, args.data_dir, tokenizer=tokenizer, split=args.split,
                             batch_size=args.batch_size, gen=gen, max_samples=args.max_samples,
-                            dump_samples=args.dump_samples, generator=generator, device=device)
-    if args.output:
+                            dump_samples=args.dump_samples, generator=generator, device=device,
+                            mesh=mesh)
+    if args.output and (mesh is None or mesh.rank == 0):
         Path(args.output).write_text(json.dumps(
             {k: v for k, v in result.items() if k != "samples"}, indent=2))
     return 0

@@ -46,6 +46,10 @@ def encode_image(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor, *,
                               reference_attention=reference_attention)
 
 
+# the JAX package's jitted entry; eager here, the same function
+encode_image_jit = encode_image
+
+
 def bridge_text(params: dict, cfg: VLMConfig, input_ids: torch.Tensor,
                 vision_features: torch.Tensor, *, attn_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, train: bool = False,
@@ -66,12 +70,16 @@ def forward(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor, input_ids:
             generator: Optional[torch.Generator] = None, train: bool = False,
             mask_pad_loss: bool = True, bridge_pad_mask: bool = True,
             bridge_causal: bool = False, remat_lm: bool = True, loss_chunk: int = 128,
-            loss_remat: bool = True, return_logits: bool = False):
+            loss_remat: bool = True, return_logits: bool = False,
+            loss_denominator: Optional[torch.Tensor] = None):
     """Full forward. With `labels` returns (loss, aux); otherwise logits.
 
     labels: [B, T] target ids aligned per position (build them with
     `shift_labels`); -100 = ignore. mask_pad_loss is accepted as in the JAX
-    package; the masking itself is in the labels."""
+    package; the masking itself is in the labels. loss_denominator: the
+    token count the summed loss is divided by (None: this batch's own); data
+    parallelism passes the global batch's, so that the ranks' losses and
+    gradients sum to the global batch's."""
     del mask_pad_loss
     vision = encode_image(params, cfg, pixel_values)
     bridged = bridge_text(params, cfg, input_ids, vision, attn_mask=attn_mask,
@@ -83,9 +91,9 @@ def forward(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor, input_ids:
         logits = gemma2_mod.logits_from_hidden(params["lm"], cfg.lm, hidden)
         if labels is None:
             return logits
-        return _full_logits_loss(logits, labels)
+        return _full_logits_loss(logits, labels, loss_denominator)
     return chunked_ce_loss(params["lm"], cfg.lm, hidden, labels, chunk=loss_chunk,
-                           remat=loss_remat)
+                           remat=loss_remat, denominator=loss_denominator)
 
 
 def shift_labels(input_ids: torch.Tensor, attn_mask: torch.Tensor, *,
@@ -111,20 +119,24 @@ def _nll_sum(logits: torch.Tensor, labels: torch.Tensor):
     return nll.sum(), valid.sum()
 
 
-def _full_logits_loss(logits: torch.Tensor, labels: torch.Tensor):
+def _full_logits_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      denominator: Optional[torch.Tensor] = None):
     """CE from materialized logits (tests / tiny models)."""
     total, count = _nll_sum(logits.float(), labels)
-    count = torch.clamp(count, min=1)
+    count = torch.clamp(count if denominator is None else denominator, min=1)
     return total / count, {"token_count": count}
 
 
 def chunked_ce_loss(lm_params: dict, lm_cfg, hidden: torch.Tensor, labels: torch.Tensor, *,
-                    chunk: int = 128, remat: bool = True):
+                    chunk: int = 128, remat: bool = True,
+                    denominator: Optional[torch.Tensor] = None):
     """Memory-efficient CE: sequence chunks, recomputed logits.
 
     hidden: [B, T, h]; labels: [B, T] with -100 ignored. With remat=True the
     [B, chunk, V] logits exist only for the moment of a chunk, forward and
-    backward (one more logits product in the backward)."""
+    backward (one more logits product in the backward). denominator: the
+    count the sum is divided by and reported as token_count (None: this
+    batch's valid labels)."""
     T = hidden.shape[1]
 
     def one_chunk(h_c, y_c):
@@ -141,7 +153,7 @@ def chunked_ce_loss(lm_params: dict, lm_cfg, hidden: torch.Tensor, labels: torch
             s, c = one_chunk(h_c, y_c)
         total = total + s
         count = count + c
-    count = torch.clamp(count, min=1)
+    count = torch.clamp(count if denominator is None else denominator, min=1)
     return total / count, {"token_count": count}
 
 

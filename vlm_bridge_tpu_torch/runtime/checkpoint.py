@@ -16,6 +16,10 @@ as the reference filters its state dict on "bridge_module".
 
 `.pth` interop lives in params/torch_bridge.py; `export_pth` writes a
 reference-loadable weights file from any slot.
+
+Under a process group every rank calls `save`; rank 0 alone writes and
+swaps, between two barriers, so no rank reads a half-swapped slot and none
+races ahead (as the JAX store does around orbax).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from vlm_bridge_tpu_torch.parallel import distributed
 
 
 def _to_cpu(tree):
@@ -62,20 +68,24 @@ class CheckpointStore:
     def save(self, slot: str, *, bridge_params, opt_state=None,
              meta: Optional[Dict[str, Any]] = None) -> None:
         """Write a slot: into `<slot>.tmp`, then swap it for the old slot.
-        opt_state: BridgeOptimizer.state_dict's tree (None: weights only)."""
-        tree = {"bridge_params": bridge_params}
-        if opt_state is not None:
-            tree["opt_state"] = opt_state
-        path, tmp = self._slot(slot), self.dir / (slot + ".tmp")
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir()
-        for key, sub in tree.items():
-            torch.save(_to_cpu(sub), tmp / f"{key}.pt")
-        (tmp / "meta.json").write_text(json.dumps(meta or {}, indent=2))
-        if path.exists():
-            shutil.rmtree(path)
-        tmp.rename(path)
+        opt_state: BridgeOptimizer.state_dict's tree (None: weights only).
+        Under a process group: call it on every rank; rank 0 writes."""
+        distributed.barrier()
+        if distributed.rank() == 0:
+            tree = {"bridge_params": bridge_params}
+            if opt_state is not None:
+                tree["opt_state"] = opt_state
+            path, tmp = self._slot(slot), self.dir / (slot + ".tmp")
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir()
+            for key, sub in tree.items():
+                torch.save(_to_cpu(sub), tmp / f"{key}.pt")
+            (tmp / "meta.json").write_text(json.dumps(meta or {}, indent=2))
+            if path.exists():
+                shutil.rmtree(path)
+            tmp.rename(path)
+        distributed.barrier()
 
     def exists(self, slot: str) -> bool:
         return self._slot(slot).exists()

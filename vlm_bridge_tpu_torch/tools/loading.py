@@ -1,8 +1,8 @@
 """Shared CLI plumbing (port of vlm_bridge_tpu.tools.loading): model flags
-and their resolution (preset -> seeded random init on the device -> a
-trained bridge from a CheckpointStore slot -> int8 quantization ->
-tokenizer). HF snapshots are not ported yet (params/hf_loader.py) and
-raise."""
+and their resolution (preset -> seeded random init on the device -> HF
+snapshots of the towers in its place -> a trained bridge from a
+CheckpointStore slot -> int8 quantization -> tokenizer), and `--mesh` for the
+data-parallel tools."""
 
 from __future__ import annotations
 
@@ -25,12 +25,15 @@ def add_model_args(ap) -> None:
     """Attach the common model/weights/device argument set."""
     ap.add_argument("--checkpoint", default=None,
                     help="bridge checkpoint slot (e.g. checkpoints/exp/best)")
-    ap.add_argument("--hf-vision-path", default=None, help="HF DINOv2 snapshot (not ported yet)")
-    ap.add_argument("--hf-lm-path", default=None, help="HF Gemma-2 snapshot (not ported yet)")
+    ap.add_argument("--hf-vision-path", default=None,
+                    help="local HF snapshot of facebook/dinov2-large (*.safetensors)")
+    ap.add_argument("--hf-lm-path", default=None,
+                    help="local HF snapshot of google/gemma-2-2b (*.safetensors)")
     ap.add_argument("--tokenizer-path", default=None)
     ap.add_argument("--preset", default="default", choices=sorted(PRESETS))
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"],
-                    help="frozen-weight dtype of the random init")
+                    help="frozen-weight dtype of the random init and of HF snapshot loads "
+                         "(f32 for token-for-token parity checks; bf16 serves)")
     ap.add_argument("--quantize", default=None,
                     help="quantize weight groups: comma list of "
                          "embedding|embedding4,mlp,attn,bridge,vision (embedding4: "
@@ -52,17 +55,16 @@ def load_from_args(args):
     """(cfg, params, tokenizer) resolved from the common argument set."""
     from vlm_bridge_tpu_torch.data.tokenizer import get_tokenizer
     from vlm_bridge_tpu_torch.models import bridge, dinov2, full_model, gemma2
+    from vlm_bridge_tpu_torch.params.hf_loader import load_towers
 
-    for flag in ("hf_vision_path", "hf_lm_path"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: params/hf_loader.py is not "
-                                      "ported yet")
     device = resolve_device(args.device)
     cfg = PRESETS[args.preset]()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
     params = full_model.init(cfg, generator=gen, frozen_dtype=dtype, device=device)
+    params = load_towers(params, cfg, vision_path=getattr(args, "hf_vision_path", None),
+                         lm_path=getattr(args, "hf_lm_path", None), dtype=dtype, device=device)
     if args.checkpoint:
         from vlm_bridge_tpu_torch.runtime.checkpoint import CheckpointStore
 
@@ -83,6 +85,24 @@ def load_from_args(args):
         if "vision" in parts:
             params["vision"] = dinov2.quantize_vision_params(params["vision"])
     return cfg, params, get_tokenizer(args.tokenizer_path)
+
+
+def mesh_from_args(args, params):
+    """--mesh "D" or "D,M" -> (mesh, params broadcast from rank 0); (None,
+    params) without it. D must be the process group's world size (1 without
+    a group); M > 1, tensor parallelism of the frozen LM, raises
+    NotImplementedError."""
+    spec = getattr(args, "mesh", None)
+    if not spec:
+        return None, params
+    parts = [int(x) for x in str(spec).split(",")]
+    data = parts[0]
+    model = parts[1] if len(parts) > 1 else 1
+
+    from vlm_bridge_tpu_torch.parallel import auto_mesh, shard_params
+
+    mesh = auto_mesh(data=data, model=model, device=resolve_device(args.device))
+    return mesh, shard_params(mesh, params)
 
 
 def prestack_decode_params(params, cfg, gen):

@@ -9,10 +9,18 @@ KeyboardInterrupt are kept. The loop keeps the JAX package's discipline: a
 train step only queues work on the device; the metrics are read on the host
 every `log_every_n_steps` steps, and the epoch's losses once at its end.
 
-What differs from the JAX package: one device (an explicit torch.device, no
-mesh); the dropout stream is a torch.Generator on that device seeded from
-(tc.seed + 1, epoch); the optimizer state in a checkpoint is
-BridgeOptimizer.state_dict's tree.
+Data parallelism (one process per card, `parallel/`): every rank loads the
+global batch with the same shuffle and keeps its block of rows; the train and
+eval steps sum over the group (training/train_step.py), so losses and
+decisions are the same on every rank. Only rank 0 writes TensorBoard events
+(a NullWriter elsewhere, as JAX) and the checkpoint slots (the store's swap
+runs on rank 0 behind barriers on every rank); validation samples pad their
+batch to a multiple of the data axis and gather the ids.
+
+What differs from the JAX package: an explicit torch.device per process;
+the dropout stream is a torch.Generator on that device seeded from
+(tc.seed + 1 + epoch) and, past rank 0, the rank; the optimizer state in a
+checkpoint is BridgeOptimizer.state_dict's tree.
 """
 
 from __future__ import annotations
@@ -28,14 +36,15 @@ import torch
 
 from vlm_bridge_tpu_torch.configs import TrainingConfig, VLMConfig
 from vlm_bridge_tpu_torch.data.loader import get_data_loaders
-from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
+from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device, pad_to_batch
 from vlm_bridge_tpu_torch.data.tokenizer import get_tokenizer
 from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
+from vlm_bridge_tpu_torch.parallel import Mesh, batch_sharding, distributed, shard_batch
 from vlm_bridge_tpu_torch.runtime.checkpoint import CheckpointStore
 from vlm_bridge_tpu_torch.runtime.profiling import StepProfiler
-from vlm_bridge_tpu_torch.runtime.tb_writer import SummaryWriter
+from vlm_bridge_tpu_torch.runtime.tb_writer import NullWriter, SummaryWriter
 from vlm_bridge_tpu_torch.tools.loading import resolve_device
-from vlm_bridge_tpu_torch.training.stack import build_stack
+from vlm_bridge_tpu_torch.training.stack import build_mesh, build_stack
 from vlm_bridge_tpu_torch.training.train_step import (BridgeOptimizer, TrainState, tree_leaves,
                                                        tree_map)
 
@@ -48,6 +57,7 @@ class TrainingContext:
     tc: TrainingConfig
     cfg: VLMConfig
     device: torch.device
+    mesh: Mesh
     frozen: dict
     state: TrainState
     opt: BridgeOptimizer
@@ -66,18 +76,22 @@ class TrainingContext:
 
 
 def prepare_environment(tc: TrainingConfig, *, params: Optional[dict] = None, tokenizer=None,
-                        device=None, activation_dtype=None) -> TrainingContext:
+                        device=None, activation_dtype=None,
+                        mesh: Optional[Mesh] = None) -> TrainingContext:
     """Build the full training context (reference prepare_environment,
     training_setup.py:118-188): model, loaders, optimizer, logging.
 
     device: where the model is made and trained (None: tc.device, else
     "cuda"; no fallback). params given: trained on the device they lie on,
     their f32 bridge updated in place. activation_dtype None derives from
-    use_amp / amp_dtype (bf16 under AMP, else f32)."""
+    use_amp / amp_dtype (bf16 under AMP, else f32). mesh None:
+    stack.build_mesh(tc) over the process group (one process without one)."""
     if params is not None:
         device = params["lm"]["final_norm"].device
     else:
         device = resolve_device(device or tc.device or "cuda")
+    if mesh is None:
+        mesh = build_mesh(tc, device)
     if tokenizer is None:
         tokenizer = get_tokenizer(tc.tokenizer_path)
 
@@ -93,6 +107,9 @@ def prepare_environment(tc: TrainingConfig, *, params: Optional[dict] = None, to
                 print(f"[data] building pixel cache for {split} ({len(ds)} images)...",
                       flush=True)
                 build_pixel_cache(ds, num_workers=tc.num_workers)
+        # every process builds what it misses (local disks); none attaches a
+        # half-built view
+        distributed.barrier()
 
     train_loader, val_loader, _ = get_data_loaders(
         tc.data_dir, batch_size=tc.batch_size, tokenizer=tokenizer,
@@ -105,34 +122,41 @@ def prepare_environment(tc: TrainingConfig, *, params: Optional[dict] = None, to
           f"{'memmap cache' if train_loader.ds.pixels is not None else 'JPEG decode'}",
           flush=True)
 
-    stack = build_stack(tc, params=params, device=device, steps_per_epoch=steps_per_epoch,
-                        activation_dtype=activation_dtype)
-    writer = SummaryWriter(tc.log_dir)
-    writer.add_text("config", "```\n" + "\n".join(
-        f"{k}: {v}" for k, v in sorted(vars(tc).items())) + "\n```", 0)
+    stack = build_stack(tc, params=params, device=device, mesh=mesh,
+                        steps_per_epoch=steps_per_epoch, activation_dtype=activation_dtype)
+    if mesh.rank == 0:
+        writer = SummaryWriter(tc.log_dir)
+        writer.add_text("config", "```\n" + "\n".join(
+            f"{k}: {v}" for k, v in sorted(vars(tc).items())) + "\n```", 0)
+    else:
+        writer = NullWriter()
     return TrainingContext(
-        tc=tc, cfg=stack.cfg, device=stack.device, frozen=stack.frozen, state=stack.state,
+        tc=tc, cfg=stack.cfg, device=stack.device, mesh=stack.mesh, frozen=stack.frozen,
+        state=stack.state,
         opt=stack.opt, schedule=stack.schedule, train_loader=train_loader,
         val_loader=val_loader, tokenizer=tokenizer, writer=writer,
         store=CheckpointStore(tc.checkpoint_dir), train_step=stack.train_step,
         eval_step=stack.eval_step, activation_dtype=stack.activation_dtype)
 
 
-def _to_device(batch: dict, device: torch.device) -> dict:
-    """The loader's numpy arrays as tensors on the device (ids as int64)."""
-    nb = device.type == "cuda"
+def _to_device(batch: dict, mesh: Mesh) -> dict:
+    """This rank's rows of the loader's numpy arrays as tensors on its device
+    (ids as int64)."""
+    return shard_batch(mesh, {k: batch[k] for k in ("pixel_values", "input_ids", "attn_mask")},
+                       dtypes={"input_ids": torch.int64})
 
-    def put(a, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if dtype is not None:
-            t = t.to(dtype)
-        if nb:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=nb)
 
-    return {"pixel_values": put(batch["pixel_values"]),
-            "input_ids": put(batch["input_ids"], torch.int64),
-            "attn_mask": put(batch["attn_mask"])}
+def _pad_rows(batch: dict, rows: int) -> dict:
+    """A partial batch padded to `rows` with rows that carry no token
+    (attn_mask 0: no label, so the loss's sum and count are unchanged)."""
+    n = batch["attn_mask"].shape[0]
+    if n >= rows:
+        return batch
+    out = {k: pad_to_batch(batch[k], rows) for k in ("pixel_values", "input_ids")}
+    out["attn_mask"] = np.concatenate(
+        [batch["attn_mask"], np.zeros((rows - n,) + batch["attn_mask"].shape[1:],
+                                      batch["attn_mask"].dtype)])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +215,7 @@ def run_training_epoch(ctx: TrainingContext, epoch: int) -> float:
     prof = StepProfiler(trace_dir=tc.profile_trace_dir if epoch == 0 else None,
                         start_step=tc.profile_start_step, num_steps=tc.profile_num_steps)
     drop = torch.Generator(device=ctx.device)
-    drop.manual_seed(tc.seed + 1 + epoch)
+    drop.manual_seed(ctx.mesh.rank_seed(tc.seed + 1 + epoch))
     host_step = int(ctx.state.step)
     losses: List[torch.Tensor] = []  # device scalars, fetched once at the end
     n = 0
@@ -201,7 +225,7 @@ def run_training_epoch(ctx: TrainingContext, epoch: int) -> float:
     for batch_idx, batch in enumerate(ctx.train_loader):
         if tc.max_steps_per_epoch and batch_idx >= tc.max_steps_per_epoch:
             break
-        dev_batch = _to_device(batch, ctx.device)
+        dev_batch = _to_device(batch, ctx.mesh)
         with prof.step(record_time=False):
             ctx.state, metrics = ctx.train_step(ctx.state, ctx.frozen, dev_batch, drop)
         host_step += 1
@@ -246,8 +270,12 @@ def run_validation_epoch(ctx: TrainingContext, epoch: int) -> float:
     total_len, total_samples = 0.0, 0
     unique_tokens: set = set()
     total_tokens = 0
+    data = ctx.mesh.data
     for batch in ctx.val_loader:
-        m = ctx.eval_step(ctx.frozen, ctx.state.bridge_params, _to_device(batch, ctx.device))
+        # a tail batch that does not split over the ranks gets empty rows
+        rows = -(-batch["attn_mask"].shape[0] // data) * data
+        m = ctx.eval_step(ctx.frozen, ctx.state.bridge_params,
+                          _to_device(_pad_rows(batch, rows), ctx.mesh))
         batch_losses.append(m["loss"])
         n += 1
         mask = batch["attn_mask"].astype(bool)
@@ -310,16 +338,23 @@ def generate_validation_samples(ctx: TrainingContext, epoch: int) -> None:
     k = min(tc.num_validation_samples, batch["pixel_values"].shape[0])
     params = {**ctx.frozen, "bridge": tree_map(lambda p: p.detach().to(ctx.activation_dtype),
                                                ctx.state.bridge_params)}
+    # the sample batch padded to a multiple of the data axis; each rank
+    # captions its rows and the ids are gathered in rank order
+    data = ctx.mesh.data
+    k_pad = -(-k // data) * data
+    pixels_np = pad_to_batch(batch["pixel_values"][:k], k_pad)[batch_sharding(ctx.mesh, k_pad)]
     pixels = normalize_on_device(
-        torch.from_numpy(np.ascontiguousarray(batch["pixel_values"][:k])).to(ctx.device),
+        torch.from_numpy(np.ascontiguousarray(pixels_np)).to(ctx.device),
         dtype=ctx.activation_dtype)
     gen = torch.Generator(device=ctx.device)
-    gen.manual_seed(epoch)
+    gen.manual_seed(ctx.mesh.rank_seed(epoch))
     toks, _ = generate_tokens(
         params, ctx.cfg, pixel_values=pixels, generator=gen,
         gen=GenerationConfig(max_length=50, temperature=0.7, top_p=0.9),
         activation_dtype=ctx.activation_dtype)
-    toks = toks.cpu().numpy()
+    if ctx.mesh.distributed:
+        toks = distributed.all_gather_rows(toks)
+    toks = toks.cpu().numpy()[:k]
     bleus, lens, all_words = [], [], []
     for i in range(k):
         text = ctx.tokenizer.decode(toks[i].tolist())
@@ -341,7 +376,7 @@ def generate_validation_samples(ctx: TrainingContext, epoch: int) -> None:
 
     # the robust strategy sweep on the first sample (reference
     # core_training_loop.py:295-319); off by default
-    if tc.validation_strategy_sweep and k > 0:
+    if tc.validation_strategy_sweep and k > 0 and ctx.mesh.rank == 0:
         from vlm_bridge_tpu_torch.inference.robust import generate_caption_robust
 
         sweep_gen = torch.Generator(device=ctx.device)

@@ -16,7 +16,15 @@ What differs from the JAX package, and why:
   of k microbatch gradients, no update on the k - 1 steps between, one
   schedule step per k. torch.optim.AdamW does the update algebra; the clip
   and the accumulation are written here;
-- dropout takes a torch.Generator on the batch's device in place of a key.
+- dropout takes a torch.Generator on the batch's device in place of a key;
+- data parallelism is explicit (`mesh`, parallel/sharding.py): each rank
+  holds a block of the global batch's rows. The JAX loss is the global
+  batch's nll sum over its global token count, so each rank divides its
+  sum by the count all-reduced over the group (reduced before the forward),
+  and the bridge gradients and the loss are summed over the group before the
+  clip. The mean of per-rank means would be another number whenever the
+  ranks hold different token counts. Under accumulation every microbatch
+  is a global batch, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from vlm_bridge_tpu_torch.configs import TrainingConfig, VLMConfig
 from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
 from vlm_bridge_tpu_torch.models import full_model
+from vlm_bridge_tpu_torch.parallel import distributed
 
 
 class TrainState(NamedTuple):
@@ -195,11 +204,18 @@ def _prep_pixels(pixel_values: torch.Tensor, activation_dtype) -> torch.Tensor:
     return pixel_values.to(activation_dtype)
 
 
+def _distributed(mesh) -> bool:
+    return mesh is not None and mesh.distributed
+
+
 def _loss(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_params: dict, batch: dict,
-          activation_dtype, **kw):
+          activation_dtype, mesh=None, **kw):
     pixels = _prep_pixels(batch["pixel_values"], activation_dtype)
     input_ids, attn_mask = batch["input_ids"], batch["attn_mask"]
     labels = full_model.shift_labels(input_ids, attn_mask, mask_pad=tc.mask_pad_loss)
+    if _distributed(mesh):
+        # the global batch's token count, the denominator of every rank's sum
+        (kw["loss_denominator"],) = distributed.all_reduce_sum([(labels != -100).sum()])
     # the cast sits inside the differentiated function, so the gradient
     # arrives in f32 on the master copy
     params = {**frozen, "bridge": tree_map(lambda p: p.to(activation_dtype), bridge_params)}
@@ -210,28 +226,35 @@ def _loss(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_params: dict,
 
 
 def loss_and_grads(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_params: dict,
-                   batch: dict, generator, activation_dtype=torch.bfloat16):
+                   batch: dict, generator, activation_dtype=torch.bfloat16, mesh=None):
     """Training loss, aux and the gradients of the bridge leaves (the order
-    of `tree_leaves`); nothing is updated."""
-    loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype,
+    of `tree_leaves`); nothing is updated. With a distributed mesh, `batch`
+    is this rank's block of rows and the loss and gradients returned are the
+    global batch's, the same on every rank."""
+    loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype, mesh,
                       generator=generator, train=True, remat_lm=tc.remat_lm,
                       loss_remat=tc.loss_remat)
     grads = torch.autograd.grad(loss, tree_leaves(bridge_params))
-    return loss.detach(), aux, grads
+    loss = loss.detach()
+    if _distributed(mesh):
+        *grads, loss = distributed.all_reduce_sum([*grads, loss.reshape(1)])
+        loss = loss.reshape(())
+    return loss, aux, grads
 
 
 def make_train_step(cfg: VLMConfig, tc: TrainingConfig, opt: BridgeOptimizer, schedule, *,
-                    activation_dtype=torch.bfloat16):
+                    activation_dtype=torch.bfloat16, mesh=None):
     """Build the train step: (state, frozen, batch, generator) -> (state, metrics).
 
     frozen: the vision and lm subtrees, requires_grad False. generator: the
     dropout source on the batch's device (it advances from step to step;
     None trains without dropout). The metrics are 0-dim tensors on the
-    device, apart from the learning rate, so a step forces no sync."""
+    device, apart from the learning rate, so a step forces no sync. mesh:
+    see loss_and_grads (the gradients are summed before the clip)."""
 
     def step_fn(state: TrainState, frozen: dict, batch: dict, generator):
         loss, aux, grads = loss_and_grads(cfg, tc, frozen, state.bridge_params, batch,
-                                          generator, activation_dtype)
+                                          generator, activation_dtype, mesh)
         grad_norm = global_norm(grads)
         opt.update(grads, state.opt_state, tree_leaves(state.bridge_params))
         metrics = {
@@ -247,13 +270,18 @@ def make_train_step(cfg: VLMConfig, tc: TrainingConfig, opt: BridgeOptimizer, sc
     return step_fn
 
 
-def make_eval_step(cfg: VLMConfig, tc: TrainingConfig, *, activation_dtype=torch.bfloat16):
-    """Validation step: loss, token count and mean sequence length."""
+def make_eval_step(cfg: VLMConfig, tc: TrainingConfig, *, activation_dtype=torch.bfloat16,
+                   mesh=None):
+    """Validation step: loss, token count and mean sequence length (of this
+    rank's rows; the loss and the count are the global batch's under a
+    distributed mesh)."""
 
     @torch.no_grad()
     def step_fn(frozen: dict, bridge_params: dict, batch: dict):
-        loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype,
+        loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype, mesh,
                           remat_lm=False)
+        if _distributed(mesh):
+            (loss,) = distributed.all_reduce_sum([loss])
         return {
             "loss": loss,
             "token_count": aux["token_count"],
