@@ -3,7 +3,8 @@ the kernel-routed vision encode and the int8 vision tower, the sampled
 per-layer int8 decode path, the per-layer fused decode, the int4 serving
 recipe through the batched eval harness, the bridge train step, the
 trainer's entry point with its checkpoints served back, full-width HF
-snapshots served, the debug and parity tools, and the process group, every
+snapshots served, the debug and parity tools, the process group, and tensor
+parallelism of the frozen Gemma over two processes sharing the card, every
 kernel held against its plain version.
 
     python3 chip_smoke.py
@@ -37,7 +38,9 @@ kernel held against its plain version.
    has no lengths, and the backward kernels' is SDPA's backward at the
    bridge-self shape (the pair's time includes the dq kernel's delta). The
    backward kernels get q, k, v and dout as the case gives them, and two calls
-   of each must give the same bits.
+   of each must give the same bits, as must two calls of the int8 and the
+   int4 stack steps and of the bridge step at B 64, t 20 (their GEMM core
+   sums its stream-K partials in one order).
 4. The serving path: VLMConfig.default() at full width, seeded random
    weights made on the device, --quantize embedding,mlp,attn,bridge with the
    int8 KV cache; 64 seeded uint8 images -> normalize_on_device ->
@@ -127,10 +130,10 @@ kernel held against its plain version.
    pos_embed_interp_16 against the host's f32 bicubic), the served trees
    (per-layer and stacked) leaf for leaf against the same weights converted in
    memory, greedy serving 64 x 50 on the fused path (the decode kernels 50
-   launches each; a second call's drift printed: the fused steps' stream-K
-   sums are f32 atomics) and on the per-layer int8 path id for id against the
-   in-memory conversion (64 of 64 rows). Prints bytes written and read,
-   seconds and GB/s, captions/s.
+   launches each; a second call's final hidden states bit-equal, drift 0, and
+   the ids 64 of 64 against the in-memory conversion's) and on the per-layer
+   int8 path id for id against the in-memory conversion (64 of 64 rows).
+   Prints bytes written and read, seconds and GB/s, captions/s.
 5c. vlm-debug-torch on one seeded image (30 traced steps, the strategy sweep,
    the bypass A/B: no NaN / Inf, every strategy answered), ms a traced step;
    vlm-parity-torch record on two seeded images from the snapshot and a .pth
@@ -139,9 +142,18 @@ kernel held against its plain version.
 5d. A process group of one over NCCL (parallel.init_multihost): the
    orchestrator's 2 steps and a validation epoch bit-equal to the same run
    without a group, the bridge gradients' all-reduce timed, vlm-eval-torch
-   --mesh 1 id for id against the run without --mesh over 2 batches (int8
-   weights on the per-layer path); the group destroyed; then entry()'s
-   masked-CE forward once.
+   --mesh 1 id for id against the run without --mesh over 2 batches (the
+   int8 recipe on the fused path), vlm-caption-torch --mesh 1 over 64 image
+   files against the run without --mesh (the same JSONL, captions/s of
+   each); the group destroyed; then entry()'s masked-CE forward once.
+5e. Tensor parallelism of the frozen Gemma at VLMConfig.default(): two
+   processes on the one card in a gloo group (NCCL takes one rank a card),
+   the mesh (1, 2), bf16 LM weights cut by parallel.shard_params. Greedy
+   64 x 50 on the per-layer path against the same seeded weights in this
+   process: the two ranks' ids equal, the first step's logits within
+   HIDDEN_TOL of their largest value and a differing first token only on a
+   near-tie; captions/s of both and the all-reduce's ms a token; one train
+   step at 8 x 256 (same dropout masks), loss within LOSS_RTOL.
 6. Prints a JSON line of per-kernel results, then, as the last line,
    {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 """
@@ -420,6 +432,10 @@ def phase_stack(params, cfg, dev, gen, t=20, name="fused_stack_step"):
     print(f"[{name}] new K codes within 1: {share:.6f} (need >= 0.99)")
     if share < 0.99:
         raise AssertionError("stack step K cache row disagrees")
+    # the GEMM core's split sums in one order: a second call (row t written
+    # again) gives the same bits
+    same_bits(f"{name} at B {BATCH}, t {t}",
+              got, dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw))
     ms = time_ms(lambda: dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw), 10)
     plain_ms = time_ms(lambda: dk.fused_stack_step_plain(t, x, stacked, *cp, cos, sin, **kw), 3)
     # every stacked weight once, the t + 1 live cache rows, x in and out;
@@ -462,6 +478,8 @@ def phase_bridge(params, cfg, dev, gen, t=20):
     torch.cuda.synchronize()
     err = check_close("fused_bridge_step", got, want)
     check_close("fused_bridge_step self K row t", sk[:, :, :, t], pk[:, :, :, t])
+    same_bits(f"fused_bridge_step at B {BATCH}, t {t}",
+              got, dk.fused_bridge_step(t, x, bst, *cross, sk, sv, **kw))
     ms = time_ms(lambda: dk.fused_bridge_step(t, x, bst, *cross, sk, sv, **kw), 10)
     plain_ms = time_ms(lambda: dk.fused_bridge_step_plain(t, x, bst, *cross, pk, pv, **kw), 3)
     # every stacked weight and the cross cache once, the t + 1 live self rows, x in and out
@@ -876,9 +894,10 @@ def build_model(dev, gen):
     return cfg, params
 
 
-def build_train_case(params, cfg, dev):
+def build_train_case(params, cfg, dev, mesh=None):
     """The train path's inputs and step functions: TrainingConfig() defaults,
-    TRAIN_BATCH seeded uint8 images x TRAIN_SEQ ids with ragged lengths."""
+    TRAIN_BATCH seeded uint8 images x TRAIN_SEQ ids with ragged lengths.
+    mesh: the steps' mesh (a model axis: the batch is every rank's)."""
     from vlm_bridge_tpu_torch.configs import TrainingConfig
     from vlm_bridge_tpu_torch.training import train_step as ts
 
@@ -899,8 +918,8 @@ def build_train_case(params, cfg, dev):
     schedule = ts.make_schedule(tc, steps_per_epoch)
     return {"tc": tc, "batch": batch, "lens": lens, "frozen": ts.split_frozen(params),
             "state": state, "opt": opt,
-            "train_step": ts.make_train_step(cfg, tc, opt, schedule),
-            "eval_step": ts.make_eval_step(cfg, tc)}
+            "train_step": ts.make_train_step(cfg, tc, opt, schedule, mesh=mesh),
+            "eval_step": ts.make_eval_step(cfg, tc, mesh=mesh)}
 
 
 @contextlib.contextmanager
@@ -1553,9 +1572,10 @@ def run_hf_snapshot(snap: Path, cfg, dev, card):
     --hf-lm-path and the int8 recipe: the unquantized leaves bit for bit
     against the source cast to bf16, pos_embed_interp_16 against the host's
     f32 bicubic, the served trees leaf for leaf against the same weights
-    converted in memory, greedy serving (64 x 50) on the fused path timed and
-    called twice, and on the per-layer path id for id against the in-memory
-    conversion. Returns the snapshot's two directories."""
+    converted in memory, greedy serving (64 x 50) on the fused path timed,
+    called twice (the same final hidden states, bit for bit) and id for id
+    against the in-memory conversion, and on the per-layer path id for id
+    against it too. Returns the snapshot's two directories."""
     import argparse
     import shutil
 
@@ -1660,25 +1680,30 @@ def run_hf_snapshot(snap: Path, cfg, dev, card):
         dt = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
     toks_l = check_tokens(toks, lens, cfg, NEW_TOKENS)
-    # the fused steps sum their stream-K partials with f32 atomics in the L2
-    # (csrc/decode_gemm.cuh:red_add4): two calls on the same inputs need not
-    # give the same bits, so the id-for-id check below runs the per-layer path
+    # the fused steps sum their stream-K partials in one order
+    # (csrc/decode_gemm.cuh:finish_tiles): a second call on the same inputs
+    # gives the same bits, and the in-memory conversion the same ids
     with record_decode_hidden("decode_step_stacked") as second:
         toks2, _ = generate_tokens(loaded_st, cfg, pixel_values=pixels, gen=gcfg)
     drift = max(float((a.float() - b.float()).abs().max()) for a, b in zip(first, second))
     same_rows = int((toks2.cpu() == toks_l).all(dim=1).sum())
+    toks_mf, _ = generate_tokens(mem_st, cfg, pixel_values=pixels, gen=gcfg)
+    mem_rows = int((toks_mf.cpu() == toks_l).all(dim=1).sum())
     print(f"[hf snapshot] greedy serving from the loaded snapshot, int8 recipe (fused stack), "
           f"{BATCH} x {NEW_TOKENS}: {BATCH / dt:.2f} captions/s (encode + decode) on {card}; "
           f"launches {launches}; a second call on the same inputs: largest final-hidden "
-          f"difference {drift:.6g}, ids equal in {same_rows} of {BATCH} rows")
+          f"difference {drift:.6g}, ids equal in {same_rows} of {BATCH} rows; ids equal to the "
+          f"in-memory conversion's (fused path) in {mem_rows} of {BATCH} rows")
     if any(launches.get(n) != NEW_TOKENS for n in ("fused_stack_step", "fused_bridge_step",
                                                     "int8_matmul_t_argmax")):
         raise AssertionError("serving from the loaded snapshot did not run the decode kernels")
+    if drift != 0 or same_rows != BATCH or mem_rows != BATCH:
+        raise AssertionError("the fused path gave other bits or ids on the same inputs")
     del loaded_st, mem_st, first, second
     torch.cuda.empty_cache()
-    # id for id: the int8 weights as per-layer dicts with the bf16 KV cache
-    # (int8_matmul / int8_mlp / int8_ffn / the greedy head: one summation
-    # order each), from the snapshot and from the in-memory conversion
+    # id for id on the per-layer path too: the int8 weights as per-layer dicts
+    # with the bf16 KV cache (int8_matmul / int8_mlp / int8_ffn / the greedy
+    # head), from the snapshot and from the in-memory conversion
     per_layer = GenerationConfig(max_length=NEW_TOKENS, greedy=True)
     for fn in wrappers.values():
         fn.launches = 0
@@ -1787,10 +1812,12 @@ def run_distributed(params, cfg, dev, card, bare_rate) -> None:
     """A process group of one over NCCL on the card: the orchestrator's
     DIST_STEPS steps at batch 8 x 256 bit-equal to the same run without a
     group (losses, validation, the final bridge), vlm-eval-torch --mesh 1
-    on DIST_EVAL_BATCHES batches id for id against the run without --mesh,
-    (the int8 per-layer path, one summation order a kernel), and the
-    gradients' all-reduce timed; the group is destroyed at the end.
-    Then entry()'s forward once."""
+    on DIST_EVAL_BATCHES batches id for id against the run without --mesh
+    (the int8 recipe on the fused path: one summation order a kernel),
+    vlm-caption-torch --mesh 1 over BATCH image files against the run
+    without --mesh (the same JSONL, captions/s beside each other), and the
+    gradients' all-reduce timed; the group is destroyed at the end. Then
+    entry()'s forward once."""
     import torch.distributed as dist
 
     from vlm_bridge_tpu_torch.configs import TrainingConfig
@@ -1880,7 +1907,7 @@ def run_distributed(params, cfg, dev, card, bare_rate) -> None:
                 for key in ("plain", "mesh"):
                     argv = ["--data-dir", tmp, "--split", "test", "--batch-size", str(BATCH),
                             "--max-length", str(NEW_TOKENS), "--preset", "default", "--seed",
-                            str(SEED), "--quantize", "embedding,mlp,attn,bridge",
+                            str(SEED), "--quantize", "embedding,mlp,attn,bridge", "--kv-int8",
                             "--no-early-stop", "--output", str(root / f"{key}.json")]
                     if key == "mesh":
                         argv += ["--mesh", "1"]
@@ -1892,14 +1919,14 @@ def run_distributed(params, cfg, dev, card, bare_rate) -> None:
             ids_eq = len(recorded["plain"]) == len(recorded["mesh"]) == DIST_EVAL_BATCHES and all(
                 torch.equal(a, b) for a, b in zip(recorded["plain"], recorded["mesh"]))
             print(f"[distributed] vlm-eval-torch --mesh 1 in the group, {DIST_EVAL_BATCHES} "
-                  f"batches of {BATCH} x {NEW_TOKENS} (int8 weights, the per-layer path, whose "
-                  f"kernels give the same bits each call): ids equal to the run "
-                  f"without --mesh: {ids_eq}; metrics equal "
+                  f"batches of {BATCH} x {NEW_TOKENS} (the int8 recipe on the fused path): ids "
+                  f"equal to the run without --mesh: {ids_eq}; metrics equal "
                   f"{results['plain']['metrics'] == results['mesh']['metrics']}; captions/s "
                   f"{results['mesh']['captions_per_sec']:.2f} against "
                   f"{results['plain']['captions_per_sec']:.2f}, on {card}")
             if not ids_eq or results["plain"]["metrics"] != results["mesh"]["metrics"]:
                 raise AssertionError("vlm-eval-torch --mesh 1 decodes other ids")
+            run_caption_mesh(root, card)
         finally:
             dist.destroy_process_group()
     fn, example = entry()
@@ -1912,6 +1939,179 @@ def run_distributed(params, cfg, dev, card, bare_rate) -> None:
         raise AssertionError("entry()'s loss is not finite")
     del fn, example
     torch.cuda.empty_cache()
+
+
+TP_RANKS, TP_TIMEOUT_S = 2, 900
+
+
+def tp_serve_and_step(params, cfg, dev, mesh=None) -> dict:
+    """What the tensor-parallel phase holds, on one side: greedy 64 x 50 on
+    the per-layer path (bf16 weights and KV cache; a 2-token warm-up first),
+    host seconds around it, the first step's logits (BOS through the bridge
+    and the LM) and one train step's loss at TRAIN_BATCH x TRAIN_SEQ with
+    seeded dropout."""
+    from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
+    from vlm_bridge_tpu_torch.models import full_model
+
+    pixels = seeded_pixels(cfg, dev)
+    gcfg = GenerationConfig(max_length=NEW_TOKENS, greedy=True, early_stop=False)
+    with torch.no_grad():
+        generate_tokens(params, cfg, pixel_values=pixels,
+                        gen=dataclasses.replace(gcfg, max_length=2), mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, lens = generate_tokens(params, cfg, pixel_values=pixels, gen=gcfg, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        bos = torch.full((BATCH, 1), cfg.lm.bos_token_id, dtype=torch.long, device=dev)
+        logits = full_model.forward(params, cfg, pixels, bos, torch.ones_like(bos))[:, 0]
+    toks = check_tokens(toks, lens, cfg, NEW_TOKENS)
+    case = build_train_case(params, cfg, dev, mesh=mesh)
+    drop = torch.Generator(device=dev)
+    drop.manual_seed(SEED + 3)
+    _, metrics = case["train_step"](case["state"], case["frozen"], case["batch"], drop)
+    return {"tokens": toks, "seconds": seconds, "logits": logits.float().cpu(),
+            "loss": float(metrics["loss"])}
+
+
+def tp_worker(rank: int, port: int, out: Path) -> int:
+    """One rank of run_tensor_parallel: the seeded model, its LM cut over the
+    mesh (1, TP_RANKS) of a gloo group on the one card; tp_serve_and_step,
+    then greedy decoding again with each all-reduce fenced and timed."""
+    from vlm_bridge_tpu_torch.parallel import auto_mesh, distributed, init_multihost, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_multihost(f"127.0.0.1:{port}", TP_RANKS, rank, device="cpu")   # gloo
+    mesh = auto_mesh(1, TP_RANKS, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cfg, params = build_model(dev, gen)
+    t0 = time.perf_counter()
+    params = shard_params(mesh, params, cfg=cfg)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    res = tp_serve_and_step(params, cfg, dev, mesh)
+
+    # the all-reduces of one greedy run, each behind a synchronise so that its
+    # host time is its own (the run is slower for it: its rate is not kept)
+    from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
+
+    real, spent = distributed.all_reduce_f32, [0.0, 0]
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = real(x, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        return y
+
+    distributed.all_reduce_f32 = timed
+    try:
+        with torch.no_grad():
+            generate_tokens(params, cfg, pixel_values=seeded_pixels(cfg, dev), mesh=mesh,
+                            gen=GenerationConfig(max_length=NEW_TOKENS, greedy=True,
+                                                 early_stop=False))
+    finally:
+        distributed.all_reduce_f32 = real
+    res.update(shard_s=shard_s, all_reduce_s=spent[0], all_reduces=spent[1],
+               gib=torch.cuda.max_memory_allocated() / 2**30)
+    torch.save(res, out / f"tp_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_tensor_parallel(cfg, dev, card) -> None:
+    """Tensor parallelism at full width: TP_RANKS processes on the one card
+    (tp_worker) against the same seeded weights in this process."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    _, ref_params = build_model(dev, gen)
+    ref = tp_serve_and_step(ref_params, cfg, dev)
+    del ref_params
+    torch.cuda.empty_cache()
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        logs = [open(out / f"log{r}.txt", "w") for r in range(TP_RANKS)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+                                   str(r), "--tp-port", str(port), "--tp-out", str(out)],
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(TP_RANKS)]
+        try:
+            rcs = [p.wait(timeout=TP_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(rcs):
+            tails = "\n".join((out / f"log{r}.txt").read_text()[-3000:] for r in range(TP_RANKS))
+            raise AssertionError(f"tensor-parallel ranks exited with {rcs}:\n{tails}")
+        ranks = [torch.load(out / f"tp_rank{r}.pt") for r in range(TP_RANKS)]
+    tp = ranks[0]
+    same_ranks = all(torch.equal(r["tokens"], tp["tokens"]) for r in ranks[1:])
+    n_tok = NEW_TOKENS
+    per_token = tp["all_reduce_s"] * 1e3 / n_tok
+    loss_rel = abs(tp["loss"] - ref["loss"]) / abs(ref["loss"])
+    print(f"[tensor parallel] VLMConfig.default(), mesh (1, {TP_RANKS}) over gloo, two processes "
+          f"on one card, bf16 LM cut by shard_params ({tp['shard_s']:.2f} s with the broadcast; "
+          f"peak {tp['gib']:.2f} GiB a rank): greedy {BATCH} x {n_tok} on the per-layer path "
+          f"{BATCH / tp['seconds']:.2f} captions/s against {BATCH / ref['seconds']:.2f} in one "
+          f"process; all-reduces {tp['all_reduces'] // n_tok} a token, {per_token:.4f} ms a "
+          f"token fenced; ranks' ids equal {same_ranks}; one train step at {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: loss {tp['loss']:.6f} against {ref['loss']:.6f} (relative "
+          f"{loss_rel:.3g}, limit {LOSS_RTOL}), on {card}")
+    hold_first_step("[tensor parallel] against one process", tp["tokens"], ref["tokens"],
+                    tp["logits"], ref["logits"])
+    if not same_ranks:
+        raise AssertionError("the tensor-parallel ranks decoded other ids")
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError("the tensor-parallel train step's loss is off")
+
+
+def run_caption_mesh(root: Path, card) -> None:
+    """vlm-caption-torch over BATCH seeded image files (the int8 recipe, the
+    fused path), without --mesh and with --mesh 1 in the caller's process
+    group: the same JSONL; each run's captions/s as the CLI prints it
+    (caption_images alone, model load left out)."""
+    import io
+
+    from PIL import Image
+
+    from vlm_bridge_tpu_torch.inference import caption
+
+    images = root / "caption_images"
+    images.mkdir()
+    g = torch.Generator().manual_seed(SEED + 16)
+    for i in range(BATCH):
+        Image.fromarray(torch.randint(0, 256, (256, 256, 3), generator=g, dtype=torch.uint8)
+                        .numpy()).save(images / f"{i:03d}.png")
+    rates, texts = {}, {}
+    for key, extra in (("plain", []), ("mesh", ["--mesh", "1"])):
+        out = root / f"captions_{key}.jsonl"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = caption.main([str(images), "--preset", "default", "--seed", str(SEED),
+                               "--quantize", "embedding,mlp,attn,bridge", "--batch-size",
+                               str(BATCH), "--max-length", str(NEW_TOKENS), "--output", str(out),
+                               *extra])
+        if rc != 0:
+            raise AssertionError(f"vlm-caption-torch ({key}) failed")
+        rates[key] = float(re.search(r"\(([\d.]+) captions/s", buf.getvalue()).group(1))
+        texts[key] = out.read_text()
+    same = texts["plain"] == texts["mesh"]
+    print(f"[distributed] vlm-caption-torch --mesh 1 in the group, {BATCH} images x "
+          f"{NEW_TOKENS} tokens (the int8 recipe, fused path): captions equal to the run without "
+          f"--mesh: {same} ({len(texts['mesh'].splitlines())} lines); captions/s "
+          f"{rates['mesh']:.2f} against {rates['plain']:.2f}, on {card}")
+    if not same or len(texts["mesh"].splitlines()) != BATCH:
+        raise AssertionError("vlm-caption-torch --mesh 1 wrote other captions")
 
 
 def _free_port() -> int:
@@ -3055,6 +3255,9 @@ def check_tokens(toks, lens, cfg, n_tokens, rows=BATCH):
 
 
 def main() -> int:
+    if "--tp-rank" in sys.argv:   # one rank of run_tensor_parallel
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return tp_worker(int(args["--tp-rank"]), int(args["--tp-port"]), Path(args["--tp-out"]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on a GPU only",
               file=sys.stderr)
@@ -3188,6 +3391,9 @@ def main() -> int:
         run_debug_and_parity(v_dir, lm_dir, params, cfg, dev, card)
     torch.cuda.empty_cache()
     run_distributed(params, cfg, dev, card, bare_rate)
+    del params
+    torch.cuda.empty_cache()
+    run_tensor_parallel(cfg, dev, card)
 
     fa_src, fa_py = "flash_bwd.cu", "vlm_bridge_tpu/ops/flash_attention.py"
     qpy = "vlm_bridge_tpu/ops/quant.py"

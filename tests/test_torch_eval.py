@@ -280,10 +280,11 @@ def test_vlm_eval_torch_mlp_int4_guards(split_dirs, tmp_path):
     with pytest.raises(ValueError, match="mlp_int4_group"):
         TE.main(_cli(jdir, "--mlp-int4", "--kv-int8", "--quantize",
                      "embedding4,mlp,attn,bridge"))
-    # --mesh D needs a process group of D processes; a model axis is not ported
+    # --mesh D,M needs a process group of D x M processes
+    # (tests/test_torch_tensor_parallel.py runs the model axis in one)
     with pytest.raises(ValueError, match="mesh 2x1 != 1 processes"):
         TE.main(_cli(jdir, "--mesh", "2"))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 processes"):
         TE.main(_cli(jdir, "--mesh", "1,2"))
     with pytest.raises(SystemExit, match="not --exact"):
         TE.main(_cli(jdir, "--mlp-int4", "--kv-int8", "--exact"))

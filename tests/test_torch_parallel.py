@@ -42,8 +42,22 @@ def test_auto_mesh_validation():
     assert mesh.shape == {"data": 1, "model": 1} and mesh.axis_names == ("data", "model")
     with pytest.raises(ValueError, match="mesh 2x1 != 1 processes"):
         auto_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism of the frozen LM"):
+    # a model axis needs a process group of data x model processes
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 processes"):
         auto_mesh(1, 2, device="cpu")
+
+
+def test_rank_seed_is_the_data_blocks():
+    """Sampling and dropout streams follow the data block: the model ranks of
+    one block draw one stream (their replicated bridge and caches must not
+    diverge), blocks draw their own, and block 0 keeps the seed."""
+    seeds = [Mesh(data=2, model=2, device=torch.device("cpu"), rank=r).rank_seed(5)
+             for r in range(4)]
+    assert seeds[0] == seeds[1] == 5 and seeds[2] == seeds[3] != 5
+    assert [Mesh(data=2, model=1, device=torch.device("cpu"), rank=r).rank_seed(5)
+            for r in range(2)] == [5, seeds[2]]
+    m = Mesh(data=2, model=2, device=torch.device("cpu"), rank=3)
+    assert (m.data_index, m.model_index) == (1, 1)
 
 
 def _jax_placements(spec) -> tuple:

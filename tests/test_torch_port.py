@@ -336,9 +336,8 @@ def _defined_names(path: Path) -> set:
 
 # what the port does not have, and why: ROADMAP.md's "Not to port" (JAX
 # compile and TPU tiling levers, interpret-mode switches, host_rtt,
-# apply_platform). Every module is ported; the one thing left is tensor
-# parallelism of the frozen LM, a stated raise of parallel.auto_mesh
-# (tests/test_torch_parallel.py), not a missing name.
+# apply_platform). Every module is ported, tensor parallelism of the frozen
+# LM included (tests/test_torch_tensor_parallel.py).
 UNPORTED_MODULES = set()
 UNPORTED_NAMES = {
     "tools/loading.py": {"apply_platform"},
@@ -351,6 +350,68 @@ UNPORTED_NAMES = {
     "ops/quant.py": {"INTERPRET"},
     "runtime/profiling.py": {"host_rtt"},
 }
+
+
+def _public_params(path: Path) -> dict:
+    """{public top-level function: its parameter names} of a module, from its
+    source."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and \
+                not node.name.startswith("_"):
+            a = node.args
+            out[node.name] = {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs} | {
+                f"*{x.arg}" for x in (a.vararg, a.kwarg) if x is not None}
+    return out
+
+
+# the JAX parameters the port's functions do not take, by design: `rng` (a
+# torch.Generator, `generator=`, in its place), the TPU tiling levers
+# `block_*`, stack_decode_params' 16 GB measure `free_layers`, JAX's device
+# lists and batch ranks of the mesh helpers (`devices`, `ndim`: one process
+# a place, batch_sharding returns a row slice), and build_memorization_dataset's
+# `image_size` (the port writes the pixel cache at the crop size)
+UNPORTED_PARAMS = {
+    "inference/caption.py": {"caption_images": {"rng"}},
+    "inference/evaluate.py": {"evaluate_split": {"rng"}},
+    "inference/generate.py": {"generate_tokens": {"rng"}},
+    "inference/robust.py": {"generate_caption_robust": {"rng"}},
+    "models/bridge.py": {"init": {"rng"}, "forward": {"rng"}},
+    "models/dinov2.py": {"init": {"rng"}},
+    "models/full_model.py": {"init": {"rng"}, "bridge_text": {"rng"}, "forward": {"rng"}},
+    "models/gemma2.py": {"init": {"rng"}, "stack_decode_params": {"free_layers"}},
+    "ops/decode_kernels.py": {"fused_stack_step": {"block_f", "block_proj"},
+                              "fused_mlp_step": {"block_f"}, "fused_bridge_step": {"block_f"}},
+    "ops/flash_attention.py": {"flash_attention": {"block_k", "block_q"}},
+    "ops/matmul_kernels.py": {"tiled_matmul": {"block_m", "block_n"}},
+    "ops/quant.py": {"int8_matmul": {"block_i", "block_o"}, "int8_matmul_t": {"block_v"},
+                     "int8_matmul_t_argmax": {"block_v"}, "int4_matmul_t": {"block_v"},
+                     "int4_matmul_t_argmax": {"block_v"}, "int8_mlp": {"block_f"},
+                     "int8_ffn": {"block_f"}},
+    "ops/sampling.py": {"sample_token": {"rng"}},
+    "parallel/sharding.py": {"auto_mesh": {"devices"}, "batch_sharding": {"ndim"}},
+    "tools/memorize.py": {"build_memorization_dataset": {"image_size"}},
+    "training/stack.py": {"build_mesh": {"devices"}},
+}
+
+
+def test_public_params_walk_finds_only_the_by_design_ones():
+    """Every public function the port shares with the JAX package takes every
+    parameter the JAX one takes, but for UNPORTED_PARAMS (so a missing
+    `mesh=` cannot pass again: it is on no list)."""
+    jax_pkg, port = REPO / "vlm_bridge_tpu", REPO / "vlm_bridge_tpu_torch"
+    missing = {}
+    for jpath in sorted(jax_pkg.rglob("*.py")):
+        rel = jpath.relative_to(jax_pkg).as_posix()
+        tpath = port / rel
+        if jpath.name == "__init__.py" or not tpath.exists():
+            continue
+        theirs, ours = _public_params(jpath), _public_params(tpath)
+        gone = {f: ps - ours[f] for f, ps in theirs.items() if f in ours and ps - ours[f]}
+        if gone:
+            missing[rel] = gone
+    assert missing == UNPORTED_PARAMS
+    assert not any("mesh" in ps for funcs in UNPORTED_PARAMS.values() for ps in funcs.values())
 
 
 def test_public_names_walk_finds_only_the_deferred_ones():

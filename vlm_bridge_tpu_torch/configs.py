@@ -292,9 +292,9 @@ class TrainingConfig:
 
     # --- fields added by the JAX package ------------------------------------
     # Kept so YAML files stay interchangeable. The port ignores the JAX-only
-    # ones: mesh_shape, mesh_axis_names, pad_to_buckets, scan_layers,
-    # profile_* and validation_strategy_sweep.
-    # (data,) or (data, model); data == -1 means "all remaining devices".
+    # ones: mesh_axis_names, pad_to_buckets, scan_layers, profile_* and
+    # validation_strategy_sweep. mesh_shape is read (training/stack.py).
+    # (data,) or (data, model); data == -1 means "all remaining processes".
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axis_names: Tuple[str, ...] = ("data",)
     max_text_len: int = 512                      # hard truncation, matches reference

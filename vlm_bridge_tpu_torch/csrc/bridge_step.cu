@@ -13,8 +13,9 @@
 // Bound: bandwidth again: 148 MB of int8 bridge weights plus the 152 MB int8
 // cross cache (B = 64 rows x 257 vision tokens x 2304 x K and V x 2 blocks)
 // per token. The projections go through the GEMM core of i8_gemm.cu
-// (decode_gemm.cuh: swap-AB wgmma + TMA, f32 reductions into y, which every
-// kernel that reads it zeroes again, so no memset is launched); the cross
+// (decode_gemm.cuh: swap-AB wgmma + TMA, split sums added in a fixed order
+// into y, which every kernel that reads it zeroes again, so no memset is
+// launched); the cross
 // attention reads each (row, head) slab of K and V exactly once, one block
 // per (row, head), with the 288-wide heads spread over nine warps (no
 // power-of-two tiling needed).
@@ -185,7 +186,7 @@ extern "C" int vbt_fused_bridge_step(
     const void* wos, const void* os_scale, const void* os_bias,
     const void* fc1, const void* f1_scale, const void* f1_bias,
     const void* fc2, const void* f2_scale, const void* f2_bias,
-    void* x32, void* hbuf, void* abuf, void* ybuf,
+    void* x32, void* hbuf, void* abuf, void* ybuf, void* ws, int n_slots, int n_counters,
     int nb, int B, int ld, int Hc, int Hs, int Sv, int Smax, int F, int t, float eps,
     void* stream_ptr) {
   if (ld > ROW_MAX) return (int)cudaErrorInvalidValue;
@@ -196,6 +197,7 @@ extern "C" int vbt_fused_bridge_step(
   bf16* h = (bf16*)hbuf;
   bf16* a = (bf16*)abuf;
   float* y = (float*)ybuf;
+  const DgWork work = dg_work(ws, n_slots, n_counters);
   const float* ln = (const float*)lns;
   const size_t cross_blk = (size_t)B * Hc * Sv, self_blk = (size_t)B * Hs * Smax * Ds;
   const float c_scale = 1.f / sqrtf((float)Dc), s_scale = 1.f / sqrtf((float)Ds);
@@ -222,7 +224,7 @@ extern "C" int vbt_fused_bridge_step(
   for (int k = 0; k < nb; ++k) {
     const float* lk = ln + (size_t)k * 6 * ld;
     rc = launch_i8_gemm(map_h, w_q, k, (const float*)q_scale + (size_t)k * ld,
-                        (const float*)q_bias + (size_t)k * ld, y, B, ld, ld, st);
+                        (const float*)q_bias + (size_t)k * ld, y, B, ld, ld, work, st);
     if (rc) return rc;
     cross_attn_kernel<<<dim3(Hc, B), Dc, sizeof(float) * (Dc + Sv), st>>>(
         y, (const int8_t*)ck + k * cross_blk * Dc, (const float*)cks + k * cross_blk,
@@ -230,31 +232,31 @@ extern "C" int vbt_fused_bridge_step(
         Sv, c_scale);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_a, w_oc, k, (const float*)oc_scale + (size_t)k * ld,
-                        (const float*)oc_bias + (size_t)k * ld, y, B, ld, ld, st);
+                        (const float*)oc_bias + (size_t)k * ld, y, B, ld, ld, work, st);
     if (rc) return rc;
     VBT_ROW_LAUNCH(residual_ln_kernel, ld, B, 0, st, nullptr, x, y, lk + 2 * ld, lk + 3 * ld, h,
                    nullptr, ld, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_h, w_qkv, k, (const float*)qkv_scale + (size_t)k * 3 * ld,
-                        (const float*)qkv_bias + (size_t)k * 3 * ld, y, B, 3 * ld, ld, st);
+                        (const float*)qkv_bias + (size_t)k * 3 * ld, y, B, 3 * ld, ld, work, st);
     if (rc) return rc;
     self_attn_kernel<<<dim3(Hs, B), Ds, sizeof(float) * (Ds + t + 1), st>>>(
         y, (bf16*)sk + k * self_blk, (bf16*)sv + k * self_blk, a, Hs, Ds, Smax, t, s_scale);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_a, w_os, k, (const float*)os_scale + (size_t)k * ld,
-                        (const float*)os_bias + (size_t)k * ld, y, B, ld, ld, st);
+                        (const float*)os_bias + (size_t)k * ld, y, B, ld, ld, work, st);
     if (rc) return rc;
     VBT_ROW_LAUNCH(residual_ln_kernel, ld, B, 0, st, nullptr, x, y, lk + 4 * ld, lk + 5 * ld, h,
                    nullptr, ld, eps, nullptr, 0);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_h, w_1, k, (const float*)f1_scale + (size_t)k * F,
-                        (const float*)f1_bias + (size_t)k * F, y, B, F, ld, st);
+                        (const float*)f1_bias + (size_t)k * F, y, B, F, ld, work, st);
     if (rc) return rc;
     const size_t n = (size_t)B * F;
     gelu_exact_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(y, a, n);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_f, w_2, k, (const float*)f2_scale + (size_t)k * ld,
-                        (const float*)f2_bias + (size_t)k * ld, y, B, ld, F, st);
+                        (const float*)f2_bias + (size_t)k * ld, y, B, ld, F, work, st);
     if (rc) return rc;
     const bool last = (k == nb - 1);
     const float* nxt = ln + (size_t)(k + 1) * 6 * ld;

@@ -27,6 +27,35 @@ constexpr int DG_ACT_BYTES = 2 * 64 * DG_BK * 2;
 // floats so that a warp's stores of a fragment hit 32 banks
 constexpr int DG_EPI_LD = DG_BN + 4;
 constexpr int DG_EPI_BYTES = 32 * DG_EPI_LD * 4;
+// one slot of the stream-K workspace: a run's partial sums of one tile, 64
+// rows x DG_BN columns f32 (ops/decode_kernels.py:stream_k_workspace)
+constexpr int DG_SLOT = 64 * DG_BN;
+
+}  // namespace
+
+// The stream-K workspace of a launch. A block's run of a tile that other
+// blocks also contribute to ends in `slots`: slot 2 b for the run that begins
+// at the block's first unit, 2 b + 1 for the one that begins later (a block
+// has at most one of each). counters[tile] counts the arrivals of the tile's
+// contributors and then those done with their share of the sum; the last one
+// sets it back to zero, so the counters are zero between launches. The sum
+// of a tile is in slot order, so the bits of Y depend on the shapes and the
+// SM count only.
+struct DgWork {
+  float* slots;
+  unsigned* counters;
+  int n_slots, n_counters;
+};
+
+// The workspace behind `ws` (f32: n_slots slots, then n_counters u32
+// counters, zero between launches)
+inline DgWork dg_work(void* ws, int n_slots, int n_counters) {
+  float* slots = static_cast<float*>(ws);
+  return DgWork{slots, reinterpret_cast<unsigned*>(slots + (size_t)n_slots * DG_SLOT), n_slots,
+                n_counters};
+}
+
+namespace {
 
 template <bool INT4>
 struct DgShape {
@@ -67,7 +96,8 @@ __device__ __forceinline__ float scale_or(const float* p, bool valid) {
   return valid ? fmaxf(*p, 1e-30f) : 1.f;
 }
 
-// Y[m, n..n+3] += v, one vector reduction in the L2
+// Y[m, n..n+3] += v, one vector reduction in the L2: used by a tile's only
+// writer, so the one addition has one order
 __device__ __forceinline__ void red_add4(float* y, float4 v) {
 #if __CUDA_ARCH__ >= 900 && (__CUDACC_VER_MAJOR__ > 12 || __CUDACC_VER_MINOR__ >= 4)
   atomicAdd(reinterpret_cast<float4*>(y), v);
@@ -77,6 +107,125 @@ __device__ __forceinline__ void red_add4(float* y, float4 v) {
   atomicAdd(y + 2, v.z);
   atomicAdd(y + 3, v.w);
 #endif
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// the block whose units [u0, u1) hold unit x: the largest b with
+// floor(b units / grid) <= x
+__device__ __forceinline__ int block_of(long long x, int units, int grid) {
+  return (int)(((x + 1) * grid - 1) / units);
+}
+
+// Float4s [lo, hi) of a tile's share (float4 it at row it / q4, column
+// 4 (it % q4) of the tile's y): the sum over the n slots in contributor order
+// (slot 0 `first`, slot j >= 1 at rest + 2 j slots), added into y (zero there:
+// one writer, one addition). A thread takes IPT float4s at a time, with the
+// loads of JB slots of each in flight together, so that their L2 latencies
+// overlap.
+template <int JB, int IPT>
+__device__ __forceinline__ void sum_share(const float* first, const float* rest, int n, int lo,
+                                          int hi, int q4, float* y, int N) {
+  for (int base = lo + threadIdx.x; base < hi; base += 128 * DG_WGS * IPT) {
+    int at[IPT];
+    float4 acc[IPT];
+#pragma unroll
+    for (int u = 0; u < IPT; ++u) {
+      const int it = base + u * 128 * DG_WGS;
+      at[u] = it < hi ? it / q4 * DG_BN + 4 * (it % q4) : -1;
+      acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int j0 = 0; j0 < n; j0 += JB) {
+      float4 v[JB][IPT];
+#pragma unroll
+      for (int j = 0; j < JB; ++j) {
+        const float* slot = j0 + j == 0 ? first : rest + (size_t)2 * (j0 + j) * DG_SLOT;
+#pragma unroll
+        for (int u = 0; u < IPT; ++u)
+          if (j0 + j < n && at[u] >= 0)
+            v[j][u] = __ldcg(reinterpret_cast<const float4*>(slot + at[u]));
+      }
+#pragma unroll
+      for (int j = 0; j < JB; ++j)
+#pragma unroll
+        for (int u = 0; u < IPT; ++u)
+          if (j0 + j < n && at[u] >= 0) acc[u] = add4(acc[u], v[j][u]);
+    }
+#pragma unroll
+    for (int u = 0; u < IPT; ++u)
+      if (at[u] >= 0) red_add4(y + (size_t)(at[u] / DG_BN) * N + at[u] % DG_BN, acc[u]);
+  }
+}
+
+// The fixed-order sum of tile `tile`, whose units are [x0, x0 + chunks):
+// wait for the arrivals of its n contributors (blocks bf .. bf + n - 1),
+// count this block past the wait, and sum this block's 1/n of the tile's
+// float4s over the n slots in contributor order into Y. All the grid's
+// blocks are resident (one a SM), and every block arrives at all its tiles
+// before it waits at any, so the wait ends. Run by the DG_WGS consumer
+// warpgroups after finish_tiles arrived.
+__device__ __forceinline__ void finish_tile(int tile, int n_tiles, int chunks, int units,
+                                            const DgWork& ws, float* __restrict__ Y, int M,
+                                            int N) {
+  const long long x0 = (long long)tile * chunks;
+  const int G = gridDim.x, bf = block_of(x0, units, G);
+  const int n = block_of(x0 + chunks - 1, units, G) - bf + 1, k = blockIdx.x - bf;
+  // the first contributor's run begins after its first unit: its tail slot
+  const bool mid = (long long)bf * units / G < x0;
+  unsigned* cnt = ws.counters + tile;
+  if (threadIdx.x == 0) {
+    while (ld_acquire(cnt) < (unsigned)n) __nanosleep(32);
+    // done with the wait: the last of the n to pass it sets the counter back
+    // to zero for the next launch (which starts after every block's exit)
+    if (atomicAdd(cnt, 1u) == (unsigned)(2 * n - 1)) atomicExch(cnt, 0u);
+  }
+  named_bar(4, 128 * DG_WGS);
+  const int m0 = tile / n_tiles * 64, n0 = tile % n_tiles * DG_BN;
+  const int q4 = min(DG_BN, N - n0) / 4, items = min(64, M - m0) * q4;
+  const int lo = k * items / n, hi = (k + 1) * items / n;
+  const float* first = ws.slots + (size_t)(mid ? 2 * bf + 1 : 2 * bf) * DG_SLOT;
+  const float* rest = ws.slots + (size_t)2 * bf * DG_SLOT;   // slot 2 (bf + j) for j >= 1
+  float* y = Y + (size_t)m0 * N + n0;
+  // many contributors leave a thread about one float4 with all its slots'
+  // loads in flight; few leave it several float4s, four slots of each
+  if (n > 4)
+    sum_share<16, 1>(first, rest, n, lo, hi, q4, y, N);
+  else
+    sum_share<4, 4>(first, rest, n, lo, hi, q4, y, N);
+}
+
+// After a block's last unit: the tiles it shares with other blocks, the one
+// its first unit is in (unless the block ran all of it) and the one its last
+// unit is in (unless that run ended the tile, so that the block ran it
+// whole). Their partial sums are in the slots: the block arrives at both
+// counters (one fence publishes both runs' stores, so that no warp waits on
+// its stores inside the main loop), then sums its share of each. Not
+// inlined: the split is recomputed here, so that none of it stays in
+// registers across the main loop.
+__device__ __noinline__ void finish_tiles(DgWork ws, float* Y, int M, int N, int K) {
+  const int n_tiles = (N + DG_BN - 1) / DG_BN, chunks = K / DG_BK;
+  const int units = (M + 63) / 64 * n_tiles * chunks;
+  const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
+  const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
+  const int t_head = u0 / chunks, t_tail = (u1 - 1) / chunks;
+  const bool head = u0 % chunks != 0 || u1 < (t_head + 1) * chunks;
+  const bool tail = t_tail != t_head && u1 % chunks != 0;
+  named_bar(4, 128 * DG_WGS);   // every consumer's slot stores are issued
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (head) atomicAdd(ws.counters + t_head, 1u);
+    if (tail) atomicAdd(ws.counters + t_tail, 1u);
+  }
+  if (head) finish_tile(t_head, n_tiles, chunks, units, ws, Y, M, N);
+  if (tail) finish_tile(t_tail, n_tiles, chunks, units, ws, Y, M, N);
 }
 
 // This lane's bytes of its warpgroup's 64-column tile in a stage (int8: two
@@ -120,15 +269,17 @@ __device__ __forceinline__ void widen_frags(const FragBytes<INT4>& b, uint32_t (
 // One block a stream of work units (a DG_BN-column tile's 64 rows of K, for
 // one 64-row block of A): units [u0, u1) of the tile-major order, so a block
 // takes a run of K slices of one tile, or the end of one tile and the start
-// of the next. Each run of one tile ends in an epilogue that adds its partial
-// sums into Y with f32 vector reductions. KSUB: k16 steps between two waits
-// on the tensor cores (4: a stage; 2: int4 scale groups that end inside a
-// stage).
+// of the next. Each run of one tile ends in an epilogue: a run of the whole
+// tile adds its sums into Y; any other run stores its partial sums into its
+// workspace slot. After its last unit the block arrives at the counters of
+// the tiles it left partial and sums its share of each (finish_tiles). KSUB: k16
+// steps between two waits on the tensor cores (4: a stage; 2: int4 scale
+// groups that end inside a stage).
 template <bool INT4, int KSUB>
 __global__ void __launch_bounds__(512, 1)
 decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wts,
                    int layer, const float* __restrict__ scale, const float* __restrict__ bias,
-                   int group, float* __restrict__ Y, int M, int N, int K) {
+                   int group, float* __restrict__ Y, int M, int N, int K, const DgWork ws) {
   using S = DgShape<INT4>;
   extern __shared__ unsigned char dg_smem[];
   const uint32_t ring = (smem_u32(dg_smem) + 1023u) & ~1023u;
@@ -272,10 +423,18 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
 
     if (last) {
       // (hi + lo) * scale (+ bias), staged in shared memory as rows of Y, half
-      // the rows at a time, then added into Y by 16-byte vector reductions, a
-      // warp a row segment of 256 bytes
+      // the rows at a time, then, a warp a row segment of 256 bytes, added
+      // into Y (a run of the whole tile) or stored into the run's slot
       const int m0 = mb * 64;
       const int tw = threadIdx.x % 128, cc = 64 * wg + 4 * (tw % 16);   // 4 columns of the block
+      // the run began at the block's first unit (i - c is minus the first
+      // unit's K slice there, the run's first unit index elsewhere); it
+      // covers the tile whole if it ends the tile and is `chunks` units long
+      const bool first_run = i <= c;
+      const bool whole = c == chunks - 1 && (!first_run || i + 1 == chunks);
+      float* dst = whole ? Y + (size_t)m0 * N + n0
+                         : ws.slots + (size_t)(2 * blockIdx.x + (first_run ? 0 : 1)) * DG_SLOT;
+      const int ld = whole ? N : DG_BN;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -294,10 +453,14 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
         named_bar(1 + wg, 128);
         if (n0 + cc < N)
           for (int r = tw / 16; r < 32 && m0 + 32 * half + r < M; r += 8) {
-            const uint4 v = ld_shared_v4(epi + (r * DG_EPI_LD + cc) * 4);
-            red_add4(Y + (size_t)(m0 + 32 * half + r) * N + n0 + cc,
-                     make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
-                                 __uint_as_float(v.z), __uint_as_float(v.w)));
+            const uint4 u = ld_shared_v4(epi + (r * DG_EPI_LD + cc) * 4);
+            const float4 v = make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                                         __uint_as_float(u.z), __uint_as_float(u.w));
+            float* p = dst + (size_t)(32 * half + r) * ld + cc;
+            if (whole)   // this block alone adds into the tile
+              red_add4(p, v);
+            else
+              __stcg(reinterpret_cast<float4*>(p), v);
           }
         named_bar(1 + wg, 128);   // the staging is read before it is written again
       }
@@ -325,6 +488,7 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
     unit(fa, fb);
     if (i < n_units) unit(fb, fa);
   }
+  finish_tiles(ws, Y, M, N, K);
 }
 
 // ---- host ----
@@ -363,21 +527,26 @@ inline int make_weight_map(CUtensorMap* map, const void* w, int L, int K, int N,
 }
 
 // Y[M, N] += the product of layer `layer` of the weights behind `wts`, over
-// one grid of min(SMs, units) blocks
+// one grid of min(SMs, units) blocks; `ws` must hold 2 x grid slots and a
+// counter a tile (stream_k_workspace)
 template <bool INT4, int KSUB>
 int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-              const float* bias, int group, float* Y, int M, int N, int K, cudaStream_t st) {
+              const float* bias, int group, float* Y, int M, int N, int K, const DgWork& ws,
+              cudaStream_t st) {
   if (M < 1 || N % 64 != 0 || K % DG_BK != 0 || N < 64) return (int)cudaErrorInvalidValue;
   using S = DgShape<INT4>;
+  const int tiles = (M + 63) / 64 * ((N + DG_BN - 1) / DG_BN);
+  const int units = tiles * (K / DG_BK), grid = min(sm_count(), units);
+  if (ws.slots == nullptr || ws.n_slots < 2 * grid || ws.n_counters < tiles)
+    return (int)cudaErrorInvalidValue;
   static bool allowed = false;   // one flag for each instantiation
   if (!allowed) {
     VBT_CHECK(cudaFuncSetAttribute(decode_gemm_kernel<INT4, KSUB>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM));
     allowed = true;
   }
-  const int units = (M + 63) / 64 * ((N + DG_BN - 1) / DG_BN) * (K / DG_BK);
-  decode_gemm_kernel<INT4, KSUB><<<min(sm_count(), units), DG_THREADS, S::SMEM, st>>>(
-      act, wts, layer, scale, bias, group, Y, M, N, K);
+  decode_gemm_kernel<INT4, KSUB><<<grid, DG_THREADS, S::SMEM, st>>>(
+      act, wts, layer, scale, bias, group, Y, M, N, K, ws);
   VBT_CHECK_LAUNCH();
   return 0;
 }
@@ -386,10 +555,12 @@ int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const f
 
 // Y[M, N] (f32, zero on entry: the kernels accumulate) += (A @ W int8) *
 // scale[N] (+ bias[N]); A the split activation behind `act` (make_act_map),
-// W layer `layer` of the weights behind `wts` (make_weight_map, int8).
-// Requires N % 64 == 0, K % 64 == 0. Defined in i8_gemm.cu.
+// W layer `layer` of the weights behind `wts` (make_weight_map, int8), ws
+// the stream-K workspace (dg_work). Requires N % 64 == 0, K % 64 == 0.
+// Defined in i8_gemm.cu.
 int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-                   const float* bias, float* Y, int M, int N, int K, cudaStream_t stream);
+                   const float* bias, float* Y, int M, int N, int K, const DgWork& ws,
+                   cudaStream_t stream);
 
 // Y[M, N] (f32, zero on entry) += sum over groups of (A[:, group rows] @
 // W4[group rows, :]) * scale[group, N]; W4 layer `layer` of the int4 weights
@@ -397,4 +568,5 @@ int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, co
 // scale per output column). Defined in i4_gemm.cu. Requires N % 64 == 0,
 // K % 64 == 0, group % 32 == 0, K % group == 0.
 int launch_i4_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-                   int group, float* Y, int M, int N, int K, cudaStream_t stream);
+                   int group, float* Y, int M, int N, int K, const DgWork& ws,
+                   cudaStream_t stream);

@@ -40,30 +40,38 @@
 // - Work is split "stream-K": the (tile, K slice) units in tile-major order
 //   are cut into one equal run for each SM, so the grid is one wave at every
 //   shape (gate|up's 96 tiles and o's 12 alike); each run of one tile ends in
-//   an epilogue that stages (hi + lo) * scale (+ bias) in shared memory and
-//   adds it into Y with 16-byte f32 vector reductions (split sums may differ
-//   run to run in the last f32 bits). Y must be zero on entry: the step's
-//   kernels that read Y write zeros back, so the step launches no memset.
+//   an epilogue that stages (hi + lo) * scale (+ bias) in shared memory. A
+//   run of a whole tile adds it into Y; a run of part of one stores it into
+//   a workspace slot of its own. After its last unit a block arrives at the
+//   counters of the tiles it shares, and each of a tile's n contributors
+//   waits for the n arrivals and sums 1/n of the tile over the n slots in
+//   contributor order, so the same inputs give the same bits on every call
+//   (decode_gemm.cuh:DgWork, finish_tiles). Y must be zero on entry: the
+//   step's kernels that read Y write zeros back, so the step launches no
+//   memset.
 // Measured on an H100 (PERF.md): 1.8x the byte bound at gate|up, 3-5x at
 // the small products, whose runs are two to five stages deep.
 
 #include "decode_gemm.cuh"
 
 int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-                   const float* bias, float* Y, int M, int N, int K, cudaStream_t stream) {
-  return dg_launch<false, 4>(act, wts, layer, scale, bias, 0, Y, M, N, K, stream);
+                   const float* bias, float* Y, int M, int N, int K, const DgWork& ws,
+                   cudaStream_t stream) {
+  return dg_launch<false, 4>(act, wts, layer, scale, bias, 0, Y, M, N, K, ws, stream);
 }
 
 // The GEMM core alone (scripts/decode_gemm_torch.py, the cuda tests):
 // y[M, N] (f32, accumulated into) += ((a[0] + a[1]) @ W int8) * scale (+ bias),
-// a [2, M, K] bf16.
+// a [2, M, K] bf16; ws the stream-K workspace of n_slots slots and n_counters
+// counters (ops/decode_kernels.py:stream_k_workspace).
 extern "C" int vbt_i8_gemm(const void* a, const void* w, const void* scale, const void* bias,
-                           void* y, int M, int N, int K, void* stream_ptr) {
+                           void* y, void* ws, int n_slots, int n_counters, int M, int N, int K,
+                           void* stream_ptr) {
   VBT_CHECK((cudaError_t)bind_device(a));
   CUtensorMap act, wts;
   int rc = make_act_map(&act, (const bf16*)a, K, M, K);
   if (!rc) rc = make_weight_map(&wts, w, 1, K, N, false);
   if (rc) return rc;
   return launch_i8_gemm(act, wts, 0, (const float*)scale, (const float*)bias, (float*)y, M, N, K,
-                        (cudaStream_t)stream_ptr);
+                        dg_work(ws, n_slots, n_counters), (cudaStream_t)stream_ptr);
 }

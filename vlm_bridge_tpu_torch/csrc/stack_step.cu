@@ -23,8 +23,8 @@
 // activations between the projections in small scratch (L2-resident at batch
 // 64; split into bf16 hi + lo where they feed a GEMM, common.cuh), runs every
 // projection through the swap-AB wgmma + TMA GEMM core of decode_gemm.cuh
-// (i8_gemm.cu, i4_gemm.cu: one wave of stream-K blocks a product, f32 vector
-// reductions into y), and loops over the layers here on the host: one call
+// (i8_gemm.cu, i4_gemm.cu: one wave of stream-K blocks a product, whose
+// split sums meet in a workspace and add in a fixed order), and loops over the layers here on the host: one call
 // from Python per token, with no host synchronisation, so the launches queue
 // back to back: 8 a layer, 209 a token (launching them with programmatic
 // dependent launch gained nothing on an H100: PERF.md). y is zero whenever a
@@ -230,7 +230,7 @@ extern "C" int vbt_fused_stack_step(
     const void* wgu, const void* gu_scale, const void* wd, const void* d_scale,
     const void* norms, const void* cosv, const void* sinv,
     void* kc, void* vc, void* ks, void* vs,
-    void* x32, void* hbuf, void* abuf, void* ybuf,
+    void* x32, void* hbuf, void* abuf, void* ybuf, void* ws, int n_slots, int n_counters,
     int L, int B, int H, int NH, int KH, int D, int F, int S, int t, int mlp4, int mlp4_group,
     float attn_scale, float softcap, float eps, void* stream_ptr) {
   if (H > ROW_MAX) return (int)cudaErrorInvalidValue;
@@ -241,6 +241,7 @@ extern "C" int vbt_fused_stack_step(
   bf16* h = (bf16*)hbuf;
   bf16* a = (bf16*)abuf;
   float* y = (float*)ybuf;
+  const DgWork work = dg_work(ws, n_slots, n_counters);
   const float* nrm = (const float*)norms;
   const size_t cache_layer = (size_t)B * KH * S * D, scale_layer = (size_t)B * KH * S;
   const int G = NH / KH;
@@ -268,7 +269,7 @@ extern "C" int vbt_fused_stack_step(
   for (int l = 0; l < L; ++l) {
     const float* nl = nrm + (size_t)l * 4 * H;
     rc = launch_i8_gemm(map_h, w_qkv, l, (const float*)qkv_scale + (size_t)l * NQKV, nullptr, y,
-                        B, NQKV, H, st);
+                        B, NQKV, H, work, st);
     if (rc) return rc;
     stack_attn_kernel<<<dim3(KH, B), D, attn_smem, st>>>(
         y, (const float*)cosv, (const float*)sinv, (int8_t*)kc + l * cache_layer,
@@ -276,7 +277,7 @@ extern "C" int vbt_fused_stack_step(
         (float*)vs + l * scale_layer, a, NH, KH, D, S, t, attn_scale, softcap);
     VBT_CHECK_LAUNCH();
     rc = launch_i8_gemm(map_o, w_o, l, (const float*)o_scale + (size_t)l * H, nullptr, y, B, H,
-                        QHD, st);
+                        QHD, work, st);
     if (rc) return rc;
     VBT_ROW_LAUNCH(residual_rms_kernel, H, B, 0, st, nullptr, x, y, nl + H, nl + 2 * H, h,
                    nullptr, H, eps, nullptr, 0);
@@ -284,20 +285,20 @@ extern "C" int vbt_fused_stack_step(
     if (mlp4)
       rc = launch_i4_gemm(map_h, w_gu, l,
                           (const float*)gu_scale + (size_t)l * (H / gu_group) * 2 * F, gu_group,
-                          y, B, 2 * F, H, st);
+                          y, B, 2 * F, H, work, st);
     else
       rc = launch_i8_gemm(map_h, w_gu, l, (const float*)gu_scale + (size_t)l * 2 * F, nullptr, y,
-                          B, 2 * F, H, st);
+                          B, 2 * F, H, work, st);
     if (rc) return rc;
     const size_t n = (size_t)B * F;
     geglu_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, st>>>(y, a, B, F);
     VBT_CHECK_LAUNCH();
     if (mlp4)
       rc = launch_i4_gemm(map_d, w_d, l, (const float*)d_scale + (size_t)l * (F / d_group) * H,
-                          d_group, y, B, H, F, st);
+                          d_group, y, B, H, F, work, st);
     else
       rc = launch_i8_gemm(map_d, w_d, l, (const float*)d_scale + (size_t)l * H, nullptr, y, B, H, F,
-                          st);
+                          work, st);
     if (rc) return rc;
     const bool last = (l == L - 1);
     VBT_ROW_LAUNCH(residual_rms_kernel, H, B, 0, st, nullptr, x, y, nl + 3 * H,

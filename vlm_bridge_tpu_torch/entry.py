@@ -4,13 +4,17 @@
 - `entry()`: the masked-CE training forward of `VLMConfig.default()`
   (frozen DINOv2-large + Bridge-Lite + frozen Gemma-2-2B, bf16) at batch
   8 x 256 on the card, with example inputs: `fn(*example_args)` is the loss.
-- `dryrun_multiprocess(n)`: n CPU processes joined over gloo, at the tiny
-  preset, drive the data-parallel training stack through the JAX dry run's
-  phases 1-5 on a data-only mesh: three train steps, a checkpoint save and
-  restore, two steps from the restored state, one validation batch, one
-  generation. Each rank prints its losses; the parent checks that every
-  rank saw the same. (The dry run's GSPMD phases, 6 and 7, have no
-  counterpart: tensor parallelism is not ported.)
+- `dryrun_multiprocess(n)`: n CPU processes joined over gloo drive the
+  training stack on the JAX dry run's mesh, (n / 2 data, 2 model) when n is
+  even and above 1 (the batch split over the data axis and the frozen LM cut
+  over the model axis), else (n, 1), through its phases: at the tiny preset
+  (1) three train steps, (2) a checkpoint save and restore, (3) two steps
+  from the restored state, (4) one validation batch, (5) one generation under
+  the mesh; then (7) two executed train steps at the real 256k vocabulary and
+  GQA ratio (a mid-size LM), with a finite loss. Each rank prints its losses;
+  the parent checks that every rank saw the same. Phase 6 of the JAX dry run
+  (GSPMD's partition and compile of the flagship's widths, with no buffers)
+  has no counterpart: nothing here is compiled ahead of running it.
 
     python -m vlm_bridge_tpu_torch.entry --dryrun 2
 """
@@ -65,10 +69,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def dryrun_mesh(n: int) -> tuple:
+    """The dry run's (data, model) mesh over n processes, as JAX's."""
+    return (n // 2, 2) if n > 1 and n % 2 == 0 else (n, 1)
+
+
 def dryrun_multiprocess(n: int = 2, *, timeout_s: float = 600.0) -> list:
-    """Run the five phases in n CPU processes over gloo; returns each rank's
-    record (losses, validation loss, generated ids) after checking that
-    they are equal."""
+    """Run the phases in n CPU processes over gloo; returns each rank's
+    record (mesh, losses, validation loss, generated ids, the mid-size
+    losses) after checking that they are equal."""
     root = Path(__file__).resolve().parents[1]
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
            "PYTHONPATH": os.pathsep.join([str(root)] + [p for p in [os.environ.get(
@@ -92,7 +101,8 @@ def dryrun_multiprocess(n: int = 2, *, timeout_s: float = 600.0) -> list:
     for r, rec in enumerate(records[1:], start=1):
         if rec != records[0]:
             raise AssertionError(f"rank {r} differs from rank 0: {rec} != {records[0]}")
-    print(f"dry run over {n} processes: every rank saw losses {records[0]['losses']}")
+    print(f"dry run over {n} processes, mesh {records[0]['mesh']}: every rank saw losses "
+          f"{records[0]['losses']}, mid-size {records[0]['midsize_losses']}")
     return records
 
 
@@ -103,14 +113,14 @@ def _dryrun_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
     from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
     from vlm_bridge_tpu_torch.parallel import init_multihost, shard_batch
-    from vlm_bridge_tpu_torch.parallel.distributed import all_gather_rows
     from vlm_bridge_tpu_torch.runtime.checkpoint import CheckpointStore
     from vlm_bridge_tpu_torch.training.stack import build_stack
     from vlm_bridge_tpu_torch.training.train_step import TrainState, tree_leaves
 
     init_multihost(f"127.0.0.1:{port}", world, rank, device="cpu")
-    tc = TrainingConfig(model_preset="tiny_test", batch_size=max(world, 2) * 2,
-                        loss_chunk_size=16, max_text_len=16)
+    data_ax, model_ax = dryrun_mesh(world)
+    tc = TrainingConfig(model_preset="tiny_test", batch_size=max(data_ax, 2) * 2,
+                        loss_chunk_size=16, max_text_len=16, mesh_shape=(data_ax, model_ax))
     stack = build_stack(tc, device="cpu", steps_per_epoch=10, activation_dtype=torch.float32,
                         frozen_dtype=torch.float32)
     cfg, frozen, state, mesh = stack.cfg, stack.frozen, stack.state, stack.mesh
@@ -122,7 +132,8 @@ def _dryrun_rank(rank: int, world: int, port: int, out_dir: str) -> None:
              "input_ids": rng.integers(3, cfg.lm.vocab_size, (B, T)).astype(np.int32),
              "attn_mask": (np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)}
     dev_batch = shard_batch(mesh, batch, dtypes={"input_ids": torch.int64})
-    drop = torch.Generator().manual_seed(1 + rank)
+    # one dropout stream a data block: its model ranks run one bridge forward
+    drop = torch.Generator().manual_seed(mesh.rank_seed(1))
     losses = []
 
     # phase 1: three train steps
@@ -163,19 +174,69 @@ def _dryrun_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     assert np.isfinite(val_loss)
     print(f"[rank {rank}] phase 4 OK: val loss {val_loss}", flush=True)
 
-    # phase 5: one generation, each rank its rows, the ids gathered
+    # phase 5: one generation under the mesh, each data block its rows, the
+    # ids gathered
     params = {**frozen, "bridge": state.bridge_params}
-    pixels = normalize_on_device(dev_batch["pixel_values"], dtype=torch.float32)
+    pixels = normalize_on_device(torch.from_numpy(batch["pixel_values"]), dtype=torch.float32)
     toks, lens = generate_tokens(params, cfg, pixel_values=pixels,
                                  gen=GenerationConfig(max_length=6, greedy=True),
-                                 activation_dtype=torch.float32)
-    toks, lens = all_gather_rows(toks), all_gather_rows(lens)
+                                 activation_dtype=torch.float32, mesh=mesh)
     assert tuple(toks.shape) == (B, 7) and bool((lens >= 1).all()), (toks.shape, lens)
-    print(f"[rank {rank}] phase 5 OK: generated {tuple(toks.shape)}", flush=True)
+    print(f"[rank {rank}] phase 5 OK: generated {tuple(toks.shape)} on the mesh "
+          f"({data_ax}, {model_ax})", flush=True)
+
+    midsize = _midsize_real_steps(mesh, data_ax)
+    print(f"[rank {rank}] phase 7 OK: 2 executed train steps at a 256k vocabulary, losses "
+          f"{midsize}", flush=True)
 
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(
-        {"losses": losses, "val_loss": val_loss, "tokens": toks.tolist()}))
+        {"mesh": [data_ax, model_ax], "losses": losses, "val_loss": val_loss,
+         "tokens": toks.tolist(), "midsize_losses": midsize}))
     torch.distributed.destroy_process_group()
+
+
+def _midsize_real_steps(mesh, data_ax: int) -> list:
+    """JAX's phase 7: a mid-size LM at the real 256k vocabulary and GQA ratio
+    (8 heads over 4 KV heads), cut over the mesh's model axis, two executed
+    train steps with buffers; the losses (finite)."""
+    import numpy as np
+
+    from vlm_bridge_tpu_torch.configs import (BridgeConfig, DinoV2Config, Gemma2Config,
+                                              TrainingConfig, VLMConfig)
+    from vlm_bridge_tpu_torch.models import full_model
+    from vlm_bridge_tpu_torch.parallel import shard_batch, shard_params
+    from vlm_bridge_tpu_torch.training import train_step as ts
+
+    lm = Gemma2Config(vocab_size=256_000, hidden_size=256, intermediate_size=1024, num_layers=2,
+                      num_heads=8, num_kv_heads=4, head_dim=32, query_pre_attn_scalar=32.0,
+                      max_position_embeddings=512)
+    cfg = VLMConfig(vision=DinoV2Config.tiny_test(), lm=lm,
+                    bridge=BridgeConfig(vision_dim=32, language_dim=256, num_blocks=2,
+                                        num_heads_cross=2, num_heads_self=4, ffn_mult=4),
+                    image_size=70)
+    tc = TrainingConfig(batch_size=max(data_ax, 2) * 2, loss_chunk_size=8, max_text_len=16)
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        params = full_model.init(cfg, generator=gen, frozen_dtype=torch.float32,
+                                 device=mesh.device)
+    params = shard_params(mesh, params, cfg=cfg)
+    state, opt = ts.init_train_state(params, tc, steps_per_epoch=10)
+    step = ts.make_train_step(cfg, tc, opt, ts.make_schedule(tc, 10),
+                              activation_dtype=torch.float32, mesh=mesh)
+    B = tc.batch_size
+    rng = np.random.default_rng(3)
+    batch = shard_batch(mesh, {
+        "pixel_values": rng.integers(0, 256, (B, cfg.image_size, cfg.image_size, 3), np.uint8),
+        "input_ids": rng.integers(3, lm.vocab_size, (B, 16)).astype(np.int32),
+        "attn_mask": np.ones((B, 16), np.int32)}, dtypes={"input_ids": torch.int64})
+    frozen = ts.split_frozen(params)
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, frozen, batch, torch.Generator().manual_seed(
+            mesh.rank_seed(1)))
+        losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(losses)), losses
+    return losses
 
 
 def main(argv=None) -> int:

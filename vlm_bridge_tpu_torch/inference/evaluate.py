@@ -16,13 +16,13 @@ causal when the checkpoint's meta.json says it was trained so
 <dir>/<slot>` serves a trained bridge over the seeded random init of the
 frozen towers (the same --seed as the training run's gives its towers).
 
-`--mesh D` is data-parallel decode over a process group of D processes
-(launched by torchrun, or MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK in
-the environment; D must be the group's size): every rank loads each global
-batch, decodes its block of rows through the same single-device kernels, the
-ids are gathered in rank order, and rank 0 detokenizes and scores. `--mesh
-D,M` with M > 1 (tensor parallelism of the frozen LM) raises
-NotImplementedError.
+`--mesh D[,M]` decodes over a process group of D x M processes (launched by
+torchrun, or MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK in the
+environment): every rank loads each global batch, and generate_tokens(mesh=)
+decodes each data block's rows (with M == 1 through the same single-device
+kernels; with M > 1 on the per-layer path over an LM whose float projections
+are cut over the M ranks of the block) and gathers the ids in block order;
+rank 0 detokenizes and scores.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from vlm_bridge_tpu_torch.inference.generate import (GenerationConfig, generate_
 from vlm_bridge_tpu_torch.inference.metrics import evaluate_captions
 from vlm_bridge_tpu_torch.inference.robust import decode_captions
 from vlm_bridge_tpu_torch.models import gemma2
-from vlm_bridge_tpu_torch.parallel import batch_sharding, distributed, init_multihost
+from vlm_bridge_tpu_torch.parallel import distributed, init_multihost
 from vlm_bridge_tpu_torch.tools.loading import (add_model_args, load_from_args, mesh_from_args,
                                                 prestack_decode_params)
 
@@ -74,10 +74,11 @@ def evaluate_split(
     generator: the sampling stream, one torch.Generator on `device` advanced
     batch after batch (None: a generator seeded with 0); greedy draws
     nothing. device: where the batches go (None: the parameters' device).
-    mesh: a data-parallel mesh (parallel.auto_mesh): this rank decodes its
-    rows of every batch (batch_size must split over the data axis), the ids
-    are gathered, and only rank 0 detokenizes and scores (the other ranks
-    return num_samples and timings, with empty metrics and samples).
+    mesh: a ("data", "model") mesh (parallel.auto_mesh): generate_tokens
+    decodes this rank's data block of every batch (batch_size must split
+    over the data axis) and gathers the ids, and only rank 0 detokenizes and
+    scores (the other ranks return num_samples and timings, with empty
+    metrics and samples).
     """
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
     if device is None:
@@ -86,8 +87,6 @@ def evaluate_split(
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
-    rows = slice(None) if mesh is None else batch_sharding(mesh, batch_size)
-    gather = mesh is not None and mesh.distributed
     scorer = mesh is None or mesh.rank == 0
     ds = VLDataset(data_dir, split)
     loader = BatchLoader(ds, batch_size=batch_size, tokenizer=tokenizer, shuffle=False,
@@ -132,13 +131,13 @@ def evaluate_split(
             pixels_np = pixels_np[:real]
         if real == 0:
             break
-        pixels_np = pad_to_batch(pixels_np, batch_size)[rows]
+        pixels_np = pad_to_batch(pixels_np, batch_size)
         pixels = normalize_on_device(torch.from_numpy(pixels_np).to(device),
                                      dtype=activation_dtype)
+        # under a mesh the ids' gather is queued behind the decode: the fence
+        # stays in _drain
         toks, lens = generate_tokens(params, cfg, pixel_values=pixels, generator=generator,
-                                     gen=gen, activation_dtype=activation_dtype)
-        if gather:   # queued behind the decode: the fence stays in _drain
-            toks, lens = distributed.all_gather_rows(toks), distributed.all_gather_rows(lens)
+                                     gen=gen, activation_dtype=activation_dtype, mesh=mesh)
         n_dispatched += real
         if pending is None:
             # the first batch pays the one-time costs: fence it and start the
@@ -220,9 +219,10 @@ def main(argv=None) -> int:
                          "mlp,attn + --kv-int8); pair with '--quantize embedding4,...' for "
                          "the int4 head")
     ap.add_argument("--mesh", default=None,
-                    help="DATA[,MODEL]: data-parallel decode over a process group of DATA "
+                    help="DATA[,MODEL]: decode over a process group of DATA x MODEL "
                          "processes (torchrun, or MASTER_ADDR / MASTER_PORT / WORLD_SIZE / "
-                         "RANK); MODEL > 1 is not ported")
+                         "RANK): the batch split over DATA, the frozen LM's float "
+                         "projections over MODEL")
     add_model_args(ap)
     args = ap.parse_args(argv)
     own_group = False
@@ -268,7 +268,7 @@ def _evaluate_from_args(args) -> int:
                            early_stop=early_stop, kv_quant=args.kv_int8,
                            bridge_causal=bridge_causal, mlp_int4=args.mlp_int4)
     # serving stacks the decode weights once at load time, not per batch
-    params = prestack_decode_params(params, cfg, gen)
+    params = prestack_decode_params(params, cfg, gen, mesh=mesh)
     device = params["lm"]["final_norm"].device
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed if mesh is None else mesh.rank_seed(args.seed))

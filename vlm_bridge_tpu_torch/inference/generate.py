@@ -37,6 +37,16 @@ and the LM, the bridge causal or not as the checkpoint was trained
 Every attention of it runs `_attention_reference` by request (the flash
 kernels take bf16 only). Samples come from the same generator stream, one
 draw a token, that fast mode uses.
+
+Under a mesh (parallel.auto_mesh, one process per place): every rank passes
+the global batch, decodes its data block's rows, and the tokens and lengths
+are gathered over the data group in block order, so every rank returns the
+global result. With model == 1 each rank runs the single-device program,
+fused path included; with model > 1 (an LM cut by parallel.shard_params)
+the per-layer path serves, the ViT, the bridge and the head replicated, and
+the ranks of one data block decode the same ids: the all-reduce hands them
+the same bits, and their samplers are seeded per data block
+(Mesh.rank_seed).
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from vlm_bridge_tpu_torch.ops import decode_kernels, quant
 from vlm_bridge_tpu_torch.ops.attention import decode_attention
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, layer_norm, linear
 from vlm_bridge_tpu_torch.ops.sampling import sample_token
+from vlm_bridge_tpu_torch.parallel import batch_sharding, distributed
 
 
 @dataclass(frozen=True)
@@ -273,7 +284,8 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
         kv = gemma2.StackedKVCache.zeros(lm_cfg, B, L, device=dev)
     else:
         kv = gemma2.KVCache.zeros(lm_cfg, B, L, device=dev,
-                                  dtype=torch.int8 if gen.kv_quant else activation_dtype)
+                                  dtype=torch.int8 if gen.kv_quant else activation_dtype,
+                                  num_kv_heads=gemma2.local_heads(lm, lm_cfg)[1])
     table = lm["embedding"]
     argmax_head = None
     if gen.greedy and isinstance(table, dict):
@@ -364,14 +376,38 @@ def generate_tokens(params, cfg: VLMConfig, *, pixel_values: Optional[torch.Tens
                     vision_features: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
                     gen: GenerationConfig = GenerationConfig(),
-                    activation_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    activation_dtype=None, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate caption tokens.
 
     Returns (tokens [B, max_length+1] int32 incl. BOS, lengths [B] = index
     of the first EOS or the full length). Rows that emitted EOS are padded
     with pad_token_id afterwards. Runs on the device of the inputs.
     generator: the sampling stream, a torch.Generator on that device (None:
-    torch's global generator); greedy decoding draws nothing."""
+    torch's global generator); greedy decoding draws nothing. mesh: a
+    ("data", "model") mesh (parallel.auto_mesh): the global batch, the same
+    on every rank, must divide its data axis; each rank decodes its data
+    block's rows and returns the gathered global tokens and lengths. Seed
+    `generator` with mesh.rank_seed for sampling."""
+    if mesh is None:
+        return _generate_local(params, cfg, pixel_values, vision_features, generator, gen,
+                               activation_dtype, fused_ok=True)
+    x = pixel_values if vision_features is None else vision_features
+    if x.shape[0] % mesh.data:
+        raise ValueError(f"generation batch {x.shape[0]} must divide the mesh 'data' axis "
+                         f"({mesh.data}); pad with data.preprocess.pad_to_batch")
+    rows = batch_sharding(mesh, x.shape[0])
+    toks, lens = _generate_local(
+        params, cfg, None if pixel_values is None else pixel_values[rows],
+        None if vision_features is None else vision_features[rows], generator, gen,
+        activation_dtype, fused_ok=mesh.model == 1)
+    return (distributed.all_gather_rows(toks, mesh.data_group),
+            distributed.all_gather_rows(lens, mesh.data_group))
+
+
+def _generate_local(params, cfg: VLMConfig, pixel_values, vision_features, generator, gen,
+                    activation_dtype, *, fused_ok: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """generate_tokens on this process's rows; fused_ok False (an LM cut
+    over a model axis) keeps the fused steps from dispatching."""
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
     if gen.exact:
         if "layers" not in params["lm"]:
@@ -383,7 +419,7 @@ def generate_tokens(params, cfg: VLMConfig, *, pixel_values: Optional[torch.Tens
             vision_features = full_model.encode_image(params, cfg, pixel_values,
                                                       reference_attention=True)
         return _generate_exact(params, cfg, vision_features, gen, activation_dtype, generator)
-    use_fused = _fused_decode_available(params, cfg, gen)
+    use_fused = fused_ok and _fused_decode_available(params, cfg, gen)
     if gen.mlp_int4 and not use_fused:
         raise ValueError(
             "mlp_int4 serves only the fused stack decode, which cannot dispatch here "

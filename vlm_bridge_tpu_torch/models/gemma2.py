@@ -15,6 +15,17 @@ forward (`forward_hidden` with per-layer recomputation,
 through ops.quant (`int8_matmul` by way of `linear`, `int8_mlp`,
 `int8_matmul_t`, or `int4_matmul_t` for an int4 table). The caches are
 updated in place.
+
+Tensor parallelism (parallel.shard_params over a mesh with model > 1): a
+float q / k / v / gate / up leaf may hold this rank's columns (whole heads)
+and o / down its rows. The per-layer paths then read their head counts from
+the shards' widths (`local_heads`), keep this rank's KV heads in their
+caches, and sum the o and down products over the leaf's model group
+(parallel.model_input / model_output: identity forward and summed gradient
+at the input of a column-cut product, summed forward and identity gradient
+after a row-cut one). The collective follows the leaf, so a tree with float
+attention and int8 MLP dicts reduces the one and not the other, and a tree
+that nothing cut reduces nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from vlm_bridge_tpu_torch.ops.attention import decode_attention, dot_product_att
 from vlm_bridge_tpu_torch.ops.layers import (apply_rope, gelu_tanh, linear, rms_norm, rope_table,
                                              softcap)
 from vlm_bridge_tpu_torch.ops.quant import is_quantized, quantize_int8
+from vlm_bridge_tpu_torch.parallel.sharding import model_input, model_output
 
 
 class KVCache(NamedTuple):
@@ -48,8 +60,10 @@ class KVCache(NamedTuple):
 
     @staticmethod
     def zeros(cfg: Gemma2Config, batch: int, max_len: int, dtype=torch.bfloat16,
-              device=None) -> "KVCache":
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+              device=None, num_kv_heads: Optional[int] = None) -> "KVCache":
+        """num_kv_heads: the KV heads this process holds (None: the
+        config's; under tensor parallelism, `local_heads`)."""
+        shape = (cfg.num_layers, batch, max_len, num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
 
         def scale():
             if dtype != torch.int8:
@@ -307,16 +321,40 @@ def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     return E[input_ids]
 
 
+def _width(w) -> int:
+    return (w["w_int8"] if isinstance(w, dict) else w).shape[-1]
+
+
+def local_heads(lm: dict, cfg: Gemma2Config) -> Tuple[int, int]:
+    """(query heads, KV heads) of this process's layers: the config's, or
+    its share where parallel.shard_params cut q / k / v by whole heads."""
+    attn = lm["layers"]["0"]["attn"] if "layers" in lm else {}
+    if "q" not in attn:   # the fused int8 q|k|v or stacked weights: never cut
+        return cfg.num_heads, cfg.num_kv_heads
+    return _width(attn["q"]) // cfg.head_dim, _width(attn["k"]) // cfg.head_dim
+
+
 def _qkv_proj(attn: dict, x: torch.Tensor, cfg: Gemma2Config):
-    """Project to (q, k, v) heads; int8 params may carry a fused "qkv"."""
+    """Project to (q, k, v) heads; int8 params may carry a fused "qkv". The
+    head counts are the projections' widths over head_dim (this rank's
+    heads under tensor parallelism)."""
     B, T = x.shape[0], x.shape[1]
-    H, D, KH = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
+    D = cfg.head_dim
     if "qkv" in attn:
+        H, KH = cfg.num_heads, cfg.num_kv_heads
         y = linear(x, attn["qkv"])
         q, k, v = y[..., :H * D], y[..., H * D:(H + KH) * D], y[..., (H + KH) * D:]
     else:
+        x = model_input(x, attn["q"])
         q, k, v = linear(x, attn["q"]), linear(x, attn["k"]), linear(x, attn["v"])
-    return q.reshape(B, T, H, D), k.reshape(B, T, KH, D), v.reshape(B, T, KH, D)
+    return q.reshape(B, T, -1, D), k.reshape(B, T, -1, D), v.reshape(B, T, -1, D)
+
+
+def _out_proj(attn: dict, out: torch.Tensor) -> torch.Tensor:
+    """The o projection of the heads' outputs [..., heads, D], summed over
+    the model group where o holds this rank's rows."""
+    out = linear(out.reshape(*out.shape[:-2], -1), attn["o"])
+    return model_output(out, attn["o"])
 
 
 def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, *,
@@ -327,7 +365,6 @@ def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: in
     per-row valid key counts when attn_mask is a right-padding prefix mask
     (it lets padded training shapes take the flash kernels). return_kv=True
     also returns the rotated k and the raw v, for cache fills."""
-    B, T, H, D = x.shape[0], x.shape[1], cfg.num_heads, cfg.head_dim
     q, k, v = _qkv_proj(lp["attn"], x, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -337,7 +374,7 @@ def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: in
         logit_softcap=cfg.attn_logit_softcap, sliding_window=window,
         q_positions=positions, kv_positions=positions, kv_lengths=kv_lengths,
         reference=reference)
-    out = linear(out.reshape(B, T, H * D), lp["attn"]["o"])
+    out = _out_proj(lp["attn"], out)
     return (out, k, v) if return_kv else out
 
 
@@ -348,9 +385,10 @@ def _mlp_block(lp: dict, x: torch.Tensor) -> torch.Tensor:
         y = quant.int8_mlp(x.reshape(-1, x.shape[-1]).contiguous(), mlp["gate"], mlp["up"],
                            mlp["down"])
         return y.reshape(*lead, y.shape[-1])
-    gate = gelu_tanh(linear(x, lp["mlp"]["gate"]))
-    up = linear(x, lp["mlp"]["up"])
-    return linear(gate * up, lp["mlp"]["down"])
+    x = model_input(x, mlp["gate"])
+    gate = gelu_tanh(linear(x, mlp["gate"]))
+    up = linear(x, mlp["up"])
+    return model_output(linear(gate * up, mlp["down"]), mlp["down"])
 
 
 def _layer(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, cos, sin,
@@ -577,7 +615,6 @@ def decode_step(params: dict, cfg: Gemma2Config, token_embeds: torch.Tensor, cac
     normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=token_embeds.dtype, device=dev)
     x = token_embeds * normalizer
     window_start = torch.clamp(new_len - cfg.sliding_window, min=0)
-    H, D = cfg.num_heads, cfg.head_dim
 
     def write(buf, val, layer):
         # val: [B, ...] per-row payload (trailing dims match buf[3:])
@@ -610,7 +647,7 @@ def decode_step(params: dict, cfg: Gemma2Config, token_embeds: torch.Tensor, cac
             window_start=window_start if cfg.layer_is_sliding(i) else None,
             k_scale=None if cache.k_scale is None else cache.k_scale[i],
             v_scale=None if cache.v_scale is None else cache.v_scale[i])
-        h = linear(attn.reshape(B, 1, H * D), lp["attn"]["o"])
+        h = _out_proj(lp["attn"], attn)
         x = x + rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
         h = rms_norm(x, lp["pre_ffn_norm"], cfg.rms_norm_eps)
         h = _mlp_block(lp, h)

@@ -174,6 +174,74 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# The GEMM core's stream-K split (csrc/decode_gemm.cuh)
+# ---------------------------------------------------------------------------
+
+DG_BN, DG_BK = 192, 64    # a block's weight columns; K rows a work unit
+DG_SLOT = 64 * DG_BN      # f32 values a workspace slot: one run's partial tile
+
+
+def _units(M: int, N: int, K: int) -> tuple:
+    """(tiles, units) of a product: 64-row x DG_BN-column tiles, DG_BK rows
+    of K a unit."""
+    tiles = -(-M // 64) * -(-N // DG_BN)
+    return tiles, tiles * (K // DG_BK)
+
+
+def stream_k_workspace(M: int, N: int, K: int, sms: int) -> tuple:
+    """(slots, counters) the GEMM core needs for one [M, K] @ [K, N] product
+    on `sms` SMs: its grid is min(sms, units) blocks, each with up to two
+    runs that share a tile with other blocks (a slot each, 2 b and 2 b + 1),
+    and a counter a tile."""
+    tiles, units = _units(M, N, K)
+    return 2 * min(sms, units), tiles
+
+
+def stream_k_tiles(M: int, N: int, K: int, sms: int) -> list:
+    """For each tile in order, the blocks whose runs add into it in the order
+    of the sum and the slot each leaves its partial sums in (None for a
+    block that runs the tile whole): the closed forms of
+    csrc/decode_gemm.cuh (block_of, finish_tile, the epilogue's slot)."""
+    tiles, units = _units(M, N, K)
+    chunks, grid = K // DG_BK, min(sms, units)
+
+    def block_of(x):
+        return ((x + 1) * grid - 1) // units
+
+    plan = []
+    for tile in range(tiles):
+        x0 = tile * chunks
+        bf, bl = block_of(x0), block_of(x0 + chunks - 1)
+        if bf == bl:
+            plan.append([(bf, None)])
+            continue
+        mid = bf * units // grid < x0
+        plan.append([(bf + j, 2 * bf + 1 if j == 0 and mid else 2 * (bf + j))
+                     for j in range(bl - bf + 1)])
+    return plan
+
+
+# one workspace for each (device, stream, slots, counters): the counters are
+# zero between launches, so it is allocated once, with zeros
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: torch.device, shapes) -> tuple:
+    """The cached stream-K workspace for products of the given (M, N, K)
+    shapes launched one after another on the current stream, with its slot
+    and counter counts."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = [stream_k_workspace(M, N, K, sms) for M, N, K in shapes]
+    slots, counters = max(a for a, _ in sizes), max(b for _, b in sizes)
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, slots, counters)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(slots * DG_SLOT + counters, dtype=torch.float32,
+                                            device=dev)
+    return ws, slots, counters
+
+
 def split_halves(a: torch.Tensor) -> torch.Tensor:
     """f32 [M, K] -> [2, M, K] bf16: hi = bf16(a), lo = bf16(a - hi), the two
     halves in which the fused steps feed a product (csrc/common.cuh)."""
@@ -220,9 +288,10 @@ def decode_gemm(a2, wf, scale, bias=None, out=None):
     if bias is not None:
         c(bias, "bias", torch.float32, (N,))
     y = _gemm_out(a2, N, out)
+    ws, slots, counters = _workspace(a2.device, [(M, N, K)])
     p = cuda_lib.ptr
     cuda_lib.call("vbt_i8_gemm", p(a2), p(wf), p(scale), 0 if bias is None else p(bias), p(y),
-                  M, N, K)
+                  p(ws), slots, counters, M, N, K)
     decode_gemm.launches += 1
     return y
 
@@ -249,8 +318,10 @@ def decode_gemm4(a2, wf4, scale, out=None):
     c(wf4, "wf4", torch.int8, frag4_shape(K, N))
     c(scale, "scale", torch.float32, (groups, N))
     y = _gemm_out(a2, N, out)
+    ws, slots, counters = _workspace(a2.device, [(M, N, K)])
     p = cuda_lib.ptr
-    cuda_lib.call("vbt_i4_gemm", p(a2), p(wf4), p(scale), p(y), K // groups, M, N, K)
+    cuda_lib.call("vbt_i4_gemm", p(a2), p(wf4), p(scale), p(y), p(ws), slots, counters,
+                  K // groups, M, N, K)
     decode_gemm4.launches += 1
     return y
 
@@ -379,6 +450,7 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     hbuf = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)  # split hi | lo
     abuf = torch.empty(2, B, max(QHD, F), dtype=torch.bfloat16, device=dev)
     ybuf = torch.empty(B, max(NQKV, 2 * F, H), dtype=torch.float32, device=dev)
+    ws, slots, counters = _workspace(dev, [(B, NQKV, H), (B, H, QHD), (B, 2 * F, H), (B, H, F)])
     s = stacked
     p = cuda_lib.ptr
     cuda_lib.call(
@@ -386,7 +458,7 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
         p(s["wqkv"]), p(s["qkv_scale"]), p(s["wo"]), p(s["o_scale"]),
         *(p(s[name]) for name, _, _ in mlp), p(s["norms"]),
         p(cos), p(sin), p(kc), p(vc), p(ks), p(vs),
-        p(x32), p(hbuf), p(abuf), p(ybuf),
+        p(x32), p(hbuf), p(abuf), p(ybuf), p(ws), slots, counters,
         L, B, H, NH, KH, D, F, S, int(t), int(mlp4), group or 0,
         float(attn_scale), float(softcap), float(eps))
     fused_stack_step.launches += 1
@@ -490,6 +562,7 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
     hbuf = torch.empty(2, B, ld, dtype=torch.bfloat16, device=dev)  # split hi | lo
     abuf = torch.empty(2, B, max(ld, F), dtype=torch.bfloat16, device=dev)
     ybuf = torch.empty(B, max(3 * ld, F), dtype=torch.float32, device=dev)
+    ws, slots, counters = _workspace(dev, [(B, ld, ld), (B, 3 * ld, ld), (B, F, ld), (B, ld, F)])
     s = bst
     p = cuda_lib.ptr
     cuda_lib.call(
@@ -502,7 +575,7 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
         p(s["wo_s"]), p(s["o_s_scale"]), p(s["o_s_bias"]),
         p(s["fc1"]), p(s["fc1_scale"]), p(s["fc1_bias"]),
         p(s["fc2"]), p(s["fc2_scale"]), p(s["fc2_bias"]),
-        p(x32), p(hbuf), p(abuf), p(ybuf),
+        p(x32), p(hbuf), p(abuf), p(ybuf), p(ws), slots, counters,
         nb, B, ld, Hc, Hs, Sv, Smax, F, int(t), float(eps))
     fused_bridge_step.launches += 1
     return x_out

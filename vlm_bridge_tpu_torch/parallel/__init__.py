@@ -1,5 +1,6 @@
-"""The process group and the ("data", "model") mesh of data-parallel training
-and eval (port of vlm_bridge_tpu.parallel over torch.distributed)."""
+"""The process group and the ("data", "model") mesh of data- and
+tensor-parallel training, eval and captioning (port of vlm_bridge_tpu.parallel
+over torch.distributed)."""
 
 from vlm_bridge_tpu_torch.parallel.distributed import (  # noqa: F401
     init_multihost,

@@ -101,14 +101,14 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum over the group of each tensor, through one flat buffer (one
-    collective); new tensors, in the inputs' shapes. Without a group, the
-    inputs themselves."""
+def all_reduce_sum(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The sum over `group` (None: the whole group) of each tensor, through
+    one flat buffer (one collective); new tensors, in the inputs' shapes.
+    Without a process group, the inputs themselves."""
     if not is_initialized():
         return list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view(t.shape))
@@ -116,11 +116,24 @@ def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The ranks' equal-shaped blocks of rows stacked in rank order along dim
-    0; without a group, x."""
-    if not is_initialized():
+def all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group`, added in f32 and returned in x's dtype (a
+    new tensor): tensor parallelism's partial products. gloo, which the CPU
+    runs and two processes sharing one card use, sums CUDA tensors through
+    the host; NCCL on the card."""
+    y = x.float().contiguous()
+    if y.data_ptr() == x.data_ptr():
+        y = y.clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The equal-shaped blocks of rows of `group`'s ranks (None: the whole
+    group) stacked in rank order along dim 0; x itself without a process
+    group or in a group of one."""
+    if not is_initialized() or dist.get_world_size(group) == 1:
         return x
-    parts = [torch.empty_like(x) for _ in range(world_size())]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=0)

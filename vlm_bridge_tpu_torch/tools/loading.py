@@ -2,7 +2,7 @@
 and their resolution (preset -> seeded random init on the device -> HF
 snapshots of the towers in its place -> a trained bridge from a
 CheckpointStore slot -> int8 quantization -> tokenizer), and `--mesh` for the
-data-parallel tools."""
+data- and tensor-parallel tools."""
 
 from __future__ import annotations
 
@@ -88,10 +88,10 @@ def load_from_args(args):
 
 
 def mesh_from_args(args, params):
-    """--mesh "D" or "D,M" -> (mesh, params broadcast from rank 0); (None,
-    params) without it. D must be the process group's world size (1 without
-    a group); M > 1, tensor parallelism of the frozen LM, raises
-    NotImplementedError."""
+    """--mesh "D" or "D,M" -> (mesh, params broadcast from rank 0, with M > 1
+    the frozen LM's float projections cut over the model axis); (None,
+    params) without it. D x M must be the process group's world size (1
+    without a group)."""
     spec = getattr(args, "mesh", None)
     if not spec:
         return None, params
@@ -102,22 +102,23 @@ def mesh_from_args(args, params):
     from vlm_bridge_tpu_torch.parallel import auto_mesh, shard_params
 
     mesh = auto_mesh(data=data, model=model, device=resolve_device(args.device))
-    return mesh, shard_params(mesh, params)
+    return mesh, shard_params(mesh, params, cfg=PRESETS[args.preset]())
 
 
-def prestack_decode_params(params, cfg, gen):
+def prestack_decode_params(params, cfg, gen, mesh=None):
     """Stack the int8 decoder weights ONCE for serving (with gen.mlp_int4,
     the MLP weights at 4 bits) and drop the per-layer copies. No-op unless
     the fused stack decode serves this generation config: the per-layer path
     (no int8 KV cache, force_jnp or VLM_BRIDGE_DEBUG_FORCE_JNP, float layers,
-    a window the cache outgrows) reads the per-layer dicts as they are and
-    needs no second layout."""
+    a window the cache outgrows, a mesh with model > 1) reads the per-layer
+    dicts as they are and needs no second layout."""
     import os
 
     from vlm_bridge_tpu_torch.models import gemma2
 
     lm = params["lm"]
     if ("stacked_decode" in lm or "layers" not in lm or gen.exact or gen.force_jnp
+            or (mesh is not None and mesh.model > 1)
             or os.environ.get("VLM_BRIDGE_DEBUG_FORCE_JNP") or not gen.kv_quant
             or not gemma2.supports_fused_decode(lm, cfg.lm, gen.max_length + 1)):
         return params

@@ -13,7 +13,8 @@ Data-parallel over N cards of one host, one process each:
 
 The launcher's MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK
 join the process group (NCCL; gloo with --device cpu) and the config's
-mesh_shape (-1: every process) sets the data axis; batch_size is the global
+mesh_shape sets the mesh: (-1,) every process on the data axis, (D, M) the
+frozen LM cut over M processes of each data block; batch_size is the global
 batch.
 """
 

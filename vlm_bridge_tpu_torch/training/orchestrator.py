@@ -9,17 +9,19 @@ KeyboardInterrupt are kept. The loop keeps the JAX package's discipline: a
 train step only queues work on the device; the metrics are read on the host
 every `log_every_n_steps` steps, and the epoch's losses once at its end.
 
-Data parallelism (one process per card, `parallel/`): every rank loads the
-global batch with the same shuffle and keeps its block of rows; the train and
-eval steps sum over the group (training/train_step.py), so losses and
-decisions are the same on every rank. Only rank 0 writes TensorBoard events
-(a NullWriter elsewhere, as JAX) and the checkpoint slots (the store's swap
+Data and tensor parallelism (one process per place of the mesh,
+`parallel/`): every rank loads the global batch with the same shuffle and
+keeps its data block's rows; the train and eval steps sum over the data
+group (training/train_step.py), and with tc.mesh_shape = (D, M) the M ranks
+of a block cut the frozen LM between them, so losses and decisions are the
+same on every rank. Only global rank 0 writes TensorBoard events (a
+NullWriter elsewhere, as JAX) and the checkpoint slots (the store's swap
 runs on rank 0 behind barriers on every rank); validation samples pad their
-batch to a multiple of the data axis and gather the ids.
+batch to a multiple of the data axis and go through generate_tokens(mesh=).
 
 What differs from the JAX package: an explicit torch.device per process;
 the dropout stream is a torch.Generator on that device seeded from
-(tc.seed + 1 + epoch) and, past rank 0, the rank; the optimizer state in a
+(tc.seed + 1 + epoch) and, past block 0, the data block; the optimizer state in a
 checkpoint is BridgeOptimizer.state_dict's tree.
 """
 
@@ -39,7 +41,7 @@ from vlm_bridge_tpu_torch.data.loader import get_data_loaders
 from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device, pad_to_batch
 from vlm_bridge_tpu_torch.data.tokenizer import get_tokenizer
 from vlm_bridge_tpu_torch.inference.generate import GenerationConfig, generate_tokens
-from vlm_bridge_tpu_torch.parallel import Mesh, batch_sharding, distributed, shard_batch
+from vlm_bridge_tpu_torch.parallel import Mesh, distributed, shard_batch
 from vlm_bridge_tpu_torch.runtime.checkpoint import CheckpointStore
 from vlm_bridge_tpu_torch.runtime.profiling import StepProfiler
 from vlm_bridge_tpu_torch.runtime.tb_writer import NullWriter, SummaryWriter
@@ -338,11 +340,11 @@ def generate_validation_samples(ctx: TrainingContext, epoch: int) -> None:
     k = min(tc.num_validation_samples, batch["pixel_values"].shape[0])
     params = {**ctx.frozen, "bridge": tree_map(lambda p: p.detach().to(ctx.activation_dtype),
                                                ctx.state.bridge_params)}
-    # the sample batch padded to a multiple of the data axis; each rank
-    # captions its rows and the ids are gathered in rank order
+    # the sample batch padded to a multiple of the data axis; each data
+    # block captions its rows and the ids are gathered in block order
     data = ctx.mesh.data
     k_pad = -(-k // data) * data
-    pixels_np = pad_to_batch(batch["pixel_values"][:k], k_pad)[batch_sharding(ctx.mesh, k_pad)]
+    pixels_np = pad_to_batch(batch["pixel_values"][:k], k_pad)
     pixels = normalize_on_device(
         torch.from_numpy(np.ascontiguousarray(pixels_np)).to(ctx.device),
         dtype=ctx.activation_dtype)
@@ -351,9 +353,7 @@ def generate_validation_samples(ctx: TrainingContext, epoch: int) -> None:
     toks, _ = generate_tokens(
         params, ctx.cfg, pixel_values=pixels, generator=gen,
         gen=GenerationConfig(max_length=50, temperature=0.7, top_p=0.9),
-        activation_dtype=ctx.activation_dtype)
-    if ctx.mesh.distributed:
-        toks = distributed.all_gather_rows(toks)
+        activation_dtype=ctx.activation_dtype, mesh=ctx.mesh)
     toks = toks.cpu().numpy()[:k]
     bleus, lens, all_words = [], [], []
     for i in range(k):

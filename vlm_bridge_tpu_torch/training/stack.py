@@ -5,9 +5,12 @@ rank's parameters to rank 0's, make the bridge's f32 master copy and its
 optimizer, and build the train and eval steps. The orchestrator adds the
 loaders and the logging.
 
-What differs from the JAX package: the mesh is data-parallel only (a model
-axis > 1 raises, parallel/sharding.py); there is no `scan_layers` (a JAX
-compile lever); the device is an explicit `torch.device`, one per process.
+What differs from the JAX package: the mesh's places are processes, and a
+model axis > 1 (tc.mesh_shape = (D, M)) cuts the frozen LM's float
+projections into local shards with explicit collectives
+(parallel/sharding.py) where GSPMD would partition; there is no
+`scan_layers` (a JAX compile lever); the device is an explicit
+`torch.device`, one per process.
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ def build_stack(tc: TrainingConfig, *, params: Optional[dict] = None, device=Non
         mesh = build_mesh(tc, device)
     if tc.batch_size % mesh.data:
         raise ValueError(f"batch_size {tc.batch_size} does not split over data={mesh.data}")
-    params = shard_params(mesh, params)
+    params = shard_params(mesh, params, cfg=cfg)
     state, opt = init_train_state(params, tc, steps_per_epoch)
     schedule = make_schedule(tc, steps_per_epoch)
     return Stack(

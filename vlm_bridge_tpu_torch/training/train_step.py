@@ -17,14 +17,20 @@ What differs from the JAX package, and why:
   schedule step per k. torch.optim.AdamW does the update algebra; the clip
   and the accumulation are written here;
 - dropout takes a torch.Generator on the batch's device in place of a key;
-- data parallelism is explicit (`mesh`, parallel/sharding.py): each rank
-  holds a block of the global batch's rows. The JAX loss is the global
-  batch's nll sum over its global token count, so each rank divides its
-  sum by the count all-reduced over the group (reduced before the forward),
-  and the bridge gradients and the loss are summed over the group before the
-  clip. The mean of per-rank means would be another number whenever the
-  ranks hold different token counts. Under accumulation every microbatch
-  is a global batch, as in JAX.
+- data parallelism is explicit (`mesh`, parallel/sharding.py): each data
+  block holds a block of the global batch's rows. The JAX loss is the
+  global batch's nll sum over its global token count, so each rank divides
+  its sum by the count all-reduced over the data group (reduced before the
+  forward), and the bridge gradients and the loss are summed over the data
+  group before the clip. The mean of per-rank means would be another number
+  whenever the ranks hold different token counts. Under accumulation every
+  microbatch is a global batch, as in JAX;
+- tensor parallelism of the frozen LM (mesh.model > 1) is explicit too: the
+  ranks of one data block hold the same rows, cut the LM's float
+  projections between them, and sum its partial products over the model
+  group in the forward (models/gemma2.py), so their losses and bridge
+  gradients are the same and are NOT summed again over the model group
+  (the whole group would count each block model times).
 """
 
 from __future__ import annotations
@@ -215,7 +221,8 @@ def _loss(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_params: dict,
     labels = full_model.shift_labels(input_ids, attn_mask, mask_pad=tc.mask_pad_loss)
     if _distributed(mesh):
         # the global batch's token count, the denominator of every rank's sum
-        (kw["loss_denominator"],) = distributed.all_reduce_sum([(labels != -100).sum()])
+        (kw["loss_denominator"],) = distributed.all_reduce_sum([(labels != -100).sum()],
+                                                               mesh.data_group)
     # the cast sits inside the differentiated function, so the gradient
     # arrives in f32 on the master copy
     params = {**frozen, "bridge": tree_map(lambda p: p.to(activation_dtype), bridge_params)}
@@ -237,7 +244,7 @@ def loss_and_grads(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_para
     grads = torch.autograd.grad(loss, tree_leaves(bridge_params))
     loss = loss.detach()
     if _distributed(mesh):
-        *grads, loss = distributed.all_reduce_sum([*grads, loss.reshape(1)])
+        *grads, loss = distributed.all_reduce_sum([*grads, loss.reshape(1)], mesh.data_group)
         loss = loss.reshape(())
     return loss, aux, grads
 
@@ -281,7 +288,7 @@ def make_eval_step(cfg: VLMConfig, tc: TrainingConfig, *, activation_dtype=torch
         loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype, mesh,
                           remat_lm=False)
         if _distributed(mesh):
-            (loss,) = distributed.all_reduce_sum([loss])
+            (loss,) = distributed.all_reduce_sum([loss], mesh.data_group)
         return {
             "loss": loss,
             "token_count": aux["token_count"],
