@@ -240,6 +240,13 @@ TILED_MATMUL_MMA_SYNC_MS = {"qkv": 0.4026, "o": 0.1449, "fc1": 0.5610, "fc2": 0.
 # mma.sync kernels), on the same card, PERF.md rows 5, 5' and 7
 DECODE_STEP_MMA_SYNC_MS = {"fused_stack_step": 4.1980, "fused_stack_step[mlp_int4]": 4.3400,
                            "fused_bridge_step": 0.5808}
+# the fused steps with PR 9's GEMM core summing its stream-K partials by f32
+# atomics, on the same card, PERF.md rows 5, 5' (groups of 128) and 7
+DECODE_STEP_ATOMIC_MS = {"fused_stack_step": 2.5556, "fused_stack_step[mlp_int4]": 2.9475,
+                         "fused_bridge_step": 0.4495}
+# launches a fused step may make a layer (a bridge block), past its one
+# first norm
+STEP_LAUNCH_LIMITS = {"fused_stack_step": 6, "fused_bridge_step": 11}
 # the heads' earlier (wmma / mma.sync tile) kernels on the same card, PERF.md rows
 # 12-15 (int4 in groups of 128)
 HEAD_MMA_SYNC_MS = {"int8_matmul_t_argmax": 0.6438, "int4_matmul_t_argmax": 0.5884,
@@ -353,6 +360,34 @@ def time_ms(fn, iters: int, spin_cycles: int = 20_000_000) -> float:
     return start.elapsed_time(end) / iters
 
 
+def step_launches(fn) -> Optional[int]:
+    """Kernels that one call of fn launches on the card, counted by
+    torch.profiler (None where it records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def check_step_launches(name: str, fn, per: int, limit: int) -> Optional[int]:
+    """Print one step's launches, per layer (or block) past the first norm's
+    one; fail above `limit` a layer."""
+    n = step_launches(fn)
+    if n is None:
+        print(f"[{name}] launches of one step: not measured (the profiler recorded no kernel)")
+        return None
+    print(f"[{name}] launches of one step: {n}, {(n - 1) / per:.2f} a layer or block past the "
+          f"first norm (limit {limit})")
+    if n > 1 + limit * per:
+        raise AssertionError(f"{name}: {n} launches a step, above {1 + limit * per}")
+    return n
+
+
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     err = float((got.float() - want.float()).abs().max())
     tol = HIDDEN_TOL * float(want.float().abs().max())
@@ -436,6 +471,9 @@ def phase_stack(params, cfg, dev, gen, t=20, name="fused_stack_step"):
     # again) gives the same bits
     same_bits(f"{name} at B {BATCH}, t {t}",
               got, dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw))
+    n_launch = check_step_launches(
+        name, lambda: dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw),
+        stacked["wqkv"].shape[0], STEP_LAUNCH_LIMITS["fused_stack_step"])
     ms = time_ms(lambda: dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw), 10)
     plain_ms = time_ms(lambda: dk.fused_stack_step_plain(t, x, stacked, *cp, cos, sin, **kw), 3)
     # every stacked weight once, the t + 1 live cache rows, x in and out;
@@ -446,10 +484,12 @@ def phase_stack(params, cfg, dev, gen, t=20, name="fused_stack_step"):
     n_w = sum(stacked[k].numel() * (2 if k.endswith("4") else 1)
               for k in ("wqkv", "wo", "wgu", "wd", "wgu4", "wd4") if k in stacked)
     bd = bound(nbytes(*weights) + live + 2 * nbytes(x), 2.0 * BATCH * n_w)
-    print(f"[{name}] kernel {ms:.4f} ms (mma.sync core: {DECODE_STEP_MMA_SYNC_MS[name]:.4f}), "
+    print(f"[{name}] kernel {ms:.4f} ms (mma.sync core: {DECODE_STEP_MMA_SYNC_MS[name]:.4f}; "
+          f"atomic stream-K sums, PRs 9-15: {DECODE_STEP_ATOMIC_MS[name]:.4f}), "
           f"plain {plain_ms:.4f} ms (S={S}, t={t}), bound {bd['bound_ms']:.4f} ms by "
           f"{bd['bound_by']}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None,
+            "step_launches": n_launch}
 
 
 def phase_bridge(params, cfg, dev, gen, t=20):
@@ -480,16 +520,21 @@ def phase_bridge(params, cfg, dev, gen, t=20):
     check_close("fused_bridge_step self K row t", sk[:, :, :, t], pk[:, :, :, t])
     same_bits(f"fused_bridge_step at B {BATCH}, t {t}",
               got, dk.fused_bridge_step(t, x, bst, *cross, sk, sv, **kw))
+    n_launch = check_step_launches(
+        "fused_bridge_step", lambda: dk.fused_bridge_step(t, x, bst, *cross, sk, sv, **kw),
+        bst["wq"].shape[0], STEP_LAUNCH_LIMITS["fused_bridge_step"])
     ms = time_ms(lambda: dk.fused_bridge_step(t, x, bst, *cross, sk, sv, **kw), 10)
     plain_ms = time_ms(lambda: dk.fused_bridge_step_plain(t, x, bst, *cross, pk, pv, **kw), 3)
     # every stacked weight and the cross cache once, the t + 1 live self rows, x in and out
     live = nbytes(sk, sv) * (t + 1) // sk.shape[3]
     n_w = sum(bst[k].numel() for k in ("wq", "wo_c", "wqkv", "wo_s", "fc1", "fc2"))
     bd = bound(nbytes(*bst.values(), *cross) + live + 2 * nbytes(x), 2.0 * BATCH * n_w)
-    print(f"[fused_bridge_step] kernel {ms:.4f} ms (mma.sync core: "
-          f"{DECODE_STEP_MMA_SYNC_MS['fused_bridge_step']:.4f}), plain {plain_ms:.4f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+    name = "fused_bridge_step"
+    print(f"[{name}] kernel {ms:.4f} ms (mma.sync core: {DECODE_STEP_MMA_SYNC_MS[name]:.4f}; "
+          f"atomic stream-K sums, PRs 9-15: {DECODE_STEP_ATOMIC_MS[name]:.4f}), plain "
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None,
+            "step_launches": n_launch}
 
 
 def rows_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -1681,7 +1726,7 @@ def run_hf_snapshot(snap: Path, cfg, dev, card):
     launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
     toks_l = check_tokens(toks, lens, cfg, NEW_TOKENS)
     # the fused steps sum their stream-K partials in one order
-    # (csrc/decode_gemm.cuh:finish_tiles): a second call on the same inputs
+    # (csrc/decode_gemm.cuh:product4): a second call on the same inputs
     # gives the same bits, and the in-memory conversion the same ids
     with record_decode_hidden("decode_step_stacked") as second:
         toks2, _ = generate_tokens(loaded_st, cfg, pixel_values=pixels, gen=gcfg)

@@ -20,14 +20,22 @@ that two versions are timed in one call.
    ms (10 calls a mean), and the host's time for one call: the host clock
    around the call alone (what the host spends issuing it; nothing queued
    ahead) and around the call and a synchronise after it, medians of 20.
-3. For this checkout, a torch.profiler breakdown of one int8 stack step and
-   one bridge step: the products by shape (they launch in a fixed order:
-   q|k|v, o, gate|up, down a layer; q, cross o, self q|k|v, self o, fc1, fc2
-   a block), the attention, the row kernels, memsets.
+3. A torch.profiler breakdown of one int8 stack step and one bridge step:
+   the launches a step and a layer (or block), and device ms by part: the
+   products by shape (they launch in a fixed order: q|k|v, o, gate|up, down
+   a layer; q, cross o, self q|k|v, self o, fc1, fc2 a block), each with the
+   stage it carries where the tree runs its stages inside the products (the
+   residual norms, GeGLU / GELU; else an earlier tree's separate row, GeGLU
+   and GELU kernels), the attention kernels, and memsets.
 
 --root imports vlm_bridge_tpu_torch from DIR (its kernels build into
 DIR/build; its stacks are built by its own stack_decode_params, in its own
-weight layout). Prints the card's name and power limit, then one JSON line.
+weight layout), so that a parent's `git archive` and this tree can be timed
+in turns, one process each, in one call:
+
+    for r in build/parent . . build/parent; do python3 scripts/decode_gemm_torch.py --root $r; done
+
+Prints the card's name and power limit, then one JSON line.
 VBT_NVCC_FLAGS adds compiler flags, as for chip_smoke.py.
 """
 
@@ -188,17 +196,27 @@ def steps(cs, dev, gen, med, t=20) -> tuple:
     return res, fns
 
 
-# the parts of a step's profile: the products in their launch order, then the
-# other kernels by a piece of their names
+# the parts of a step's profile: the products in their launch order (in a tree
+# whose products carry their stages, each part holds its stage too), then the
+# other kernels by a piece of their names: this tree's first-norm row kernels
+# and an earlier tree's stage kernels
 STACK_PARTS = (("qkv", "o", "gate_up", "down"),
-               {"stack_attn": "attention", "residual_rms": "residual norms", "geglu": "GeGLU"})
+               {"input_rms": "input RMSNorm (layer 0)", "stack_attn": "attention",
+                "residual_rms": "residual norms", "geglu": "GeGLU"})
 BRIDGE_PARTS = (("q", "o_cross", "qkv_self", "o_self", "fc1", "fc2"),
-                {"cross_attn": "cross attention", "self_attn": "self attention",
-                 "residual_ln": "residual LayerNorms", "gelu_exact": "GELU"})
+                {"input_ln": "input LayerNorm (block 0)", "cross_attn": "cross attention",
+                 "self_attn": "self attention", "residual_ln": "residual LayerNorms",
+                 "gelu_exact": "GELU"})
+# the stage a product carries where the tree runs its norms, GeGLU and GELU
+# inside the products (the attentions stay kernels of their own)
+STAGES = {"o": "post-attn + pre-FFN norms", "gate_up": "GeGLU",
+          "down": "post-FFN + next input norms", "o_cross": "residual LayerNorm",
+          "o_self": "residual LayerNorm", "fc1": "GELU", "fc2": "residual LayerNorm"}
 
 
-def breakdown(name, fn, parts_of) -> dict:
-    """torch.profiler over one step: device ms by part."""
+def breakdown(name, fn, parts_of, per) -> dict:
+    """torch.profiler over one step: device ms by part, launches a step and
+    a layer (or block) past the first norm's one; `per` layers or blocks."""
     from torch.profiler import ProfilerActivity, profile
 
     order, names = parts_of
@@ -212,13 +230,16 @@ def breakdown(name, fn, parts_of) -> dict:
     if not kern:
         print(f"[breakdown {name}] the profiler recorded no device time")
         return {}
+    fused = not any(k in e.name for e in kern for k in ("residual_rms", "residual_ln"))
     parts, counts = {}, {}
     n_products = sum("decode_gemm_kernel" in e.name for e in kern)
     seen = 0
     for e in kern:
         if "decode_gemm_kernel" in e.name:
             by_shape = n_products % len(order) == 0
-            part = "product " + order[seen % len(order)] if by_shape else "products"
+            prod = order[seen % len(order)]
+            part = ("product " + prod + (f" + {STAGES[prod]}" if fused and prod in STAGES else "")
+                    if by_shape else "products")
             seen += 1
         else:
             part = next((v for k, v in names.items() if k in e.name), None)
@@ -231,9 +252,11 @@ def breakdown(name, fn, parts_of) -> dict:
     busy = sum(parts.values())
     for part in sorted(parts, key=parts.get, reverse=True):
         print(f"[breakdown {name}] {part}: {parts[part]:.4f} ms in {counts[part]} launches")
-    print(f"[breakdown {name}] device busy {busy:.4f} ms of the {span:.4f} ms from the first "
-          f"kernel's start to the last one's end ({len(kern)} launches; profiler on)")
-    return {"parts_ms": parts, "launches": counts, "busy_ms": busy, "span_ms": span}
+    print(f"[breakdown {name}] {len(kern)} launches a step, {(len(kern) - 1) / per:.2f} a layer "
+          f"or block past the first norm; device busy {busy:.4f} ms of the {span:.4f} ms from "
+          f"the first kernel's start to the last one's end (profiler on)")
+    return {"parts_ms": parts, "launches": counts, "n_launches": len(kern), "busy_ms": busy,
+            "span_ms": span}
 
 
 def main() -> int:
@@ -246,6 +269,7 @@ def main() -> int:
               "only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.root.resolve()))
+    from vlm_bridge_tpu_torch.configs import VLMConfig
     from vlm_bridge_tpu_torch.ops import cuda_lib
     from vlm_bridge_tpu_torch.ops import decode_kernels as dk
 
@@ -266,10 +290,11 @@ def main() -> int:
         if hasattr(dk, "decode_gemm"):
             out["core"] = core(cs, dk, dev, gen, med)
         out["steps"], fns = steps(cs, dev, gen, med)
-        if args.root.resolve() == REPO:
-            out["breakdown"] = {"stack_int8": breakdown("stack_int8", fns["stack_int8"],
-                                                        STACK_PARTS),
-                                "bridge": breakdown("bridge", fns["bridge"], BRIDGE_PARTS)}
+        cfg = VLMConfig.default()
+        out["breakdown"] = {"stack_int8": breakdown("stack_int8", fns["stack_int8"],
+                                                    STACK_PARTS, cfg.lm.num_layers),
+                            "bridge": breakdown("bridge", fns["bridge"], BRIDGE_PARTS,
+                                                cfg.bridge.num_blocks)}
     print(json.dumps({"decode_gemm": out}))
     return 0
 

@@ -1029,7 +1029,8 @@ def test_stack_step_int4_mlp_kernel_matches_plain(dev, group):
 # ---------------------------------------------------------------------------
 
 # f32 accumulation of the same products in another order, and split K slices
-# added by atomics: each output row within GEMM_TOL of its largest value
+# added in block order through the slots: each output row within GEMM_TOL of
+# its largest value
 GEMM_TOL = 1e-5
 # K, N: one tile; a partial tile; 324 units over the SMs, so runs of K slices
 # start and end inside tiles and inside scale groups
@@ -1136,6 +1137,97 @@ def test_stack_step_kernel_at_batch_and_position(dev, B, t, mlp4, group):
     row = ck.k[:, :, :, t].clone(), ck.v[:, :, :, t].clone()
     assert torch.equal(dk.fused_stack_step(t, x, st, *ck, cos, sin, **kw), got)
     assert torch.equal(ck.k[:, :, :, t], row[0]) and torch.equal(ck.v[:, :, :, t], row[1])
+
+
+@pytest.mark.parametrize("mlp4", [False, True], ids=["int8", "int4_channel"])
+def test_stack_step_with_gate_up_off_the_tile(dev, mlp4):
+    """F = 320: gate|up's 640 columns end in a 64-column tile of their own
+    (the interleaved runs of 32 never straddle a 192-column tile); the
+    stacked layout de-interleaves to cat(gate, up), and the step equals its
+    plain version, twice in the same bits."""
+    from vlm_bridge_tpu_torch.configs import Gemma2Config
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    cfg = Gemma2Config(vocab_size=512, hidden_size=256, intermediate_size=320, num_layers=2,
+                       num_heads=4, num_kv_heads=2, head_dim=64, query_pre_attn_scalar=64.0,
+                       sliding_window=128)
+    g = torch.Generator(device=dev).manual_seed(81)
+    q = gemma2.quantize_params(gemma2.init(cfg, generator=g, device=dev))
+    st = gemma2.stack_decode_params(q, cfg, mlp_int4=mlp4, mlp_int4_group=None)
+    if not mlp4:
+        gate, up = dk.split_gate_up(dk.from_fragments(st["wgu"][1]))
+        assert torch.equal(gate, q["layers"]["1"]["mlp"]["gate"]["w_int8"])
+        assert torch.equal(up, q["layers"]["1"]["mlp"]["up"]["w_int8"])
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=64, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    ck, cp = (gemma2.StackedKVCache.zeros(cfg, 64, 8, device=dev) for _ in range(2))
+    x = torch.randn(64, 256, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([3], device=dev), 64))
+    got = dk.fused_stack_step(3, x, st, *ck, cos, sin, **kw)
+    _close(got, dk.fused_stack_step_plain(3, x, st, *cp, cos, sin, **kw))
+    assert torch.equal(dk.fused_stack_step(3, x, st, *ck, cos, sin, **kw), got)
+
+
+def test_step_wrappers_refuse_what_the_stages_do_not_take(dev):
+    """More than four query heads a kv head, and bridge self-attention heads
+    other than 32 / 64 / 128 / 256 wide, are refused before any launch."""
+    from vlm_bridge_tpu_torch.configs import BridgeConfig, Gemma2Config
+    from vlm_bridge_tpu_torch.inference.generate import _build_cross_cache
+    from vlm_bridge_tpu_torch.models import bridge, gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    cfg = Gemma2Config(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=1,
+                       num_heads=8, num_kv_heads=1, head_dim=64, query_pre_attn_scalar=64.0,
+                       sliding_window=128)
+    g = torch.Generator(device=dev).manual_seed(82)
+    st = gemma2.stack_decode_params(gemma2.quantize_params(gemma2.init(cfg, generator=g,
+                                                                       device=dev)), cfg)
+    c = gemma2.StackedKVCache.zeros(cfg, 2, 8, device=dev)
+    x = torch.zeros(2, 256, device=dev, dtype=torch.bfloat16)
+    one = torch.ones(64, device=dev)
+    n = dk.fused_stack_step.launches
+    with pytest.raises(ValueError, match="head layout"):
+        dk.fused_stack_step(0, x, st, *c, one, one * 0, num_heads=8, num_kv_heads=1, head_dim=64,
+                            attn_scale=0.125, softcap=50.0, eps=1e-6)
+    bc = BridgeConfig(vision_dim=64, language_dim=192, num_blocks=1, num_heads_cross=2,
+                      num_heads_self=2, ffn_mult=2)
+    bq = bridge.quantize_decode_params(bridge.init(bc, generator=g, device=dev))
+    cache = _build_cross_cache(bq, bc, torch.zeros(2, 5, 64, device=dev, dtype=torch.bfloat16),
+                               4, torch.bfloat16, kv_quant=True)
+    with pytest.raises(ValueError, match="head widths"):
+        dk.fused_bridge_step(0, torch.zeros(2, 192, device=dev, dtype=torch.bfloat16),
+                             bridge.stack_bridge_decode_params(bq, bc), *_bridge_args(cache),
+                             num_heads_cross=2, num_heads_self=2, eps=1e-5)
+    assert dk.fused_stack_step.launches == n
+
+
+def test_steps_launch_five_and_eight_kernels_a_layer(dev):
+    """One stack step launches 1 + 5 L kernels (four products, three with
+    their stage, and the attention) and one bridge step 1 + 8 nb (six
+    products, four with their stage, and the two attentions), counted by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    g, st, kw, (ck, _) = _stack_case(dev, 64, False, None, seed=83)
+    _, bst, bkw, (bc, _) = _bridge_case(dev, 64, seed=84)
+    x = torch.randn(64, 256, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([9], device=dev), 64))
+    for fn, want in ((lambda: dk.fused_stack_step(9, x, st, *ck, cos, sin, **kw),
+                      1 + 5 * st["wqkv"].shape[0]),
+                     (lambda: dk.fused_bridge_step(9, x, bst, *_bridge_args(bc), **bkw),
+                      1 + 8 * bst["wq"].shape[0])):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == want, [e.name[:60] for e in kernels]
 
 
 def _bridge_case(dev, B, seed):

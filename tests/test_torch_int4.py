@@ -460,15 +460,14 @@ def test_decode_step_stacked_int4_mlp_matches_jax(monkeypatch, group):
 
     # the same int4 grid on both sides: layer 0's gate against the JAX stack's
     H, F = cfg.hidden_size, cfg.intermediate_size
-    vals = tdk.from_fragments4(st_t["wgu4"][0])
+    vals = tdk.split_gate_up(tdk.from_fragments4(st_t["wgu4"][0]))[0]   # runs of 32 columns
     jlo, jhi = jq.unpack_int4(st_j["gate4"][0])
-    np.testing.assert_array_equal(vals[:, :F].numpy(),
+    np.testing.assert_array_equal(vals.numpy(),
                                   np.concatenate([np.asarray(jlo), np.asarray(jhi)], axis=0))
     jscale = np.asarray(st_j["gu_scale4"][0])            # [2 or 2 H/g, F]: gate rows, then up
-    np.testing.assert_array_equal(st_t["gu_scale4"][0][:, :F].numpy(),
-                                  jscale[:jscale.shape[0] // 2])
-    np.testing.assert_array_equal(st_t["gu_scale4"][0][:, F:].numpy(),
-                                  jscale[jscale.shape[0] // 2:])
+    gate_s, up_s = tdk.split_gate_up(st_t["gu_scale4"][0])
+    np.testing.assert_array_equal(gate_s.numpy(), jscale[:jscale.shape[0] // 2])
+    np.testing.assert_array_equal(up_s.numpy(), jscale[jscale.shape[0] // 2:])
     np.testing.assert_array_equal(st_t["d_scale4"][0].numpy().reshape(-1, H),
                                   np.asarray(st_j["down_scale4"][0]).reshape(-1, H))
 

@@ -71,10 +71,54 @@ def test_gemma2_quantize_stack_embed():
     assert st["wqkv"].shape == (cfg.num_layers, NQKV // 64, H // 32, 128, 16)
     gu = tdk.from_fragments(st["wgu"][2])
     assert gu.shape == (H, 2 * F)
-    np.testing.assert_array_equal(gu[:, F:].numpy(),
+    gate, up = tdk.split_gate_up(gu)   # interleaved in runs of 32 columns
+    np.testing.assert_array_equal(gate.numpy(),
+                                  np.asarray(qj["layers"]["2"]["mlp"]["gate"]["w_int8"]))
+    np.testing.assert_array_equal(up.numpy(),
                                   np.asarray(qj["layers"]["2"]["mlp"]["up"]["w_int8"]))
     assert not tg.supports_fused_decode(qt, P(cfg), 51)  # tiny window (8) binds
     assert tg.fused_cache_rows(51) == 64
+
+
+@pytest.mark.parametrize("mlp_int4,group", [(False, None), (True, None), (True, 128)],
+                         ids=["int8", "int4_channel", "int4_g128"])
+def test_stacked_gate_up_deinterleaves_to_the_concatenation(mlp_int4, group):
+    """The stacked gate|up weights and scales, read back from fragment order
+    and de-interleaved, are cat(gate, up) and its scales; the interleave
+    puts gate columns 32 i .. 32 i + 31 then the same up columns into each
+    64-column tile."""
+    from vlm_bridge_tpu_torch.configs import Gemma2Config as TGemma2Config
+    from vlm_bridge_tpu_torch.ops import quant as tq
+
+    cfg = TGemma2Config(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                          num_heads=4, num_kv_heads=2, head_dim=64, query_pre_attn_scalar=64.0,
+                          sliding_window=128)
+    q = tg.quantize_params(tg.init(cfg, generator=torch.Generator().manual_seed(3),
+                                   dtype=torch.float32))
+    st = tg.stack_decode_params(q, cfg, mlp_int4=mlp_int4, mlp_int4_group=group)
+    F = cfg.intermediate_size
+    for i in range(cfg.num_layers):
+        mlp = q["layers"][str(i)]["mlp"]
+        if mlp_int4:
+            got, got_s = tdk.from_fragments4(st["wgu4"][i]), st["gu_scale4"][i]
+            want, want_s = [], []
+            for k in ("gate", "up"):
+                q4 = tq.quantize_int4(tq.dequantize(mlp[k], axis=0), group_size=group)
+                want.append(torch.cat(tq.unpack_int4(q4["w_int4"]), dim=0))
+                want_s.append(q4["scale"] if group is not None else q4["scale"][None])
+        else:
+            got, got_s = tdk.from_fragments(st["wgu"][i]), st["gu_scale"][i]
+            want = [mlp["gate"]["w_int8"], mlp["up"]["w_int8"]]
+            want_s = [mlp["gate"]["scale"].float(), mlp["up"]["scale"].float()]
+        assert torch.equal(torch.cat(tdk.split_gate_up(got), dim=-1), torch.cat(want, dim=-1))
+        assert torch.equal(torch.cat(tdk.split_gate_up(got_s), dim=-1),
+                           torch.cat(want_s, dim=-1))
+        assert torch.equal(got[:, 32:64], want[1][:, :32])   # tile 0's second half: up
+        assert torch.equal(got[:, 64:96], want[0][:, 32:64])
+    # the interleave takes whole runs of 32 columns
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tdk.interleave_gate_up(torch.zeros(4, 48), torch.zeros(4, 48))
+    assert F % tdk.GU_RUN == 0
 
 
 def test_fragment_order_round_trips_and_matches_mma_layout():

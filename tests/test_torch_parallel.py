@@ -47,6 +47,19 @@ def test_auto_mesh_validation():
         auto_mesh(1, 2, device="cpu")
 
 
+def test_auto_mesh_without_a_device_takes_the_card_or_raises(monkeypatch):
+    """device=None resolves this process's card; where torch sees none it
+    raises instead of carrying on on the CPU, which device="cpu" still asks
+    for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        auto_mesh()
+    with pytest.raises(RuntimeError, match="is_available"):
+        auto_mesh(1, 1)
+    mesh = auto_mesh(device="cpu")
+    assert mesh.device == torch.device("cpu") and (mesh.data, mesh.model) == (1, 1)
+
+
 def test_rank_seed_is_the_data_blocks():
     """Sampling and dropout streams follow the data block: the model ranks of
     one block draw one stream (their replicated bridge and caches must not

@@ -1,7 +1,8 @@
 """PyTorch port, the decode GEMM core's stream-K split (csrc/decode_gemm.cuh):
-the workspace size (`stream_k_workspace`) and the order of each tile's sum
-(`stream_k_tiles`, the kernel's closed forms) against a brute-force walk of
-the units that each block of the grid runs, as the kernel's loop runs them.
+the workspace size (`stream_k_workspace`) and the order in which a stage
+adds each tile's slots (`stream_k_tiles`, the kernel's closed forms) against
+a brute-force walk of the units that each block of the grid runs, as the
+kernel's loop runs them.
 The kernel itself runs only on the card (tests/test_torch_cuda.py holds two
 calls' bits equal there)."""
 
@@ -45,41 +46,37 @@ def _brute_force_runs(M, N, K, sms):
 @pytest.mark.parametrize("M,N,K,sms", CASES, ids=[f"M{m}_N{n}_K{k}_sms{s}" for m, n, k, s in CASES])
 def test_stream_k_plan_matches_a_brute_force_walk(M, N, K, sms):
     runs, tiles, chunks, grid = _brute_force_runs(M, N, K, sms)
-    slots, counters = dk.stream_k_workspace(M, N, K, sms)
-    assert counters == tiles
-    # the brute force's order of each tile's sum: its runs in block order, a
-    # run of the whole tile with no slot, any other in slot 2 b or 2 b + 1
+    slots, words = dk.stream_k_workspace(M, N, K, sms)
+    assert words == 2   # the grid barrier's count and generation
+    # the brute force's order of each tile's sum: its runs in block order,
+    # each stored in the slot of its tile and block
     want = [[] for _ in range(tiles)]
     for b, tile, u, end, first in runs:
-        whole = u == tile * chunks and end == (tile + 1) * chunks
-        want[tile].append((b, None if whole else 2 * b + (0 if first else 1)))
+        want[tile].append((b, tile + b))
     assert dk.stream_k_tiles(M, N, K, sms) == want
-    used = [s for plan in want for _, s in plan if s is not None]
+    used = [s for plan in want for _, s in plan]
     assert len(used) == len(set(used)), "two runs share a slot"
-    assert all(0 <= s < slots for s in used)
-    # a tile is whole (one block, no slot) or summed from two or more slots
-    assert all(len(p) == 1 or all(s is not None for _, s in p) for p in want)
-    # the tiles each block finishes after its loop (decode_gemm_kernel's
-    # t_head / t_tail tests) are exactly those it shares with other blocks
+    assert all(0 <= s < slots for s in used) and slots == tiles + grid - 1
+    # a tile's contributors are consecutive blocks, one run each
+    for plan in want:
+        blocks = [b for b, _ in plan]
+        assert blocks == list(range(blocks[0], blocks[-1] + 1))
+    # a block runs one tile's part, or the end of one and the start of the
+    # next, or whole tiles between: its runs cover its units exactly once
     for b in range(grid):
         u0, u1 = b * (tiles * chunks) // grid, (b + 1) * (tiles * chunks) // grid
-        t_head, t_tail = u0 // chunks, (u1 - 1) // chunks
-        finished = set()
-        if u0 % chunks or u1 < (t_head + 1) * chunks:
-            finished.add(t_head)
-        if t_tail != t_head and u1 % chunks:
-            finished.add(t_tail)
-        shared = {tile for bb, tile, u, end, _ in runs
-                  if bb == b and not (u == tile * chunks and end == (tile + 1) * chunks)}
-        assert finished == shared
+        mine = sorted((u, end) for bb, _, u, end, _ in runs if bb == b)
+        assert mine[0][0] == u0 and mine[-1][1] == u1
+        assert all(e == s for (_, e), (s, _) in zip(mine, mine[1:]))
 
 
 def test_stream_k_workspace_at_gemma2_2b_batch_64():
-    """The stack step's workspace at batch 64 on an H100's 132 SMs: 264
-    slots of 48 KB (12.98 MB) and gate|up's 96 tile counters; q|k|v splits
-    each tile over 6 blocks, o and down over 11, gate|up over 2-3."""
+    """The stack step's workspace at batch 64 on an H100's 132 SMs: gate|up's
+    96 + 131 = 227 slots of 48 KB (11.16 MB) and the barrier's two words;
+    q|k|v splits each tile over 6 blocks, o and down over 11, gate|up over
+    2-3."""
     sizes = [dk.stream_k_workspace(64, N, K, 132) for N, K in GEMMA2_2B]
-    assert max(s for s, _ in sizes) == 264 and max(c for _, c in sizes) == 96
-    assert 264 * dk.DG_SLOT * 4 == 12_976_128
+    assert max(s for s, _ in sizes) == 227 and max(c for _, c in sizes) == 2
+    assert 227 * dk.DG_SLOT * 4 == 11_157_504
     spread = [sorted({len(p) for p in dk.stream_k_tiles(64, N, K, 132)}) for N, K in GEMMA2_2B]
     assert spread == [[6], [11], [2, 3], [11]]

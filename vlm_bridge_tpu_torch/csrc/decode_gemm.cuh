@@ -1,9 +1,23 @@
 // The decode GEMM core of the fused decode steps (stack_step.cu,
-// bridge_step.cu): Y[M, N] += (A[M, K] @ W[K, N]) * scale, W int8
-// (i8_gemm.cu) or int4 with scales per group of rows (i4_gemm.cu), A f32
-// stored split as bf16 hi + lo halves (common.cuh:store_split). The design
-// and its bound are described at the top of i8_gemm.cu; this header holds
-// the kernel both files instantiate and the host's side of a launch.
+// bridge_step.cu), the stages that run in its kernel and the attention
+// kernels that read its products: Y[M, N] = (A[M, K] @ W[K, N]) * scale, W
+// int8 (i8_gemm.cu) or int4 with scales per group of rows (i4_gemm.cu), A
+// f32 stored split as bf16 hi + lo halves (common.cuh:store_split). The
+// mainloop and its bound are described at the top of i8_gemm.cu; this header
+// holds the kernels, their stages and the host's side of a launch.
+//
+// Y is never stored whole. The (tile, K slice) units are split stream-K, one
+// equal run for each SM; every run of one tile stores its partial sums into
+// a workspace slot of its own (slot tile + block: the contributors of a tile
+// are consecutive blocks, so the slots of consecutive tiles never meet).
+// Whatever consumes Y reads each value as the sum of its tile's slots in
+// block order (product4), so the bits depend on the shapes and the SM count
+// only, and no sum of partials and no zeroing of Y stands between a product
+// and its consumer: either the product's own grid, resident (a cooperative
+// launch, one block a SM), meets at one barrier after its stores and runs
+// the stage (a residual norm, GeGLU, GELU, an add into a caller's tensor:
+// DgKind), or the product ends (DG_NONE) and an attention kernel of its own
+// (attn_kernel, self_attn_kernel) reads the slots.
 #pragma once
 
 #include "sm90.cuh"
@@ -14,9 +28,10 @@ namespace {
 // and 13: the producers (lane 0 of one loads the activations, of the other
 // the weights). Compiled for 512 threads so that ptxas keeps to the 128
 // registers a thread a block of 14 warps can have (four warps share a
-// sub-partition's 16,384).
+// sub-partition's 16,384). The consumers also run the stage.
 constexpr int DG_WGS = 3;
-constexpr int DG_THREADS = 128 * DG_WGS + 64;
+constexpr int DG_CONSUMERS = 128 * DG_WGS;
+constexpr int DG_THREADS = DG_CONSUMERS + 64;
 constexpr int DG_BN = 64 * DG_WGS;   // weight columns a block covers
 constexpr int DG_BK = 64;            // depth of a stage
 constexpr int DG_FRAG = 2048;        // one 64-column tile's fragment run: 16 bytes x 128 lanes
@@ -30,30 +45,73 @@ constexpr int DG_EPI_BYTES = 32 * DG_EPI_LD * 4;
 // one slot of the stream-K workspace: a run's partial sums of one tile, 64
 // rows x DG_BN columns f32 (ops/decode_kernels.py:stream_k_workspace)
 constexpr int DG_SLOT = 64 * DG_BN;
+// threads of a cross-attention block (rows of the vision K a pass)
+constexpr int DG_XATTN_THREADS = 320;
+
+// heads of a kv head the stack's attention stage takes (the wrapper refuses more)
+constexpr int DG_GMAX = 4;
 
 }  // namespace
 
-// The stream-K workspace of a launch. A block's run of a tile that other
-// blocks also contribute to ends in `slots`: slot 2 b for the run that begins
-// at the block's first unit, 2 b + 1 for the one that begins later (a block
-// has at most one of each). counters[tile] counts the arrivals of the tile's
-// contributors and then those done with their share of the sum; the last one
-// sets it back to zero, so the counters are zero between launches. The sum
-// of a tile is in slot order, so the bits of Y depend on the shapes and the
-// SM count only.
+// The workspace of a launch: the slots, then the grid barrier's arrival
+// count and its release flag (ops/decode_kernels.py:stream_k_workspace). The
+// count is zero between launches; the flag holds the epoch of the last
+// launch whose barrier it released, and every launch has an epoch of its own
+// (dg_next_epoch), so a waiter never mistakes an earlier launch's release.
 struct DgWork {
   float* slots;
-  unsigned* counters;
+  unsigned* bar;
   int n_slots, n_counters;
+  unsigned epoch;
 };
 
-// The workspace behind `ws` (f32: n_slots slots, then n_counters u32
-// counters, zero between launches)
+// A new epoch for a launch's grid barrier: one counter for the whole
+// library (i8_gemm.cu), never 0 (the flag's value in a new workspace).
+unsigned dg_next_epoch();
+
+// The workspace behind `ws` (f32: n_slots slots, then n_counters u32 words)
 inline DgWork dg_work(void* ws, int n_slots, int n_counters) {
   float* slots = static_cast<float*>(ws);
   return DgWork{slots, reinterpret_cast<unsigned*>(slots + (size_t)n_slots * DG_SLOT), n_slots,
-                n_counters};
+                n_counters, 0u};
 }
+
+// What a launch does with its product Y [M, N] once the grid has stored it.
+// A split output [2, M, out_ld] holds the hi rows, then the lo rows.
+enum DgKind {
+  DG_ADD,          // y[M, N] += Y (the core alone)
+  DG_STACK_ATTN,   // Y = q|k|v: RoPE, the new int8 K/V into row t, GQA over rows <= t -> out
+  DG_RMS,          // x += rms(Y) (1 + w_post); out = rms(x) (1 + w_s) (or xo = bf16(x))
+  DG_GEGLU,        // out = gelu_tanh(gate) * up, gate and up interleaved in runs of 32 columns
+  DG_CROSS_ATTN,   // Y = q: softmax over the int8 cross K/V -> out
+  DG_SELF_ATTN,    // Y = q|k|v: the new bf16 K/V into row t, attention over rows <= t -> out
+  DG_LN,           // x += Y; out = LN(x) w_s + w_b (or xo = bf16(x))
+  DG_GELU,         // out = gelu_erf(Y)
+  DG_NONE,         // Y stays in the slots for a kernel of its own (attn_kernel, self_attn_kernel)
+};
+
+struct DgStage {
+  int kind;
+  float* y;              // DG_ADD
+  bf16* out;             // the stage's split output (the next product's activation)
+  int out_ld;
+  float* x;              // the f32 residual [M, N] (the norm stages)
+  const float* w_post;   // DG_RMS: the product's norm weight
+  const float* w_s;      // the next norm's weight (DG_LN: scale); null: no next norm
+  const float* w_b;      // DG_LN: the next LayerNorm's bias
+  bf16* xo;              // bf16(x), written where there is no next norm (null: not written)
+  float eps;
+  const float* cosv;     // DG_STACK_ATTN: RoPE rows of position t [D]
+  const float* sinv;
+  int8_t* kc;            // int8 K/V [M, kv_heads, S, D] with scales [M, kv_heads, S]
+  int8_t* vc;            // (DG_CROSS_ATTN: the cross cache, read only)
+  float* ks;
+  float* vs;
+  bf16* sk;              // DG_SELF_ATTN: bf16 K/V [M, heads, S, D]
+  bf16* sv;
+  int heads, kv_heads, D, S, t;
+  float attn_scale, softcap;
+};
 
 namespace {
 
@@ -62,11 +120,18 @@ struct DgShape {
   static constexpr int SUB_BYTES = INT4 ? 64 * DG_BK / 2 : 64 * DG_BK;   // a 64-column tile a stage
   static constexpr int STAGE_BYTES = DG_ACT_BYTES + DG_WGS * SUB_BYTES;
   static constexpr int STAGES = INT4 ? 9 : 7;
-  // the ring (aligned to 1024 for the swizzle), the staging, the stages'
-  // full and empty barriers
-  static constexpr int SMEM = STAGES * STAGE_BYTES + DG_EPI_BYTES + 1024 + STAGES * 16;
+  // the ring and the epilogue's staging: the stage's shared memory afterwards
+  static constexpr int REGION = STAGES * STAGE_BYTES + DG_EPI_BYTES;
+  // the region (aligned to 1024 for the swizzle), the stages' full and empty
+  // barriers
+  static constexpr int SMEM = REGION + 1024 + STAGES * 16;
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
+
+// shared memory every stage may use, whichever instantiation runs it
+constexpr int DG_STAGE_SMEM = DgShape<false>::REGION < DgShape<true>::REGION
+                                  ? DgShape<false>::REGION
+                                  : DgShape<true>::REGION;
 
 // D[64, 128] += A[64, 16] . B[16, 128]: A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B K-major in shared memory
@@ -96,19 +161,6 @@ __device__ __forceinline__ float scale_or(const float* p, bool valid) {
   return valid ? fmaxf(*p, 1e-30f) : 1.f;
 }
 
-// Y[m, n..n+3] += v, one vector reduction in the L2: used by a tile's only
-// writer, so the one addition has one order
-__device__ __forceinline__ void red_add4(float* y, float4 v) {
-#if __CUDA_ARCH__ >= 900 && (__CUDACC_VER_MAJOR__ > 12 || __CUDACC_VER_MINOR__ >= 4)
-  atomicAdd(reinterpret_cast<float4*>(y), v);
-#else
-  atomicAdd(y, v.x);
-  atomicAdd(y + 1, v.y);
-  atomicAdd(y + 2, v.z);
-  atomicAdd(y + 3, v.w);
-#endif
-}
-
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
@@ -125,107 +177,683 @@ __device__ __forceinline__ int block_of(long long x, int units, int grid) {
   return (int)(((x + 1) * grid - 1) / units);
 }
 
-// Float4s [lo, hi) of a tile's share (float4 it at row it / q4, column
-// 4 (it % q4) of the tile's y): the sum over the n slots in contributor order
-// (slot 0 `first`, slot j >= 1 at rest + 2 j slots), added into y (zero there:
-// one writer, one addition). A thread takes IPT float4s at a time, with the
-// loads of JB slots of each in flight together, so that their L2 latencies
-// overlap.
-template <int JB, int IPT>
-__device__ __forceinline__ void sum_share(const float* first, const float* rest, int n, int lo,
-                                          int hi, int q4, float* y, int N) {
-  for (int base = lo + threadIdx.x; base < hi; base += 128 * DG_WGS * IPT) {
-    int at[IPT];
-    float4 acc[IPT];
-#pragma unroll
-    for (int u = 0; u < IPT; ++u) {
-      const int it = base + u * 128 * DG_WGS;
-      at[u] = it < hi ? it / q4 * DG_BN + 4 * (it % q4) : -1;
-      acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    for (int j0 = 0; j0 < n; j0 += JB) {
-      float4 v[JB][IPT];
-#pragma unroll
-      for (int j = 0; j < JB; ++j) {
-        const float* slot = j0 + j == 0 ? first : rest + (size_t)2 * (j0 + j) * DG_SLOT;
-#pragma unroll
-        for (int u = 0; u < IPT; ++u)
-          if (j0 + j < n && at[u] >= 0)
-            v[j][u] = __ldcg(reinterpret_cast<const float4*>(slot + at[u]));
-      }
-#pragma unroll
-      for (int j = 0; j < JB; ++j)
-#pragma unroll
-        for (int u = 0; u < IPT; ++u)
-          if (j0 + j < n && at[u] >= 0) acc[u] = add4(acc[u], v[j][u]);
-    }
-#pragma unroll
-    for (int u = 0; u < IPT; ++u)
-      if (at[u] >= 0) red_add4(y + (size_t)(at[u] / DG_BN) * N + at[u] % DG_BN, acc[u]);
-  }
-}
+// ---- the stages' side: Y read from the slots ----
 
-// The fixed-order sum of tile `tile`, whose units are [x0, x0 + chunks):
-// wait for the arrivals of its n contributors (blocks bf .. bf + n - 1),
-// count this block past the wait, and sum this block's 1/n of the tile's
-// float4s over the n slots in contributor order into Y. All the grid's
-// blocks are resident (one a SM), and every block arrives at all its tiles
-// before it waits at any, so the wait ends. Run by the DG_WGS consumer
-// warpgroups after finish_tiles arrived.
-__device__ __forceinline__ void finish_tile(int tile, int n_tiles, int chunks, int units,
-                                            const DgWork& ws, float* __restrict__ Y, int M,
-                                            int N) {
-  const long long x0 = (long long)tile * chunks;
-  const int G = gridDim.x, bf = block_of(x0, units, G);
-  const int n = block_of(x0 + chunks - 1, units, G) - bf + 1, k = blockIdx.x - bf;
-  // the first contributor's run begins after its first unit: its tail slot
-  const bool mid = (long long)bf * units / G < x0;
-  unsigned* cnt = ws.counters + tile;
-  if (threadIdx.x == 0) {
-    while (ld_acquire(cnt) < (unsigned)n) __nanosleep(32);
-    // done with the wait: the last of the n to pass it sets the counter back
-    // to zero for the next launch (which starts after every block's exit)
-    if (atomicAdd(cnt, 1u) == (unsigned)(2 * n - 1)) atomicExch(cnt, 0u);
-  }
-  named_bar(4, 128 * DG_WGS);
-  const int m0 = tile / n_tiles * 64, n0 = tile % n_tiles * DG_BN;
-  const int q4 = min(DG_BN, N - n0) / 4, items = min(64, M - m0) * q4;
-  const int lo = k * items / n, hi = (k + 1) * items / n;
-  const float* first = ws.slots + (size_t)(mid ? 2 * bf + 1 : 2 * bf) * DG_SLOT;
-  const float* rest = ws.slots + (size_t)2 * bf * DG_SLOT;   // slot 2 (bf + j) for j >= 1
-  float* y = Y + (size_t)m0 * N + n0;
-  // many contributors leave a thread about one float4 with all its slots'
-  // loads in flight; few leave it several float4s, four slots of each
-  if (n > 4)
-    sum_share<16, 1>(first, rest, n, lo, hi, q4, y, N);
-  else
-    sum_share<4, 4>(first, rest, n, lo, hi, q4, y, N);
-}
+// A launch's split: its tiles, K slices a tile, units and blocks.
+struct DgPlan {
+  int n_tiles, chunks, units, grid;
+};
 
-// After a block's last unit: the tiles it shares with other blocks, the one
-// its first unit is in (unless the block ran all of it) and the one its last
-// unit is in (unless that run ended the tile, so that the block ran it
-// whole). Their partial sums are in the slots: the block arrives at both
-// counters (one fence publishes both runs' stores, so that no warp waits on
-// its stores inside the main loop), then sums its share of each. Not
-// inlined: the split is recomputed here, so that none of it stays in
-// registers across the main loop.
-__device__ __noinline__ void finish_tiles(DgWork ws, float* Y, int M, int N, int K) {
+__device__ __forceinline__ DgPlan dg_plan(int M, int N, int K) {
   const int n_tiles = (N + DG_BN - 1) / DG_BN, chunks = K / DG_BK;
-  const int units = (M + 63) / 64 * n_tiles * chunks;
-  const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
-  const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
-  const int t_head = u0 / chunks, t_tail = (u1 - 1) / chunks;
-  const bool head = u0 % chunks != 0 || u1 < (t_head + 1) * chunks;
-  const bool tail = t_tail != t_head && u1 % chunks != 0;
-  named_bar(4, 128 * DG_WGS);   // every consumer's slot stores are issued
+  return DgPlan{n_tiles, chunks, (M + 63) / 64 * n_tiles * chunks, (int)gridDim.x};
+}
+
+// Y[m, n..n+3] (n % 4 == 0): the partial sums of its tile's contributors,
+// blocks bf .. bl, added in block order (the loads of up to eight slots in
+// flight at once)
+__device__ __forceinline__ float4 product4(const float* slots, const DgPlan& p, int m, int n) {
+  const int tile = (m >> 6) * p.n_tiles + n / DG_BN;
+  const long long x0 = (long long)tile * p.chunks;
+  const int bf = block_of(x0, p.units, p.grid), bl = block_of(x0 + p.chunks - 1, p.units, p.grid);
+  const float* s = slots + (size_t)(tile + bf) * DG_SLOT + (m & 63) * DG_BN + n % DG_BN;
+  float4 v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (bf + j <= bl) v[j] = __ldcg(reinterpret_cast<const float4*>(s + (size_t)j * DG_SLOT));
+  float4 acc = v[0];
+#pragma unroll
+  for (int j = 1; j < 8; ++j)
+    if (bf + j <= bl) acc = add4(acc, v[j]);
+  for (int b = bf + 8; b <= bl; ++b)
+    acc = add4(acc, __ldcg(reinterpret_cast<const float4*>(s + (size_t)(b - bf) * DG_SLOT)));
+  return acc;
+}
+
+__device__ __forceinline__ float elem(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Sums and maxima over a group of `threads` threads (named barrier `id`; the
+// whole stage: 4, DG_CONSUMERS), in one order: each warp's shuffle tree,
+// then the warps in order. `red`: 32 floats of shared memory; every thread
+// of the group receives the result.
+__device__ __forceinline__ float2 reduce2(float a, float b, float* red, bool is_max, int id,
+                                          int threads) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x % threads) >> 5;
+  a = is_max ? warp_max(a) : warp_sum(a);
+  b = is_max ? warp_max(b) : warp_sum(b);
+  named_bar(id, threads);   // red is free
+  if (lane == 0) red[warp] = a, red[16 + warp] = b;
+  named_bar(id, threads);
+  float ra = red[0], rb = red[16];
+  for (int w = 1; w < threads / 32; ++w) {
+    ra = is_max ? fmaxf(ra, red[w]) : ra + red[w];
+    rb = is_max ? fmaxf(rb, red[16 + w]) : rb + red[16 + w];
+  }
+  return make_float2(ra, rb);
+}
+
+// 16 bytes global -> shared by cp.async (both 16-byte aligned)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Every block of the grid past this point once every block reached it: the
+// slots' stores before it are seen by the loads after it. The caller has
+// met its consumers at named barrier 4 after their stores. The last block to
+// arrive sets the count back to zero and releases the flag with this
+// launch's epoch; the others spin on the flag with acquire loads.
+__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned epoch) {
   if (threadIdx.x == 0) {
     __threadfence();
-    if (head) atomicAdd(ws.counters + t_head, 1u);
-    if (tail) atomicAdd(ws.counters + t_tail, 1u);
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      bar[0] = 0u;   // ordered before the release
+      st_release(bar + 1, epoch);
+    } else {
+      for (uint32_t polls = 0; ld_acquire(bar + 1) != epoch;)
+        if (++polls == (1u << 28)) __trap();
+    }
   }
-  if (head) finish_tile(t_head, n_tiles, chunks, units, ws, Y, M, N);
-  if (tail) finish_tile(t_tail, n_tiles, chunks, units, ws, Y, M, N);
+  named_bar(4, DG_CONSUMERS);
+}
+
+__device__ __forceinline__ void store_split4(bf16* out, size_t lo_off, size_t i, float4 v) {
+  bf16 hi[4], lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = __float2bfloat16(elem(v, e));
+    lo[e] = __float2bfloat16(elem(v, e) - __bfloat162float(hi[e]));
+  }
+  *reinterpret_cast<uint2*>(out + i) = *reinterpret_cast<const uint2*>(hi);
+  *reinterpret_cast<uint2*>(out + lo_off + i) = *reinterpret_cast<const uint2*>(lo);
+}
+
+__device__ __forceinline__ float gelu_tanh_f(float g) {
+  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * g * (1.f + tanhf(k0 * (g + 0.044715f * g * g * g)));
+}
+
+__device__ __forceinline__ float gelu_erf_f(float g) {
+  return 0.5f * g * (1.f + erff(g * 0.7071067811865476f));
+}
+
+// DG_ADD, DG_GEGLU, DG_GELU: elementwise over Y, four columns a thread at a time
+__device__ __noinline__ void stage_elementwise(const DgStage& st, const float* slots, DgPlan p,
+                                               int M, int N) {
+  const int kind = st.kind;
+  const int q4 = (kind == DG_GEGLU ? N / 2 : N) / 4;   // four outputs an item
+  const long long total = (long long)M * q4;
+  for (long long i = (long long)blockIdx.x * DG_CONSUMERS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * DG_CONSUMERS) {
+    const int m = (int)(i / q4), f = 4 * (int)(i % q4);
+    const size_t at = (size_t)m * st.out_ld + f, lo = (size_t)M * st.out_ld;
+    if (kind == DG_ADD) {
+      float4* y = reinterpret_cast<float4*>(st.y + (size_t)m * N + f);
+      *y = add4(*y, product4(slots, p, m, f));
+    } else if (kind == DG_GEGLU) {
+      // run f / 32 of gate columns, then the same run of up columns
+      const int col = 64 * (f / 32) + f % 32;
+      const float4 g = product4(slots, p, m, col), u = product4(slots, p, m, col + 32);
+      store_split4(st.out, lo, at,
+                   make_float4(gelu_tanh_f(g.x) * u.x, gelu_tanh_f(g.y) * u.y,
+                               gelu_tanh_f(g.z) * u.z, gelu_tanh_f(g.w) * u.w));
+    } else {
+      const float4 g = product4(slots, p, m, f);
+      store_split4(st.out, lo, at,
+                   make_float4(gelu_erf_f(g.x), gelu_erf_f(g.y), gelu_erf_f(g.z),
+                               gelu_erf_f(g.w)));
+    }
+  }
+}
+
+// DG_RMS, DG_LN: a row of the residual a block, the row of Y staged in
+// shared memory. Before the grid barrier the block copies its first row of x
+// and the norms' weights into shared memory (cp.async, where 5 N + 32 floats
+// fit), so that after it only the product's slots are read from the L2.
+__device__ __noinline__ void stage_norm(const DgStage& st, const float* slots, DgPlan p, int M,
+                                        int N, float* sm, unsigned* bar, unsigned epoch) {
+  const bool rms = st.kind == DG_RMS;
+  const bool pre = (size_t)(5 * N + 32) * 4 <= (size_t)DG_STAGE_SMEM;
+  float* row = sm;
+  float* xs = sm + N;
+  float* red = sm + (pre ? 5 * N : N);
+  const float* wp = pre ? sm + 2 * N : st.w_post;   // RMS: the product's norm weight
+  const float* w1 = pre ? sm + 3 * N : st.w_s;      // the next norm's weight or scale
+  const float* w2 = pre ? sm + 4 * N : st.w_b;      // LN: the next norm's bias
+  const int m0 = blockIdx.x;
+  if (pre && m0 < M) {
+    for (int n = 4 * threadIdx.x; n < N; n += 4 * DG_CONSUMERS) {
+      cp_async16(xs + n, st.x + (size_t)m0 * N + n);
+      if (rms) cp_async16(sm + 2 * N + n, st.w_post + n);
+      if (st.w_s != nullptr) cp_async16(sm + 3 * N + n, st.w_s + n);
+      if (!rms && st.w_s != nullptr) cp_async16(sm + 4 * N + n, st.w_b + n);
+    }
+    cp_async_commit();
+  }
+  grid_barrier(bar, epoch);
+  cp_async_wait<0>();   // a thread reads back only what it copied
+  for (int m = m0; m < M; m += gridDim.x) {
+    float* x = st.x + (size_t)m * N;
+    const float* xr = pre && m == m0 ? xs : x;
+    float ss = 0.f;
+    for (int n = 4 * threadIdx.x; n < N; n += 4 * DG_CONSUMERS) {
+      const float4 y = product4(slots, p, m, n);
+      *reinterpret_cast<float4*>(row + n) = y;
+      ss += y.x * y.x + y.y * y.y + y.z * y.z + y.w * y.w;
+    }
+    const float r =
+        rms ? rsqrtf(reduce2(ss, 0.f, red, false, 4, DG_CONSUMERS).x / N + st.eps) : 0.f;
+    float s1 = 0.f;
+    for (int n = 4 * threadIdx.x; n < N; n += 4 * DG_CONSUMERS) {
+      const float4 y = *reinterpret_cast<const float4*>(row + n);
+      float4 v = *reinterpret_cast<const float4*>(xr + n);
+      if (rms) {
+        v.x += y.x * r * (1.f + wp[n]);
+        v.y += y.y * r * (1.f + wp[n + 1]);
+        v.z += y.z * r * (1.f + wp[n + 2]);
+        v.w += y.w * r * (1.f + wp[n + 3]);
+        s1 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+      } else {
+        v = add4(v, y);
+        s1 += v.x + v.y + v.z + v.w;
+      }
+      *reinterpret_cast<float4*>(row + n) = v;
+      *reinterpret_cast<float4*>(x + n) = v;
+      if (st.xo != nullptr) {
+        const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+        *reinterpret_cast<__nv_bfloat162*>(st.xo + (size_t)m * N + n) = a;
+        *reinterpret_cast<__nv_bfloat162*>(st.xo + (size_t)m * N + n + 2) = b;
+      }
+    }
+    if (st.w_s != nullptr) {
+      const size_t lo = (size_t)M * st.out_ld, at = (size_t)m * st.out_ld;
+      if (rms) {
+        const float r2 = rsqrtf(reduce2(s1, 0.f, red, false, 4, DG_CONSUMERS).x / N + st.eps);
+        for (int n = 4 * threadIdx.x; n < N; n += 4 * DG_CONSUMERS) {
+          const float4 v = *reinterpret_cast<const float4*>(row + n);
+          store_split4(st.out, lo, at + n,
+                       make_float4(v.x * r2 * (1.f + w1[n]), v.y * r2 * (1.f + w1[n + 1]),
+                                   v.z * r2 * (1.f + w1[n + 2]), v.w * r2 * (1.f + w1[n + 3])));
+        }
+      } else {
+        const float mu = reduce2(s1, 0.f, red, false, 4, DG_CONSUMERS).x / N;
+        float sd = 0.f;
+        for (int n = 4 * threadIdx.x; n < N; n += 4 * DG_CONSUMERS) {
+          const float4 v = *reinterpret_cast<const float4*>(row + n);
+          sd += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu) + (v.z - mu) * (v.z - mu) +
+                (v.w - mu) * (v.w - mu);
+        }
+        const float r2 = rsqrtf(reduce2(sd, 0.f, red, false, 4, DG_CONSUMERS).x / N + st.eps);
+        for (int n = 4 * threadIdx.x; n < N; n += 4 * DG_CONSUMERS) {
+          const float4 v = *reinterpret_cast<const float4*>(row + n);
+          store_split4(st.out, lo, at + n,
+                       make_float4((v.x - mu) * r2 * w1[n] + w2[n],
+                                   (v.y - mu) * r2 * w1[n + 1] + w2[n + 1],
+                                   (v.z - mu) * r2 * w1[n + 2] + w2[n + 2],
+                                   (v.w - mu) * r2 * w1[n + 3] + w2[n + 3]));
+        }
+      }
+    }
+    named_bar(4, DG_CONSUMERS);   // the row's staging is read before the next row's
+  }
+}
+
+// 16 int8 values of w as floats, without I2F: byte x ^ 0x80 becomes the low
+// mantissa of the f32 2^23 + (x + 128), and one add removes the offset
+// (exact for every byte; sm90.cuh:widen4 does the same for bf16)
+__device__ __forceinline__ void unpack16(uint4 w, float (&v)[16]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t x = word_of(w, q) ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[4 * q + i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440 | i)) - 8388736.f;
+  }
+}
+
+// Shared memory (floats) of stack_attn_kernel: q|k|v from the slots (G + 2)
+// D, q and k after RoPE (G + 1) D, the new row's codes (D / 2: 2 D bytes),
+// the rows' K and V scales 2 n, logits G n (n = t + 1), the P.V partials of
+// the row groups (256 / (D / 16) groups x G D = 4096 G), the reductions 32
+__host__ __device__ inline int stack_attn_floats(int G, int D, int n) {
+  return (G + 2) * D + (G + 1) * D + D / 2 + 2 * n + G * n + 4096 * G + 32;
+}
+
+// The stack's attention (DG_STACK_ATTN), a kernel of its own after the
+// q|k|v product, which left its partial sums in the slots (DG_NONE): one
+// (row, kv head) item a block of 256 threads, all G query heads of the kv
+// head in one pass over its cache rows. q, k and v are read as their slots
+// added in block order; RoPE; the new K/V row's per-vector int8 (kv_scale /
+// kv_code), written into cache row t and attended through its codes, as a
+// cache row. Logits: a row of D int8 a D / 16 lanes, 16 bytes a lane, the
+// lane's 16 dims of each head's q in registers, the rows' dot products
+// summed over the row's lanes by shuffles (one order); each warp's rows
+// loaded two iterations at a time. P.V: a thread a (row group, 16-byte
+// column segment), 16 bytes of V a row, the row groups' partials added in
+// order through shared memory. GM: the most heads a kv head it takes.
+template <int GM>
+__global__ void __launch_bounds__(256)
+stack_attn_kernel(const __grid_constant__ DgStage st, const float* __restrict__ slots,
+                  const DgPlan p, int M) {
+  extern __shared__ __align__(16) float sa_buf[];
+  const int KH = st.kv_heads, G = st.heads / KH, D = st.D, S = st.S, t = st.t, n = t + 1;
+  const int QHD = st.heads * D, KHD = KH * D, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int it = blockIdx.x, b = it / KH, kh = it % KH;
+  const size_t slab = (size_t)it * S;   // item = b * KH + kh
+  float* raw = sa_buf;                   // (G + 2) D
+  float* qr = raw + (G + 2) * D;         // (G + 1) D
+  int8_t* kn = reinterpret_cast<int8_t*>(qr + (G + 1) * D);   // D codes, then D
+  int8_t* vn = kn + D;
+  float* kss = qr + (G + 1) * D + D / 2;   // n, then vss n
+  float* vss = kss + n;
+  float* lg = vss + n;                     // G n
+  float* red = lg + G * n;                 // 4096 G
+  float* rd = red + 4096 * G;              // 32
+  // Everything the item reads from device memory is asked for first, so that
+  // the latencies overlap: the logits' first pass of cache rows (lane `seg`
+  // of each group of spw lanes holds segment seg of a row), P.V's first two
+  // rows, the rows' scales, RoPE's rows, and q (G heads), k, v of the item
+  // from the slots.
+  const int spw = D / 16, rpw = 32 / spw, seg = lane % spw, step = 8 * rpw;
+  const int nseg = D / 16, RG = 256 / nseg, rg = tid / nseg, sg = tid % nseg;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  auto k_bytes = [&](int j) {   // the row's segment from the cache (rows < t)
+    return __ldg(reinterpret_cast<const uint4*>(st.kc + (slab + j) * D + 16 * seg));
+  };
+  auto v_bytes = [&](int j) {
+    return __ldg(reinterpret_cast<const uint4*>(st.vc + (slab + j) * D + 16 * sg));
+  };
+  const int jf = warp * rpw + lane / spw;
+  const uint4 kw0 = jf < t ? k_bytes(jf) : zero, kw1 = jf + step < t ? k_bytes(jf + step) : zero;
+  const uint4 vw0 = rg < t ? v_bytes(rg) : zero, vw1 = rg + RG < t ? v_bytes(rg + RG) : zero;
+  const float k0 = tid < t ? st.ks[slab + tid] : 0.f, v0 = tid < t ? st.vs[slab + tid] : 0.f;
+  const float c0 = tid < D ? st.cosv[tid] : 0.f, s0 = tid < D ? st.sinv[tid] : 0.f;
+  const float c1 = tid + 256 < D ? st.cosv[tid + 256] : 0.f;
+  const float s1 = tid + 256 < D ? st.sinv[tid + 256] : 0.f;
+  for (int e = 4 * tid; e < (G + 2) * D; e += 4 * 256) {
+    const int head = e / D, d = e % D;
+    const int col = head < G ? (kh * G + head) * D + d
+                             : (head == G ? QHD + kh * D + d : QHD + KHD + kh * D + d);
+    *reinterpret_cast<float4*>(raw + e) = product4(slots, p, b, col);
+  }
+  float* cs = red;   // RoPE's rows, in the P.V partials' room until P.V
+  if (tid < t) kss[tid] = k0, vss[tid] = v0;
+  for (int j = tid + 256; j < t; j += 256) kss[j] = st.ks[slab + j], vss[j] = st.vs[slab + j];
+  if (tid < D) cs[tid] = c0, cs[D + tid] = s0;
+  if (tid + 256 < D) cs[tid + 256] = c1, cs[D + tid + 256] = s1;
+  __syncthreads();
+  // RoPE of the q heads and k; the new K/V row's int8, into cache row t
+  const int half = D / 2;
+  for (int e = tid; e < (G + 1) * D; e += 256) {
+    const int h0 = e / D * D, d = e % D, dp = d < half ? d + half : d - half;
+    const float sign = d < half ? -1.f : 1.f;
+    qr[e] = raw[h0 + d] * cs[d] + sign * raw[h0 + dp] * cs[D + d];
+  }
+  __syncthreads();
+  float ka = 0.f, va = 0.f;
+  for (int d = tid; d < D; d += 256) {
+    ka = fmaxf(ka, fabsf(qr[G * D + d]));
+    va = fmaxf(va, fabsf(raw[(G + 1) * D + d]));
+  }
+  const float2 mx = reduce2(ka, va, rd, true, 0, 256);
+  const float ksc = kv_scale(mx.x), vsc = kv_scale(mx.y);
+  for (int d = tid; d < D; d += 256) {
+    kn[d] = kv_code(qr[G * D + d], ksc);
+    vn[d] = kv_code(raw[(G + 1) * D + d], vsc);
+    st.kc[(slab + t) * D + d] = kn[d];
+    st.vc[(slab + t) * D + d] = vn[d];
+  }
+  if (tid == 0) {
+    st.ks[slab + t] = ksc;
+    st.vs[slab + t] = vsc;
+    kss[t] = ksc;
+    vss[t] = vsc;
+  }
+  __syncthreads();
+
+  // logits: the lane's 16 dims of each head's q in registers
+  float q[GM][16];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) q[g][e] = g < G ? qr[g * D + 16 * seg + e] : 0.f;
+  auto logit = [&](int j, uint4 w) {
+    float v[16];
+    unpack16(w, v);
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      float acc = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc += q[g][e] * v[e];
+      for (int o = spw / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (seg == 0 && j < n)
+        lg[g * n + j] = soft_cap(acc * kss[j] * st.attn_scale, st.softcap);
+    }
+  };
+  const uint4 knew = *reinterpret_cast<const uint4*>(kn + 16 * seg);   // the new row's segment
+  for (int jb = warp * rpw; jb < n; jb += 2 * step) {   // the same trips for a warp's lanes
+    const int j0 = jb + lane / spw, j1 = j0 + step;
+    uint4 w0 = kw0, w1 = kw1;
+    if (jb != warp * rpw) {
+      w0 = j0 < t ? k_bytes(j0) : zero;
+      w1 = j1 < t ? k_bytes(j1) : zero;
+    }
+#pragma unroll 1
+    for (int r = 0; r < 2; ++r) {   // one copy of the code: rows past n shuffle, unwritten
+      const int j = r == 0 ? j0 : j1;
+      logit(j, j == t ? knew : r == 0 ? w0 : w1);
+    }
+  }
+  __syncthreads();
+  // softmax of head g by warp g, times each row's V scale
+  for (int g = warp; g < G; g += 8) {
+    float* l = lg + g * n;
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, l[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(l[j] - m);
+      l[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < n; j += 32) l[j] = l[j] / sum * vss[j];
+  }
+  __syncthreads();
+  // P.V: thread (row group rg, segment sg) over rows rg, rg + RG, ..., two at a time
+  float acc[GM][16];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[g][e] = 0.f;
+  auto v_row = [&](int j, uint4 w) {
+    float v[16];
+    unpack16(w, v);
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      const float pj = lg[g * n + j];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[g][e] += pj * v[e];
+    }
+  };
+  if (rg < RG) {
+    const uint4 vnew = *reinterpret_cast<const uint4*>(vn + 16 * sg);
+    auto v_at = [&](int j) { return j == t ? vnew : v_bytes(j); };
+    uint4 w0 = vw0, w1 = vw1;   // rows rg and rg + RG, asked for first
+#pragma unroll 1
+    for (int j = rg; j < n; j += 2 * RG) {   // one copy of the code, two rows' loads in flight
+      if (j != rg) {
+        w0 = v_at(j);
+        w1 = j + RG < n ? v_at(j + RG) : zero;
+      } else {
+        w0 = j == t ? vnew : w0;
+        w1 = j + RG == t ? vnew : w1;
+      }
+#pragma unroll 1
+      for (int r = 0; r < 2; ++r)
+        if (j + r * RG < n) v_row(j + r * RG, r == 0 ? w0 : w1);
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) red[(rg * G + g) * D + 16 * sg + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+  for (int o = tid; o < G * D; o += 256) {
+    float v = 0.f;
+    for (int r = 0; r < RG; ++r) v += red[r * G * D + o];
+    const int g = o / D, d = o % D;
+    store_split(st.out, (size_t)M * st.out_ld, (size_t)b * st.out_ld + (kh * G + g) * D + d, v);
+  }
+  __syncthreads();
+}
+
+// Shared memory (floats) of cross_attn_kernel: q D, the rows' K and V scales
+// 2 S, logits S, the P.V partials of the row groups (at most 5120), the
+// reductions 32
+__host__ __device__ inline int cross_attn_floats(int D, int S) {
+  return D + 3 * S + (DG_XATTN_THREADS / (D / 16)) * D + 32;
+}
+
+// The bridge's cross attention (DG_CROSS_ATTN), a kernel of its own after
+// the q product (left in the slots): one (row, head) item a block of
+// DG_XATTN_THREADS threads over the int8 vision K/V slab with per-row
+// scales. q is read as its slots added in block order. Logits: a row a
+// thread, its 16-byte segments loaded six at a time, q from shared memory
+// (every thread at the same segment: a broadcast). P.V: a thread a (row
+// group, 16-byte column segment), 16 bytes of V a row, four rows' loads in
+// flight, the row groups' partials added in order through shared memory.
+__global__ void __launch_bounds__(DG_XATTN_THREADS)
+cross_attn_kernel(const __grid_constant__ DgStage st, const float* __restrict__ slots,
+                  const DgPlan p, int M) {
+  extern __shared__ __align__(16) float xa_buf[];
+  const int H = st.heads, D = st.D, S = st.S, T = DG_XATTN_THREADS, tid = threadIdx.x;
+  const int it = blockIdx.x, b = it / H, h = it % H, nseg = D / 16;
+  const size_t slab = (size_t)it * S;   // item = b * H + h
+  float* q = xa_buf;                    // D
+  float* kss = q + D;                   // S, then vss S
+  float* vss = kss + S;
+  float* lg = vss + S;                  // S
+  float* red = lg + S;                  // (T / nseg) D
+  float* rd = red + (T / nseg) * D;     // 32
+  for (int j = tid; j < S; j += T) kss[j] = st.ks[slab + j], vss[j] = st.vs[slab + j];
+  for (int e = 4 * tid; e < D; e += 4 * T)
+    *reinterpret_cast<float4*>(q + e) = product4(slots, p, b, h * D + e);
+  __syncthreads();
+  // logits: a row a thread
+  float mloc = -INFINITY;
+  for (int j = tid; j < S; j += T) {
+    const uint4* kr = reinterpret_cast<const uint4*>(st.kc + (slab + j) * D);
+    float acc = 0.f;
+    for (int s0 = 0; s0 < nseg; s0 += 6) {
+      uint4 w[6];
+#pragma unroll
+      for (int u = 0; u < 6; ++u)
+        if (s0 + u < nseg) w[u] = __ldg(kr + s0 + u);
+#pragma unroll
+      for (int u = 0; u < 6; ++u)
+        if (s0 + u < nseg) {
+          float v[16];
+          unpack16(w[u], v);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc += q[16 * (s0 + u) + e] * v[e];
+        }
+    }
+    lg[j] = acc * st.attn_scale * kss[j];
+    mloc = fmaxf(mloc, lg[j]);
+  }
+  const float m = reduce2(mloc, 0.f, rd, true, 0, T).x;
+  float sloc = 0.f;
+  for (int j = tid; j < S; j += T) {
+    const float e = expf(lg[j] - m);
+    lg[j] = e;
+    sloc += e;
+  }
+  const float sum = reduce2(sloc, 0.f, rd, false, 0, T).x;   // its barriers publish lg
+  for (int j = tid; j < S; j += T) lg[j] = lg[j] / sum * vss[j];
+  __syncthreads();
+  // P.V
+  const int RG = T / nseg, rg = tid / nseg, sg = tid % nseg;
+  if (rg < RG) {
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+    const uint4* vcol = reinterpret_cast<const uint4*>(st.vc + slab * D) + sg;
+    for (int j0 = rg; j0 < S; j0 += 4 * RG) {
+      uint4 w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j0 + u * RG < S) w[u] = __ldg(vcol + (size_t)(j0 + u * RG) * nseg);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j0 + u * RG < S) {
+          float v[16];
+          unpack16(w[u], v);
+          const float pj = lg[j0 + u * RG];
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[e] += pj * v[e];
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) red[rg * D + 16 * sg + e] = acc[e];
+  }
+  __syncthreads();
+  for (int d = tid; d < D; d += T) {
+    float v = 0.f;
+    for (int r = 0; r < RG; ++r) v += red[r * D + d];
+    store_split(st.out, (size_t)M * st.out_ld, (size_t)b * st.out_ld + h * D + d, v);
+  }
+}
+
+// the two bf16 of a word (element 0 in the low half) as floats: a bf16's
+// bits are the top half of its f32's
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// DPL bf16 values at p (DPL * 2 bytes, aligned to that) as floats
+template <int DPL>
+__device__ __forceinline__ void load_bf16(const bf16* p, float (&v)[DPL]) {
+  if constexpr (DPL == 1) {
+    v[0] = __bfloat162float(*p);
+  } else if constexpr (DPL == 2) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    v[0] = bf16_lo(w), v[1] = bf16_hi(w);
+  } else {
+#pragma unroll
+    for (int c = 0; c < DPL / 4; ++c) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p + 4 * c);
+      v[4 * c] = bf16_lo(w.x), v[4 * c + 1] = bf16_hi(w.x);
+      v[4 * c + 2] = bf16_lo(w.y), v[4 * c + 3] = bf16_hi(w.y);
+    }
+  }
+}
+
+// The bridge's self attention (DG_SELF_ATTN), a kernel of its own after
+// the q|k|v product (left in the slots): one (row, head) item a warp, lane l
+// holding dims DPL l .. DPL l + DPL - 1 (D = 32 DPL). The logits of rows < t
+// lane-parallel (a row a lane, q from shared memory), the new row's by a
+// shuffle sum; P.V a row at a time with each lane's dims, the rows' loads
+// unrolled. Shared memory: each warp's q and t + 1 logits.
+template <int DPL>
+__global__ void __launch_bounds__(128)
+self_attn_kernel(const __grid_constant__ DgStage st, const float* __restrict__ slots,
+                 const DgPlan p, int M) {
+  extern __shared__ float sa_smem[];
+  float* sm = sa_smem;
+  constexpr int D = 32 * DPL;
+  constexpr int KU = D / 8 <= 16 ? D / 8 : 8;   // a row's 16-byte loads in flight at once
+  const int H = st.heads, S = st.S, t = st.t, ld = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d0 = DPL * lane;
+  float* qw = sm + (size_t)warp * (D + t + 1);
+  float* lw = qw + D;
+  const int nw = blockDim.x / 32;
+  for (int it = (int)blockIdx.x * nw + warp; it < M * H; it += (int)gridDim.x * nw) {
+    const int b = it / H, h = it % H;
+    const size_t slab = (size_t)it * S;   // it = b * H + h
+    float q[DPL], k[DPL], v[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; e += (DPL >= 4 ? 4 : DPL)) {
+      if constexpr (DPL >= 4) {
+        const float4 a = product4(slots, p, b, h * D + d0 + e);
+        const float4 c = product4(slots, p, b, ld + h * D + d0 + e);
+        const float4 f = product4(slots, p, b, 2 * ld + h * D + d0 + e);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) q[e + u] = elem(a, u), k[e + u] = elem(c, u), v[e + u] = elem(f, u);
+      } else {
+        // four lanes share a float4; each keeps its DPL values
+        const int base = (d0 / 4) * 4, off = d0 % 4;
+        const float4 a = product4(slots, p, b, h * D + base);
+        const float4 c = product4(slots, p, b, ld + h * D + base);
+        const float4 f = product4(slots, p, b, 2 * ld + h * D + base);
+#pragma unroll
+        for (int u = 0; u < DPL; ++u)
+          q[u] = elem(a, off + u), k[u] = elem(c, off + u), v[u] = elem(f, off + u);
+      }
+    }
+    // the new row, rounded to the cache's bf16, into row t
+    float dt = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const bf16 kb = __float2bfloat16(k[e]), vb = __float2bfloat16(v[e]);
+      st.sk[(slab + t) * D + d0 + e] = kb;
+      st.sv[(slab + t) * D + d0 + e] = vb;
+      k[e] = __bfloat162float(kb);
+      v[e] = __bfloat162float(vb);
+      dt += q[e] * k[e];
+      qw[d0 + e] = q[e];
+    }
+    dt = warp_sum(dt);
+    __syncwarp();
+    for (int j = lane; j < t; j += 32) {   // rows < t: a row a lane
+      const bf16* kr = st.sk + (slab + j) * D;
+      float acc = 0.f;
+#pragma unroll(KU)
+      for (int c = 0; c < D / 8; ++c) {
+        const uint4 w = *reinterpret_cast<const uint4*>(kr + 8 * c);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t x = word_of(w, u);
+          acc += qw[8 * c + 2 * u] * bf16_lo(x) + qw[8 * c + 2 * u + 1] * bf16_hi(x);
+        }
+      }
+      lw[j] = acc * st.attn_scale;
+    }
+    if (lane == 0) lw[t] = dt * st.attn_scale;
+    __syncwarp();
+    float mx = -INFINITY;
+    for (int j = lane; j <= t; j += 32) mx = fmaxf(mx, lw[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j <= t; j += 32) {
+      const float e = expf(lw[j] - mx);
+      lw[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    __syncwarp();
+    float acc[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < t; ++j) {
+      float vr[DPL];
+      load_bf16<DPL>(st.sv + (slab + j) * D + d0, vr);
+      const float pj = lw[j] / sum;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[e] += pj * vr[e];
+    }
+    const float pt = lw[t] / sum;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e)
+      store_split(st.out, (size_t)M * st.out_ld, (size_t)b * st.out_ld + h * D + d0 + e,
+                  acc[e] + pt * v[e]);
+    __syncwarp();   // qw and lw are read before the next item writes them
+  }
+}
+
+// After a block's last unit: the stage, behind the grid barrier.
+__device__ __noinline__ void dg_finish(const DgStage& st, DgWork ws, int M, int N, int K,
+                                       unsigned char* sm) {
+  named_bar(4, DG_CONSUMERS);   // every consumer is done with the ring
+  const DgPlan p = dg_plan(M, N, K);
+  if (st.kind == DG_RMS || st.kind == DG_LN) {   // it prefetches before the barrier
+    stage_norm(st, ws.slots, p, M, N, reinterpret_cast<float*>(sm), ws.bar, ws.epoch);
+    return;
+  }
+  grid_barrier(ws.bar, ws.epoch);
+  stage_elementwise(st, ws.slots, p, M, N);
 }
 
 // This lane's bytes of its warpgroup's 64-column tile in a stage (int8: two
@@ -269,17 +897,16 @@ __device__ __forceinline__ void widen_frags(const FragBytes<INT4>& b, uint32_t (
 // One block a stream of work units (a DG_BN-column tile's 64 rows of K, for
 // one 64-row block of A): units [u0, u1) of the tile-major order, so a block
 // takes a run of K slices of one tile, or the end of one tile and the start
-// of the next. Each run of one tile ends in an epilogue: a run of the whole
-// tile adds its sums into Y; any other run stores its partial sums into its
-// workspace slot. After its last unit the block arrives at the counters of
-// the tiles it left partial and sums its share of each (finish_tiles). KSUB: k16
-// steps between two waits on the tensor cores (4: a stage; 2: int4 scale
-// groups that end inside a stage).
+// of the next. Each run of one tile ends in an epilogue that stores its
+// partial sums into the run's slot (tile + block). After its last unit the
+// block runs the stage (dg_finish). KSUB: k16 steps between two waits on the
+// tensor cores (4: a stage; 2: int4 scale groups that end inside a stage).
 template <bool INT4, int KSUB>
 __global__ void __launch_bounds__(512, 1)
 decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wts,
                    int layer, const float* __restrict__ scale, const float* __restrict__ bias,
-                   int group, float* __restrict__ Y, int M, int N, int K, const DgWork ws) {
+                   int group, int M, int N, int K, const DgWork ws,
+                   const __grid_constant__ DgStage stage) {
   using S = DgShape<INT4>;
   extern __shared__ unsigned char dg_smem[];
   const uint32_t ring = (smem_u32(dg_smem) + 1023u) & ~1023u;
@@ -301,16 +928,16 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128 * DG_WGS) {
+  if (threadIdx.x >= DG_CONSUMERS) {
     // ---- producers: unit i into stage i % STAGES once its last use is done:
     // the activations' box, and the weights' box of the DG_WGS 64-column
     // fragment runs of the tile (zeros past N) ----
-    const int role = threadIdx.x - 128 * DG_WGS;   // 0: activations, 32: weights
+    const int role = threadIdx.x - DG_CONSUMERS;   // 0: activations, 32: weights
     if (role % 32 == 0) {
       const CUtensorMap* map = role == 0 ? &act : &wts;
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
       // the weights are read once: they must not push the activations and
-      // the output, which the reductions read and write, out of the L2
+      // the slots, which the stage reads, out of the L2
       const uint64_t pol = l2_evict_first();
       int c = u0 % chunks, nt = u0 / chunks % n_tiles, mb = u0 / chunks / n_tiles;
       for (int i = 0, s = 0; i < n_units; ++i) {
@@ -423,18 +1050,11 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
 
     if (last) {
       // (hi + lo) * scale (+ bias), staged in shared memory as rows of Y, half
-      // the rows at a time, then, a warp a row segment of 256 bytes, added
-      // into Y (a run of the whole tile) or stored into the run's slot
+      // the rows at a time, then, a warp a row segment of 256 bytes, stored
+      // into the run's slot
       const int m0 = mb * 64;
       const int tw = threadIdx.x % 128, cc = 64 * wg + 4 * (tw % 16);   // 4 columns of the block
-      // the run began at the block's first unit (i - c is minus the first
-      // unit's K slice there, the run's first unit index elsewhere); it
-      // covers the tile whole if it ends the tile and is `chunks` units long
-      const bool first_run = i <= c;
-      const bool whole = c == chunks - 1 && (!first_run || i + 1 == chunks);
-      float* dst = whole ? Y + (size_t)m0 * N + n0
-                         : ws.slots + (size_t)(2 * blockIdx.x + (first_run ? 0 : 1)) * DG_SLOT;
-      const int ld = whole ? N : DG_BN;
+      float* dst = ws.slots + (size_t)(mb * n_tiles + nt + blockIdx.x) * DG_SLOT;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -454,13 +1074,9 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
         if (n0 + cc < N)
           for (int r = tw / 16; r < 32 && m0 + 32 * half + r < M; r += 8) {
             const uint4 u = ld_shared_v4(epi + (r * DG_EPI_LD + cc) * 4);
-            const float4 v = make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
-                                         __uint_as_float(u.z), __uint_as_float(u.w));
-            float* p = dst + (size_t)(32 * half + r) * ld + cc;
-            if (whole)   // this block alone adds into the tile
-              red_add4(p, v);
-            else
-              __stcg(reinterpret_cast<float4*>(p), v);
+            __stcg(reinterpret_cast<float4*>(dst + (size_t)(32 * half + r) * DG_BN + cc),
+                   make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                               __uint_as_float(u.z), __uint_as_float(u.w)));
           }
         named_bar(1 + wg, 128);   // the staging is read before it is written again
       }
@@ -488,7 +1104,7 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
     unit(fa, fb);
     if (i < n_units) unit(fb, fa);
   }
-  finish_tiles(ws, Y, M, N, K);
+  if (stage.kind != DG_NONE) dg_finish(stage, ws, M, N, K, dg_smem + (ring - smem_u32(dg_smem)));
 }
 
 // ---- host ----
@@ -526,18 +1142,112 @@ inline int make_weight_map(CUtensorMap* map, const void* w, int L, int K, int N,
              : (int)cudaErrorInvalidValue;
 }
 
-// Y[M, N] += the product of layer `layer` of the weights behind `wts`, over
-// one grid of min(SMs, units) blocks; `ws` must hold 2 x grid slots and a
-// counter a tile (stream_k_workspace)
+// The grid of a product: one block a SM, or a block a unit
+inline int dg_grid(int M, int N, int K) {
+  const int units = (M + 63) / 64 * ((N + DG_BN - 1) / DG_BN) * (K / DG_BK);
+  return min(sm_count(), units);
+}
+
+// A product's split, on the host: what the kernels after it read its slots by
+inline DgPlan dg_plan_host(int M, int N, int K) {
+  const int n_tiles = (N + DG_BN - 1) / DG_BN, chunks = K / DG_BK;
+  return DgPlan{n_tiles, chunks, (M + 63) / 64 * n_tiles * chunks, dg_grid(M, N, K)};
+}
+
+// stack_attn_kernel takes G <= DG_GMAX query heads a kv head of D = 32, 64,
+// 128, 256 or 512 dims, at position t (its shared memory fits); cross_attn_kernel
+// heads of D = 32 k dims over S rows
+inline bool stack_attn_fits(int G, int D, int t) {
+  return G >= 1 && G <= DG_GMAX && (D == 32 || D == 64 || D == 128 || D == 256 || D == 512) &&
+         (size_t)stack_attn_floats(G, D, t + 1) * 4 <= (size_t)DG_STAGE_SMEM;
+}
+inline bool cross_attn_fits(int D, int S) {
+  return D % 32 == 0 && D / 16 <= DG_XATTN_THREADS &&
+         (size_t)cross_attn_floats(D, S) * 4 <= (size_t)DG_STAGE_SMEM;
+}
+
+// self_attn_kernel takes heads of 32, 64, 128 or 256 dims, four warps' q and
+// t + 1 logits in shared memory
+inline bool self_attn_fits(int D, int t) {
+  return (D == 32 || D == 64 || D == 128 || D == 256) &&
+         (size_t)4 * (D + t + 1) * 4 <= (size_t)DG_STAGE_SMEM;
+}
+
+// Dynamic shared memory above 48 KB for `kernel`, once
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, bool& done) {
+  if (!done) {
+    VBT_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   DG_STAGE_SMEM));
+    done = true;
+  }
+  return 0;
+}
+
+// stack_attn_kernel or cross_attn_kernel (`st`: DG_STACK_ATTN or
+// DG_CROSS_ATTN) over the slots of the product (M, N, K) just launched with
+// DG_NONE: a block an item
+inline int launch_attn(const DgStage& st, const DgWork& ws, int M, int N, int K,
+                       cudaStream_t s) {
+  const DgPlan p = dg_plan_host(M, N, K);
+  const int items = M * st.kv_heads;
+  if (st.kind == DG_CROSS_ATTN) {
+    if (!cross_attn_fits(st.D, st.S)) return (int)cudaErrorInvalidValue;
+    static bool done = false;
+    VBT_CHECK((cudaError_t)allow_smem(cross_attn_kernel, done));
+    cross_attn_kernel<<<items, DG_XATTN_THREADS, cross_attn_floats(st.D, st.S) * 4, s>>>(
+        st, ws.slots, p, M);
+  } else {
+    const int G = st.heads / st.kv_heads;
+    if (!stack_attn_fits(G, st.D, st.t)) return (int)cudaErrorInvalidValue;
+    const int smem = stack_attn_floats(G, st.D, st.t + 1) * 4;
+    static bool done[3] = {false, false, false};   // one flag for each instantiation
+    if (G == 1) {
+      VBT_CHECK((cudaError_t)allow_smem(stack_attn_kernel<1>, done[0]));
+      stack_attn_kernel<1><<<items, 256, smem, s>>>(st, ws.slots, p, M);
+    } else if (G == 2) {
+      VBT_CHECK((cudaError_t)allow_smem(stack_attn_kernel<2>, done[1]));
+      stack_attn_kernel<2><<<items, 256, smem, s>>>(st, ws.slots, p, M);
+    } else {
+      VBT_CHECK((cudaError_t)allow_smem(stack_attn_kernel<DG_GMAX>, done[2]));
+      stack_attn_kernel<DG_GMAX><<<items, 256, smem, s>>>(st, ws.slots, p, M);
+    }
+  }
+  VBT_CHECK_LAUNCH();
+  return 0;
+}
+
+// self_attn_kernel (`st`: DG_SELF_ATTN) over the slots of the q|k|v product
+// (M, N, K) just launched with DG_NONE: four items a block
+inline int launch_self_attn(const DgStage& st, const DgWork& ws, int M, int N, int K,
+                            cudaStream_t s) {
+  if (!self_attn_fits(st.D, st.t)) return (int)cudaErrorInvalidValue;
+  const int smem = 4 * (st.D + st.t + 1) * 4, items = M * st.heads;
+  const int i = st.D == 32 ? 0 : st.D == 64 ? 1 : st.D == 128 ? 2 : 3;
+  auto kernel = i == 0 ? self_attn_kernel<1> : i == 1 ? self_attn_kernel<2>
+              : i == 2 ? self_attn_kernel<4> : self_attn_kernel<8>;
+  static bool done[4] = {false, false, false, false};
+  VBT_CHECK((cudaError_t)allow_smem(kernel, done[i]));
+  kernel<<<(items + 3) / 4, 128, smem, s>>>(st, ws.slots, dg_plan_host(M, N, K), M);
+  VBT_CHECK_LAUNCH();
+  return 0;
+}
+
+// The product of layer `layer` of the weights behind `wts`, then `stage`, over
+// one cooperative grid of min(SMs, units) blocks; `ws` must hold tiles + grid
+// - 1 slots and the barrier's two words (stream_k_workspace)
 template <bool INT4, int KSUB>
 int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-              const float* bias, int group, float* Y, int M, int N, int K, const DgWork& ws,
-              cudaStream_t st) {
+              const float* bias, int group, int M, int N, int K, const DgWork& ws,
+              const DgStage& stage, cudaStream_t st) {
   if (M < 1 || N % 64 != 0 || K % DG_BK != 0 || N < 64) return (int)cudaErrorInvalidValue;
   using S = DgShape<INT4>;
   const int tiles = (M + 63) / 64 * ((N + DG_BN - 1) / DG_BN);
   const int units = tiles * (K / DG_BK), grid = min(sm_count(), units);
-  if (ws.slots == nullptr || ws.n_slots < 2 * grid || ws.n_counters < tiles)
+  if (ws.slots == nullptr || ws.n_slots < tiles + grid - 1 || ws.n_counters < 2)
+    return (int)cudaErrorInvalidValue;
+  if ((stage.kind == DG_RMS || stage.kind == DG_LN) &&
+      (size_t)(N + 32) * 4 > (size_t)DG_STAGE_SMEM)
     return (int)cudaErrorInvalidValue;
   static bool allowed = false;   // one flag for each instantiation
   if (!allowed) {
@@ -545,28 +1255,41 @@ int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const f
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM));
     allowed = true;
   }
-  decode_gemm_kernel<INT4, KSUB><<<grid, DG_THREADS, S::SMEM, st>>>(
-      act, wts, layer, scale, bias, group, Y, M, N, K, ws);
+  // cooperative: the grid is resident at once (one block a SM), which the
+  // barrier before the stage needs, or the launch fails
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(DG_THREADS);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  DgWork w = ws;
+  w.epoch = stage.kind == DG_NONE ? 0u : dg_next_epoch();
+  VBT_CHECK(cudaLaunchKernelEx(&cfg, decode_gemm_kernel<INT4, KSUB>, act, wts, layer, scale, bias,
+                               group, M, N, K, w, stage));
   VBT_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
-// Y[M, N] (f32, zero on entry: the kernels accumulate) += (A @ W int8) *
-// scale[N] (+ bias[N]); A the split activation behind `act` (make_act_map),
-// W layer `layer` of the weights behind `wts` (make_weight_map, int8), ws
-// the stream-K workspace (dg_work). Requires N % 64 == 0, K % 64 == 0.
-// Defined in i8_gemm.cu.
+// The product (A @ W int8) * scale[N] (+ bias[N]), A the split activation
+// behind `act` (make_act_map), W layer `layer` of the weights behind `wts`
+// (make_weight_map, int8), then `stage`; ws the workspace (dg_work).
+// Requires N % 64 == 0, K % 64 == 0. Defined in i8_gemm.cu.
 int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-                   const float* bias, float* Y, int M, int N, int K, const DgWork& ws,
+                   const float* bias, int M, int N, int K, const DgWork& ws, const DgStage& stage,
                    cudaStream_t stream);
 
-// Y[M, N] (f32, zero on entry) += sum over groups of (A[:, group rows] @
-// W4[group rows, :]) * scale[group, N]; W4 layer `layer` of the int4 weights
-// behind `wts` (make_weight_map, int4), scale [K / group, N] (group == K: one
-// scale per output column). Defined in i4_gemm.cu. Requires N % 64 == 0,
+// The product sum over groups of (A[:, group rows] @ W4[group rows, :]) *
+// scale[group, N], W4 layer `layer` of the int4 weights behind `wts`
+// (make_weight_map, int4), scale [K / group, N] (group == K: one scale per
+// output column), then `stage`. Defined in i4_gemm.cu. Requires N % 64 == 0,
 // K % 64 == 0, group % 32 == 0, K % group == 0.
 int launch_i4_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-                   int group, float* Y, int M, int N, int K, const DgWork& ws,
+                   int group, int M, int N, int K, const DgWork& ws, const DgStage& stage,
                    cudaStream_t stream);

@@ -43,18 +43,18 @@
 #include "decode_gemm.cuh"
 
 int launch_i4_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-                   int group, float* Y, int M, int N, int K, const DgWork& ws,
+                   int group, int M, int N, int K, const DgWork& ws, const DgStage& stage,
                    cudaStream_t stream) {
   if (group <= 0 || group % 32 != 0 || K % group != 0) return (int)cudaErrorInvalidValue;
   if (group % DG_BK == 0)
-    return dg_launch<true, 4>(act, wts, layer, scale, nullptr, group, Y, M, N, K, ws, stream);
-  return dg_launch<true, 2>(act, wts, layer, scale, nullptr, group, Y, M, N, K, ws, stream);
+    return dg_launch<true, 4>(act, wts, layer, scale, nullptr, group, M, N, K, ws, stage, stream);
+  return dg_launch<true, 2>(act, wts, layer, scale, nullptr, group, M, N, K, ws, stage, stream);
 }
 
 // The GEMM core alone (scripts/decode_gemm_torch.py, the cuda tests):
 // y[M, N] (f32, accumulated into) += sum over groups of ((a[0] + a[1])[:, group]
 // @ W4[group, :]) * scale[group, :], a [2, M, K] bf16, scale [K / group, N];
-// ws the stream-K workspace, as vbt_i8_gemm's.
+// ws the workspace, as vbt_i8_gemm's.
 extern "C" int vbt_i4_gemm(const void* a, const void* w4, const void* scale, void* y, void* ws,
                            int n_slots, int n_counters, int group, int M, int N, int K,
                            void* stream_ptr) {
@@ -63,6 +63,9 @@ extern "C" int vbt_i4_gemm(const void* a, const void* w4, const void* scale, voi
   int rc = make_act_map(&act, (const bf16*)a, K, M, K);
   if (!rc) rc = make_weight_map(&wts, w4, 1, K, N, true);
   if (rc) return rc;
-  return launch_i4_gemm(act, wts, 0, (const float*)scale, group, (float*)y, M, N, K,
-                        dg_work(ws, n_slots, n_counters), (cudaStream_t)stream_ptr);
+  DgStage add{};
+  add.kind = DG_ADD;
+  add.y = (float*)y;
+  return launch_i4_gemm(act, wts, 0, (const float*)scale, group, M, N, K,
+                        dg_work(ws, n_slots, n_counters), add, (cudaStream_t)stream_ptr);
 }

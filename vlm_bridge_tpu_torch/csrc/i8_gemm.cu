@@ -34,36 +34,42 @@
 //   swizzle, rows past M zero: any M works, in blocks of 64), another the
 //   weights' box of the three tiles' fragment runs (a 4-D map over the
 //   stacked layers; evict-first in the L2, so that the weights do not push
-//   out the activations and Y). 14 warps leave 128 registers a thread;
+//   out the activations and the slots). 14 warps leave 128 registers a thread;
 //   two 64-column tiles a warpgroup (128 accumulators) or four warpgroups
 //   (96) do not fit. A stage is 64 rows of K; the ring holds 7.
 // - Work is split "stream-K": the (tile, K slice) units in tile-major order
 //   are cut into one equal run for each SM, so the grid is one wave at every
 //   shape (gate|up's 96 tiles and o's 12 alike); each run of one tile ends in
-//   an epilogue that stages (hi + lo) * scale (+ bias) in shared memory. A
-//   run of a whole tile adds it into Y; a run of part of one stores it into
-//   a workspace slot of its own. After its last unit a block arrives at the
-//   counters of the tiles it shares, and each of a tile's n contributors
-//   waits for the n arrivals and sums 1/n of the tile over the n slots in
-//   contributor order, so the same inputs give the same bits on every call
-//   (decode_gemm.cuh:DgWork, finish_tiles). Y must be zero on entry: the
-//   step's kernels that read Y write zeros back, so the step launches no
-//   memset.
+//   an epilogue that stages (hi + lo) * scale (+ bias) in shared memory and
+//   stores it into the run's workspace slot. The grid then meets at one
+//   barrier, and the launch's stage (decode_gemm.cuh: the attention, a
+//   residual norm, the GeGLU or GELU point, or an add into y) reads each
+//   value as its tile's slots added in block order, so the same inputs give
+//   the same bits on every call.
 // Measured on an H100 (PERF.md): 1.8x the byte bound at gate|up, 3-5x at
 // the small products, whose runs are two to five stages deep.
 
 #include "decode_gemm.cuh"
 
+#include <atomic>
+
+unsigned dg_next_epoch() {
+  static std::atomic<unsigned> epoch{0};
+  unsigned e = epoch.fetch_add(1) + 1;
+  while (e == 0) e = epoch.fetch_add(1) + 1;   // 0: a new workspace's flag
+  return e;
+}
+
 int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
-                   const float* bias, float* Y, int M, int N, int K, const DgWork& ws,
+                   const float* bias, int M, int N, int K, const DgWork& ws, const DgStage& stage,
                    cudaStream_t stream) {
-  return dg_launch<false, 4>(act, wts, layer, scale, bias, 0, Y, M, N, K, ws, stream);
+  return dg_launch<false, 4>(act, wts, layer, scale, bias, 0, M, N, K, ws, stage, stream);
 }
 
 // The GEMM core alone (scripts/decode_gemm_torch.py, the cuda tests):
 // y[M, N] (f32, accumulated into) += ((a[0] + a[1]) @ W int8) * scale (+ bias),
-// a [2, M, K] bf16; ws the stream-K workspace of n_slots slots and n_counters
-// counters (ops/decode_kernels.py:stream_k_workspace).
+// a [2, M, K] bf16; ws the workspace of n_slots slots and n_counters barrier
+// words (ops/decode_kernels.py:stream_k_workspace).
 extern "C" int vbt_i8_gemm(const void* a, const void* w, const void* scale, const void* bias,
                            void* y, void* ws, int n_slots, int n_counters, int M, int N, int K,
                            void* stream_ptr) {
@@ -72,6 +78,9 @@ extern "C" int vbt_i8_gemm(const void* a, const void* w, const void* scale, cons
   int rc = make_act_map(&act, (const bf16*)a, K, M, K);
   if (!rc) rc = make_weight_map(&wts, w, 1, K, N, false);
   if (rc) return rc;
-  return launch_i8_gemm(act, wts, 0, (const float*)scale, (const float*)bias, (float*)y, M, N, K,
-                        dg_work(ws, n_slots, n_counters), (cudaStream_t)stream_ptr);
+  DgStage add{};
+  add.kind = DG_ADD;
+  add.y = (float*)y;
+  return launch_i8_gemm(act, wts, 0, (const float*)scale, (const float*)bias, M, N, K,
+                        dg_work(ws, n_slots, n_counters), add, (cudaStream_t)stream_ptr);
 }

@@ -189,7 +189,10 @@ def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
                         mlp_int4_group: Optional[int] = 128) -> dict:
     """Layer-stack the int8 decoder weights in the layout of
     ops.decode_kernels.fused_stack_step (int8 layers only; weights in
-    fragment order, decode_kernels.to_fragments).
+    fragment order, decode_kernels.to_fragments; gate and up columns, and
+    their scales, interleaved in runs of 32, decode_kernels.interleave_gate_up,
+    so that the kernel's GeGLU runs inside the gate|up product: the values
+    are the JAX package's, the order the port's own).
 
     mlp_int4=True re-quantizes the MLP weights to nibble-packed int4
     (quant.quantize_int4, group_size=mlp_int4_group; None: one scale per
@@ -201,7 +204,7 @@ def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
     per-layer weight as it is stacked, so that a 9B stack converts within
     16 GB) is not ported: the card holds both copies."""
     lps = [params["layers"][str(i)] for i in range(cfg.num_layers)]
-    frag = decode_kernels.to_fragments
+    frag, gate_up = decode_kernels.to_fragments, decode_kernels.interleave_gate_up
 
     def stk(get):
         return torch.stack([get(lp) for lp in lps]).contiguous()
@@ -217,10 +220,10 @@ def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
             lp["pre_ffn_norm"], lp["post_ffn_norm"]]).float()),
     }
     if not mlp_int4:
-        out["wgu"] = stk(lambda lp: frag(torch.cat([mlp(lp, "gate")["w_int8"],
-                                                    mlp(lp, "up")["w_int8"]], dim=1)))
-        out["gu_scale"] = stk(lambda lp: torch.cat([mlp(lp, "gate")["scale"],
-                                                    mlp(lp, "up")["scale"]]).float())
+        out["wgu"] = stk(lambda lp: frag(gate_up(mlp(lp, "gate")["w_int8"],
+                                                 mlp(lp, "up")["w_int8"])))
+        out["gu_scale"] = stk(lambda lp: gate_up(mlp(lp, "gate")["scale"],
+                                                 mlp(lp, "up")["scale"]).float())
         out["wd"] = stk(lambda lp: frag(mlp(lp, "down")["w_int8"]))
         out["d_scale"] = stk(lambda lp: mlp(lp, "down")["scale"].float())
         return out
@@ -242,8 +245,8 @@ def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
     gu, gus, wd, ds = [], [], [], []
     for lp in lps:
         (gq, gs), (uq, us), (dq, dsc) = (q4(mlp(lp, k)) for k in ("gate", "up", "down"))
-        gu.append(frag4(torch.cat([gq, uq], dim=1)))
-        gus.append(torch.cat([gs, us], dim=1))
+        gu.append(frag4(gate_up(gq, uq)))
+        gus.append(gate_up(gs, us))
         wd.append(frag4(dq))
         ds.append(dsc)
     out["wgu4"], out["gu_scale4"] = torch.stack(gu).contiguous(), torch.stack(gus).contiguous()

@@ -51,8 +51,8 @@ SIGNATURES = {
     "vbt_fused_mlp_step": [_P] * 13 + [_I] * 5 + [_F] + [_P],
     "vbt_i8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "vbt_i4_gemm": [_P] * 5 + [_I] * 6 + [_P],
-    "vbt_fused_stack_step": [_P] * 22 + [_I] * 13 + [_F] * 3 + [_P],
-    "vbt_fused_bridge_step": [_P] * 32 + [_I] * 11 + [_F] + [_P],
+    "vbt_fused_stack_step": [_P] * 21 + [_I] * 13 + [_F] * 3 + [_P],
+    "vbt_fused_bridge_step": [_P] * 31 + [_I] * 11 + [_F] + [_P],
     "vbt_flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_L] * 9 + [_P],
     "vbt_flash_attention_bwd_dq": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_L] * 15 + [_P],
     "vbt_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F] * 2 + [_L] * 12 + [_P],

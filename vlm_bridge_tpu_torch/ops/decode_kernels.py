@@ -39,12 +39,14 @@ register-fragment order, `to_fragments(w)` = [N/64, K/32, 128, 16] (see
 there):
   stacked LM weights (models/gemma2.stack_decode_params):
     wqkv [L, *frag(H, QHD+2KHD)] + qkv_scale [L, QHD+2KHD],
-    wo [L, *frag(QHD, H)] + o_scale [L, H], wgu [L, *frag(H, 2F)] (gate | up)
-    + gu_scale [L, 2F], wd [L, *frag(F, H)] + d_scale [L, H], norms
-    [L, 4, H] f32 (input / post-attn / pre-FFN / post-FFN).
+    wo [L, *frag(QHD, H)] + o_scale [L, H], wgu [L, *frag(H, 2F)] + gu_scale
+    [L, 2F] (gate and up columns interleaved in runs of GU_RUN = 32,
+    `interleave_gate_up`, so that every 64-column tile of the kernel holds
+    both halves of its 32 features), wd [L, *frag(F, H)] + d_scale [L, H],
+    norms [L, 4, H] f32 (input / post-attn / pre-FFN / post-FFN).
   with int4 MLP weights (stack_decode_params(mlp_int4=True)) the MLP fields
-    are instead wgu4 [L, *frag4(H, 2F)] + gu_scale4 [L, H/g, 2F] and wd4
-    [L, *frag4(F, H)] + d_scale4 [L, F/g, H]: nibbles in the packed fragment
+    are instead wgu4 [L, *frag4(H, 2F)] + gu_scale4 [L, H/g, 2F] (interleaved
+    as wgu) and wd4 [L, *frag4(F, H)] + d_scale4 [L, F/g, H]: nibbles in the packed fragment
     order of `to_fragments4`, scales per group of g rows of the contraction,
     or one row of scales (per output channel) when the second dim is 1. The
     TPU layout's pairing of row k with k + K/2, its block-local down
@@ -59,9 +61,17 @@ there):
     [nb, B, Hc, Sv]; self K/V [nb, B, Hs, Smax, Ds] in the activation dtype.
 The caches are updated in place at row t.
 
-The steps' residual and norm kernels hold a row in registers, 256 threads a
-row and up to 64 values a thread: rows up to ROW_MAX wide (every
-configuration of configs.py; Gemma-2-27B's 4608 takes 32 values a thread).
+Each step launches one kernel for each product, which also runs the stage
+that consumes it (csrc/decode_gemm.cuh: the residual norms, GeGLU, GELU),
+the attentions as kernels of their own that read the q|k|v (or q) product
+where it lies, and one row kernel for the first norm: 1 + 5 L launches a
+stack step, 1 + 8 nb a bridge step. The norms hold a row, up to ROW_MAX wide
+(every configuration of configs.py). The attention kernels keep each head's
+logits and the rows' scales in shared memory: the wrappers refuse a position
+or a head layout whose logits do not fit (`_stack_attn_bytes`,
+`_cross_attn_bytes`), more than DG_GMAX query heads a kv head, stack heads
+other than 32, 64, 128, 256 or 512 wide and bridge self-attention heads other
+than 32, 64, 128 or 256 wide.
 """
 
 from __future__ import annotations
@@ -145,6 +155,31 @@ def frag4_shape(K: int, N: int) -> tuple:
     return (N // 64, K // 64, 128, 16)
 
 
+GU_RUN = 32   # gate and up columns alternate in runs of this many
+
+
+def interleave_gate_up(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """[..., F] and [..., F] -> [..., 2F]: runs of GU_RUN gate columns, each
+    followed by the same run of up columns (the stacked gate|up layout:
+    columns 64 i .. 64 i + 31 are gate 32 i .., 64 i + 32 .. 64 i + 63 up
+    32 i ..), so that a 64-column tile of the product holds both halves of
+    its features and GeGLU runs where the tile's sums are final."""
+    F = gate.shape[-1]
+    if F % GU_RUN or up.shape != gate.shape:
+        raise ValueError(f"gate and up of {F} and {up.shape[-1]} columns: both must be "
+                         f"equal and a multiple of {GU_RUN}")
+    lead = gate.shape[:-1]
+    return torch.stack([gate.reshape(*lead, F // GU_RUN, GU_RUN),
+                        up.reshape(*lead, F // GU_RUN, GU_RUN)], dim=-2).reshape(*lead, 2 * F)
+
+
+def split_gate_up(gu: torch.Tensor) -> tuple:
+    """Inverse of `interleave_gate_up`: [..., 2F] -> (gate, up)."""
+    lead, F2 = gu.shape[:-1], gu.shape[-1]
+    v = gu.reshape(*lead, F2 // (2 * GU_RUN), 2, GU_RUN)
+    return v[..., 0, :].reshape(*lead, F2 // 2), v[..., 1, :].reshape(*lead, F2 // 2)
+
+
 def _mm4(a: torch.Tensor, wf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """f32 a @ (w_int4 * scale), w in packed fragment order, scale [K/g, N]
     (one row: per output channel)."""
@@ -180,6 +215,24 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
 
 DG_BN, DG_BK = 192, 64    # a block's weight columns; K rows a work unit
 DG_SLOT = 64 * DG_BN      # f32 values a workspace slot: one run's partial tile
+DG_XATTN_THREADS = 320    # threads of a cross-attention block
+DG_GMAX = 4               # query heads a kv head the stack's attention kernel takes
+# the stages' shared memory: the int8 instantiation's ring of 7 stages and its
+# epilogue staging
+DG_STAGE_SMEM = 7 * (2 * 64 * DG_BK * 2 + 3 * 64 * DG_BK) + 32 * (DG_BN + 4) * 4
+
+
+def _stack_attn_bytes(G: int, D: int, t: int) -> int:
+    """Shared memory of the stack's attention kernel at position t
+    (csrc/decode_gemm.cuh:stack_attn_floats)."""
+    n = t + 1
+    return 4 * ((G + 2) * D + (G + 1) * D + D // 2 + 2 * n + G * n + 4096 * G + 32)
+
+
+def _cross_attn_bytes(D: int, S: int) -> int:
+    """Shared memory of the cross-attention kernel over S vision rows
+    (csrc/decode_gemm.cuh:cross_attn_floats)."""
+    return 4 * (D + 3 * S + (DG_XATTN_THREADS // (D // 16)) * D + 32)
 
 
 def _units(M: int, N: int, K: int) -> tuple:
@@ -190,47 +243,39 @@ def _units(M: int, N: int, K: int) -> tuple:
 
 
 def stream_k_workspace(M: int, N: int, K: int, sms: int) -> tuple:
-    """(slots, counters) the GEMM core needs for one [M, K] @ [K, N] product
-    on `sms` SMs: its grid is min(sms, units) blocks, each with up to two
-    runs that share a tile with other blocks (a slot each, 2 b and 2 b + 1),
-    and a counter a tile."""
+    """(slots, words) the GEMM core needs for one [M, K] @ [K, N] product on
+    `sms` SMs: its grid is min(sms, units) blocks; the run of block b in tile
+    t stores into slot t + b (a tile's contributors are consecutive blocks),
+    so tiles + grid - 1 slots; and the grid barrier's two words."""
     tiles, units = _units(M, N, K)
-    return 2 * min(sms, units), tiles
+    return tiles + min(sms, units) - 1, 2
 
 
 def stream_k_tiles(M: int, N: int, K: int, sms: int) -> list:
-    """For each tile in order, the blocks whose runs add into it in the order
-    of the sum and the slot each leaves its partial sums in (None for a
-    block that runs the tile whole): the closed forms of
-    csrc/decode_gemm.cuh (block_of, finish_tile, the epilogue's slot)."""
+    """For each tile in order, the blocks whose runs add into it, in the
+    order of the sum, with the slot each stores its partial sums in: the
+    closed forms of csrc/decode_gemm.cuh (block_of, product4, the
+    epilogue's slot)."""
     tiles, units = _units(M, N, K)
     chunks, grid = K // DG_BK, min(sms, units)
 
     def block_of(x):
         return ((x + 1) * grid - 1) // units
 
-    plan = []
-    for tile in range(tiles):
-        x0 = tile * chunks
-        bf, bl = block_of(x0), block_of(x0 + chunks - 1)
-        if bf == bl:
-            plan.append([(bf, None)])
-            continue
-        mid = bf * units // grid < x0
-        plan.append([(bf + j, 2 * bf + 1 if j == 0 and mid else 2 * (bf + j))
-                     for j in range(bl - bf + 1)])
-    return plan
+    return [[(b, tile + b) for b in range(block_of(tile * chunks),
+                                         block_of(tile * chunks + chunks - 1) + 1)]
+            for tile in range(tiles)]
 
 
-# one workspace for each (device, stream, slots, counters): the counters are
-# zero between launches, so it is allocated once, with zeros
+# one workspace for each (device, stream, slots, words): the barrier's count
+# is zero between launches, so it is allocated once, with zeros
 _WORKSPACES: dict = {}
 
 
 def _workspace(dev: torch.device, shapes) -> tuple:
     """The cached stream-K workspace for products of the given (M, N, K)
     shapes launched one after another on the current stream, with its slot
-    and counter counts."""
+    and barrier-word counts."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sizes = [stream_k_workspace(M, N, K, sms) for M, N, K in shapes]
     slots, counters = max(a for a, _ in sizes), max(b for _, b in sizes)
@@ -371,8 +416,8 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
         o = _mm(attn.reshape(B, QHD), stacked["wo"][i], stacked["o_scale"][i])
         xf = xf + _rms(o, nl[1], eps)
         h = _rms(xf, nl[2], eps)
-        gate_up = mm(h, gu[i], gus[i])
-        a = gelu_tanh(gate_up[:, :F]) * gate_up[:, F:]
+        gate, up = split_gate_up(mm(h, gu[i], gus[i]))
+        a = gelu_tanh(gate) * up
         y = mm(a, wd[i], ds[i])
         xf = xf + _rms(y, nl[3], eps)
     return xf.to(act)
@@ -407,8 +452,11 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     S = kc.shape[3]
     if not 0 <= t < S:
         raise ValueError(f"position {t} outside the {S}-row cache")
-    if D % 32 or D > 1024 or NH % KH or NH // KH > D // 32:
+    if D not in (32, 64, 128, 256, 512) or NH % KH or NH // KH > min(D // 32, DG_GMAX):
         raise ValueError(f"unsupported head layout NH={NH} KH={KH} D={D}")
+    if _stack_attn_bytes(NH // KH, D, t) > DG_STAGE_SMEM:
+        raise ValueError(f"position {t}: {NH // KH} heads' logits over {t + 1} rows do not "
+                         "fit the attention kernel's shared memory")
     for n in (NQKV, H, 2 * F):
         if n % 64:
             raise ValueError(f"projection width {n} must be a multiple of 64")
@@ -449,7 +497,6 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     x32 = torch.empty(B, H, dtype=torch.float32, device=dev)
     hbuf = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)  # split hi | lo
     abuf = torch.empty(2, B, max(QHD, F), dtype=torch.bfloat16, device=dev)
-    ybuf = torch.empty(B, max(NQKV, 2 * F, H), dtype=torch.float32, device=dev)
     ws, slots, counters = _workspace(dev, [(B, NQKV, H), (B, H, QHD), (B, 2 * F, H), (B, H, F)])
     s = stacked
     p = cuda_lib.ptr
@@ -458,7 +505,7 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
         p(s["wqkv"]), p(s["qkv_scale"]), p(s["wo"]), p(s["o_scale"]),
         *(p(s[name]) for name, _, _ in mlp), p(s["norms"]),
         p(cos), p(sin), p(kc), p(vc), p(ks), p(vs),
-        p(x32), p(hbuf), p(abuf), p(ybuf), p(ws), slots, counters,
+        p(x32), p(hbuf), p(abuf), p(ws), slots, counters,
         L, B, H, NH, KH, D, F, S, int(t), int(mlp4), group or 0,
         float(attn_scale), float(softcap), float(eps))
     fused_stack_step.launches += 1
@@ -534,8 +581,12 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
     Sv, Smax = ck.shape[3], sk.shape[3]
     if not 0 <= t < Smax:
         raise ValueError(f"position {t} outside the {Smax}-row self cache")
-    if Dc * Hc != ld or Ds * Hs != ld or Dc % 32 or Ds % 32 or Dc > 1024 or Ds > 1024:
-        raise ValueError(f"unsupported head widths Dc={Dc} Ds={Ds}")
+    if (Dc * Hc != ld or Ds * Hs != ld or Dc % 32 or Dc > 1024 or Ds not in (32, 64, 128, 256)
+            or _cross_attn_bytes(Dc, Sv) > DG_STAGE_SMEM):
+        raise ValueError(f"unsupported head widths Dc={Dc} Ds={Ds} (cross rows {Sv})")
+    if 4 * (Ds + t + 1) * 4 > DG_STAGE_SMEM:
+        raise ValueError(f"position {t}: the self attention's logits do not fit the stage's "
+                         "shared memory")
     if ld % 64 or F % 64:
         raise ValueError(f"widths ld={ld} F={F} must be multiples of 64")
     _check_row_width(ld)
@@ -561,7 +612,6 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
     x32 = torch.empty(B, ld, dtype=torch.float32, device=dev)
     hbuf = torch.empty(2, B, ld, dtype=torch.bfloat16, device=dev)  # split hi | lo
     abuf = torch.empty(2, B, max(ld, F), dtype=torch.bfloat16, device=dev)
-    ybuf = torch.empty(B, max(3 * ld, F), dtype=torch.float32, device=dev)
     ws, slots, counters = _workspace(dev, [(B, ld, ld), (B, 3 * ld, ld), (B, F, ld), (B, ld, F)])
     s = bst
     p = cuda_lib.ptr
@@ -575,7 +625,7 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
         p(s["wo_s"]), p(s["o_s_scale"]), p(s["o_s_bias"]),
         p(s["fc1"]), p(s["fc1_scale"]), p(s["fc1_bias"]),
         p(s["fc2"]), p(s["fc2_scale"]), p(s["fc2_bias"]),
-        p(x32), p(hbuf), p(abuf), p(ybuf), p(ws), slots, counters,
+        p(x32), p(hbuf), p(abuf), p(ws), slots, counters,
         nb, B, ld, Hc, Hs, Sv, Smax, F, int(t), float(eps))
     fused_bridge_step.launches += 1
     return x_out

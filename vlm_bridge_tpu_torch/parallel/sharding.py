@@ -102,15 +102,19 @@ def _subgroups(data: int, model: int) -> tuple:
 def auto_mesh(data: Optional[int] = None, model: int = 1, *, device=None) -> Mesh:
     """The mesh over the group's processes (one process without a group, so
     model > 1 needs a group of data x model processes). device: this
-    process's device (None: its card when CUDA is there, else the CPU)."""
+    process's device (None: its card; without one this raises, as
+    tools/loading.resolve_device does: there is no fallback to the CPU, which
+    a caller asks for with device="cpu")."""
     n = distributed.world_size()
     if data is None:
         data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} processes")
     if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        from vlm_bridge_tpu_torch.tools.loading import resolve_device
+
+        device = resolve_device("cuda")
+        device = torch.device(device.type, torch.cuda.current_device())
     groups = _subgroups(data, model) if distributed.is_initialized() else (None, None)
     return Mesh(data=data, model=model, device=torch.device(device),
                 rank=distributed.rank(), distributed=distributed.is_initialized(),
