@@ -74,12 +74,16 @@ kernel held against its plain version.
    (both paths round to bf16 between ops, so a near-tie may flip a row's
    token: it prints how many rows agree); a short profiled window gives the
    launches per token and the device's busy share.
-4b'. The per-layer fused decode: `fused_attn_step` (t = 0, and t = 20 with
+4b'. The per-layer fused decode, on the per-layer int8 weights prepared once
+   with their fragment forms (tools/loading.prepare_fused_layers: its extra
+   device bytes and seconds): `fused_attn_step` (t = 0, and t = 20 with
    planted large logits) and `fused_mlp_step` against their plain versions,
-   each timed call on another layer's weights; then 50 greedy tokens at
-   batch 64 through fused_bridge_step -> gemma2.decode_step_fused ->
+   a second call's bits, the kernels a call (at most 4 and 3), each timed
+   call on another layer's weights; then 50 greedy tokens at batch 64
+   through fused_bridge_step -> gemma2.decode_step_fused ->
    int8_matmul_t_argmax (launches 1300 / 1300), the first tokens against the
-   same loop on the plain versions, ms a token beside the stack step's.
+   same loop on the plain versions, ms a token beside the stack step's, and
+   the loop's device-busy share under torch.profiler.
 4b''. One fused token step at VLMConfig.gemma2_27b()'s widths, two decoder
    layers: fused_bridge_step -> the stack step -> the greedy head over the
    256000-row table, against the plain versions (rows within HIDDEN_TOL,
@@ -247,6 +251,13 @@ DECODE_STEP_ATOMIC_MS = {"fused_stack_step": 2.5556, "fused_stack_step[mlp_int4]
 # launches a fused step may make a layer (a bridge block), past its one
 # first norm
 STEP_LAUNCH_LIMITS = {"fused_stack_step": 6, "fused_bridge_step": 11}
+# kernels a call of a per-layer step may launch
+LAYER_STEP_LAUNCH_LIMITS = {"fused_attn_step": 4, "fused_mlp_step": 3}
+# the per-layer steps on the int8 product kernel (its decode form) and their
+# earlier row kernels, on the same card, PERF.md rows 4 and 6
+LAYER_STEP_I8MM_MS = {"fused_attn_step": 0.0473, "fused_mlp_step": 0.0697}
+# tokens of each of the two profiled windows of the per-layer fused loop
+BUSY_TOKENS = 10
 # the heads' earlier (wmma / mma.sync tile) kernels on the same card, PERF.md rows
 # 12-15 (int4 in groups of 128)
 HEAD_MMA_SYNC_MS = {"int8_matmul_t_argmax": 0.6438, "int4_matmul_t_argmax": 0.5884,
@@ -285,7 +296,7 @@ def card_line() -> str:
 
 
 PTXAS_TAGS = ("fa_", "i8mm_kernel", "decode_gemm_kernel", "tied_head_kernel",
-              "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide", "ls_attn_kernel")
+              "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide", "layer_attn_kernel")
 
 
 # the wgmma kernels: each instantiation must not spill
@@ -293,10 +304,11 @@ SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel", "fa_bwd_dq_sm90_ke
                  "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel", "tied_head_kernel",
                  "i8mm_kernel")
 FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:4] for d in (64, 128, 256))
-# the fused steps' GEMM core (csrc/decode_gemm.cuh): int8, and int4 with waits
-# every stage or every half stage (groups of an odd multiple of 32 rows)
-GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4E", "decode_gemm_kernelILb1ELi4E",
-                  "decode_gemm_kernelILb1ELi2E")
+# the fused steps' GEMM core (csrc/decode_gemm.cuh): int8 with hi + lo halves,
+# int8 with one bf16 half (the per-layer steps), and int4 with waits every
+# stage or every half stage (groups of an odd multiple of 32 rows)
+GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4ELi2E", "decode_gemm_kernelILb0ELi4ELi1E",
+                  "decode_gemm_kernelILb1ELi4ELi2E", "decode_gemm_kernelILb1ELi2ELi2E")
 # the tied heads (csrc/tied_head.cu): int8, int4 per row, int4 in groups, each
 # greedy (argmax) and sampled (logits)
 HEAD_INSTANCES = tuple(f"tied_head_kernelILb{i4}ELb{gr}ELb{lg}E"
@@ -318,7 +330,7 @@ def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
     pipeline runs them at a fraction of their rate and still agrees with the
     plain version), or if the build lacks one of REQUIRED: the three
     instantiations (D 64 / 128 / 256) of the flash forward, dq and dk/dv, the
-    GEMM core's three and the tied heads' six. Returns the instantiations
+    GEMM core's four and the tied heads' six. Returns the instantiations
     of the wgmma kernels that spill."""
     log = build_log.splitlines()
     serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
@@ -360,18 +372,27 @@ def time_ms(fn, iters: int, spin_cycles: int = 20_000_000) -> float:
     return start.elapsed_time(end) / iters
 
 
-def step_launches(fn) -> Optional[int]:
+def step_launches(fn, calls: int = 1):
     """Kernels that one call of fn launches on the card, counted by
-    torch.profiler (None where it records no device activity)."""
+    torch.profiler over `calls` calls (None where it records no device
+    activity; a window of short calls that do not queue behind a spin may
+    come back without its first kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        if calls > 1:   # the calls queue behind a spin, so that the window holds all of them
+            torch.cuda._sleep(20_000_000)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n or None
+    if calls > 1:
+        n -= 1   # the spin
+    if n <= 0:
+        return None
+    return n if calls == 1 else n / calls
 
 
 def check_step_launches(name: str, fn, per: int, limit: int) -> Optional[int]:
@@ -1166,9 +1187,9 @@ def counting_phases(counters, phases: dict, name: str, owner, attr: str):
 
 
 def device_busy(fn):
-    """(wall ms, device-busy ms) of fn() under torch.profiler, recording the
-    card's activity only: recording the host's ops as well slows a
-    launch-bound loop several times over."""
+    """(wall ms, device-busy ms, {kernel: device ms}) of fn() under
+    torch.profiler, recording the card's activity only: recording the host's
+    ops as well slows a launch-bound loop several times over."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1176,9 +1197,9 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    return wall, busy
+    by = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA}
+    return wall, sum(by.values()), by
 
 
 def run_training_entry(params, cfg, dev, card, bare_rate):
@@ -1277,7 +1298,7 @@ def run_training_entry(params, cfg, dev, card, bare_rate):
 
             def go():
                 out[0] = real_epoch(ctx, epoch)
-            busy["wall"], busy["busy"] = device_busy(go)
+            busy["wall"], busy["busy"], _ = device_busy(go)
             return out[0]
         orch.run_training_epoch = profiled_epoch
         try:
@@ -2820,10 +2841,30 @@ def _leaves(tree):
         yield tree
 
 
+def prepare_fused_layers_timed(lm_params, card):
+    """tools/loading.prepare_fused_layers on the model's per-layer int8
+    weights, once: prints the seconds it takes and the device bytes it adds."""
+    from vlm_bridge_tpu_torch.tools.loading import prepare_fused_layers
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepared = prepare_fused_layers(lm_params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    extra = sum(nbytes(lp["attn"]["qkv"]["w_frag"], lp["attn"]["o"]["w_frag"],
+                       lp["mlp"]["gate"]["gu_frag"], lp["mlp"]["gate"]["gu_scale"],
+                       lp["mlp"]["down"]["w_frag"]) for lp in prepared["layers"].values())
+    print(f"prepare_fused_layers: {len(prepared['layers'])} layers, {extra / 1e9:.4f} GB more on "
+          f"the device, {dt:.3f} s (host clock around work that ends in a synchronise; "
+          f"on {card})")
+    return prepared
+
+
 def phase_fused_layer(per_layer, cfg, dev, gen, card, t=20):
     """fused_attn_step (t = 0 and t) and fused_mlp_step against their plain
-    versions at M = BATCH on the model's own per-layer int8 weights; every
-    timed call reads another layer's weights and cache."""
+    versions at M = BATCH on the model's own per-layer int8 weights (prepared
+    with their fragment forms); a second call's bits; the kernels a call;
+    every timed call reads another layer's weights and cache."""
     from vlm_bridge_tpu_torch.models import gemma2
     from vlm_bridge_tpu_torch.ops import decode_kernels as dk
     from vlm_bridge_tpu_torch.ops.layers import rope_table
@@ -2874,6 +2915,10 @@ def phase_fused_layer(per_layer, cfg, dev, gen, card, t=20):
                   f"(limit {SCALE_RTOL})")
             if not r <= SCALE_RTOL:
                 raise AssertionError(f"fused_attn_step t={pos}: {name} disagrees")
+    again = dk.fused_attn_step(*args, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"fused_attn_step t={t}: a second call gave other bits")
+    print(f"[fused_attn_step t={t}] a second call: bit-equal")
     if t:
         q_reach = float(cache.k_scale[0][:, :, 3:5].max()) * 127 * lm.attn_scale
         print(f"[fused_attn_step t={t}] planted history rows reach logits of the order of "
@@ -2884,14 +2929,23 @@ def phase_fused_layer(per_layer, cfg, dev, gen, card, t=20):
     plain_ms = time_ms(lambda: dk.fused_attn_step_plain(*nxt(), **kw), 4)
     lp = layers[0]
     live = (nbytes(cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0]) * t) // S
-    n_w = lp["attn"]["qkv"]["w_int8"].numel() + lp["attn"]["o"]["w_int8"].numel()
-    bd = bound(nbytes(*_leaves(lp["attn"]), lp["input_norm"], lp["post_attn_norm"]) + live
-               + 2 * nbytes(x) + 2 * BATCH * KH * (D + 4), 2.0 * BATCH * n_w)
-    print(f"[fused_attn_step] t={t}: kernel {ms:.4f} ms (with the mma.sync product: "
+    # what the kernels read: the fragment forms and the scales, not w_int8 as well
+    qkv, o = lp["attn"]["qkv"], lp["attn"]["o"]
+    n_w = qkv["w_frag"].numel() + o["w_frag"].numel()
+    bd = bound(nbytes(qkv["w_frag"], qkv["scale"], o["w_frag"], o["scale"], lp["input_norm"],
+                      lp["post_attn_norm"]) + live + 2 * nbytes(x) + 2 * BATCH * KH * (D + 4),
+               2.0 * BATCH * n_w)
+    a0 = attn_args(0, t)   # made outside the profiled call: RoPE's rows are kernels too
+    launches = step_launches(lambda: dk.fused_attn_step(*a0, **kw), calls=20)
+    print(f"[fused_attn_step] t={t}: kernel {ms:.4f} ms (on the int8 product kernel: "
+          f"{LAYER_STEP_I8MM_MS['fused_attn_step']}; with the mma.sync product: "
           f"{I8_MMA_SYNC_MS['fused_attn_step']}), plain {plain_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (on {card})")
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; kernels a call {launches} (at most "
+          f"{LAYER_STEP_LAUNCH_LIMITS['fused_attn_step']}) (on {card})")
+    if launches is not None and launches > LAYER_STEP_LAUNCH_LIMITS["fused_attn_step"]:
+        raise AssertionError(f"fused_attn_step launched {launches} kernels a call")
     res["fused_attn_step"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bd,
-                              "library_ms": None}
+                              "library_ms": None, "kernels_a_call": launches}
 
     def mlp_args(i):
         lp = layers[i]
@@ -2902,24 +2956,36 @@ def phase_fused_layer(per_layer, cfg, dev, gen, card, t=20):
     want = dk.fused_mlp_step_plain(*mlp_args(0), eps=lm.rms_norm_eps)
     torch.cuda.synchronize()
     err = rows_close("fused_mlp_step", got, want, LAYER_TOL)
+    if not torch.equal(got, dk.fused_mlp_step(*mlp_args(0), eps=lm.rms_norm_eps)):
+        raise AssertionError("fused_mlp_step: a second call gave other bits")
+    print("[fused_mlp_step] a second call: bit-equal")
     nxt = cycle([mlp_args(i) for i in range(L)])
     ms = time_ms(lambda: dk.fused_mlp_step(*nxt(), eps=lm.rms_norm_eps), 2 * L)
     plain_ms = time_ms(lambda: dk.fused_mlp_step_plain(*nxt(), eps=lm.rms_norm_eps), 4)
-    n_w = sum(lp["mlp"][k]["w_int8"].numel() for k in ("gate", "up", "down"))
-    bd = bound(nbytes(*_leaves(lp["mlp"]), lp["pre_ffn_norm"], lp["post_ffn_norm"])
-               + 2 * nbytes(x), 2.0 * BATCH * n_w)
-    print(f"[fused_mlp_step] kernel {ms:.4f} ms (with the mma.sync product: "
+    gate, down = lp["mlp"]["gate"], lp["mlp"]["down"]
+    n_w = gate["gu_frag"].numel() + down["w_frag"].numel()
+    bd = bound(nbytes(gate["gu_frag"], gate["gu_scale"], down["w_frag"], down["scale"],
+                      lp["pre_ffn_norm"], lp["post_ffn_norm"]) + 2 * nbytes(x),
+               2.0 * BATCH * n_w)
+    m0 = mlp_args(0)
+    launches = step_launches(lambda: dk.fused_mlp_step(*m0, eps=lm.rms_norm_eps), calls=20)
+    print(f"[fused_mlp_step] kernel {ms:.4f} ms (on the int8 product kernel: "
+          f"{LAYER_STEP_I8MM_MS['fused_mlp_step']}; with the mma.sync product: "
           f"{I8_MMA_SYNC_MS['fused_mlp_step']}), plain {plain_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (on {card})")
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; kernels a call {launches} (at most "
+          f"{LAYER_STEP_LAUNCH_LIMITS['fused_mlp_step']}) (on {card})")
+    if launches is not None and launches > LAYER_STEP_LAUNCH_LIMITS["fused_mlp_step"]:
+        raise AssertionError(f"fused_mlp_step launched {launches} kernels a call")
     res["fused_mlp_step"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
-                             "library_ms": None}
+                             "library_ms": None, "kernels_a_call": launches}
     return res
 
 
 def run_fused_layers(per_layer, cfg, dev, card, stacked_ids, stack_step_ms):
     """50 greedy tokens at batch BATCH through fused_bridge_step ->
     gemma2.decode_step_fused -> int8_matmul_t_argmax, from the per-layer int8
-    weights. Returns the two layer kernels' launch counts."""
+    weights (prepared with their fragment forms); then the loop's device-busy
+    share. Returns the two layer kernels' launch counts."""
     from vlm_bridge_tpu_torch.inference.generate import _build_cross_cache
     from vlm_bridge_tpu_torch.models import bridge, full_model, gemma2
     from vlm_bridge_tpu_torch.ops import decode_kernels as dk
@@ -2983,6 +3049,19 @@ def run_fused_layers(per_layer, cfg, dev, card, stacked_ids, stack_step_ms):
               f"the stacked path's: first tokens {first_eq} of {BATCH}, all tokens {share:.4f} "
               f"(printed, not required: the residual is bf16 between the calls here and f32 "
               f"there) on {card}")
+        # device-busy share: two profiled windows of BUSY_TOKENS and twice as
+        # many tokens, their difference a token (the cache set-up left out)
+        (w1, b1, k1), (w2, b2, k2) = (device_busy(lambda n=n: loop(n))
+                                      for n in (BUSY_TOKENS, 2 * BUSY_TOKENS))
+        if b2 > b1:
+            wall, busy = (w2 - w1) / BUSY_TOKENS, (b2 - b1) / BUSY_TOKENS
+            parts = sorted(((k2.get(n, 0.0) - k1.get(n, 0.0)) / BUSY_TOKENS, n) for n in k2)
+            print(f"per-layer fused decode, a token under torch.profiler (the card's activity "
+                  f"only): device busy {busy:.4f} ms of {wall:.4f} ms = {100 * busy / wall:.1f} "
+                  f"% (on {card}); by kernel, ms a token: " + "; ".join(
+                      f"{n[:60]} {v:.4f}" for v, n in reversed(parts[-8:])))
+        else:
+            print("per-layer fused decode: the profiler recorded no device time")
         ids_k, hidden_k, _ = loop(GREEDY_CHECK_TOKENS)
         before = {n: fn.launches for n, fn in wrappers.items()}
         with plain_decode():
@@ -3380,9 +3459,12 @@ def main() -> int:
         results.update(phase_int8_linear(per_layer, cfg, dev, i8_gen))
         results["int8_matmul_t"] = phase_logits_head(per_layer, dev, i8_gen)
         launches.update(run_sample(per_layer, cfg, dev, card))
-        results.update(phase_fused_layer(per_layer, cfg, dev, i8_gen, card))
-        launches.update(run_fused_layers(per_layer, cfg, dev, card, stacked_ids,
+        fused = {**per_layer, "lm": prepare_fused_layers_timed(per_layer["lm"], card)}
+        results.update(phase_fused_layer(fused, cfg, dev, i8_gen, card))
+        launches.update(run_fused_layers(fused, cfg, dev, card, stacked_ids,
                                          results["fused_stack_step"]["ms"]))
+        del fused
+        torch.cuda.empty_cache()
     # the fused token step at Gemma-2-27B's widths (two layers), kernels against plain versions
     g27 = torch.Generator(device=dev)
     g27.manual_seed(SEED + 27)

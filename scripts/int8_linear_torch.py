@@ -1,6 +1,7 @@
 """The linear kernels of csrc/int8_linear.cu alone on one GPU (ops/quant.
-int8_matmul, int8_mlp, int8_ffn, int4_mlp and the per-layer decode steps
-built on the same product), from this checkout and from another one in turns.
+int8_matmul, int8_mlp, int8_ffn, int4_mlp) and the per-layer decode steps
+(csrc/layer_step.cu, on the decode GEMM core since its redesign; on this
+product before), from this checkout and from another one in turns.
 
     python3 scripts/int8_linear_torch.py [--root DIR]
 
@@ -20,8 +21,14 @@ inputs read and outputs written once over 3.35 TB/s, or 2 M N K over 989
 TFLOP/s, whichever is larger), the wrapper's host microseconds a call (the
 host clock over CALLS calls issued back to back, the card behind), and for
 int8_matmul a bf16 torch.matmul on a dequantized copy made beforehand,
-labelled as not the same function. Then what ptxas reported for the
-product kernels (registers, spills).
+labelled as not the same function. The per-layer steps read their weights in
+fragment order where the port has it (decode_kernels.layer_fragments, made
+once beforehand; a port without it reads the int8 dicts as they are), and get
+a torch.profiler breakdown of CALLS_PROFILED calls queued behind a spin:
+device us a call of each kernel by its place in the call (the norm, each
+product with its stage, the attention), the span a call and the gaps (span
+less busy). Then what ptxas reported for the product kernels (registers,
+spills).
 
 --root DIR times DIR's port as well: the script runs itself once a port, in
 the order DIR, this checkout, this checkout, DIR, each in a process of its
@@ -35,6 +42,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,9 +56,9 @@ M_DECODE, M_TOWER = 64, 64 * 257
 DECODE_MM = {"gemma_qkv": (2304, 4096), "gemma_o": (2048, 2304), "bridge_self_qkv": (2304, 6912)}
 TOWER_MM = {"qkv": (1024, 3072), "o": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
 H, F = 2304, 9216
-REPS, CALLS = 3, 200
+REPS, CALLS, CALLS_PROFILED = 3, 200, 20
 KERNEL_TAGS = ("i8mm_kernel", "i4l_product", "i8l_epilogue", "ls_rms", "ls_residual",
-               "residual_rms")
+               "residual_rms", "decode_gemm_kernel", "layer_attn_kernel", "ls_attn_kernel")
 INT4_BLOCK_F, INT4_GROUP = 512, 128
 
 
@@ -85,6 +93,41 @@ def host_us(fn) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / CALLS * 1e6
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its namespace, template arguments and signature."""
+    m = re.search(r"(\w*kernel\w*)", name)
+    return m.group(1) if m else name[:40]
+
+
+def breakdown(fn) -> dict:
+    """Device us a call of each kernel of fn() by its place in the call, the
+    span a call and the gaps, from torch.profiler over CALLS_PROFILED calls
+    queued behind a ~10 ms spin (so that the host's issuing stays out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(CALLS_PROFILED):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)[1:]   # the spin first
+    if not ev:
+        return {"parts_us": {}, "note": "the profiler recorded no device time"}
+    # by place in the call where every call launched the same kernels, else by name
+    per = len(ev) // CALLS_PROFILED if len(ev) % CALLS_PROFILED == 0 else None
+    parts = {}
+    for i, e in enumerate(ev):
+        key = f"{i % per} {short_name(e.name)}" if per else short_name(e.name)
+        parts[key] = parts.get(key, 0.0) + (e.time_range.end - e.time_range.start) / CALLS_PROFILED
+    span = (ev[-1].time_range.end - ev[0].time_range.start) / CALLS_PROFILED
+    busy = sum(parts.values())
+    return {"kernels_a_call": per or len(ev) / CALLS_PROFILED, "span_us": span, "busy_us": busy, "gaps_us": span - busy,
+            "parts_us": parts}
 
 
 def one_port(root: Path) -> dict:
@@ -125,6 +168,13 @@ def one_port(root: Path) -> dict:
         print(f"[{name}] {ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
               f"({ms / bd['bound_ms']:.2f}x); host {us:.1f} us a call"
               + "".join(f"; {k} {v:.4f}" for k, v in (extra or {}).items()), flush=True)
+        if name.startswith("fused"):
+            res[name]["breakdown"] = bdn = breakdown(lambda: fn(*nxt()))
+            print(f"[{name} breakdown] " + "; ".join(
+                f"{k} {v:.2f} us" for k, v in bdn["parts_us"].items())
+                + (f"; span {bdn['span_us']:.2f} us a call, gaps {bdn['gaps_us']:.2f} us, "
+                   f"{bdn['kernels_a_call']} kernels a call" if "span_us" in bdn else ""),
+                flush=True)
 
     def wq4(k, n, group, packing):   # random nibbles, as quantize_int4 lays them out
         return {"w_int4": torch.randint(-128, 128, (k // 2, n), generator=gen, device=dev,
@@ -187,21 +237,29 @@ def one_port(root: Path) -> dict:
                   for _ in range(2))
         kw = dict(num_heads=NH, num_kv_heads=KH, head_dim=D, attn_scale=D ** -0.5,
                   softcap=50.0, eps=1e-6)
-        attn = sets(lambda: (t, x, wq(H, (NH + 2 * KH) * D), wq(NH * D, H), norm(), norm(), cos,
-                             sin, kc, vc, ks, vs), H * (NH + 2 * KH) * D + NH * D * H)
+        # whole layers, with their fragment forms where the port reads them (a
+        # port before them has no layer_fragments)
+        prep = getattr(dk, "layer_fragments", lambda lp: lp)
+        layers = sets(lambda: prep({"attn": {"qkv": wq(H, (NH + 2 * KH) * D), "o": wq(NH * D, H)},
+                                    "mlp": {"gate": wq(H, F), "up": wq(H, F), "down": wq(F, H)}}),
+                      H * (NH + 2 * KH) * D + NH * D * H + 3 * H * F)
+        attn = [(t, x, lp["attn"]["qkv"], lp["attn"]["o"], norm(), norm(), cos, sin, kc, vc, ks,
+                 vs) for lp in layers]
         a0 = attn[0]
-        bd = cs.bound(cs.nbytes(*a0[2].values(), *a0[3].values(), a0[4], a0[5])
+        bd = cs.bound(cs.nbytes(a0[2]["w_int8"], a0[2]["scale"], a0[3]["w_int8"], a0[3]["scale"],
+                               a0[4], a0[5])
                       + cs.nbytes(kc, vc, ks, vs) * t // S + 2 * cs.nbytes(x),
                       2.0 * M_DECODE * (a0[2]["w_int8"].numel() + a0[3]["w_int8"].numel()))
         record("fused_attn_step M64", lambda *a: dk.fused_attn_step(*a, **kw),
                lambda *a: dk.fused_attn_step_plain(*a, **kw), a0, cs.cycle(attn), bd)
-        mlp_args = [(x, *m, norm(), norm()) for m in mlps]
-        bd = cs.bound(sum(cs.nbytes(*q.values()) for q in mlps[0]) + 2 * cs.nbytes(x),
-                      2.0 * M_DECODE * 3 * H * F)
+        mlp_args = [(x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"], norm(), norm())
+                    for lp in layers]
+        bd = cs.bound(sum(cs.nbytes(q["w_int8"], q["scale"]) for q in mlp_args[0][1:4])
+                      + 2 * cs.nbytes(x), 2.0 * M_DECODE * 3 * H * F)
         record("fused_mlp_step M64", lambda *a: dk.fused_mlp_step(*a, eps=1e-6),
                lambda *a: dk.fused_mlp_step_plain(*a, eps=1e-6), mlp_args[0],
                cs.cycle(mlp_args), bd)
-        del attn, mlp_args, mlps, ffns
+        del attn, mlp_args, layers, mlps, ffns
 
         # the stack step: 26 layers of random bytes in the fragment layout
         L, NQKV = 26, (NH + 2 * KH) * D

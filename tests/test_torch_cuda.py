@@ -1071,6 +1071,26 @@ def test_decode_gemm_kernel_matches_plain(dev, M, K, N):
 
 @pytest.mark.parametrize("M", [1, 3, 64, 65])
 @pytest.mark.parametrize("K,N", GEMM_SHAPES, ids=[f"K{k}_N{n}" for k, n in GEMM_SHAPES])
+def test_decode_gemm_one_half_matches_plain(dev, M, K, N):
+    """The core fed one bf16 half (the per-layer steps' instantiation):
+    a [1, M, K]; 65 rows take a second row tile."""
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+
+    g, a2, w = _gemm_case(dev, M, K, N, seed=50 + M)
+    a1 = a2[:1].contiguous()
+    wf = dk.to_fragments(w)
+    scale = torch.rand(N, generator=g, device=dev) * 0.01
+    bias = torch.randn(N, generator=g, device=dev)
+    n = dk.decode_gemm.launches
+    got = dk.decode_gemm(a1, wf, scale, bias)
+    assert dk.decode_gemm.launches == n + 1
+    _rows_near(got, dk.decode_gemm_plain(a1, wf, scale, bias), GEMM_TOL)
+    assert torch.equal(dk.decode_gemm(a1, wf, scale, bias), got)
+    _rows_near(dk.decode_gemm(a1, wf, scale), dk.decode_gemm_plain(a1, wf, scale), GEMM_TOL)
+
+
+@pytest.mark.parametrize("M", [1, 3, 64, 65])
+@pytest.mark.parametrize("K,N", GEMM_SHAPES, ids=[f"K{k}_N{n}" for k, n in GEMM_SHAPES])
 @pytest.mark.parametrize("group", [None, 32, 64, 128])
 def test_decode_gemm4_kernel_matches_plain(dev, M, K, N, group):
     from vlm_bridge_tpu_torch.ops import decode_kernels as dk
@@ -1416,9 +1436,12 @@ def test_layer_norm_refuses_f16_and_dispatches_by_the_variable(dev, monkeypatch)
     assert nk.layer_norm_fast.launches == n + 1
 
 
-def _layer_case(dev, seed, H=256, F=512, NH=4, KH=2, D=64, L=3):
+def _layer_case(dev, seed, H=256, F=512, NH=4, KH=2, D=64, L=3, prepare=True):
+    """(cfg, the int8 decoder params, generator); prepare: the layers carry
+    the fragment forms the per-layer steps' kernels read."""
     from vlm_bridge_tpu_torch.configs import Gemma2Config
     from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.tools.loading import prepare_fused_layers
 
     cfg = Gemma2Config(vocab_size=512, hidden_size=H, intermediate_size=F, num_layers=L,
                        num_heads=NH, num_kv_heads=KH, head_dim=D, query_pre_attn_scalar=float(D),
@@ -1428,7 +1451,8 @@ def _layer_case(dev, seed, H=256, F=512, NH=4, KH=2, D=64, L=3):
     for lp in p["layers"].values():   # norms away from their zero init
         for k in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
             lp[k] = (torch.randn(H, generator=g, device=dev) * 0.1).to(lp[k].dtype)
-    return cfg, gemma2.quantize_params(p), g
+    q = gemma2.quantize_params(p)
+    return cfg, prepare_fused_layers(q) if prepare else q, g
 
 
 @pytest.mark.parametrize("t", [0, 1, 37])
@@ -1467,6 +1491,7 @@ def test_fused_attn_step_kernel_matches_plain(dev, t):
     for i in (3, 4):
         assert got[i].shape == (KH, B)
         torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, dk.fused_attn_step(*args, **kw)))
 
 
 def test_fused_mlp_step_kernel_matches_plain(dev):
@@ -1481,6 +1506,7 @@ def test_fused_mlp_step_kernel_matches_plain(dev):
     got = dk.fused_mlp_step(*args, eps=1e-6)
     assert dk.fused_mlp_step.launches == n + 1
     _rows_close(got, dk.fused_mlp_step_plain(*args, eps=1e-6), 2 * BF16_STEP)
+    assert torch.equal(got, dk.fused_mlp_step(*args, eps=1e-6))
     with pytest.raises(ValueError, match="bfloat16"):
         dk.fused_mlp_step(x.float(), *args[1:], eps=1e-6)
     with pytest.raises(ValueError, match="post_norm: expected torch.bfloat16"):
@@ -1592,9 +1618,10 @@ def test_int8_product_kernel_at_odd_shapes(dev, M, mm, ffn):
 
 @pytest.mark.parametrize("B", [1, 3, 64, 65])
 def test_fused_layer_steps_at_batch(dev, B):
-    """fused_attn_step and fused_mlp_step, whose four products are the int8
-    product kernel's, at batch 1 / 3 / 64 / 65 against their plain versions;
-    the same bits on a second call."""
+    """fused_attn_step and fused_mlp_step, whose four products run on the
+    decode GEMM core fed one bf16 half (65 rows: a second row tile), at batch
+    1 / 3 / 64 / 65 against their plain versions; the same bits on a second
+    call."""
     from vlm_bridge_tpu_torch.ops import decode_kernels as dk
     from vlm_bridge_tpu_torch.ops.layers import rope_table
 
@@ -1619,6 +1646,63 @@ def test_fused_layer_steps_at_batch(dev, B):
     got = dk.fused_mlp_step(*margs, eps=1e-6)
     _rows_close(got, dk.fused_mlp_step_plain(*margs, eps=1e-6), 2 * BF16_STEP)
     assert torch.equal(got, dk.fused_mlp_step(*margs, eps=1e-6))
+
+
+def test_layer_steps_refuse_dicts_without_fragments(dev):
+    """A CUDA call on int8 dicts that tools.loading.prepare_fused_layers did
+    not prepare raises, naming it; it never takes another product."""
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    cfg, q, g = _layer_case(dev, 97, prepare=False)
+    lp = q["layers"]["0"]
+    B, KH, D, S = 4, cfg.num_kv_heads, cfg.head_dim, 64
+    cache = [torch.zeros(B, KH, S, D, dtype=torch.int8, device=dev) for _ in range(2)] + \
+        [torch.full((B, KH, S), 0.02, device=dev) for _ in range(2)]
+    x = torch.randn(B, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([3], device=dev), D))
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    n = (dk.fused_attn_step.launches, dk.fused_mlp_step.launches)
+    with pytest.raises(ValueError, match="prepare_fused_layers"):
+        dk.fused_attn_step(3, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"],
+                           lp["post_attn_norm"], cos, sin, *cache, **kw)
+    with pytest.raises(ValueError, match="prepare_fused_layers"):
+        dk.fused_mlp_step(x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"],
+                          lp["pre_ffn_norm"], lp["post_ffn_norm"], eps=1e-6)
+    assert (dk.fused_attn_step.launches, dk.fused_mlp_step.launches) == n
+
+
+def test_fused_attn_step_at_the_last_cache_row(dev):
+    """t = S - 1: 63 history rows (two passes of the logits' rows and of P.V's
+    row groups) against the plain version; the same bits on a second call."""
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    cfg, q, g = _layer_case(dev, 98)
+    lp = q["layers"]["2"]
+    B, KH, D, S = 7, cfg.num_kv_heads, cfg.head_dim, 64
+    t = S - 1
+    kc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    ks = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    vs = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    ks[:, :, t:] = float("nan")   # row t is not history: never read
+    x = torch.randn(B, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev), D))
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    args = (t, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"], lp["post_attn_norm"],
+            cos, sin, kc, vc, ks, vs)
+    got = dk.fused_attn_step(*args, **kw)
+    want = dk.fused_attn_step_plain(*args, **kw)
+    assert bool(torch.isfinite(got[0].float()).all())
+    _rows_close(got[0], want[0], 2 * BF16_STEP)
+    for i in (1, 2):
+        assert ((got[i].int() - want[i].int()).abs() <= 1).all()
+    assert all(torch.equal(a, b) for a, b in zip(got, dk.fused_attn_step(*args, **kw)))
+    with pytest.raises(ValueError, match="outside"):
+        dk.fused_attn_step(S, *args[1:], **kw)
 
 
 def test_int8_product_kernel_runs_from_a_fresh_thread(dev):
@@ -1732,7 +1816,7 @@ def test_layer_steps_norm_and_head_at_gemma2_27b_widths(dev):
     from vlm_bridge_tpu_torch.ops.layers import rope_table
 
     lm, _, lq, _, g, x = _gemma27(dev, 103, 64)
-    lp = lq["layers"]["1"]
+    lp = dk.layer_fragments(lq["layers"]["1"])
     B, KH, D, S, t = 64, lm.num_kv_heads, lm.head_dim, 64, 20
     kc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
     vc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
@@ -1744,12 +1828,14 @@ def test_layer_steps_norm_and_head_at_gemma2_27b_widths(dev):
               softcap=lm.attn_logit_softcap, eps=lm.rms_norm_eps)
     args = (t, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"], lp["post_attn_norm"],
             cos, sin, kc, vc, ks, vs)
-    _rows_close(dk.fused_attn_step(*args, **kw)[0], dk.fused_attn_step_plain(*args, **kw)[0],
-                2 * BF16_STEP)
+    got = dk.fused_attn_step(*args, **kw)
+    _rows_close(got[0], dk.fused_attn_step_plain(*args, **kw)[0], 2 * BF16_STEP)
+    assert all(torch.equal(a, b) for a, b in zip(got, dk.fused_attn_step(*args, **kw)))
     margs = (x, lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"], lp["pre_ffn_norm"],
              lp["post_ffn_norm"])
-    _rows_close(dk.fused_mlp_step(*margs, eps=lm.rms_norm_eps),
-                dk.fused_mlp_step_plain(*margs, eps=lm.rms_norm_eps), 2 * BF16_STEP)
+    got = dk.fused_mlp_step(*margs, eps=lm.rms_norm_eps)
+    _rows_close(got, dk.fused_mlp_step_plain(*margs, eps=lm.rms_norm_eps), 2 * BF16_STEP)
+    assert torch.equal(got, dk.fused_mlp_step(*margs, eps=lm.rms_norm_eps))
     rows = (torch.randn(1030, lm.hidden_size, generator=g, device=dev) * 3 + 5).to(torch.bfloat16)
     scale, bias = (torch.randn(lm.hidden_size, generator=g, device=dev) for _ in range(2))
     _rows_close(nk.layer_norm_fast(rows, scale, bias, 1e-6),
@@ -1861,3 +1947,33 @@ def test_exact_mode_on_f32_cuda_requests_the_reference_attention(dev):
                               gen=GenerationConfig(max_length=1, greedy=True))
     assert fa.flash_attention_fwd.launches == before
     assert torch.equal(fast[:, 1], toks[:, 1])
+
+
+@pytest.mark.parametrize("D,NH,KH", [(96, 2, 1), (1024, 2, 1)], ids=["d96", "d1024"])
+def test_fused_attn_step_at_other_head_widths(dev, D, NH, KH):
+    """The per-layer attention kernel at head widths the presets do not use
+    but the wrapper takes (D % 32, up to 1024): 96 (six 16-byte segments a
+    row on eight lanes) and 1024 (two segments a lane), against the plain
+    version; the same bits on a second call."""
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    cfg, q, g = _layer_case(dev, 99 + D, H=256, F=512, NH=NH, KH=KH, D=D, L=1)
+    lp = q["layers"]["0"]
+    B, S, t = 3, 64, 40
+    kc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (B, KH, S, D), generator=g, device=dev, dtype=torch.int8)
+    ks = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    vs = 0.02 + 0.01 * torch.rand(B, KH, S, generator=g, device=dev)
+    x = torch.randn(B, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev), D))
+    kw = dict(num_heads=NH, num_kv_heads=KH, head_dim=D, attn_scale=cfg.attn_scale,
+              softcap=50.0, eps=1e-6)
+    args = (t, x, lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"], lp["post_attn_norm"],
+            cos, sin, kc, vc, ks, vs)
+    got = dk.fused_attn_step(*args, **kw)
+    want = dk.fused_attn_step_plain(*args, **kw)
+    _rows_close(got[0], want[0], 2 * BF16_STEP)
+    for i in (1, 2):
+        assert ((got[i].int() - want[i].int()).abs() <= 1).all()
+    assert all(torch.equal(a, b) for a, b in zip(got, dk.fused_attn_step(*args, **kw)))

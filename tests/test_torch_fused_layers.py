@@ -294,3 +294,81 @@ def test_greedy_loop_over_decode_step_fused_gives_the_stacked_path_ids():
         tok = quant.int8_matmul_t_argmax(hidden[:, 0].contiguous(), lm["embedding"])
         got.append(tok)
     np.testing.assert_array_equal(torch.stack(got, dim=1).numpy(), want.numpy())
+
+
+def test_prepare_fused_layers_fragments_map_back_to_the_int8_weights():
+    """tools/loading.prepare_fused_layers: every layer's qkv / o / down dict
+    gains "w_frag", whose from_fragments is its w_int8, and the gate dict the
+    gate|up product's "gu_frag" / "gu_scale", whose split_gate_up gives gate
+    and up; the int8 weights and scales stay the same tensors, the input tree
+    is left as it was."""
+    from vlm_bridge_tpu_torch.tools.loading import prepare_fused_layers
+
+    cfg = _cfg()
+    lm = _to_torch(_params(cfg, 6, np.random.default_rng(6)))
+    prepared = prepare_fused_layers(lm)
+    assert set(prepared) == set(lm) and prepared["embedding"] is lm["embedding"]
+    for i in range(cfg.num_layers):
+        raw, lp = lm["layers"][str(i)], prepared["layers"][str(i)]
+        for part, name in (("attn", "qkv"), ("attn", "o"), ("mlp", "down")):
+            wq = lp[part][name]
+            assert "w_frag" not in raw[part][name]
+            assert wq["w_int8"] is raw[part][name]["w_int8"]
+            assert wq["scale"] is raw[part][name]["scale"]
+            assert torch.equal(tdk.from_fragments(wq["w_frag"]), wq["w_int8"])
+        gate, up = lp["mlp"]["gate"], lp["mlp"]["up"]
+        g8, u8 = tdk.split_gate_up(tdk.from_fragments(gate["gu_frag"]))
+        assert torch.equal(g8, gate["w_int8"]) and torch.equal(u8, up["w_int8"])
+        gs, us = tdk.split_gate_up(gate["gu_scale"])
+        assert torch.equal(gs, gate["scale"]) and torch.equal(us, up["scale"])
+        assert up is raw["mlp"]["up"] and lp["input_norm"] is raw["input_norm"]
+
+
+@pytest.mark.parametrize("t", [0, 5])
+def test_plain_versions_on_prepared_dicts_match_the_pallas_kernels(monkeypatch, t):
+    """The plain versions read w_int8 / scale: on prepared dicts they give
+    what they give on the raw ones, bit for bit, and so stay within
+    KERNEL_TOL of the JAX fused_attn_step / fused_mlp_step (interpret mode);
+    three steps of decode_step_fused on the prepared tree equal the raw
+    tree's."""
+    from vlm_bridge_tpu_torch.tools.loading import prepare_fused_layers
+
+    monkeypatch.setattr(jdk, "INTERPRET", True)
+    cfg = _cfg()
+    rng = np.random.default_rng(7 + t)
+    qj = _params(cfg, 7, rng)
+    qt = _to_torch(qj)
+    prepared = prepare_fused_layers(qt)
+    lj, lt, lp = qj["layers"]["1"], qt["layers"]["1"], prepared["layers"]["1"]
+    B, S, KH, D = 4, 64, cfg.num_kv_heads, cfg.head_dim
+    kc, vc, ks, vs = _attn_case(cfg, rng, B, S, t)
+    x = jnp.asarray(rng.normal(0, 1, (B, cfg.hidden_size)), jnp.float32)
+    cos, sin = j_rope_table(jnp.asarray([t]), D, cfg.rope_theta)
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=KH, head_dim=D, attn_scale=cfg.attn_scale,
+              softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps)
+    want = jdk.fused_attn_step(jnp.int32(t), x, lj["attn"]["qkv"], lj["attn"]["o"],
+                               lj["input_norm"], lj["post_attn_norm"], cos, sin,
+                               jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(ks),
+                               jnp.asarray(vs), **kw)
+    cache_t = _port_cache(kc, vc, ks, vs, KH, D)
+    rest = (_t(cos[0]), _t(sin[0]), *cache_t)
+    got = tdk.fused_attn_step(t, _t(x), lp["attn"]["qkv"], lp["attn"]["o"], lp["input_norm"],
+                              lp["post_attn_norm"], *rest, **kw)
+    raw = tdk.fused_attn_step(t, _t(x), lt["attn"]["qkv"], lt["attn"]["o"], lt["input_norm"],
+                              lt["post_attn_norm"], *rest, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, raw))
+    x_want = np.asarray(want[0], np.float32)
+    np.testing.assert_allclose(got[0].numpy(), x_want, rtol=0,
+                               atol=KERNEL_TOL * np.abs(x_want).max())
+    want = np.asarray(jdk.fused_mlp_step(x, lj["mlp"]["gate"], lj["mlp"]["up"],
+                                         lj["mlp"]["down"], lj["pre_ffn_norm"],
+                                         lj["post_ffn_norm"], eps=cfg.rms_norm_eps), np.float32)
+    got = tdk.fused_mlp_step(_t(x), lp["mlp"]["gate"], lp["mlp"]["up"], lp["mlp"]["down"],
+                             lp["pre_ffn_norm"], lp["post_ffn_norm"], eps=cfg.rms_norm_eps)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=KERNEL_TOL * np.abs(want).max())
+    c_raw, c_prep = (tg.FusedKVCache.zeros(P(cfg), B, 16) for _ in range(2))
+    for step in range(3):
+        tok = torch.from_numpy(rng.normal(0, 1, (B, 1, cfg.hidden_size)).astype(np.float32))
+        h_raw, c_raw = tg.decode_step_fused(qt, P(cfg), tok, c_raw, step)
+        h_prep, c_prep = tg.decode_step_fused(prepared, P(cfg), tok, c_prep, step)
+        assert torch.equal(h_raw, h_prep)

@@ -1,10 +1,12 @@
 // The decode GEMM core of the fused decode steps (stack_step.cu,
-// bridge_step.cu), the stages that run in its kernel and the attention
-// kernels that read its products: Y[M, N] = (A[M, K] @ W[K, N]) * scale, W
-// int8 (i8_gemm.cu) or int4 with scales per group of rows (i4_gemm.cu), A
-// f32 stored split as bf16 hi + lo halves (common.cuh:store_split). The
-// mainloop and its bound are described at the top of i8_gemm.cu; this header
-// holds the kernels, their stages and the host's side of a launch.
+// bridge_step.cu, layer_step.cu), the stages that run in its kernel and the
+// attention kernels that read its products: Y[M, N] = (A[M, K] @ W[K, N]) *
+// scale, W int8 (i8_gemm.cu) or int4 with scales per group of rows
+// (i4_gemm.cu), A f32 stored split as bf16 hi + lo halves
+// (common.cuh:store_split), or A bf16 as one half (the per-layer steps,
+// whose activations are bf16 by definition). The mainloop and its bound are
+// described at the top of i8_gemm.cu; this header holds the kernels, their
+// stages and the host's side of a launch.
 //
 // Y is never stored whole. The (tile, K slice) units are split stream-K, one
 // equal run for each SM; every run of one tile stores its partial sums into
@@ -35,9 +37,6 @@ constexpr int DG_THREADS = DG_CONSUMERS + 64;
 constexpr int DG_BN = 64 * DG_WGS;   // weight columns a block covers
 constexpr int DG_BK = 64;            // depth of a stage
 constexpr int DG_FRAG = 2048;        // one 64-column tile's fragment run: 16 bytes x 128 lanes
-// a stage's activations: hi and lo rows (2 x 64) x DG_BK bf16, one box of
-// the (K, M, 2) tensor map under the 128-byte swizzle
-constexpr int DG_ACT_BYTES = 2 * 64 * DG_BK * 2;
 // the epilogue's staging: 32 rows x DG_BN columns f32, rows padded by 4
 // floats so that a warp's stores of a fragment hit 32 banks
 constexpr int DG_EPI_LD = DG_BN + 4;
@@ -88,6 +87,8 @@ enum DgKind {
   DG_LN,           // x += Y; out = LN(x) w_s + w_b (or xo = bf16(x))
   DG_GELU,         // out = gelu_erf(Y)
   DG_NONE,         // Y stays in the slots for a kernel of its own (attn_kernel, self_attn_kernel)
+  DG_GEGLU_BF16,   // out = bf16(gelu_tanh(gate) * up), one half (the per-layer MLP's hidden)
+  DG_RMS_BF16,     // xo = bf16(xb + rms(Y) (1 + wb)): the per-layer steps' bf16 residual
 };
 
 struct DgStage {
@@ -100,6 +101,8 @@ struct DgStage {
   const float* w_s;      // the next norm's weight (DG_LN: scale); null: no next norm
   const float* w_b;      // DG_LN: the next LayerNorm's bias
   bf16* xo;              // bf16(x), written where there is no next norm (null: not written)
+  const bf16* xb;        // DG_RMS_BF16: the bf16 residual [M, N] and the norm's bf16 weight
+  const bf16* wb;
   float eps;
   const float* cosv;     // DG_STACK_ATTN: RoPE rows of position t [D]
   const float* sinv;
@@ -115,11 +118,16 @@ struct DgStage {
 
 namespace {
 
-template <bool INT4>
+// HALVES 2: a stage's activations are hi and lo rows (2 x 64) x DG_BK bf16,
+// one box of the (K, M, 2) tensor map under the 128-byte swizzle; HALVES 1:
+// 64 rows of one bf16 half, a box of the (K, M, 1) map (half the bytes, so
+// the ring holds more stages)
+template <bool INT4, int HALVES = 2>
 struct DgShape {
+  static constexpr int ACT_BYTES = HALVES * 64 * DG_BK * 2;
   static constexpr int SUB_BYTES = INT4 ? 64 * DG_BK / 2 : 64 * DG_BK;   // a 64-column tile a stage
-  static constexpr int STAGE_BYTES = DG_ACT_BYTES + DG_WGS * SUB_BYTES;
-  static constexpr int STAGES = INT4 ? 9 : 7;
+  static constexpr int STAGE_BYTES = ACT_BYTES + DG_WGS * SUB_BYTES;
+  static constexpr int STAGES = INT4 ? 9 : HALVES == 2 ? 7 : 10;
   // the ring and the epilogue's staging: the stage's shared memory afterwards
   static constexpr int REGION = STAGES * STAGE_BYTES + DG_EPI_BYTES;
   // the region (aligned to 1024 for the swizzle), the stages' full and empty
@@ -128,7 +136,9 @@ struct DgShape {
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-// shared memory every stage may use, whichever instantiation runs it
+// shared memory every stage may use, whichever instantiation runs it (the
+// one-half ring is the largest of the three)
+static_assert(DgShape<false, 1>::REGION >= DgShape<false>::REGION, "the one-half ring");
 constexpr int DG_STAGE_SMEM = DgShape<false>::REGION < DgShape<true>::REGION
                                   ? DgShape<false>::REGION
                                   : DgShape<true>::REGION;
@@ -147,6 +157,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : TM_D8(0), TM_D8(8), TM_D8(16), TM_D8(24), TM_D8(32), TM_D8(40), TM_D8(48), TM_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64, 64] += A[64, 16] . B[16, 64]: as wgmma_rs_n128, for one half's 64
+// activation rows
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : TM_D8(0), TM_D8(8), TM_D8(16), TM_D8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -209,6 +233,11 @@ __device__ __forceinline__ float4 product4(const float* slots, const DgPlan& p, 
     acc = add4(acc, __ldcg(reinterpret_cast<const float4*>(s + (size_t)(b - bf) * DG_SLOT)));
   return acc;
 }
+
+// the two bf16 of a word (element 0 in the low half) as floats: a bf16's
+// bits are the top half of its f32's
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 __device__ __forceinline__ float elem(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
@@ -401,6 +430,74 @@ __device__ __noinline__ void stage_norm(const DgStage& st, const float* slots, D
       }
     }
     named_bar(4, DG_CONSUMERS);   // the row's staging is read before the next row's
+  }
+}
+
+// DG_GEGLU_BF16 (the per-layer MLP, layer_step.cu): DG_GEGLU into one bf16
+// half, four outputs a thread at a time (a function of its own, so that the
+// stack and bridge steps' elementwise stages keep their code)
+__device__ __noinline__ void stage_geglu_bf16(const DgStage& st, const float* slots, DgPlan p,
+                                              int M, int N) {
+  const int q4 = N / 8;
+  const long long total = (long long)M * q4;
+  for (long long i = (long long)blockIdx.x * DG_CONSUMERS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * DG_CONSUMERS) {
+    const int m = (int)(i / q4), f = 4 * (int)(i % q4);
+    const int col = 64 * (f / 32) + f % 32;   // run f / 32 of gate columns, then of up columns
+    const float4 g = product4(slots, p, m, col), u = product4(slots, p, m, col + 32);
+    *reinterpret_cast<uint2*>(st.out + (size_t)m * st.out_ld + f) =
+        make_uint2(pack_bf16(gelu_tanh_f(g.x) * u.x, gelu_tanh_f(g.y) * u.y),
+                   pack_bf16(gelu_tanh_f(g.z) * u.z, gelu_tanh_f(g.w) * u.w));
+  }
+}
+
+// DG_RMS_BF16 (the per-layer steps, layer_step.cu): xo = bf16(xb + rms(Y) (1
+// + wb)), the residual, the norm's weight and the result bf16, a row a block
+// as in stage_norm. Before the grid barrier the block copies its first row
+// of xb and the weight into shared memory (cp.async); each thread then reads
+// back only the 16-byte runs it copied, eight columns at a time.
+__device__ __noinline__ void stage_resid_bf16(const DgStage& st, const float* slots, DgPlan p,
+                                              int M, int N, float* sm, unsigned* bar,
+                                              unsigned epoch) {
+  float* row = sm;                                      // N: the row of Y
+  bf16* xs = reinterpret_cast<bf16*>(sm + N);           // N bf16: the first row of xb
+  bf16* ws = xs + N;                                    // N bf16: the weight
+  float* red = sm + 2 * N;                              // 32
+  const int m0 = blockIdx.x;
+  if (m0 < M) {
+    for (int n = 8 * threadIdx.x; n < N; n += 8 * DG_CONSUMERS) {
+      cp_async16(xs + n, st.xb + (size_t)m0 * N + n);
+      cp_async16(ws + n, st.wb + n);
+    }
+    cp_async_commit();
+  }
+  grid_barrier(bar, epoch);
+  cp_async_wait<0>();
+  for (int m = m0; m < M; m += gridDim.x) {
+    const bf16* xr = m == m0 ? xs : st.xb + (size_t)m * N;
+    float ss = 0.f;
+    for (int n = 8 * threadIdx.x; n < N; n += 8 * DG_CONSUMERS) {
+      const float4 a = product4(slots, p, m, n), b = product4(slots, p, m, n + 4);
+      *reinterpret_cast<float4*>(row + n) = a;
+      *reinterpret_cast<float4*>(row + n + 4) = b;
+      ss += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w + b.x * b.x + b.y * b.y + b.z * b.z +
+            b.w * b.w;
+    }
+    const float r = rsqrtf(reduce2(ss, 0.f, red, false, 4, DG_CONSUMERS).x / N + st.eps);
+    for (int n = 8 * threadIdx.x; n < N; n += 8 * DG_CONSUMERS) {
+      const uint4 xw = *reinterpret_cast<const uint4*>(xr + n);
+      const uint4 ww = *reinterpret_cast<const uint4*>(ws + n);
+      uint32_t o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t xq = word_of(xw, q), wq = word_of(ww, q);
+        const float y0 = row[n + 2 * q], y1 = row[n + 2 * q + 1];
+        o[q] = pack_bf16(bf16_lo(xq) + y0 * r * (1.f + bf16_lo(wq)),
+                         bf16_hi(xq) + y1 * r * (1.f + bf16_hi(wq)));
+      }
+      *reinterpret_cast<uint4*>(st.xo + (size_t)m * N + n) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    named_bar(4, DG_CONSUMERS);   // the row's staging and red are read before the next row's
   }
 }
 
@@ -717,11 +814,6 @@ cross_attn_kernel(const __grid_constant__ DgStage st, const float* __restrict__ 
   }
 }
 
-// the two bf16 of a word (element 0 in the low half) as floats: a bf16's
-// bits are the top half of its f32's
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
 // DPL bf16 values at p (DPL * 2 bytes, aligned to that) as floats
 template <int DPL>
 __device__ __forceinline__ void load_bf16(const bf16* p, float (&v)[DPL]) {
@@ -848,11 +940,19 @@ __device__ __noinline__ void dg_finish(const DgStage& st, DgWork ws, int M, int 
                                        unsigned char* sm) {
   named_bar(4, DG_CONSUMERS);   // every consumer is done with the ring
   const DgPlan p = dg_plan(M, N, K);
-  if (st.kind == DG_RMS || st.kind == DG_LN) {   // it prefetches before the barrier
+  if (st.kind == DG_RMS || st.kind == DG_LN) {   // these prefetch before the barrier
     stage_norm(st, ws.slots, p, M, N, reinterpret_cast<float*>(sm), ws.bar, ws.epoch);
     return;
   }
+  if (st.kind == DG_RMS_BF16) {
+    stage_resid_bf16(st, ws.slots, p, M, N, reinterpret_cast<float*>(sm), ws.bar, ws.epoch);
+    return;
+  }
   grid_barrier(ws.bar, ws.epoch);
+  if (st.kind == DG_GEGLU_BF16) {
+    stage_geglu_bf16(st, ws.slots, p, M, N);
+    return;
+  }
   stage_elementwise(st, ws.slots, p, M, N);
 }
 
@@ -901,13 +1001,17 @@ __device__ __forceinline__ void widen_frags(const FragBytes<INT4>& b, uint32_t (
 // partial sums into the run's slot (tile + block). After its last unit the
 // block runs the stage (dg_finish). KSUB: k16 steps between two waits on the
 // tensor cores (4: a stage; 2: int4 scale groups that end inside a stage).
-template <bool INT4, int KSUB>
+// HALVES: the activations' bf16 halves (2: hi + lo, 128 B-tile rows, an
+// m64n128k16 a k16 step; 1: one half, 64 rows, an m64n64k16: half the
+// tensor work and half the activation bytes).
+template <bool INT4, int KSUB, int HALVES>
 __global__ void __launch_bounds__(512, 1)
 decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wts,
                    int layer, const float* __restrict__ scale, const float* __restrict__ bias,
                    int group, int M, int N, int K, const DgWork ws,
                    const __grid_constant__ DgStage stage) {
-  using S = DgShape<INT4>;
+  using S = DgShape<INT4, HALVES>;
+  constexpr int NACC = 32 * HALVES;   // accumulators a thread
   extern __shared__ unsigned char dg_smem[];
   const uint32_t ring = (smem_u32(dg_smem) + 1023u) & ~1023u;
   const uint32_t epi = ring + S::STAGES * S::STAGE_BYTES;
@@ -944,11 +1048,11 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
         if (i >= S::STAGES) mbar_wait(empty + 8 * s, (i / S::STAGES - 1) & 1);
         const uint32_t st = ring + s * S::STAGE_BYTES, bar = full + 8 * s;
         if (role == 0) {
-          mbar_expect_tx(bar, DG_ACT_BYTES);
+          mbar_expect_tx(bar, S::ACT_BYTES);
           tma_load_3d(st, &act, c * DG_BK, mb * 64, 0, bar);
         } else {
           mbar_expect_tx(bar, DG_WGS * S::SUB_BYTES);
-          tma_load_4d_hint(st + DG_ACT_BYTES, &wts, 0, c * DG_BK / (INT4 ? 64 : 32),
+          tma_load_4d_hint(st + S::ACT_BYTES, &wts, 0, c * DG_BK / (INT4 ? 64 : 32),
                            nt * DG_WGS, layer, bar, pol);
         }
         if (++s == S::STAGES) s = 0;
@@ -967,14 +1071,14 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
   const int n_groups = INT4 ? K / group : 1;
   // the hi and lo halves are the B tile's rows 0-63 and 64-127: [4 j + 2 h +
   // e] holds row m = 8 (j % 8) + 2 t + e of weight column col(h), of hi for
-  // j < 8 and of lo for j >= 8
-  float acc[64];
+  // j < 8 and of lo for j >= 8 (one half: j < 8 only)
+  float acc[NACC];
 #pragma unroll
-  for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+  for (int x = 0; x < NACC; ++x) acc[x] = 0.f;
   // per row of the accumulator (h): int8 the column's scale and bias; int4
   // the scale of the current and the next group
   float sc[2], nx[2], bi[2];
-  const uint32_t wlane = DG_ACT_BYTES + wg * S::SUB_BYTES + warp * 512 + lane * 16;
+  const uint32_t wlane = S::ACT_BYTES + wg * S::SUB_BYTES + warp * 512 + lane * 16;
   // the unit in hand: its index in the block's run, its K slice, column tile
   // and row block, its stage and the stage's parity
   int i = 0, c = u0 % chunks, nt = u0 / chunks % n_tiles, mb = u0 / chunks / n_tiles;
@@ -1011,8 +1115,13 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
       for (int kk = part * KSUB; kk < (part + 1) * KSUB; ++kk) fence_frag(a[kk]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = part * KSUB; kk < (part + 1) * KSUB; ++kk)
-        wgmma_rs_n128(acc, a[kk], smem_desc(st + kk * 32, 16, 1024));
+      for (int kk = part * KSUB; kk < (part + 1) * KSUB; ++kk) {
+        if constexpr (HALVES == 2) {
+          wgmma_rs_n128(acc, a[kk], smem_desc(st + kk * 32, 16, 1024));
+        } else {
+          wgmma_rs_n64(acc, a[kk], smem_desc(st + kk * 32, 16, 1024));
+        }
+      }
       wgmma_commit();
       if (part == 4 / KSUB - 1 && i + 1 < n_units) {   // under the products: the next unit's
         const int s1 = s + 1 == S::STAGES ? 0 : s + 1;
@@ -1034,7 +1143,7 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
           for (int h = 0; h < 2; ++h) {
             const float f = sc[h] / nx[h];
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
+            for (int j = 0; j < NACC / 4; ++j) {
               acc[4 * j + 2 * h] *= f;
               acc[4 * j + 2 * h + 1] *= f;
             }
@@ -1049,9 +1158,9 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
     if (lane == 0) mbar_arrive(empty + 8 * s);
 
     if (last) {
-      // (hi + lo) * scale (+ bias), staged in shared memory as rows of Y, half
-      // the rows at a time, then, a warp a row segment of 256 bytes, stored
-      // into the run's slot
+      // (hi + lo) * scale (+ bias) (one half: the half * scale), staged in
+      // shared memory as rows of Y, half the rows at a time, then, a warp a
+      // row segment of 256 bytes, stored into the run's slot
       const int m0 = mb * 64;
       const int tw = threadIdx.x % 128, cc = 64 * wg + 4 * (tw % 16);   // 4 columns of the block
       float* dst = ws.slots + (size_t)(mb * n_tiles + nt + blockIdx.x) * DG_SLOT;
@@ -1063,12 +1172,14 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
 #pragma unroll
           for (int j = 4 * half; j < 4 * half + 4; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
+            for (int e = 0; e < 2; ++e) {
+              float v = acc[4 * j + 2 * h + e];
+              if constexpr (HALVES == 2) v += acc[4 * j + 32 + 2 * h + e];
               asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(
                                epi + ((8 * j + 2 * t + e - 32 * half) * DG_EPI_LD + cb) * 4),
-                           "f"((acc[4 * j + 2 * h + e] + acc[4 * j + 32 + 2 * h + e]) * sc[h] +
-                               bi[h])
+                           "f"(v * sc[h] + bi[h])
                            : "memory");
+            }
         }
         named_bar(1 + wg, 128);
         if (n0 + cc < N)
@@ -1081,7 +1192,7 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
         named_bar(1 + wg, 128);   // the staging is read before it is written again
       }
 #pragma unroll
-      for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+      for (int x = 0; x < NACC; ++x) acc[x] = 0.f;
     }
     // the next unit
     ++i;
@@ -1111,13 +1222,14 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
 
 // A split activation [2, M, lda] bf16 (hi rows, then lo rows) as the GEMMs'
 // B operand: a (K, M, 2) tensor map in boxes of 64 x 64 x 2, rows past M
-// read as zeros
-inline int make_act_map(CUtensorMap* map, const bf16* a, int lda, int M, int K) {
+// read as zeros; halves 1: one bf16 [M, lda], a (K, M, 1) map in boxes of 64
+// x 64 x 1
+inline int make_act_map(CUtensorMap* map, const bf16* a, int lda, int M, int K, int halves = 2) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)M, 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)halves};
   const cuuint64_t strides[2] = {(cuuint64_t)lda * 2, (cuuint64_t)M * lda * 2};
-  const cuuint32_t box[3] = {DG_BK, 64, 2};
+  const cuuint32_t box[3] = {DG_BK, 64, (cuuint32_t)halves};
   return make_map_nd(enc, map, a, 3, dims, strides, box) ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -1142,16 +1254,22 @@ inline int make_weight_map(CUtensorMap* map, const void* w, int L, int K, int N,
              : (int)cudaErrorInvalidValue;
 }
 
-// The grid of a product: one block a SM, or a block a unit
-inline int dg_grid(int M, int N, int K) {
+// units a block takes at least in the one-half instantiation: the per-layer o
+// product (384 units at Gemma-2-2B) then runs on 96 blocks, whose stage adds
+// fewer slots a value (measured faster than 132 blocks or 48; PERF.md)
+constexpr int DG1_MIN_UNITS = 4;
+
+// The grid of a product: one block a SM, or a block a unit (at least
+// min_units units a block)
+inline int dg_grid(int M, int N, int K, int min_units = 1) {
   const int units = (M + 63) / 64 * ((N + DG_BN - 1) / DG_BN) * (K / DG_BK);
-  return min(sm_count(), units);
+  return min(sm_count(), (units + min_units - 1) / min_units);
 }
 
 // A product's split, on the host: what the kernels after it read its slots by
-inline DgPlan dg_plan_host(int M, int N, int K) {
+inline DgPlan dg_plan_host(int M, int N, int K, int min_units = 1) {
   const int n_tiles = (N + DG_BN - 1) / DG_BN, chunks = K / DG_BK;
-  return DgPlan{n_tiles, chunks, (M + 63) / 64 * n_tiles * chunks, dg_grid(M, N, K)};
+  return DgPlan{n_tiles, chunks, (M + 63) / 64 * n_tiles * chunks, dg_grid(M, N, K, min_units)};
 }
 
 // stack_attn_kernel takes G <= DG_GMAX query heads a kv head of D = 32, 64,
@@ -1235,23 +1353,26 @@ inline int launch_self_attn(const DgStage& st, const DgWork& ws, int M, int N, i
 
 // The product of layer `layer` of the weights behind `wts`, then `stage`, over
 // one cooperative grid of min(SMs, units) blocks; `ws` must hold tiles + grid
-// - 1 slots and the barrier's two words (stream_k_workspace)
-template <bool INT4, int KSUB>
+// - 1 slots and the barrier's two words (stream_k_workspace); `act` made with
+// HALVES halves
+template <bool INT4, int KSUB, int HALVES = 2>
 int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
               const float* bias, int group, int M, int N, int K, const DgWork& ws,
               const DgStage& stage, cudaStream_t st) {
   if (M < 1 || N % 64 != 0 || K % DG_BK != 0 || N < 64) return (int)cudaErrorInvalidValue;
-  using S = DgShape<INT4>;
+  using S = DgShape<INT4, HALVES>;
   const int tiles = (M + 63) / 64 * ((N + DG_BN - 1) / DG_BN);
-  const int units = tiles * (K / DG_BK), grid = min(sm_count(), units);
+  const int units = tiles * (K / DG_BK), grid = dg_grid(M, N, K, HALVES == 1 ? DG1_MIN_UNITS : 1);
   if (ws.slots == nullptr || ws.n_slots < tiles + grid - 1 || ws.n_counters < 2)
     return (int)cudaErrorInvalidValue;
   if ((stage.kind == DG_RMS || stage.kind == DG_LN) &&
       (size_t)(N + 32) * 4 > (size_t)DG_STAGE_SMEM)
     return (int)cudaErrorInvalidValue;
+  if (stage.kind == DG_RMS_BF16 && (N % 8 != 0 || (size_t)(2 * N + 32) * 4 > (size_t)DG_STAGE_SMEM))
+    return (int)cudaErrorInvalidValue;
   static bool allowed = false;   // one flag for each instantiation
   if (!allowed) {
-    VBT_CHECK(cudaFuncSetAttribute(decode_gemm_kernel<INT4, KSUB>,
+    VBT_CHECK(cudaFuncSetAttribute(decode_gemm_kernel<INT4, KSUB, HALVES>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM));
     allowed = true;
   }
@@ -1269,7 +1390,7 @@ int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const f
   cfg.numAttrs = 1;
   DgWork w = ws;
   w.epoch = stage.kind == DG_NONE ? 0u : dg_next_epoch();
-  VBT_CHECK(cudaLaunchKernelEx(&cfg, decode_gemm_kernel<INT4, KSUB>, act, wts, layer, scale, bias,
+  VBT_CHECK(cudaLaunchKernelEx(&cfg, decode_gemm_kernel<INT4, KSUB, HALVES>, act, wts, layer, scale, bias,
                                group, M, N, K, w, stage));
   VBT_CHECK_LAUNCH();
   return 0;
@@ -1284,6 +1405,12 @@ int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const f
 int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
                    const float* bias, int M, int N, int K, const DgWork& ws, const DgStage& stage,
                    cudaStream_t stream);
+
+// The same product with A one bf16 half (make_act_map with halves 1): the
+// per-layer steps' (layer_step.cu). Defined in i8_gemm.cu.
+int launch_i8_gemm_bf16(const CUtensorMap& act, const CUtensorMap& wts, int layer,
+                        const float* scale, const float* bias, int M, int N, int K,
+                        const DgWork& ws, const DgStage& stage, cudaStream_t stream);
 
 // The product sum over groups of (A[:, group rows] @ W4[group rows, :]) *
 // scale[group, N], W4 layer `layer` of the int4 weights behind `wts`

@@ -1,11 +1,14 @@
 // Int8-weight GEMM at decode batch: Y += (A @ W int8) * scale (+ bias).
 //
 // The building block of the fused decode steps (stack_step.cu,
-// bridge_step.cu), which replace the Pallas kernels
-// vlm_bridge_tpu/ops/decode_kernels.py:_stack_kernel and :_bridge_kernel.
-// It carries their int8 products: every projection of a decoder layer and a
-// bridge block. The kernel is decode_gemm.cuh's, shared with the int4 MLP
-// stage (i4_gemm.cu).
+// bridge_step.cu, layer_step.cu), which replace the Pallas kernels
+// vlm_bridge_tpu/ops/decode_kernels.py:_stack_kernel, :_bridge_kernel,
+// :fused_attn_step and :fused_mlp_step. It carries their int8 products: every
+// projection of a decoder layer and a bridge block. The kernel is
+// decode_gemm.cuh's, shared with the int4 MLP stage (i4_gemm.cu). The
+// per-layer steps feed it one bf16 half (their activations are bf16 by
+// definition): 64 activation rows a B tile and an m64n64k16 a k16 step, half
+// the tensor work and the activation bytes of the split form below.
 //
 // Bound. At decode (M = batch = 64 rows) a token's 104 stack products stream
 // 2.02 GB of int8 weights: 0.60 ms at 3.35 TB/s. The f32 activations reach
@@ -66,21 +69,30 @@ int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, co
   return dg_launch<false, 4>(act, wts, layer, scale, bias, 0, M, N, K, ws, stage, stream);
 }
 
+int launch_i8_gemm_bf16(const CUtensorMap& act, const CUtensorMap& wts, int layer,
+                        const float* scale, const float* bias, int M, int N, int K,
+                        const DgWork& ws, const DgStage& stage, cudaStream_t stream) {
+  return dg_launch<false, 4, 1>(act, wts, layer, scale, bias, 0, M, N, K, ws, stage, stream);
+}
+
 // The GEMM core alone (scripts/decode_gemm_torch.py, the cuda tests):
 // y[M, N] (f32, accumulated into) += ((a[0] + a[1]) @ W int8) * scale (+ bias),
-// a [2, M, K] bf16; ws the workspace of n_slots slots and n_counters barrier
-// words (ops/decode_kernels.py:stream_k_workspace).
+// a [2, M, K] bf16 (halves 2) or (a[0] @ W int8) * scale (+ bias), a [1, M, K]
+// (halves 1); ws the workspace of n_slots slots and n_counters barrier words
+// (ops/decode_kernels.py:stream_k_workspace).
 extern "C" int vbt_i8_gemm(const void* a, const void* w, const void* scale, const void* bias,
-                           void* y, void* ws, int n_slots, int n_counters, int M, int N, int K,
-                           void* stream_ptr) {
+                           void* y, void* ws, int n_slots, int n_counters, int halves, int M,
+                           int N, int K, void* stream_ptr) {
+  if (halves != 1 && halves != 2) return (int)cudaErrorInvalidValue;
   VBT_CHECK((cudaError_t)bind_device(a));
   CUtensorMap act, wts;
-  int rc = make_act_map(&act, (const bf16*)a, K, M, K);
+  int rc = make_act_map(&act, (const bf16*)a, K, M, K, halves);
   if (!rc) rc = make_weight_map(&wts, w, 1, K, N, false);
   if (rc) return rc;
   DgStage add{};
   add.kind = DG_ADD;
   add.y = (float*)y;
-  return launch_i8_gemm(act, wts, 0, (const float*)scale, (const float*)bias, M, N, K,
-                        dg_work(ws, n_slots, n_counters), add, (cudaStream_t)stream_ptr);
+  auto launch = halves == 1 ? launch_i8_gemm_bf16 : launch_i8_gemm;
+  return launch(act, wts, 0, (const float*)scale, (const float*)bias, M, N, K,
+                dg_work(ws, n_slots, n_counters), add, (cudaStream_t)stream_ptr);
 }

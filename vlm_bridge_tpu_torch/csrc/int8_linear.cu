@@ -26,8 +26,7 @@
 // set the floor, 2 M N K over 989 TFLOP/s.
 //
 // Design (Hopper's own; scripts/int8_linear_torch.py times it). One product
-// kernel, i8mm_kernel, serves the four functions and the per-layer decode
-// steps of layer_step.cu:
+// kernel, i8mm_kernel, serves the four functions:
 // - The operands are read where they lie, by TMA into an mbarrier ring: x
 //   bf16 [M, K] as wgmma's A operand (K-major, boxes of 64 depths under the
 //   128-byte swizzle, rows past M and depths past K read as zeros), and the
@@ -64,8 +63,7 @@
 //   a weight value is widened once for 256 rows; each runs two m64n128k16 a
 //   k16 step (128 accumulators a thread, setmaxnreg 232; the producer
 //   warpgroup gives its registers up, as in tiled_matmul.cu).
-// - Epilogues on the f32 sums, one instantiation each: raw f32 (the
-//   per-layer steps, which apply the scale themselves), x scale (+ bias),
+// - Epilogues on the f32 sums, one instantiation each: x scale (+ bias),
 //   gelu_erf(x scale + bias), or GeGLU; one rounding to bf16. The unit's
 //   scales and biases are fetched into registers a unit ahead and put in
 //   shared memory as it starts, and its output rows leave through a staging
@@ -155,7 +153,7 @@ struct I8Args {
   const float* s0;    // per-column scale (gate's under GeGLU; int4 in groups: [K / group, N])
   const float* s1;    // up's scale (GeGLU)
   const float* bias;  // per-column bias, or null
-  void* out;          // [M, N]: f32 under I8_RAW, else bf16
+  void* out;          // [M, N] bf16
   int M, N, K;        // N: output columns (F under GeGLU); K: int4's packed rows
   int epi, split, dual;
   int half, group;    // int4: the packing's half-width; the scales' group (GROUPED)
@@ -178,9 +176,7 @@ __device__ __forceinline__ float gelu_erf_f(float x) {
 template <int EPI>
 __device__ __forceinline__ float2 i8_value(float2 v, float2 u, const float* s0, const float* s1,
                                            const float* bias) {
-  if constexpr (EPI == I8_RAW) {
-    return v;
-  } else if constexpr (EPI == I8_GEGLU) {
+  if constexpr (EPI == I8_GEGLU) {
     return make_float2(gelu_tanh_f(v.x * s0[0]) * (u.x * s1[0]),
                        gelu_tanh_f(v.y * s0[1]) * (u.y * s1[1]));
   } else {
@@ -207,8 +203,8 @@ __device__ __forceinline__ void stage_pair(uint32_t stage, int rb, int row, int 
 // rows [0, rows) of a staged block to out rows m0 .. and columns n0 .., 16
 // bytes a thread (nt threads from thread index ti), within M and N
 __device__ __forceinline__ void stage_out(uint32_t stage, int rb, int rows, void* out, int M,
-                                          int N, int m0, int n0, bool f32, int ti, int nt) {
-  const int es = f32 ? 4 : 2, chunks = rb / 16;
+                                          int N, int m0, int n0, int ti, int nt) {
+  const int es = 2, chunks = rb / 16;
   for (int idx = ti; idx < rows * chunks; idx += nt) {
     const int r = idx / chunks, c = idx % chunks, n = n0 + c * 16 / es;
     if (m0 + r >= M || n >= N) continue;
@@ -402,7 +398,7 @@ i8mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
   auto fetch_prm = [&](int u) {
     const int n = unit_of(u).nt * tn + threadIdx.x;
     const bool in = u < units && threadIdx.x < tn && n < a.N;
-    pv[0] = EPI != I8_RAW && in ? (GROUPED ? 1.f : a.s0[n]) : 0.f;
+    pv[0] = in ? (GROUPED ? 1.f : a.s0[n]) : 0.f;
     pv[1] = a.dual && in ? (GROUPED ? 1.f : a.s1[n]) : 0.f;
     pv[2] = a.bias != nullptr && in ? a.bias[n] : 0.f;
   };
@@ -494,8 +490,7 @@ i8mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     }
     if (a.split == 1) {   // the epilogue from the accumulators, through a staging of rows
       const int n0 = t.nt * tn;
-      constexpr bool f32 = EPI == I8_RAW;
-      const int rb = tn * (f32 ? 4 : 2);   // bytes of a staged row
+      const int rb = tn * 2;   // bytes of a staged row
       // decode: the unit's 64 x tn tile in the spent ring; the tower: each
       // warpgroup's 64-row tiles in turn, 8 KB at a time, in its half of the
       // spent B tile (the last stage's; the other holds the next unit's first).
@@ -519,13 +514,13 @@ i8mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
                       make_float2(acc[mt][4 * j + 2 * h], acc[mt][4 * j + 2 * h + 1]),
                       make_float2(acc[mt][4 * jj + 2 * h], acc[mt][4 * jj + 2 * h + 1]),
                       prm + c, prm + 128 + c, prm + 256 + c);
-                  stage_pair(stage, rb, warp * 16 + g + 8 * h - pass * rp, c, y, f32);
+                  stage_pair(stage, rb, warp * 16 + g + 8 * h - pass * rp, c, y, false);
                 }
               }
             }
           }
           named_bar(2 + wg, 128);
-          stage_out(stage, rb, rp, a.out, a.M, a.N, m0 + pass * rp, n0, f32, tw, 128);
+          stage_out(stage, rb, rp, a.out, a.M, a.N, m0 + pass * rp, n0, tw, 128);
         }
 #pragma unroll
         for (int x = 0; x < 64; ++x) acc[mt][x] = 0.f;
@@ -596,12 +591,8 @@ i8mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         const float2 y1 = i8_value<EPI>(make_float2(v.z, v.w), make_float2(w.z, w.w),
                                         prms + c + 2, prms + 130 + c, prms + 258 + c);
         const size_t o = (size_t)(t.mb * 64 + r0 + lr) * a.N + n;   // one 8- or 16-byte store
-        if constexpr (EPI == I8_RAW)
-          *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) =
-              make_float4(y0.x, y0.y, y1.x, y1.y);
-        else
-          *reinterpret_cast<uint2*>(static_cast<bf16*>(a.out) + o) =
-              make_uint2(pack_bf16(y0.x, y0.y), pack_bf16(y1.x, y1.y));
+        *reinterpret_cast<uint2*>(static_cast<bf16*>(a.out) + o) =
+            make_uint2(pack_bf16(y0.x, y0.y), pack_bf16(y1.x, y1.y));
       }
       cluster_sync();   // every copy out of this block's staging is done
     }
@@ -693,7 +684,6 @@ template <typename S>
 int i8mm_form(const bf16* X, const int8_t* W0, const int8_t* W1, const I8Args& a,
               cudaStream_t st) {
   switch (a.epi) {
-    case I8_RAW: return i8mm_launch<S, I8_RAW>(X, W0, W1, a, st);
     case I8_SCALE: return i8mm_launch<S, I8_SCALE>(X, W0, W1, a, st);
     case I8_GEGLU: return i8mm_launch<S, I8_GEGLU>(X, W0, W1, a, st);
     case I8_GELU_ERF: return i8mm_launch<S, I8_GELU_ERF>(X, W0, W1, a, st);
@@ -747,8 +737,7 @@ int launch_i4mm(const bf16* X, const void* W0, const void* W1, int M, int N, int
 
 }  // namespace
 
-// Declared in linear_common.cuh: the per-layer decode steps (layer_step.cu)
-// run their four products through it too.
+// Declared in linear_common.cuh.
 int launch_i8mm(const bf16* X, const int8_t* W0, const int8_t* W1, int M, int N, int K, int epi,
                 const float* s0, const float* s1, const float* bias, void* out, int split,
                 cudaStream_t st) {

@@ -1,14 +1,13 @@
-// What the linear layers share: the int8 product kernel's launcher (defined
-// in int8_linear.cu, called there and in layer_step.cu) and its epilogues.
+// The int8 product kernel's launcher (defined and called in int8_linear.cu)
+// and its epilogues.
 #pragma once
 
 #include "common.cuh"
 
 // The int8 product kernel's epilogues (int8_linear.cu:launch_i8mm)
-enum { I8_RAW = 0, I8_SCALE = 1, I8_GEGLU = 2, I8_GELU_ERF = 3 };
+enum { I8_SCALE = 1, I8_GEGLU = 2, I8_GELU_ERF = 3 };
 
 // out[M, N] = epi(X[M, K] (bf16) . W[K, N] (int8, row-major [in, out])):
-//   I8_RAW       the f32 sums (out f32)
 //   I8_SCALE     sum * s0 (+ bias)                          (out bf16)
 //   I8_GELU_ERF  gelu_erf(sum * s0 + bias)                  (out bf16)
 //   I8_GEGLU     gelu_tanh(sum0 * s0) * (sum1 * s1), sum0 over W0 and sum1

@@ -49,17 +49,14 @@
 // scales [L, B, KH, S].
 //
 // The per-layer steps (layer_step.cu: fused_attn_step, fused_mlp_step) compute
-// the same layer in two calls. The two files share the helpers of common.cuh
-// (the block reductions, dot4_i8, kv_scale / kv_code for the per-vector int8
-// of a new K/V row, soft_cap), not their kernels, because they round at
-// other places: here every value between two stages stays f32, stored as
-// bf16 hi + lo halves for the GEMM core of i8_gemm.cu over weights in
-// fragment order, the residual is f32 across all layers, and the attention
-// stage writes cache row t itself; there the normed input, q, p * v_scale,
-// the attention output and the MLP hidden are rounded to one bf16 value each,
-// as the TPU's per-layer kernels round them, the products run through the
-// row-major int8 product kernel of int8_linear.cu, the residual is rounded to
-// bf16 at the end of each half, and the cache is only read.
+// the same layer in two calls on the same GEMM core, with their own stages
+// and attention kernel, because they round at other places: here every value
+// between two stages stays f32, stored as bf16 hi + lo halves, the residual
+// is f32 across all layers, and the attention kernel writes cache row t
+// itself; there the normed input, q, p * v_scale, the attention output and
+// the MLP hidden are rounded to one bf16 value each, as the TPU's per-layer
+// kernels round them, and the products take that one half; the residual is
+// rounded to bf16 at the end of each half, and the cache is only read.
 
 #include "decode_gemm.cuh"   // the int8 / int4 GEMM core, sm90.cuh, common.cuh
 

@@ -48,8 +48,8 @@ SIGNATURES = {
     "vbt_tiled_matmul": [_P] * 4 + [_I] * 5 + [_P],
     "vbt_layer_norm": [_P] * 4 + [_I] * 3 + [_F] + [_P],
     "vbt_fused_attn_step": [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P],
-    "vbt_fused_mlp_step": [_P] * 13 + [_I] * 5 + [_F] + [_P],
-    "vbt_i8_gemm": [_P] * 6 + [_I] * 5 + [_P],
+    "vbt_fused_mlp_step": [_P] * 11 + [_I] * 5 + [_F] + [_P],
+    "vbt_i8_gemm": [_P] * 6 + [_I] * 6 + [_P],
     "vbt_i4_gemm": [_P] * 5 + [_I] * 6 + [_P],
     "vbt_fused_stack_step": [_P] * 21 + [_I] * 13 + [_F] * 3 + [_P],
     "vbt_fused_bridge_step": [_P] * 31 + [_I] * 11 + [_F] + [_P],

@@ -26,12 +26,12 @@ hidden to bf16 before each product (one bf16 operand a product) and the
 residual stream to x.dtype at the end of each half, twice a layer; the stack
 step keeps f32 between its stages (hi + lo halves) and across all layers.
 Their plain versions round at the same places. In the sources, the per-layer
-steps run their four products through the int8 linear layers' product kernel
-and its GeGLU epilogue (csrc/int8_linear.cu: row-major weights, no second
-layout); with the stack step (csrc/stack_step.cu) they
-share the per-vector int8 and soft-cap helpers and the block reductions of
-common.cuh, not its kernels, which write the cache in place and store split
-activations.
+steps run their four products on the stack step's GEMM core
+(csrc/decode_gemm.cuh) fed one bf16 half, over the weights in fragment
+order: `layer_fragments` adds those forms to a layer's dicts
+("w_frag"; gate|up interleaved as "gu_frag" / "gu_scale" on the gate dict),
+once per model (tools/loading.prepare_fused_layers); a CUDA call on dicts
+without them raises. The plain versions read "w_int8" / "scale".
 
 Layouts are this port's own (not the TPU's head-major/64-row/8-row-window
 ones). Every stacked int8 weight [K, N] ([in, out]) is stored in wgmma
@@ -65,13 +65,17 @@ Each step launches one kernel for each product, which also runs the stage
 that consumes it (csrc/decode_gemm.cuh: the residual norms, GeGLU, GELU),
 the attentions as kernels of their own that read the q|k|v (or q) product
 where it lies, and one row kernel for the first norm: 1 + 5 L launches a
-stack step, 1 + 8 nb a bridge step. The norms hold a row, up to ROW_MAX wide
-(every configuration of configs.py). The attention kernels keep each head's
-logits and the rows' scales in shared memory: the wrappers refuse a position
-or a head layout whose logits do not fit (`_stack_attn_bytes`,
-`_cross_attn_bytes`), more than DG_GMAX query heads a kv head, stack heads
-other than 32, 64, 128, 256 or 512 wide and bridge self-attention heads other
-than 32, 64, 128 or 256 wide.
+stack step, 1 + 8 nb a bridge step; `fused_attn_step` 4 (the pre-norm,
+q|k|v, the attention, o with the post-norm and residual), `fused_mlp_step`
+3 (the pre-norm, gate|up with GeGLU, down with the post-norm and
+residual). The norms hold a row, up to ROW_MAX wide (every configuration of
+configs.py). The attention kernels keep each head's logits and the rows'
+scales in shared memory: the wrappers refuse a position or a head layout
+whose logits do not fit (`_stack_attn_bytes`, `_cross_attn_bytes`,
+`_layer_attn_bytes`), more than DG_GMAX query heads a kv head, stack heads
+other than 32, 64, 128, 256 or 512 wide, bridge self-attention heads other
+than 32, 64, 128 or 256 wide, and per-layer heads whose width is not a
+multiple of 32 up to 1024, or with more than D / 32 query heads a kv head.
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ import torch
 
 from vlm_bridge_tpu_torch.ops import cuda_lib
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, gelu_tanh
-from vlm_bridge_tpu_torch.ops.quant import _pack_nibbles, _split, unpack_int4
+from vlm_bridge_tpu_torch.ops.quant import _pack_nibbles, unpack_int4
 
 ROW_MAX = 256 * 64   # csrc/common.cuh: ROW_MAX
 
@@ -235,6 +239,13 @@ def _cross_attn_bytes(D: int, S: int) -> int:
     return 4 * (D + 3 * S + (DG_XATTN_THREADS // (D // 16)) * D + 32)
 
 
+def _layer_attn_bytes(G: int, D: int, t: int) -> int:
+    """Shared memory of the per-layer steps' attention kernel at position t
+    (csrc/layer_step.cu:layer_attn_floats)."""
+    return 4 * ((G + 2) * D + (G + 1) * D + G * D + D // 2 + 2 * t + G * t + 2 * G
+                + 4096 * 2 + 32)
+
+
 def _units(M: int, N: int, K: int) -> tuple:
     """(tiles, units) of a product: 64-row x DG_BN-column tiles, DG_BK rows
     of K a unit."""
@@ -287,6 +298,19 @@ def _workspace(dev: torch.device, shapes) -> tuple:
     return ws, slots, counters
 
 
+# scratch tensors of the per-layer steps, one for each (device, stream, name,
+# shape): the calls on one stream run one after another
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device, name: str, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, name, shape, dtype)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.empty(shape, dtype=dtype, device=dev)
+    return buf
+
+
 def split_halves(a: torch.Tensor) -> torch.Tensor:
     """f32 [M, K] -> [2, M, K] bf16: hi = bf16(a), lo = bf16(a - hi), the two
     halves in which the fused steps feed a product (csrc/common.cuh)."""
@@ -296,7 +320,7 @@ def split_halves(a: torch.Tensor) -> torch.Tensor:
 
 def decode_gemm_plain(a2, wf, scale, bias=None):
     """Plain version of `decode_gemm`."""
-    y = _mm(a2[0].float() + a2[1].float(), wf, scale)
+    y = _mm(a2.float().sum(0), wf, scale)
     return y if bias is None else y + bias
 
 
@@ -315,19 +339,22 @@ def _gemm_out(a2, N: int, out):
 
 def decode_gemm(a2, wf, scale, bias=None, out=None):
     """y[M, N] = ((a2[0] + a2[1]) @ w_int8) * scale (+ bias): one product of
-    the fused steps alone. a2: [2, M, K] bf16 halves (`split_halves`); wf: w
-    [K, N] in fragment order (`to_fragments`); scale, bias: f32 [N]. CUDA
-    tensors run csrc/i8_gemm.cu, which adds into `out` (zeros if not given:
-    a caller that passes it zeroes it) and returns it; CPU tensors run the
-    plain version."""
+    the fused steps alone. a2: [2, M, K] bf16 halves (`split_halves`), or
+    [1, M, K]: one bf16 half, the per-layer steps' form (y = (a2[0] @ w_int8)
+    * scale (+ bias)); wf: w [K, N] in fragment order (`to_fragments`);
+    scale, bias: f32 [N]. CUDA tensors run csrc/i8_gemm.cu, which adds into
+    `out` (zeros if not given: a caller that passes it zeroes it) and returns
+    it; CPU tensors run the plain version."""
     if not a2.is_cuda:
         return decode_gemm_plain(a2, wf, scale, bias)
-    _, M, K = a2.shape
+    halves, M, K = a2.shape
     N = 64 * wf.shape[0]
     if K % 64 or wf.shape[1] * 32 != K:
         raise ValueError(f"depth {K} must be a multiple of 64 and match the fragments")
+    if halves not in (1, 2):
+        raise ValueError(f"a2 holds {halves} halves: 1 (bf16) or 2 (hi + lo)")
     c = cuda_lib.check
-    c(a2, "a2", torch.bfloat16, (2, M, K))
+    c(a2, "a2", torch.bfloat16, (halves, M, K))
     c(wf, "wf", torch.int8, frag_shape(K, N))
     c(scale, "scale", torch.float32, (N,))
     if bias is not None:
@@ -336,7 +363,7 @@ def decode_gemm(a2, wf, scale, bias=None, out=None):
     ws, slots, counters = _workspace(a2.device, [(M, N, K)])
     p = cuda_lib.ptr
     cuda_lib.call("vbt_i8_gemm", p(a2), p(wf), p(scale), 0 if bias is None else p(bias), p(y),
-                  p(ws), slots, counters, M, N, K)
+                  p(ws), slots, counters, halves, M, N, K)
     decode_gemm.launches += 1
     return y
 
@@ -639,6 +666,27 @@ fused_bridge_step.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def layer_fragments(lp: dict) -> dict:
+    """One int8 decoder layer's params with the forms the CUDA per-layer steps
+    read added to its dicts: "w_frag" (`to_fragments` of "w_int8") on
+    attn.qkv, attn.o and mlp.down, and on mlp.gate the gate|up product's
+    "gu_frag" / "gu_scale", gate and up columns (and scales) interleaved in
+    runs of GU_RUN (`interleave_gate_up`). The int8 weights and scales stay
+    (the plain versions and the other int8 paths read them); the dicts are
+    new, their tensors shared. 77.8 MB more a Gemma-2-2B layer."""
+    attn, mlp = lp["attn"], lp["mlp"]
+    gate, up = mlp["gate"], mlp["up"]
+
+    def frag(wq):
+        return {**wq, "w_frag": to_fragments(wq["w_int8"])}
+
+    gu = to_fragments(interleave_gate_up(gate["w_int8"], up["w_int8"]))
+    return {**lp, "attn": {**attn, "qkv": frag(attn["qkv"]), "o": frag(attn["o"])},
+            "mlp": {**mlp, "down": frag(mlp["down"]),
+                    "gate": {**gate, "gu_frag": gu,
+                             "gu_scale": interleave_gate_up(gate["scale"], up["scale"])}}}
+
+
 def _bf16(v: torch.Tensor) -> torch.Tensor:
     """Round to bf16 and return to f32: where the kernels cast."""
     return v.to(torch.bfloat16).float()
@@ -685,6 +733,18 @@ def fused_attn_step_plain(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, c
             v_sc.T.contiguous())
 
 
+def _frag_of(wq: dict, key: str, name: str) -> torch.Tensor:
+    """The fragment form `key` of an int8 dict, which the CUDA per-layer steps
+    read; raises where the weights were not prepared."""
+    if key not in wq:
+        raise ValueError(
+            f"{name}: the int8 dict carries no fragment form ({key!r}), which the CUDA "
+            "per-layer steps read: prepare the model's weights once with "
+            "vlm_bridge_tpu_torch.tools.loading.prepare_fused_layers (decode_kernels."
+            "layer_fragments for one layer)")
+    return wq[key]
+
+
 def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, sin,
                     kc, vc, ks, vs, *, num_heads: int, num_kv_heads: int, head_dim: int,
                     attn_scale: float, softcap: float, eps: float):
@@ -697,8 +757,9 @@ def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, si
     read, never written). Returns (x_out [B, H] in x.dtype, k_new [B, KH*D]
     int8, v_new, k_scale [KH, B] f32, v_scale): the caller writes the new
     entries at row t. CUDA tensors run csrc/layer_step.cu (x and the norm
-    weights bf16, as the model holds them on the card) or raise;
-    CPU tensors run the plain version."""
+    weights bf16, as the model holds them on the card; the dicts with their
+    fragment forms, `layer_fragments`) or raise; CPU tensors run the plain
+    version."""
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               attn_scale=attn_scale, softcap=softcap, eps=eps)
     if not x.is_cuda:
@@ -713,14 +774,14 @@ def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, si
         raise ValueError(f"position {t} outside the {S}-row cache")
     if D % 32 or D > 1024 or NH % KH or NH // KH > D // 32:
         raise ValueError(f"unsupported head layout NH={NH} KH={KH} D={D}")
-    if H % 16 or NQKV % 16 or QHD % 8:
-        raise ValueError(f"unsupported widths H={H} q|k|v={NQKV}")
+    if _layer_attn_bytes(NH // KH, D, t) > DG_STAGE_SMEM:
+        raise ValueError(f"position {t}: {NH // KH} heads' logits over {t} rows do not fit the "
+                         "attention kernel's shared memory")
+    if H % 64 or QHD % 64:
+        raise ValueError(f"unsupported widths H={H} q={QHD}: the products take multiples of 64")
     _check_row_width(H)
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (B, H))
-    for name, wq, shape in (("wqkv", wqkv, (H, NQKV)), ("wo", wo, (QHD, H))):
-        c(wq["w_int8"], f"{name}.w_int8", torch.int8, shape)
-        c(wq["scale"], f"{name}.scale", torch.float32, shape[1:])
     for name, tt, dt, shape in (("in_norm", in_norm, torch.bfloat16, (H,)),
                                 ("post_norm", post_norm, torch.bfloat16, (H,)),
                                 ("cos", cos, torch.float32, (D,)),
@@ -730,23 +791,26 @@ def fused_attn_step(t: int, x, wqkv: dict, wo: dict, in_norm, post_norm, cos, si
                                 ("ks", ks, torch.float32, (B, KH, S)),
                                 ("vs", vs, torch.float32, (B, KH, S))):
         c(tt, name, dt, shape)
+    frags = []
+    for name, wq, (K, N) in (("wqkv", wqkv, (H, NQKV)), ("wo", wo, (QHD, H))):
+        frags.append(_frag_of(wq, "w_frag", name))
+        c(frags[-1], f"{name}.w_frag", torch.int8, frag_shape(K, N))
+        c(wq["scale"], f"{name}.scale", torch.float32, (N,))
     dev = x.device
-    s_qkv, s_o = _split(B, NQKV, H, False, dev), _split(B, H, QHD, False, dev)
+    ws, slots, counters = _workspace(dev, [(B, NQKV, H), (B, H, QHD)])
+    h = _scratch(dev, "h", (B, H), torch.bfloat16)
+    attn = _scratch(dev, "attn", (B, QHD), torch.bfloat16)
     x_out = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     k_new = torch.empty(B, KHD, dtype=torch.int8, device=dev)
     v_new = torch.empty(B, KHD, dtype=torch.int8, device=dev)
     k_sc = torch.empty(KH, B, dtype=torch.float32, device=dev)
     v_sc = torch.empty(KH, B, dtype=torch.float32, device=dev)
-    h = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
-    attn = torch.empty(B, QHD, dtype=torch.bfloat16, device=dev)
-    part = torch.empty(B * max(NQKV, H), dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.call(
-        "vbt_fused_attn_step", p(x), p(wqkv["w_int8"]), p(wqkv["scale"]), p(wo["w_int8"]),
+        "vbt_fused_attn_step", p(x), p(frags[0]), p(wqkv["scale"]), p(frags[1]),
         p(wo["scale"]), p(in_norm), p(post_norm), p(cos), p(sin), p(kc), p(vc), p(ks), p(vs),
-        p(x_out), p(k_new), p(v_new), p(k_sc), p(v_sc), p(h), p(attn), p(part),
-        B, H, NH, KH, D, S, int(t), s_qkv, s_o,
-        float(attn_scale), float(softcap), float(eps))
+        p(x_out), p(k_new), p(v_new), p(k_sc), p(v_sc), p(h), p(attn), p(ws), slots, counters,
+        B, H, NH, KH, D, S, int(t), float(attn_scale), float(softcap), float(eps))
     fused_attn_step.launches += 1
     return x_out, k_new, v_new, k_sc, v_sc
 
@@ -771,34 +835,35 @@ def fused_mlp_step(x, gate_q: dict, up_q: dict, down_q: dict, pre_norm, post_nor
     x: [M, H]; gate / up: int8 dicts [H, F]; down: [F, H]; norms [H]. The JAX
     function's `block_f` is Mosaic's tile and has no counterpart: the order in
     which the kernel adds over F is its own and fixed. CUDA tensors run
-    csrc/layer_step.cu (x and the norm weights bf16) or raise; CPU tensors run
-    the plain version."""
+    csrc/layer_step.cu (x and the norm weights bf16; the gate dict with the
+    interleaved gate|up fragments and the down dict with its fragments,
+    `layer_fragments`) or raise; CPU tensors run the plain version."""
     if not x.is_cuda:
         return fused_mlp_step_plain(x, gate_q, up_q, down_q, pre_norm, post_norm, eps=eps)
     M, H = x.shape
-    F = gate_q["w_int8"].shape[1]
-    if H % 16 or F % 16:
-        raise ValueError(f"unsupported widths H={H} F={F}")
+    F = gate_q["scale"].shape[0]
+    if H % 64 or F % 64:
+        raise ValueError(f"unsupported widths H={H} F={F}: the products take multiples of 64")
     _check_row_width(H)
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (M, H))
-    for name, wq, shape in (("gate", gate_q, (H, F)), ("up", up_q, (H, F)),
-                            ("down", down_q, (F, H))):
-        c(wq["w_int8"], f"{name}.w_int8", torch.int8, shape)
-        c(wq["scale"], f"{name}.scale", torch.float32, shape[1:])
     c(pre_norm, "pre_norm", torch.bfloat16, (H,))
     c(post_norm, "post_norm", torch.bfloat16, (H,))
+    wgu, wd = _frag_of(gate_q, "gu_frag", "gate"), _frag_of(down_q, "w_frag", "down")
+    gus = _frag_of(gate_q, "gu_scale", "gate")
+    c(wgu, "gate.gu_frag", torch.int8, frag_shape(H, 2 * F))
+    c(gus, "gate.gu_scale", torch.float32, (2 * F,))
+    c(wd, "down.w_frag", torch.int8, frag_shape(F, H))
+    c(down_q["scale"], "down.scale", torch.float32, (H,))
     dev = x.device
-    s1, s2 = _split(M, F, H, True, dev), _split(M, H, F, False, dev)
+    ws, slots, counters = _workspace(dev, [(M, 2 * F, H), (M, H, F)])
+    h = _scratch(dev, "h", (M, H), torch.bfloat16)
+    hidden = _scratch(dev, "hidden", (M, F), torch.bfloat16)
     x_out = torch.empty(M, H, dtype=torch.bfloat16, device=dev)
-    h = torch.empty(M, H, dtype=torch.bfloat16, device=dev)
-    hidden = torch.empty(M, F, dtype=torch.bfloat16, device=dev)
-    part = torch.empty(M * H, dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.call(
-        "vbt_fused_mlp_step", p(x), p(gate_q["w_int8"]), p(up_q["w_int8"]), p(gate_q["scale"]),
-        p(up_q["scale"]), p(down_q["w_int8"]), p(down_q["scale"]), p(pre_norm), p(post_norm),
-        p(x_out), p(h), p(hidden), p(part), M, H, F, s1, s2, float(eps))
+        "vbt_fused_mlp_step", p(x), p(wgu), p(gus), p(wd), p(down_q["scale"]), p(pre_norm),
+        p(post_norm), p(x_out), p(h), p(hidden), p(ws), slots, counters, M, H, F, float(eps))
     fused_mlp_step.launches += 1
     return x_out
 

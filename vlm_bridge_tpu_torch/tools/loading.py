@@ -126,3 +126,17 @@ def prestack_decode_params(params, cfg, gen, mesh=None):
     lm["stacked_decode"] = gemma2.stack_decode_params(
         params["lm"], cfg.lm, mlp_int4=gen.mlp_int4, mlp_int4_group=gen.mlp_int4_group)
     return {**params, "lm": lm}
+
+
+def prepare_fused_layers(lm: dict) -> dict:
+    """The decoder's params (params["lm"]) with every layer's int8 dicts
+    carrying the fragment forms that the CUDA per-layer fused decode
+    (gemma2.decode_step_fused -> decode_kernels.fused_attn_step /
+    fused_mlp_step) reads: decode_kernels.layer_fragments, layer by layer.
+    Run it ONCE per model, before the decode loop, never per call: the forms
+    are a second copy of the layers' int8 weights on the device (77.8 MB a
+    Gemma-2-2B layer, 2.0 GB for its 26). The int8 weights stay for the plain
+    versions and the other int8 paths; the returned tree shares them."""
+    from vlm_bridge_tpu_torch.ops.decode_kernels import layer_fragments
+
+    return {**lm, "layers": {k: layer_fragments(lp) for k, lp in lm["layers"].items()}}
