@@ -30,6 +30,12 @@ pinned host buffer behind an event, and the host waits only for the event
 of the step before the last one it queued. The extra steps write pads to
 rows that are done, so the tokens are those of early_stop=False.
 
+Spans (runtime.profiling.annotate; a flag check when nothing records):
+each position of the fast loop runs in vlm.token, and inside it the bridge
+in vlm.bridge_step, the fused stack's call in vlm.stack_step
+(gemma2.decode_step_stacked), the head in vlm.head and the sampler in
+vlm.sampler.
+
 Exact mode (gen.exact, the reference-parity decode): a fixed [B, L] token
 buffer re-run in full at every step, the `position < t` mask on the bridge
 and the LM, the bridge causal or not as the checkpoint was trained
@@ -64,6 +70,7 @@ from vlm_bridge_tpu_torch.ops.attention import decode_attention
 from vlm_bridge_tpu_torch.ops.layers import gelu_exact, layer_norm, linear
 from vlm_bridge_tpu_torch.ops.sampling import sample_token
 from vlm_bridge_tpu_torch.parallel import batch_sharding, distributed
+from vlm_bridge_tpu_torch.runtime.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -297,43 +304,49 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
     tok, done = bos, torch.zeros(B, dtype=torch.bool, device=dev)
     all_done = _AllDone(dev) if gen.early_stop else None
     for t in range(gen.max_length):
-        if all_done is not None and all_done.seen(t):
-            break
-        emb = gemma2.embed(lm, tok.long()[:, None]).to(activation_dtype)
-        if gen.bypass_bridge:
-            bridged = emb
-        elif use_fused_bridge:
-            x = decode_kernels.fused_bridge_step(
-                t, emb[:, 0].contiguous(), bst, bridge_cache.cross_k,
-                bridge_cache.cross_k_scale, bridge_cache.cross_v, bridge_cache.cross_v_scale,
-                bridge_cache.self_k, bridge_cache.self_v,
-                num_heads_cross=br_cfg.num_heads_cross,
-                num_heads_self=br_cfg.num_heads_self, eps=br_cfg.layer_norm_eps)
-            bridged = x[:, None, :]
-        else:
-            bridged, bridge_cache = _bridge_decode_step(bridge_params, br_cfg, bridge_cache,
-                                                        emb, t)
-        if use_fused:
-            hidden, kv = gemma2.decode_step_stacked(lm, lm_cfg, stacked, bridged, kv, t)
-        else:
-            hidden, kv = gemma2.decode_step(lm, lm_cfg, bridged, kv, position=t)
-        if argmax_head is not None:
-            # the argmax is taken inside the int8 / int4 head: the [B, V] logits
-            # are never written (the final softcap is monotonic)
-            nxt = argmax_head(hidden[:, 0].contiguous(), table)
-        else:
-            logits = gemma2.logits_from_hidden(lm, lm_cfg, hidden)[:, 0]
-            # one generator, advanced token by token: the same seed gives the
-            # same tokens on one device
-            nxt = sample_token(generator, logits, temperature=gen.temperature,
-                               top_p=gen.top_p, greedy=gen.greedy,
-                               topk_window=gen.topk_window)
-        nxt = torch.where(done, torch.full_like(nxt, lm_cfg.pad_token_id), nxt)
-        done = done | (nxt == lm_cfg.eos_token_id)
-        toks[:, t] = nxt
-        tok = nxt
-        if all_done is not None:
-            all_done.push(t, done)
+        with annotate("token"):
+            if all_done is not None and all_done.seen(t):
+                break
+            emb = gemma2.embed(lm, tok.long()[:, None]).to(activation_dtype)
+            if gen.bypass_bridge:
+                bridged = emb
+            elif use_fused_bridge:
+                with annotate("bridge_step"):
+                    x = decode_kernels.fused_bridge_step(
+                        t, emb[:, 0].contiguous(), bst, bridge_cache.cross_k,
+                        bridge_cache.cross_k_scale, bridge_cache.cross_v,
+                        bridge_cache.cross_v_scale, bridge_cache.self_k, bridge_cache.self_v,
+                        num_heads_cross=br_cfg.num_heads_cross,
+                        num_heads_self=br_cfg.num_heads_self, eps=br_cfg.layer_norm_eps)
+                bridged = x[:, None, :]
+            else:
+                with annotate("bridge_step"):
+                    bridged, bridge_cache = _bridge_decode_step(bridge_params, br_cfg,
+                                                                bridge_cache, emb, t)
+            if use_fused:
+                hidden, kv = gemma2.decode_step_stacked(lm, lm_cfg, stacked, bridged, kv, t)
+            else:
+                hidden, kv = gemma2.decode_step(lm, lm_cfg, bridged, kv, position=t)
+            if argmax_head is not None:
+                # the argmax is taken inside the int8 / int4 head: the [B, V] logits
+                # are never written (the final softcap is monotonic)
+                with annotate("head"):
+                    nxt = argmax_head(hidden[:, 0].contiguous(), table)
+            else:
+                with annotate("head"):
+                    logits = gemma2.logits_from_hidden(lm, lm_cfg, hidden)[:, 0]
+                # one generator, advanced token by token: the same seed gives the
+                # same tokens on one device
+                with annotate("sampler"):
+                    nxt = sample_token(generator, logits, temperature=gen.temperature,
+                                       top_p=gen.top_p, greedy=gen.greedy,
+                                       topk_window=gen.topk_window)
+            nxt = torch.where(done, torch.full_like(nxt, lm_cfg.pad_token_id), nxt)
+            done = done | (nxt == lm_cfg.eos_token_id)
+            toks[:, t] = nxt
+            tok = nxt
+            if all_done is not None:
+                all_done.push(t, done)
     tokens = torch.cat([bos[:, None], toks], dim=1)
     return tokens, _eos_lengths(tokens, lm_cfg.eos_token_id)
 

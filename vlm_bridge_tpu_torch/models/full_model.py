@@ -23,6 +23,7 @@ from vlm_bridge_tpu_torch.configs import VLMConfig
 from vlm_bridge_tpu_torch.models import bridge as bridge_mod
 from vlm_bridge_tpu_torch.models import dinov2 as dinov2_mod
 from vlm_bridge_tpu_torch.models import gemma2 as gemma2_mod
+from vlm_bridge_tpu_torch.runtime.profiling import annotate
 
 
 def init(cfg: VLMConfig, *, generator: torch.Generator, frozen_dtype=torch.bfloat16,
@@ -81,7 +82,8 @@ def forward(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor, input_ids:
     parallelism passes the global batch's, so that the ranks' losses and
     gradients sum to the global batch's."""
     del mask_pad_loss
-    vision = encode_image(params, cfg, pixel_values)
+    with annotate("encode"):
+        vision = encode_image(params, cfg, pixel_values)
     bridged = bridge_text(params, cfg, input_ids, vision, attn_mask=attn_mask,
                           generator=generator, train=train, bridge_pad_mask=bridge_pad_mask,
                           bridge_causal=bridge_causal)

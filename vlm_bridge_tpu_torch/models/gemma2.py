@@ -42,6 +42,7 @@ from vlm_bridge_tpu_torch.ops.layers import (apply_rope, gelu_tanh, linear, rms_
                                              softcap)
 from vlm_bridge_tpu_torch.ops.quant import is_quantized, quantize_int8
 from vlm_bridge_tpu_torch.parallel.sharding import model_input, model_output
+from vlm_bridge_tpu_torch.runtime.profiling import annotate
 
 
 class KVCache(NamedTuple):
@@ -261,18 +262,21 @@ def decode_step_stacked(params: dict, cfg: Gemma2Config, stacked: dict,
 
     token_embeds: [B, 1, H] raw (bridged) embeddings. The √H normalizer is
     cast to the activation dtype before the multiply, as in the JAX package.
-    Returns (final-normed hidden [B, 1, H], cache updated in place)."""
+    Returns (final-normed hidden [B, 1, H], cache updated in place). The
+    span vlm.stack_step holds the call into the stack's kernels alone; the
+    rope position, the normalizer and the final norm stay outside it."""
     t = int(position)
     dev = token_embeds.device
     cos, sin = rope_table(torch.tensor([t], device=dev), cfg.head_dim, cfg.rope_theta)
     normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=token_embeds.dtype, device=dev)
     x = (token_embeds * normalizer)[:, 0].contiguous()
-    x_out = decode_kernels.fused_stack_step(
-        t, x, stacked, cache.k, cache.v, cache.k_scale, cache.v_scale,
-        cos[0].contiguous(), sin[0].contiguous(),
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, attn_scale=cfg.attn_scale,
-        softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps)
+    with annotate("stack_step"):
+        x_out = decode_kernels.fused_stack_step(
+            t, x, stacked, cache.k, cache.v, cache.k_scale, cache.v_scale,
+            cos[0].contiguous(), sin[0].contiguous(),
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, attn_scale=cfg.attn_scale,
+            softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps)
     hidden = rms_norm(x_out[:, None, :], params["final_norm"], cfg.rms_norm_eps)
     return hidden, cache
 

@@ -13,6 +13,14 @@ trace when the window closes; steps outside it pay one time.monotonic()
 call. A loop that queues work on the device without waiting for it times
 fenced windows instead (`add_window`): each window between two host reads
 of the metrics adds its mean step time once.
+
+The program's spans (`annotate`) sit at the call sites of its layers:
+vlm.token, vlm.bridge_step, vlm.stack_step, vlm.head and vlm.sampler in
+the decode loop, and vlm.train_step, vlm.forward (with vlm.encode),
+vlm.backward and vlm.optimizer in training. They cost one flag check when
+nothing records; under a torch.profiler (StepProfiler's window included)
+they are ranges in its trace, on its clock beside the kernels and runtime
+calls it records.
 """
 
 from __future__ import annotations
@@ -91,8 +99,13 @@ class StepProfiler:
         }
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region in a torch.profiler trace."""
-    with torch.profiler.record_function(name):
-        yield
+    """The program's span `name` around a call. Off (no torch.profiler
+    recording) it is one shared null context: no range, no clock reading,
+    no tensor touched. On, it is the profiler's range "vlm.<name>"."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function("vlm." + name)
+    return _OFF

@@ -44,6 +44,7 @@ from vlm_bridge_tpu_torch.configs import TrainingConfig, VLMConfig
 from vlm_bridge_tpu_torch.data.preprocess import normalize_on_device
 from vlm_bridge_tpu_torch.models import full_model
 from vlm_bridge_tpu_torch.parallel import distributed
+from vlm_bridge_tpu_torch.runtime.profiling import annotate
 
 
 class TrainState(NamedTuple):
@@ -238,14 +239,17 @@ def loss_and_grads(cfg: VLMConfig, tc: TrainingConfig, frozen: dict, bridge_para
     of `tree_leaves`); nothing is updated. With a distributed mesh, `batch`
     is this rank's block of rows and the loss and gradients returned are the
     global batch's, the same on every rank."""
-    loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype, mesh,
-                      generator=generator, train=True, remat_lm=tc.remat_lm,
-                      loss_remat=tc.loss_remat)
-    grads = torch.autograd.grad(loss, tree_leaves(bridge_params))
-    loss = loss.detach()
-    if _distributed(mesh):
-        *grads, loss = distributed.all_reduce_sum([*grads, loss.reshape(1)], mesh.data_group)
-        loss = loss.reshape(())
+    with annotate("forward"):
+        loss, aux = _loss(cfg, tc, frozen, bridge_params, batch, activation_dtype, mesh,
+                          generator=generator, train=True, remat_lm=tc.remat_lm,
+                          loss_remat=tc.loss_remat)
+    with annotate("backward"):
+        grads = torch.autograd.grad(loss, tree_leaves(bridge_params))
+        loss = loss.detach()
+        if _distributed(mesh):
+            *grads, loss = distributed.all_reduce_sum([*grads, loss.reshape(1)],
+                                                      mesh.data_group)
+            loss = loss.reshape(())
     return loss, aux, grads
 
 
@@ -257,21 +261,26 @@ def make_train_step(cfg: VLMConfig, tc: TrainingConfig, opt: BridgeOptimizer, sc
     dropout source on the batch's device (it advances from step to step;
     None trains without dropout). The metrics are 0-dim tensors on the
     device, apart from the learning rate, so a step forces no sync. mesh:
-    see loss_and_grads (the gradients are summed before the clip)."""
+    see loss_and_grads (the gradients are summed before the clip). A step
+    runs in the span vlm.train_step, with vlm.forward, vlm.backward (the
+    gradients and their data-parallel sum) and vlm.optimizer (clip and
+    AdamW) inside it (runtime.profiling.annotate)."""
 
     def step_fn(state: TrainState, frozen: dict, batch: dict, generator):
-        loss, aux, grads = loss_and_grads(cfg, tc, frozen, state.bridge_params, batch,
-                                          generator, activation_dtype, mesh)
-        grad_norm = global_norm(grads)
-        opt.update(grads, state.opt_state, tree_leaves(state.bridge_params))
-        metrics = {
-            "loss": loss,
-            "grad_norm_before_clip": grad_norm,
-            # state.step counts microbatches; the schedule advances once per
-            # optimizer step
-            "learning_rate": schedule(state.step // max(1, tc.gradient_accumulation_steps)),
-            "token_count": aux["token_count"],
-        }
+        with annotate("train_step"):
+            loss, aux, grads = loss_and_grads(cfg, tc, frozen, state.bridge_params, batch,
+                                              generator, activation_dtype, mesh)
+            grad_norm = global_norm(grads)
+            with annotate("optimizer"):
+                opt.update(grads, state.opt_state, tree_leaves(state.bridge_params))
+            metrics = {
+                "loss": loss,
+                "grad_norm_before_clip": grad_norm,
+                # state.step counts microbatches; the schedule advances once per
+                # optimizer step
+                "learning_rate": schedule(state.step // max(1, tc.gradient_accumulation_steps)),
+                "token_count": aux["token_count"],
+            }
         return TrainState(state.step + 1, state.bridge_params, state.opt_state), metrics
 
     return step_fn
