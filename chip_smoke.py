@@ -3007,6 +3007,8 @@ def run_fused_layers(per_layer, cfg, dev, card, stacked_ids, stack_step_ms):
         kv = gemma2.FusedKVCache.zeros(lm, BATCH, NEW_TOKENS + 1, device=dev)
         tok = torch.full((BATCH,), lm.bos_token_id, dtype=torch.int32, device=dev)
         ids, first = [tok], None
+        rope = gemma2.rope_rows(lm, n_tokens, dev)
+        normalizer = gemma2.embed_normalizer(lm, torch.bfloat16, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(n_tokens):
@@ -3016,7 +3018,8 @@ def run_fused_layers(per_layer, cfg, dev, card, stacked_ids, stack_step_ms):
                                      bcache.self_k, bcache.self_v,
                                      num_heads_cross=bc.num_heads_cross,
                                      num_heads_self=bc.num_heads_self, eps=bc.layer_norm_eps)
-            hidden, kv = gemma2.decode_step_fused(lmp, lm, x[:, None, :], kv, t)
+            hidden, kv = gemma2.decode_step_fused(lmp, lm, x[:, None, :], kv, t, rope=rope,
+                                                  normalizer=normalizer)
             if first is None:
                 first = hidden[:, 0].clone()
             tok = quant.int8_matmul_t_argmax(hidden[:, 0].contiguous(), lmp["embedding"])

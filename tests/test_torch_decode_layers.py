@@ -271,7 +271,7 @@ def test_debug_force_jnp_variable_pins_the_per_layer_path(slice_setup, monkeypat
     served = []
     real = TG._generate_fast
     monkeypatch.setattr(TG, "_generate_fast",
-                        lambda *a: served.append(a[-2:]) or real(*a))
+                        lambda *a, **k: served.append(a[-2:]) or real(*a, **k))
     want_t, want_l = JG.generate_tokens(
         trees["int8"], cfg, pixel_values=jnp.asarray(pixels),
         gen=JG.GenerationConfig(max_length=MAX_NEW, greedy=True, kv_quant=True),

@@ -54,7 +54,8 @@ def _port_files():
                REPO / "scripts" / "vit_ab_torch.py",
                REPO / "scripts" / "flash_fwd_torch.py", REPO / "scripts" / "flash_bwd_torch.py",
                REPO / "scripts" / "tiled_matmul_torch.py",
-               REPO / "scripts" / "decode_gemm_torch.py", REPO / "scripts" / "head_torch.py"])
+               REPO / "scripts" / "decode_gemm_torch.py", REPO / "scripts" / "head_torch.py",
+               REPO / "scripts" / "decode_graphs_torch.py"])
 
 
 def test_no_import_of_jax_or_the_jax_package():

@@ -24,6 +24,16 @@ the port's kernels.
 gen.mlp_int4 serves only the fused path and raises anywhere else: nothing
 serves int8 MLP weights under the int4 label.
 
+On CUDA the fused path runs in a decode session (`_DecodeSession`), one for
+each set of weights and decode shape, kept between calls: the caches, the
+steps' inputs, outputs and scratch at fixed addresses, the RoPE rows of
+every position and the normalizer built once (so no token copies from the
+host, and the loop never waits for the card), and the stack and bridge
+steps' CUDA graphs, one a position, captured by the first batch and replayed
+by the later ones inside the steps' own wrappers
+(ops.decode_kernels.StepGraphs). The head, the sampler and the loop's other
+ops stay eager, and the tokens are the eager loop's bit for bit.
+
 With gen.early_stop the loop ends once every row has emitted EOS, but it
 learns that two steps late (`_AllDone`): each step's flag is copied to a
 pinned host buffer behind an event, and the host waits only for the event
@@ -58,6 +68,8 @@ the same bits, and their samplers are seeded per data block
 from __future__ import annotations
 
 import os
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -71,6 +83,7 @@ from vlm_bridge_tpu_torch.ops.layers import gelu_exact, layer_norm, linear
 from vlm_bridge_tpu_torch.ops.sampling import sample_token
 from vlm_bridge_tpu_torch.parallel import batch_sharding, distributed
 from vlm_bridge_tpu_torch.runtime.profiling import annotate
+from vlm_bridge_tpu_torch.training.train_step import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -125,14 +138,14 @@ def _w(w, dtype):
     return w if isinstance(w, dict) else w.to(dtype)
 
 
-def _build_cross_cache(bridge_params, cfg: BridgeConfig, vision: torch.Tensor,
-                       max_len: int, dtype, kv_quant: bool = False) -> BridgeCache:
-    """Cross-attention K/V of every block from the vision features (a plain
-    matmul in `dtype`, as the JAX package leaves it to XLA), quantized per
-    vector with kv_quant; zeroed self caches of max_len rows."""
+def _cross_kv(bridge_params, cfg: BridgeConfig, vision: torch.Tensor, dtype,
+              kv_quant: bool = False) -> tuple:
+    """(cross_k, cross_v, cross_k_scale, cross_v_scale) of every block from
+    the vision features (a plain matmul in `dtype`, as the JAX package leaves
+    it to XLA), quantized per vector with kv_quant (else no scales)."""
     B, S, _ = vision.shape
-    Hc, Hs = cfg.num_heads_cross, cfg.num_heads_self
-    Dc, Ds = cfg.language_dim // Hc, cfg.language_dim // Hs
+    Hc = cfg.num_heads_cross
+    Dc = cfg.language_dim // Hc
     ks, vs = [], []
     for b in range(cfg.num_blocks):
         cp = bridge_params["blocks"][str(b)]["cross"]
@@ -142,16 +155,24 @@ def _build_cross_cache(bridge_params, cfg: BridgeConfig, vision: torch.Tensor,
         vs.append(v.reshape(B, S, Hc, Dc).transpose(1, 2))
     cross_k = torch.stack(ks).contiguous()
     cross_v = torch.stack(vs).contiguous()
-    ck_scale = cv_scale = None
-    if kv_quant:
-        cross_k, ck_scale = gemma2.quantize_kv(cross_k)
-        cross_v, cv_scale = gemma2.quantize_kv(cross_v)
-    shape = (cfg.num_blocks, B, Hs, max_len, Ds)
+    if not kv_quant:
+        return cross_k, cross_v, None, None
+    cross_k, ck_scale = gemma2.quantize_kv(cross_k)
+    cross_v, cv_scale = gemma2.quantize_kv(cross_v)
+    return cross_k, cross_v, ck_scale, cv_scale
+
+
+def _build_cross_cache(bridge_params, cfg: BridgeConfig, vision: torch.Tensor,
+                       max_len: int, dtype, kv_quant: bool = False) -> BridgeCache:
+    """The cross-attention K/V of `_cross_kv` and zeroed self caches of
+    max_len rows."""
+    ck, cv, cks, cvs = _cross_kv(bridge_params, cfg, vision, dtype, kv_quant)
+    shape = (cfg.num_blocks, vision.shape[0], cfg.num_heads_self, max_len,
+             cfg.language_dim // cfg.num_heads_self)
     return BridgeCache(
         self_k=torch.zeros(shape, dtype=dtype, device=vision.device),
         self_v=torch.zeros(shape, dtype=dtype, device=vision.device),
-        cross_k=cross_k, cross_v=cross_v,
-        cross_k_scale=ck_scale, cross_v_scale=cv_scale)
+        cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs)
 
 
 def _bridge_decode_step(bridge_params, cfg: BridgeConfig, cache: BridgeCache,
@@ -237,6 +258,118 @@ class _AllDone:
         return bool(self.flags[slot])
 
 
+class _DecodeSession:
+    """What `_generate_fast` keeps between batches of one decode shape over
+    one set of weights, on CUDA with the fused stack step: every buffer the
+    fused bridge and stack steps read or write, at fixed addresses, and
+    their graphs (decode_kernels.StepGraphs: `stack`, and `bridge` where the
+    fused bridge step serves), captured at each position by the first batch
+    and replayed by every later one. Also the int8 KV cache, the RoPE rows of
+    every position and the √H normalizer (so no token copies from the host),
+    the token buffers, and the stacked weights that the caller's params do
+    not carry: the LM's where they are per layer, the bridge's always.
+
+    `begin` readies it for a batch: it zeroes the caches that the eager loop
+    builds zeroed, writes the batch's cross K/V in place and resets the
+    token buffers. Sessions live in `_SESSIONS`, keyed by the identity of
+    the weights they were built from and the decode shape; each holds only
+    weak references to those weights and leaves the cache when one of them
+    is freed, so dropping the params frees the session with its graphs, and
+    no graph outlives the weights it reads."""
+
+    def __init__(self, lm_cfg, br_cfg: BridgeConfig, gen: GenerationConfig, B: int, S: int,
+                 dtype, dev, stacked: Optional[dict], bst: Optional[dict]):
+        L = gen.max_length + 1
+        self.pad = lm_cfg.pad_token_id
+        self.stacked, self.bst = stacked, bst
+        self.kv = gemma2.StackedKVCache.zeros(lm_cfg, B, L, device=dev)
+        self.rope = gemma2.rope_rows(lm_cfg, L, dev)
+        self.normalizer = gemma2.embed_normalizer(lm_cfg, dtype, dev)
+        self.stack = decode_kernels.StepGraphs(
+            torch.empty(B, lm_cfg.hidden_size, dtype=dtype, device=dev))
+        self.bridge = self.bridge_cache = None
+        if bst is not None:
+            self.bridge = decode_kernels.StepGraphs(
+                torch.empty(B, br_cfg.language_dim, dtype=dtype, device=dev))
+            nb, ld, Hc, Hs = (br_cfg.num_blocks, br_cfg.language_dim, br_cfg.num_heads_cross,
+                              br_cfg.num_heads_self)
+            own = (nb, B, Hs, L, ld // Hs)
+            cross = (nb, B, Hc, S, ld // Hc)   # the int8 cache (the fused path's)
+            self.bridge_cache = BridgeCache(
+                torch.zeros(own, dtype=dtype, device=dev),
+                torch.zeros(own, dtype=dtype, device=dev),
+                torch.empty(cross, dtype=torch.int8, device=dev),
+                torch.empty(cross, dtype=torch.int8, device=dev),
+                torch.empty(cross[:-1], dtype=torch.float32, device=dev),
+                torch.empty(cross[:-1], dtype=torch.float32, device=dev))
+        self.bos = torch.full((B,), lm_cfg.bos_token_id, dtype=torch.int32, device=dev)
+        self.toks = torch.empty(B, gen.max_length, dtype=torch.int32, device=dev)
+        self.done = torch.empty(B, dtype=torch.bool, device=dev)
+        self._refs: list = []
+
+    def begin(self, cross: Optional[tuple]) -> None:
+        """cross: the batch's `_cross_kv` (int8, with scales) where the
+        session has the bridge."""
+        for a in self.kv:
+            a.zero_()
+        if self.bridge_cache is not None:
+            c = self.bridge_cache
+            c.self_k.zero_()
+            c.self_v.zero_()
+            c.cross_k.copy_(cross[0])
+            c.cross_v.copy_(cross[1])
+            c.cross_k_scale.copy_(cross[2])
+            c.cross_v_scale.copy_(cross[3])
+        self.toks.fill_(self.pad)
+        self.done.zero_()
+
+    def watch(self, key: tuple, weights: list) -> None:
+        """Leave `_SESSIONS` when any of `weights` is freed."""
+        def drop(_, me=weakref.ref(self)):
+            if _SESSIONS.get(key) is me():
+                _SESSIONS.pop(key, None)
+        self._refs = [weakref.ref(w, drop) for w in weights]
+
+
+# the decode sessions, least recently used first; a few decode shapes (an eval
+# split's odd last batch, a greedy and a sampled length) fit, more evict
+_SESSIONS: "OrderedDict[tuple, _DecodeSession]" = OrderedDict()
+_MAX_SESSIONS = 4
+
+
+def _decode_session(params, cfg: VLMConfig, gen: GenerationConfig, bridge_params,
+                    vision: torch.Tensor, dtype, fused_bridge: bool) -> _DecodeSession:
+    """The session of these weights and this decode shape, built on first
+    use: the LM stacked here where params carry its layers, the bridge
+    stacked where its fused step serves."""
+    lm = params["lm"]
+    src = lm["stacked_decode"] if "stacked_decode" in lm else lm["layers"]
+    weights = tree_leaves(src) + (tree_leaves(params["bridge"]) if fused_bridge else [])
+    B, S = vision.shape[:2]
+    # (the weights, how the LM is stacked, the decode shape)
+    key = (tuple(map(id, weights)), (gen.mlp_int4, gen.mlp_int4_group), B, S, gen.max_length,
+           dtype, fused_bridge, str(vision.device))
+    session = _SESSIONS.get(key)
+    if session is not None:
+        _SESSIONS.move_to_end(key)
+        return session
+    stacked = None
+    if "stacked_decode" not in lm:
+        # one stacked copy for every decode shape over these layers
+        stacked = next((other.stacked for k, other in list(_SESSIONS.items())
+                        if k[:2] == key[:2]), None)
+        if stacked is None:
+            stacked = gemma2.stack_decode_params(lm, cfg.lm, mlp_int4=gen.mlp_int4,
+                                                 mlp_int4_group=gen.mlp_int4_group)
+    bst = bridge.stack_bridge_decode_params(bridge_params, cfg.bridge) if fused_bridge else None
+    session = _DecodeSession(cfg.lm, cfg.bridge, gen, B, S, dtype, vision.device, stacked, bst)
+    session.watch(key, weights)
+    _SESSIONS[key] = session
+    while len(_SESSIONS) > _MAX_SESSIONS:
+        _SESSIONS.popitem(last=False)
+    return session
+
+
 def _fused_decode_available(params, cfg: VLMConfig, gen: GenerationConfig) -> bool:
     """Whether the whole-stack decode step serves this call: int8 KV cache,
     fully int8 layers (or weights stacked ahead of time) and cache rows that
@@ -259,7 +392,10 @@ def _fused_decode_available(params, cfg: VLMConfig, gen: GenerationConfig) -> bo
 @torch.no_grad()
 def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: GenerationConfig,
                    activation_dtype, generator: Optional[torch.Generator],
-                   use_fused: bool, use_fused_bridge: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                   use_fused: bool, use_fused_bridge: bool, *,
+                   session_ok: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cached decode loop. On CUDA with the fused stack step it runs in a
+    `_DecodeSession` (session_ok False: eagerly, as everywhere else)."""
     B = vision.shape[0]
     L = gen.max_length + 1  # BOS + generated
     lm_cfg, br_cfg = cfg.lm, cfg.bridge
@@ -272,9 +408,40 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
         return p.to(activation_dtype) if (p.dim() >= 2 and p.is_floating_point()) else p
 
     lm = params["lm"]
+    pre = lm.get("stacked_decode")
+    if use_fused and pre is not None and gen.mlp_int4 != ("wgu4" in pre):
+        raise ValueError(f"mlp_int4={gen.mlp_int4} but the pre-stacked decode weights "
+                         f"{'carry' if 'wgu4' in pre else 'do not carry'} int4 MLP "
+                         "fields: restack with the same setting")
+    bridge_params = None
     if not gen.bypass_bridge:
         # the (possibly f32 master) bridge weights are cast once, not per token
         bridge_params = cast(params["bridge"])
+    session = stack_graphs = bridge_graphs = None
+    if use_fused and session_ok and dev.type == "cuda":
+        session = _decode_session(params, cfg, gen, bridge_params, vision, activation_dtype,
+                                  use_fused_bridge)
+        stack_graphs, bridge_graphs = session.stack, session.bridge
+        session.begin(_cross_kv(bridge_params, br_cfg, vision, activation_dtype, gen.kv_quant)
+                      if use_fused_bridge else None)
+        kv, rope, normalizer = session.kv, session.rope, session.normalizer
+        bos, toks, done = session.bos, session.toks, session.done
+    else:
+        if use_fused:
+            kv = gemma2.StackedKVCache.zeros(lm_cfg, B, L, device=dev)
+            rope = gemma2.rope_rows(lm_cfg, L, dev)
+            normalizer = gemma2.embed_normalizer(lm_cfg, activation_dtype, dev)
+        else:
+            kv = gemma2.KVCache.zeros(lm_cfg, B, L, device=dev,
+                                      dtype=torch.int8 if gen.kv_quant else activation_dtype,
+                                      num_kv_heads=gemma2.local_heads(lm, lm_cfg)[1])
+        bos = torch.full((B,), lm_cfg.bos_token_id, dtype=torch.int32, device=dev)
+        toks = torch.full((B, gen.max_length), lm_cfg.pad_token_id, dtype=torch.int32,
+                          device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+    if bridge_graphs is not None:
+        bridge_cache, bst = session.bridge_cache, session.bst
+    elif not gen.bypass_bridge:
         bridge_cache = _build_cross_cache(bridge_params, br_cfg, vision, L, activation_dtype,
                                           kv_quant=gen.kv_quant)
         if use_fused_bridge:
@@ -282,49 +449,46 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
     if use_fused:
         stacked = lm.get("stacked_decode")
         if stacked is None:
-            stacked = gemma2.stack_decode_params(lm, lm_cfg, mlp_int4=gen.mlp_int4,
-                                                 mlp_int4_group=gen.mlp_int4_group)
-        if gen.mlp_int4 != ("wgu4" in stacked):
-            raise ValueError(f"mlp_int4={gen.mlp_int4} but the pre-stacked decode weights "
-                             f"{'carry' if 'wgu4' in stacked else 'do not carry'} int4 MLP "
-                             "fields: restack with the same setting")
-        kv = gemma2.StackedKVCache.zeros(lm_cfg, B, L, device=dev)
-    else:
-        kv = gemma2.KVCache.zeros(lm_cfg, B, L, device=dev,
-                                  dtype=torch.int8 if gen.kv_quant else activation_dtype,
-                                  num_kv_heads=gemma2.local_heads(lm, lm_cfg)[1])
+            stacked = (session.stacked if session is not None else gemma2.stack_decode_params(
+                lm, lm_cfg, mlp_int4=gen.mlp_int4, mlp_int4_group=gen.mlp_int4_group))
     table = lm["embedding"]
     argmax_head = None
     if gen.greedy and isinstance(table, dict):
         argmax_head = (quant.int4_matmul_t_argmax if "w_int4" in table
                        else quant.int8_matmul_t_argmax)
 
-    bos = torch.full((B,), lm_cfg.bos_token_id, dtype=torch.int32, device=dev)
-    toks = torch.full((B, gen.max_length), lm_cfg.pad_token_id, dtype=torch.int32, device=dev)
-    tok, done = bos, torch.zeros(B, dtype=torch.bool, device=dev)
+    tok = bos
     all_done = _AllDone(dev) if gen.early_stop else None
     for t in range(gen.max_length):
         with annotate("token"):
             if all_done is not None and all_done.seen(t):
                 break
-            emb = gemma2.embed(lm, tok.long()[:, None]).to(activation_dtype)
+            emb = gemma2.embed(lm, tok.long()[:, None])
+            if bridge_graphs is None:
+                emb = emb.to(activation_dtype)
             if gen.bypass_bridge:
                 bridged = emb
             elif use_fused_bridge:
+                # the graphs' input takes the cast to the activation dtype
+                x_in = (emb[:, 0].contiguous() if bridge_graphs is None
+                        else bridge_graphs.x.copy_(emb[:, 0]))
                 with annotate("bridge_step"):
                     x = decode_kernels.fused_bridge_step(
-                        t, emb[:, 0].contiguous(), bst, bridge_cache.cross_k,
+                        t, x_in, bst, bridge_cache.cross_k,
                         bridge_cache.cross_k_scale, bridge_cache.cross_v,
                         bridge_cache.cross_v_scale, bridge_cache.self_k, bridge_cache.self_v,
                         num_heads_cross=br_cfg.num_heads_cross,
-                        num_heads_self=br_cfg.num_heads_self, eps=br_cfg.layer_norm_eps)
+                        num_heads_self=br_cfg.num_heads_self, eps=br_cfg.layer_norm_eps,
+                        graphs=bridge_graphs)
                 bridged = x[:, None, :]
             else:
                 with annotate("bridge_step"):
                     bridged, bridge_cache = _bridge_decode_step(bridge_params, br_cfg,
                                                                 bridge_cache, emb, t)
             if use_fused:
-                hidden, kv = gemma2.decode_step_stacked(lm, lm_cfg, stacked, bridged, kv, t)
+                hidden, kv = gemma2.decode_step_stacked(lm, lm_cfg, stacked, bridged, kv, t,
+                                                        rope=rope, normalizer=normalizer,
+                                                        graphs=stack_graphs)
             else:
                 hidden, kv = gemma2.decode_step(lm, lm_cfg, bridged, kv, position=t)
             if argmax_head is not None:
@@ -342,11 +506,12 @@ def _generate_fast(params, cfg: VLMConfig, vision: torch.Tensor, gen: Generation
                                        top_p=gen.top_p, greedy=gen.greedy,
                                        topk_window=gen.topk_window)
             nxt = torch.where(done, torch.full_like(nxt, lm_cfg.pad_token_id), nxt)
-            done = done | (nxt == lm_cfg.eos_token_id)
+            done |= nxt == lm_cfg.eos_token_id
             toks[:, t] = nxt
             tok = nxt
             if all_done is not None:
                 all_done.push(t, done)
+    # a new tensor: a session's buffers serve its next batch
     tokens = torch.cat([bos[:, None], toks], dim=1)
     return tokens, _eos_lengths(tokens, lm_cfg.eos_token_id)
 
@@ -418,9 +583,11 @@ def generate_tokens(params, cfg: VLMConfig, *, pixel_values: Optional[torch.Tens
 
 
 def _generate_local(params, cfg: VLMConfig, pixel_values, vision_features, generator, gen,
-                    activation_dtype, *, fused_ok: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    activation_dtype, *, fused_ok: bool,
+                    session_ok: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """generate_tokens on this process's rows; fused_ok False (an LM cut
-    over a model axis) keeps the fused steps from dispatching."""
+    over a model axis) keeps the fused steps from dispatching; session_ok
+    False runs the fused steps eagerly on CUDA too (`_generate_fast`)."""
     activation_dtype = resolve_activation_dtype(activation_dtype, gen)
     if gen.exact:
         if "layers" not in params["lm"]:
@@ -452,4 +619,4 @@ def _generate_local(params, cfg: VLMConfig, pixel_values, vision_features, gener
     if vision_features is None:
         vision_features = full_model.encode_image(params, cfg, pixel_values)
     return _generate_fast(params, cfg, vision_features, gen, activation_dtype, generator,
-                          use_fused, use_fused_bridge)
+                          use_fused, use_fused_bridge, session_ok=session_ok)

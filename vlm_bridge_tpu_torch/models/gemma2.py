@@ -127,25 +127,40 @@ class FusedKVCache(NamedTuple):
                             v_scale=per_layer(shape[:-1], torch.float32))
 
 
+def rope_rows(cfg: Gemma2Config, n: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [n, head_dim] f32 of positions 0 .. n - 1, built on the device
+    (no copy from the host) once for a decode loop: row t holds rope_table's
+    values at position t, bit for bit (the same elementwise ops)."""
+    return rope_table(torch.arange(n, device=device), cfg.head_dim, cfg.rope_theta)
+
+
+def embed_normalizer(cfg: Gemma2Config, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """√H cast to the activation dtype, as the JAX package casts it before
+    the multiply; filled on the device (no copy from the host)."""
+    return torch.full((), cfg.hidden_size ** 0.5, dtype=dtype, device=device)
+
+
 def decode_step_fused(params: dict, cfg: Gemma2Config, token_embeds: torch.Tensor,
-                      cache: FusedKVCache, position: int) -> Tuple[torch.Tensor, FusedKVCache]:
+                      cache: FusedKVCache, position: int, *,
+                      rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      normalizer: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, FusedKVCache]:
     """Lockstep decode step at `position` through the per-layer fused calls:
     two a layer (ops.decode_kernels.fused_attn_step / fused_mlp_step) over
     fully int8 per-layer weights (`supports_fused_decode`). Semantics match
     decode_step(position=...) with an int8 cache; the calls round the
     residual stream to the activation dtype twice a layer.
 
-    token_embeds: [B, 1, H] raw embeddings. The four cache writes of a layer
-    stay here: `fused_attn_step` hands back the new K/V and scales and leaves
-    the cache untouched. Returns (final-normed hidden [B, 1, H], cache
-    updated in place)."""
+    token_embeds: [B, 1, H] raw embeddings; rope: a decode loop's
+    `rope_rows`, normalizer its `embed_normalizer` (None: built here, on the
+    device). The four cache writes of a layer stay here: `fused_attn_step`
+    hands back the new K/V and scales and leaves the cache untouched. Returns
+    (final-normed hidden [B, 1, H], cache updated in place)."""
     t = int(position)
-    dev = token_embeds.device
     B = token_embeds.shape[0]
     KH, D = cfg.num_kv_heads, cfg.head_dim
-    cos, sin = rope_table(torch.tensor([t], device=dev), D, cfg.rope_theta)
-    cos, sin = cos[0].contiguous(), sin[0].contiguous()
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=token_embeds.dtype, device=dev)
+    rope, normalizer = _step_constants(cfg, token_embeds, t, rope, normalizer)
+    cos, sin = rope[0][t], rope[1][t]
     x = (token_embeds * normalizer)[:, 0].contiguous()
     for i in range(cfg.num_layers):
         lp = params["layers"][str(i)]
@@ -255,28 +270,46 @@ def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
     return out
 
 
+def _step_constants(cfg: Gemma2Config, token_embeds: torch.Tensor, t: int, rope, normalizer):
+    """A decode step's RoPE rows and normalizer: the loop's, or built here."""
+    dev = token_embeds.device
+    if rope is None:
+        rope = rope_rows(cfg, t + 1, dev)
+    if normalizer is None:
+        normalizer = embed_normalizer(cfg, token_embeds.dtype, dev)
+    return rope, normalizer
+
+
 def decode_step_stacked(params: dict, cfg: Gemma2Config, stacked: dict,
-                        token_embeds: torch.Tensor, cache: StackedKVCache,
-                        position: int) -> Tuple[torch.Tensor, StackedKVCache]:
+                        token_embeds: torch.Tensor, cache: StackedKVCache, position: int, *,
+                        rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        normalizer: Optional[torch.Tensor] = None,
+                        graphs: Optional[decode_kernels.StepGraphs] = None
+                        ) -> Tuple[torch.Tensor, StackedKVCache]:
     """Lockstep decode step at `position` through the whole stack.
 
-    token_embeds: [B, 1, H] raw (bridged) embeddings. The √H normalizer is
-    cast to the activation dtype before the multiply, as in the JAX package.
-    Returns (final-normed hidden [B, 1, H], cache updated in place). The
-    span vlm.stack_step holds the call into the stack's kernels alone; the
-    rope position, the normalizer and the final norm stay outside it."""
+    token_embeds: [B, 1, H] raw (bridged) embeddings; rope: a decode loop's
+    `rope_rows`, of which row `position` goes to the step; normalizer: its
+    `embed_normalizer` (√H cast to the activation dtype before the multiply,
+    as in the JAX package); either None: built here, on the device. graphs:
+    a decode loop's StepGraphs for the stack step (the scaled embeddings go
+    into its input buffer, and the step runs from its graph of this
+    position). Returns (final-normed hidden [B, 1, H], cache updated in
+    place). The span vlm.stack_step holds the call into the stack's kernels
+    alone; the normalizer and the final norm stay outside it."""
     t = int(position)
-    dev = token_embeds.device
-    cos, sin = rope_table(torch.tensor([t], device=dev), cfg.head_dim, cfg.rope_theta)
-    normalizer = torch.tensor(cfg.hidden_size ** 0.5, dtype=token_embeds.dtype, device=dev)
-    x = (token_embeds * normalizer)[:, 0].contiguous()
+    rope, normalizer = _step_constants(cfg, token_embeds, t, rope, normalizer)
+    if graphs is None:
+        x = (token_embeds * normalizer)[:, 0].contiguous()
+    else:
+        x = torch.mul(token_embeds[:, 0], normalizer, out=graphs.x)
     with annotate("stack_step"):
         x_out = decode_kernels.fused_stack_step(
             t, x, stacked, cache.k, cache.v, cache.k_scale, cache.v_scale,
-            cos[0].contiguous(), sin[0].contiguous(),
+            rope[0][t], rope[1][t],
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, attn_scale=cfg.attn_scale,
-            softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps)
+            softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps, graphs=graphs)
     hidden = rms_norm(x_out[:, None, :], params["final_norm"], cfg.rms_norm_eps)
     return hidden, cache
 

@@ -61,6 +61,11 @@ there):
     [nb, B, Hc, Sv]; self K/V [nb, B, Hs, Smax, Ds] in the activation dtype.
 The caches are updated in place at row t.
 
+Given a `StepGraphs` (a decode loop's, inference/generate.py), each step
+runs its C call from a CUDA graph of its position: captured on the first
+call, after the validation, and replayed on the later ones (the counters
+`captures` and `replays` beside `launches`).
+
 Each step launches one kernel for each product, which also runs the stage
 that consumes it (csrc/decode_gemm.cuh: the residual norms, GeGLU, GELU),
 the attentions as kernels of their own that read the q|k|v (or q) product
@@ -283,13 +288,19 @@ def stream_k_tiles(M: int, N: int, K: int, sms: int) -> list:
 _WORKSPACES: dict = {}
 
 
+def _workspace_size(dev: torch.device, shapes) -> tuple:
+    """(slots, barrier words) of one workspace for products of the given
+    (M, N, K) shapes launched one after another."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = [stream_k_workspace(M, N, K, sms) for M, N, K in shapes]
+    return max(a for a, _ in sizes), max(b for _, b in sizes)
+
+
 def _workspace(dev: torch.device, shapes) -> tuple:
     """The cached stream-K workspace for products of the given (M, N, K)
     shapes launched one after another on the current stream, with its slot
     and barrier-word counts."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    sizes = [stream_k_workspace(M, N, K, sms) for M, N, K in shapes]
-    slots, counters = max(a for a, _ in sizes), max(b for _, b in sizes)
+    slots, counters = _workspace_size(dev, shapes)
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, slots, counters)
     ws = _WORKSPACES.get(key)
     if ws is None:
@@ -309,6 +320,104 @@ def _scratch(dev: torch.device, name: str, shape: tuple, dtype: torch.dtype) -> 
     if buf is None:
         buf = _SCRATCH[key] = torch.empty(shape, dtype=dtype, device=dev)
     return buf
+
+
+class StepGraphs:
+    """The buffers of one fused step at fixed addresses, and its CUDA graphs,
+    one a position: what `fused_stack_step` and `fused_bridge_step` take as
+    `graphs` (a decode loop holds one of each, inference/generate.py).
+
+    `x` is the step's input, which the caller writes before each call. The
+    wrapper's output, its scratch and its stream-K workspace are allocated
+    here at the first capture that needs them, outside the capture, and
+    kept. The first call at position t validates its arguments and captures
+    the step's one C call, with t and the launch parameters that follow from
+    it as host values, into position t's graph; a later call at t with the
+    same tensors (the same addresses, shapes and scalars: `signature`)
+    replays it: the same kernels in the same order, with no validation and no
+    per-launch work on the host. The workspace's barrier count is zero after
+    every launch, as between eager calls; its release flag takes each
+    launch's epoch, which a graph fixes at capture: a step launches at least
+    three products with a barrier, so no launch ever follows one with its own
+    epoch, and a waiter never passes on a stale release."""
+
+    def __init__(self, x: torch.Tensor):
+        self.x = x
+        self._buffers: dict = {}
+        self._graphs: dict = {}   # t -> (signature, CUDAGraph, output)
+        self._stream = self._pool = None
+
+    def buffer(self, name: str, shape: tuple, dtype: torch.dtype, zero: bool = False):
+        key = (name, tuple(shape), dtype)
+        buf = self._buffers.get(key)
+        if buf is None:
+            make = torch.zeros if zero else torch.empty
+            buf = self._buffers[key] = make(shape, dtype=dtype, device=self.x.device)
+        return buf
+
+    def workspace(self, shapes) -> tuple:
+        """As `_workspace`, but this step's own, zeroed once."""
+        slots, counters = _workspace_size(self.x.device, shapes)
+        ws = self.buffer("ws", (slots * DG_SLOT + counters,), torch.float32, zero=True)
+        return ws, slots, counters
+
+    @staticmethod
+    def signature(tensors, weights: dict, *scalars) -> tuple:
+        return (tuple((a.data_ptr(), a.shape) for a in tensors),
+                tuple(w.data_ptr() for w in weights.values()), scalars)
+
+    def replay(self, t: int, sig: tuple):
+        """Position t's output after replaying its graph, or None where no
+        graph of t was captured with these arguments."""
+        entry = self._graphs.get(t)
+        if entry is None or entry[0] != sig:
+            return None
+        entry[1].replay()
+        return entry[2]
+
+    def capture(self, t: int, sig: tuple, launch, out: torch.Tensor) -> None:
+        """Capture `launch` (the step's C call) as position t's graph on a
+        side stream, then replay it once: capturing runs nothing."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.x.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._stream):
+            # relaxed: the C call binds its device and sets kernel attributes
+            # on its first use, neither of which is stream work
+            graph.capture_begin(pool=self._pool, capture_error_mode="relaxed")
+            try:
+                launch()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+        self._graphs[t] = (sig, graph, out)
+        graph.replay()
+
+    @property
+    def positions(self) -> list:
+        return sorted(self._graphs)
+
+
+def _step_buffers(graphs, dev: torch.device):
+    """new(name, shape, dtype): a fresh tensor, or the graphs' own buffer."""
+    if graphs is None:
+        return lambda name, shape, dtype: torch.empty(shape, dtype=dtype, device=dev)
+    return graphs.buffer
+
+
+def _run_step(graphs, t: int, sig, counts, name: str, args: tuple, out: torch.Tensor) -> None:
+    """Run C entry `name` directly, or capture it as position t's graph of
+    `graphs` (counted on `counts`, the wrapper) and replay it."""
+    if graphs is None:
+        cuda_lib.call(name, *args)
+        return
+    graphs.capture(t, sig, lambda: cuda_lib.call(name, *args), out)
+    counts.captures += 1
 
 
 def split_halves(a: torch.Tensor) -> torch.Tensor:
@@ -408,8 +517,9 @@ decode_gemm4.launches = 0
 
 def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
                            num_heads: int, num_kv_heads: int, head_dim: int,
-                           attn_scale: float, softcap: float, eps: float):
-    """Plain version of `fused_stack_step` (same arguments and effects)."""
+                           attn_scale: float, softcap: float, eps: float, graphs=None):
+    """Plain version of `fused_stack_step` (same arguments and effects;
+    `graphs` is taken and left unused: the result is a new tensor)."""
     from vlm_bridge_tpu_torch.models.gemma2 import quantize_kv
 
     act = x.dtype
@@ -452,7 +562,8 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
 
 def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
                      num_heads: int, num_kv_heads: int, head_dim: int,
-                     attn_scale: float, softcap: float, eps: float):
+                     attn_scale: float, softcap: float, eps: float,
+                     graphs: StepGraphs | None = None):
     """One lockstep decode step (position t) through all decoder layers.
 
     x: [B, H] scaled token embeddings; cos/sin: [head_dim] f32 RoPE rows of
@@ -461,7 +572,10 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     (before the final norm) in x.dtype. CUDA tensors run
     csrc/stack_step.cu (x bf16) or raise; CPU tensors run the plain version.
     A stacked dict with "wgu4" runs the int4 MLP stage (csrc/i4_gemm.cu); one
-    with neither "wgu" nor "wgu4" is refused.
+    with neither "wgu" nor "wgu4" is refused. graphs (CUDA, x = graphs.x):
+    the step runs from position t's graph (`StepGraphs`), captured on the
+    first such call and replayed after; the output is then the graphs'
+    buffer, overwritten by the next call.
     """
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               attn_scale=attn_scale, softcap=softcap, eps=eps)
@@ -470,6 +584,15 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
         raise ValueError("stacked weights carry neither int8 (wgu) nor int4 (wgu4) MLP fields")
     if not x.is_cuda:
         return fused_stack_step_plain(t, x, stacked, kc, vc, ks, vs, cos, sin, **kw)
+    sig = None
+    if graphs is not None:
+        sig = graphs.signature((x, kc, vc, ks, vs, cos, sin), stacked, num_heads, num_kv_heads,
+                               head_dim, attn_scale, softcap, eps)
+        out = graphs.replay(t, sig)
+        if out is not None:
+            fused_stack_step.launches += 1
+            _STACK_STEP.replays += 1
+            return out
     B, H = x.shape
     L = stacked["wqkv"].shape[0]
     NQKV = 64 * stacked["wqkv"].shape[1]
@@ -520,26 +643,33 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
                                 ("sin", sin, torch.float32, (D,))):
         c(tt, name, dt, shape)
     dev = x.device
-    x_out = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
-    x32 = torch.empty(B, H, dtype=torch.float32, device=dev)
-    hbuf = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)  # split hi | lo
-    abuf = torch.empty(2, B, max(QHD, F), dtype=torch.bfloat16, device=dev)
-    ws, slots, counters = _workspace(dev, [(B, NQKV, H), (B, H, QHD), (B, 2 * F, H), (B, H, F)])
+    new = _step_buffers(graphs, dev)
+    x_out = new("x_out", (B, H), torch.bfloat16)
+    x32 = new("x32", (B, H), torch.float32)
+    hbuf = new("hbuf", (2, B, H), torch.bfloat16)  # split hi | lo
+    abuf = new("abuf", (2, B, max(QHD, F)), torch.bfloat16)
+    shapes = [(B, NQKV, H), (B, H, QHD), (B, 2 * F, H), (B, H, F)]
+    ws, slots, counters = _workspace(dev, shapes) if graphs is None else graphs.workspace(shapes)
     s = stacked
     p = cuda_lib.ptr
-    cuda_lib.call(
-        "vbt_fused_stack_step", p(x), p(x_out),
+    _run_step(graphs, t, sig, _STACK_STEP, "vbt_fused_stack_step", (
+        p(x), p(x_out),
         p(s["wqkv"]), p(s["qkv_scale"]), p(s["wo"]), p(s["o_scale"]),
         *(p(s[name]) for name, _, _ in mlp), p(s["norms"]),
         p(cos), p(sin), p(kc), p(vc), p(ks), p(vs),
         p(x32), p(hbuf), p(abuf), p(ws), slots, counters,
         L, B, H, NH, KH, D, F, S, int(t), int(mlp4), group or 0,
-        float(attn_scale), float(softcap), float(eps))
+        float(attn_scale), float(softcap), float(eps)), x_out)
     fused_stack_step.launches += 1
     return x_out
 
 
-fused_stack_step.launches = 0
+# calls that ran the step's kernels; of those with graphs, the ones that
+# captured a position's graph and the ones that replayed it. The graph
+# counters are kept on this function object (_STACK_STEP) also while a caller
+# has wrapped the module attribute.
+fused_stack_step.launches = fused_stack_step.captures = fused_stack_step.replays = 0
+_STACK_STEP = fused_stack_step
 
 
 # ---------------------------------------------------------------------------
@@ -548,8 +678,9 @@ fused_stack_step.launches = 0
 
 
 def fused_bridge_step_plain(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
-                            num_heads_cross: int, num_heads_self: int, eps: float):
-    """Plain version of `fused_bridge_step` (same arguments and effects)."""
+                            num_heads_cross: int, num_heads_self: int, eps: float, graphs=None):
+    """Plain version of `fused_bridge_step` (same arguments and effects;
+    `graphs` is taken and left unused)."""
     act = x.dtype
     nb = bst["wq"].shape[0]
     B, ld = x.shape
@@ -589,17 +720,28 @@ _BRIDGE_PREFIX = {"wq": "q", "wo_c": "o_c", "wqkv": "qkv", "wo_s": "o_s",
 
 
 def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
-                      num_heads_cross: int, num_heads_self: int, eps: float):
+                      num_heads_cross: int, num_heads_self: int, eps: float,
+                      graphs: StepGraphs | None = None):
     """One decode step (position t) through both bridge blocks.
 
     x: [B, ld] token embeddings. Writes the new self-attention K/V (rounded
     to the cache dtype) into row t of sk/sv in place and returns the bridge
     output [B, ld] in x.dtype. CUDA tensors run csrc/bridge_step.cu (x and
     the self caches bf16) or raise; CPU tensors run the plain version.
+    graphs: as in `fused_stack_step`.
     """
     kw = dict(num_heads_cross=num_heads_cross, num_heads_self=num_heads_self, eps=eps)
     if not x.is_cuda:
         return fused_bridge_step_plain(t, x, bst, ck, cks, cv, cvs, sk, sv, **kw)
+    sig = None
+    if graphs is not None:
+        sig = graphs.signature((x, ck, cks, cv, cvs, sk, sv), bst, num_heads_cross,
+                               num_heads_self, eps)
+        out = graphs.replay(t, sig)
+        if out is not None:
+            fused_bridge_step.launches += 1
+            _BRIDGE_STEP.replays += 1
+            return out
     B, ld = x.shape
     nb = bst["wq"].shape[0]
     F = 64 * bst["fc1"].shape[1]
@@ -635,15 +777,17 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
     c(sk, "sk", torch.bfloat16, (nb, B, Hs, Smax, Ds))
     c(sv, "sv", torch.bfloat16, (nb, B, Hs, Smax, Ds))
     dev = x.device
-    x_out = torch.empty(B, ld, dtype=torch.bfloat16, device=dev)
-    x32 = torch.empty(B, ld, dtype=torch.float32, device=dev)
-    hbuf = torch.empty(2, B, ld, dtype=torch.bfloat16, device=dev)  # split hi | lo
-    abuf = torch.empty(2, B, max(ld, F), dtype=torch.bfloat16, device=dev)
-    ws, slots, counters = _workspace(dev, [(B, ld, ld), (B, 3 * ld, ld), (B, F, ld), (B, ld, F)])
+    new = _step_buffers(graphs, dev)
+    x_out = new("x_out", (B, ld), torch.bfloat16)
+    x32 = new("x32", (B, ld), torch.float32)
+    hbuf = new("hbuf", (2, B, ld), torch.bfloat16)  # split hi | lo
+    abuf = new("abuf", (2, B, max(ld, F)), torch.bfloat16)
+    shapes = [(B, ld, ld), (B, 3 * ld, ld), (B, F, ld), (B, ld, F)]
+    ws, slots, counters = _workspace(dev, shapes) if graphs is None else graphs.workspace(shapes)
     s = bst
     p = cuda_lib.ptr
-    cuda_lib.call(
-        "vbt_fused_bridge_step", p(x), p(x_out), p(s["lns"]),
+    _run_step(graphs, t, sig, _BRIDGE_STEP, "vbt_fused_bridge_step", (
+        p(x), p(x_out), p(s["lns"]),
         p(s["wq"]), p(s["q_scale"]), p(s["q_bias"]),
         p(ck), p(cks), p(cv), p(cvs),
         p(s["wo_c"]), p(s["o_c_scale"]), p(s["o_c_bias"]),
@@ -653,12 +797,14 @@ def fused_bridge_step(t: int, x, bst: dict, ck, cks, cv, cvs, sk, sv, *,
         p(s["fc1"]), p(s["fc1_scale"]), p(s["fc1_bias"]),
         p(s["fc2"]), p(s["fc2_scale"]), p(s["fc2_bias"]),
         p(x32), p(hbuf), p(abuf), p(ws), slots, counters,
-        nb, B, ld, Hc, Hs, Sv, Smax, F, int(t), float(eps))
+        nb, B, ld, Hc, Hs, Sv, Smax, F, int(t), float(eps)), x_out)
     fused_bridge_step.launches += 1
     return x_out
 
 
-fused_bridge_step.launches = 0
+# as for fused_stack_step
+fused_bridge_step.launches = fused_bridge_step.captures = fused_bridge_step.replays = 0
+_BRIDGE_STEP = fused_bridge_step
 
 
 # ---------------------------------------------------------------------------
