@@ -88,6 +88,14 @@ kernel held against its plain version.
    layers: fused_bridge_step -> the stack step -> the greedy head over the
    256000-row table, against the plain versions (rows within HIDDEN_TOL,
    greedy ids equal but for near-ties of the plain logits).
+4b'''. The stack step with routed experts at Mellum2-12B-A2.5B's widths (32
+   query over 4 KV heads of 128, 64 experts of 896, 8 a row), two layers,
+   B 64, against its plain version: the routing logs agree but for
+   near-ties (weights within 1e-4), each row routed alike within
+   MOE_ROW_TOL of its norm, a second call's bits, 1 + 6 L launches; the
+   device ms, launches and bound of moe_route_kernel, both
+   moe_expert_kernel launches and stack_attn_kernel at G 8, each a row of
+   the `kernels` line.
 4c. The int4 recipe: the table re-quantized to the int4 rows-packed layout
    and the stack rebuilt with int4 MLP weights. Phases for the two int4
    heads, `int4_mlp` (per channel and in groups of 128) and the stack step
@@ -182,6 +190,10 @@ SEED = 0
 BATCH = 64
 NEW_TOKENS = 50
 HIDDEN_TOL = 3e-2  # x max|ref|: the bf16/int8 noise the JAX kernel tests allow
+# a row's error against its norm, where the kernel and the plain version route it
+# alike: both read h as bf16 hi + lo, sum in f32 and round the row to bf16 (a
+# dropped expert moves a row by some hundredths of its norm)
+MOE_ROW_TOL = 1e-2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 5
 # Flash kernels against their plain versions, both on bf16 inputs: outputs
 # are rounded to bf16 (2^-9 relative) and p / ds are rounded to bf16 at
@@ -296,19 +308,22 @@ def card_line() -> str:
 
 
 PTXAS_TAGS = ("fa_", "i8mm_kernel", "decode_gemm_kernel", "tied_head_kernel",
-              "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide", "layer_attn_kernel")
+              "tiled_matmul_kernel", "layer_norm_kernel", "layer_norm_wide", "layer_attn_kernel",
+              "moe_expert_kernel", "moe_route_kernel", "stack_attn_kernel")
 
 
 # the wgmma kernels: each instantiation must not spill
 SPILL_CHECKED = ("tiled_matmul_kernel", "fa_fwd_sm90_kernel", "fa_bwd_dq_sm90_kernel",
                  "fa_bwd_dkv_sm90_kernel", "decode_gemm_kernel", "tied_head_kernel",
-                 "i8mm_kernel")
+                 "i8mm_kernel", "moe_expert_kernel")
 FLASH_INSTANCES = tuple(f"{k}ILi{d}E" for k in SPILL_CHECKED[1:4] for d in (64, 128, 256))
 # the fused steps' GEMM core (csrc/decode_gemm.cuh): int8 with hi + lo halves,
 # int8 with one bf16 half (the per-layer steps), and int4 with waits every
 # stage or every half stage (groups of an odd multiple of 32 rows)
 GEMM_INSTANCES = ("decode_gemm_kernelILb0ELi4ELi2E", "decode_gemm_kernelILb0ELi4ELi1E",
-                  "decode_gemm_kernelILb1ELi4ELi2E", "decode_gemm_kernelILb1ELi2ELi2E")
+                  "decode_gemm_kernelILb1ELi4ELi2E", "decode_gemm_kernelILb1ELi2ELi2E",
+                  # the same core under the routed experts' name: gate|up, and down by expert
+                  "moe_expert_kernelILb0E", "moe_expert_kernelILb1E")
 # the tied heads (csrc/tied_head.cu): int8, int4 per row, int4 in groups, each
 # greedy (argmax) and sampled (logits)
 HEAD_INSTANCES = tuple(f"tied_head_kernelILb{i4}ELb{gr}ELb{lg}E"
@@ -330,8 +345,8 @@ def ptxas_report(build_log: str, tags=PTXAS_TAGS) -> list:
     pipeline runs them at a fraction of their rate and still agrees with the
     plain version), or if the build lacks one of REQUIRED: the three
     instantiations (D 64 / 128 / 256) of the flash forward, dq and dk/dv, the
-    GEMM core's four and the tied heads' six. Returns the instantiations
-    of the wgmma kernels that spill."""
+    GEMM core's four (and its two under the experts' name) and the tied heads'
+    six. Returns the instantiations of the wgmma kernels that spill."""
     log = build_log.splitlines()
     serial = [x.strip() for x in log if "wgmma" in x and "serialized" in x]
     if serial:
@@ -511,6 +526,127 @@ def phase_stack(params, cfg, dev, gen, t=20, name="fused_stack_step"):
           f"{bd['bound_by']}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None,
             "step_launches": n_launch}
+
+
+def kernel_device_ms(fn, names, calls: int = 5) -> dict:
+    """Mean device ms of one launch of each kernel whose name holds one of
+    `names` (torch.profiler over `calls` calls of fn, queued behind a spin),
+    and its launches a call; None where the profiler recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        out[name] = ({"ms": sum(times) / len(times) * 1e-3, "launches": len(times) / calls}
+                     if times else None)
+    return out
+
+
+def phase_moe_stack(dev, gen, t=20):
+    """The stack step with routed experts at Mellum2-12B-A2.5B's widths
+    (hidden 2304, 32 query over 4 KV heads of 128: G 8; 64 experts of 896,
+    8 a row), two layers, B 64, seeded random int8 weights, against its plain
+    version: the routing logs must agree (k experts a row, weights within
+    1e-4) but for near-ties, each row whose routing agrees within MOE_ROW_TOL
+    of its norm, a second call's bits equal, and 1 + 6 L launches. Returns
+    the step's row and one row for each of its kernels (moe_route_kernel,
+    both moe_expert_kernel launches, stack_attn_kernel at G 8): device ms a
+    launch, launches a step and the bound of the work each must do."""
+    from vlm_bridge_tpu_torch.configs import Gemma2MoEConfig
+    from vlm_bridge_tpu_torch.models import gemma2
+    from vlm_bridge_tpu_torch.ops import decode_kernels as dk
+    from vlm_bridge_tpu_torch.ops.layers import rope_table
+
+    lm = dataclasses.replace(Gemma2MoEConfig.mellum2_12b(), num_layers=2, vocab_size=512)
+    L, H, E, F, k = 2, lm.hidden_size, lm.num_experts, lm.moe_intermediate_size, 8
+    lq = gemma2.quantize_params(gemma2.init(lm, generator=gen, device=dev))
+    for lp in lq["layers"].values():   # norms away from their zero init
+        for n in ("input_norm", "post_attn_norm", "pre_ffn_norm", "post_ffn_norm"):
+            lp[n] = (torch.randn(H, generator=gen, device=dev) * 0.1).to(lp[n].dtype)
+    stacked = gemma2.stack_decode_params(lq, lm)
+    cache = gemma2.StackedKVCache.zeros(lm, BATCH, NEW_TOKENS + 1, device=dev)
+    cache.k[:, :, :, :t] = torch.randint(-127, 128, cache.k[:, :, :, :t].shape, generator=gen,
+                                         device=dev, dtype=torch.int8)
+    cache.v[:, :, :, :t] = torch.randint(-127, 128, cache.v[:, :, :, :t].shape, generator=gen,
+                                         device=dev, dtype=torch.int8)
+    cache.k_scale[..., :t] = 0.02 + 0.01 * torch.rand(cache.k_scale[..., :t].shape,
+                                                      generator=gen, device=dev)
+    cache.v_scale[..., :t] = 0.02 + 0.01 * torch.rand(cache.v_scale[..., :t].shape,
+                                                      generator=gen, device=dev)
+    x = (torch.randn(BATCH, H, generator=gen, device=dev) * 0.02 * H ** 0.5).to(torch.bfloat16)
+    cos, sin = (a[0].contiguous() for a in rope_table(torch.tensor([t], device=dev),
+                                                      lm.head_dim, lm.rope_theta))
+    kw = dict(num_heads=lm.num_heads, num_kv_heads=lm.num_kv_heads, head_dim=lm.head_dim,
+              attn_scale=lm.attn_scale, softcap=lm.attn_logit_softcap, eps=lm.rms_norm_eps,
+              experts_per_token=k, norm_topk_prob=True)
+    ck = [c.clone() for c in cache]
+    cp = [c.clone() for c in cache]
+    name = "fused_stack_step[moe]"
+    got = dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw)
+    klog = dk.moe_route_log()[t].clone()
+    want = dk.fused_stack_step_plain(t, x, stacked, *cp, cos, sin, **kw)
+    plog = dk.moe_route_log()[t].clone()
+    torch.cuda.synchronize()
+    if not (((klog > 0).sum(-1) == k).all() and ((plog > 0).sum(-1) == k).all()):
+        raise AssertionError(f"{name}: a row routed to other than {k} experts")
+    agree = ((klog > 0) == (plog > 0)).all(-1)               # [L, B]
+    w_err = float((klog - plog)[agree].abs().max())
+    rows = agree.all(0)
+    rel = ((got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1))[rows]
+    err = float(rel.max())
+    print(f"[{name}] routing agrees in {int(agree.sum())} of {agree.numel()} (layer, row) "
+          f"(near-ties aside), weights within {w_err:.3g}; rows routed alike: "
+          f"{int(rows.sum())} of {BATCH}, largest error {err:.4g} of the row's norm "
+          f"(tol {MOE_ROW_TOL})")
+    if int((~agree).sum()) > max(1, agree.numel() // 20) or w_err > 1e-4 or err > MOE_ROW_TOL:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    same_bits(f"{name} at B {BATCH}, t {t}", got,
+              dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw))
+
+    def call():
+        return dk.fused_stack_step(t, x, stacked, *ck, cos, sin, **kw)
+
+    n_launch = check_step_launches(name, call, L, STEP_LAUNCH_LIMITS["fused_stack_step"])
+    ms = time_ms(call, 10)
+    plain_ms = time_ms(lambda: dk.fused_stack_step_plain(t, x, stacked, *cp, cos, sin, **kw), 3)
+    B, NH, KH, D = BATCH, lm.num_heads, lm.num_kv_heads, lm.head_dim
+    live = sum(nbytes(c) for c in cache) * (t + 1) // cache.k.shape[3]
+    n_w = sum(stacked[n].numel() for n in ("wqkv", "wo", "ewgu", "ewd"))
+    rows_hl = 2 * 2 * B * H            # a product's rows in, bf16 hi + lo
+    bounds = {   # (bytes, operations) of one launch of each kernel
+        "moe_route_kernel": (4 * H * E + rows_hl + 4 * B * E * 3, 2.0 * B * H * E),
+        "moe_expert_kernel<false>": (H * 2 * E * F + 4 * 2 * E * F + rows_hl + 2 * 2 * B * E * F,
+                                     2.0 * B * H * 2 * E * F),
+        "moe_expert_kernel<true>": (E * F * H + 4 * E * H + 2 * 2 * B * E * F + 4 * B * H,
+                                    2.0 * B * E * F * H),
+        "stack_attn_kernel": (live // L + 4 * B * (NH + 2 * KH) * D + 2 * 2 * B * NH * D,
+                              4.0 * B * NH * D * (t + 1))}
+    by_kernel = kernel_device_ms(call, list(bounds))   # the profiler's names are demangled
+    rows_out = {}
+    for label in bounds:
+        bd = bound(*bounds[label])
+        got_ms = by_kernel[label]
+        rows_out[label] = {"ms": got_ms and got_ms["ms"], "launches": got_ms and got_ms["launches"],
+                           **bd, "max_abs_err": None, "plain_ms": None, "library_ms": None}
+        print(f"[{name}] {label}: "
+              + (f"{got_ms['ms']:.4f} ms a launch, {got_ms['launches']:g} a step"
+                 if got_ms else "not measured (the profiler recorded no such kernel)")
+              + f", bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    bd = bound(nbytes(*stacked.values()) + live + 2 * nbytes(x), 2.0 * B * n_w)
+    print(f"[{name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (L {L}, B {B}, S "
+          f"{cache.k.shape[3]}, t {t}), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (all "
+          f"{E} experts: the products read every expert)")
+    rows_out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+                      "library_ms": None, "launches": n_launch}
+    return rows_out
 
 
 def phase_bridge(params, cfg, dev, gen, t=20):
@@ -3474,6 +3610,15 @@ def main() -> int:
     with torch.no_grad():
         phase_gemma2_27b_step(dev, g27, card)
     torch.cuda.empty_cache()
+    # the stack step with routed experts at Mellum2-12B-A2.5B's widths (two layers)
+    gmoe = torch.Generator(device=dev)
+    gmoe.manual_seed(SEED + 23)
+    with torch.no_grad():
+        moe_rows = phase_moe_stack(dev, gmoe)
+    for name, row in moe_rows.items():
+        launches[name] = row.pop("launches")
+    results.update(moe_rows)
+    torch.cuda.empty_cache()
 
     # the int4 recipe, from the same weights: int4 table, int4 MLP weights in the stack
     i4_gen = torch.Generator(device=dev)
@@ -3542,6 +3687,15 @@ def main() -> int:
                                               "vlm_bridge_tpu/ops/decode_kernels.py:707"),
                "fused_bridge_step": ("bridge_step.cu",
                                      "vlm_bridge_tpu/ops/decode_kernels.py:1228"),
+               # the same wrapper and C entry with routed experts (the JAX
+               # package has no sparse decoder: the routing and expert kernels
+               # replace no TPU kernel), and the stack's attention at G 8
+               "fused_stack_step[moe]": ("stack_step.cu",
+                                         "vlm_bridge_tpu/ops/decode_kernels.py:707"),
+               "moe_route_kernel": ("stack_step.cu", None),
+               "moe_expert_kernel<false>": ("decode_gemm.cuh", None),
+               "moe_expert_kernel<true>": ("decode_gemm.cuh", None),
+               "stack_attn_kernel": ("decode_gemm.cuh", None),
                "fused_attn_step": ("layer_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:249"),
                "fused_mlp_step": ("layer_step.cu", "vlm_bridge_tpu/ops/decode_kernels.py:965"),
                # one kernel, both pallas_call sites of _tiled_matmul_jit (:68)

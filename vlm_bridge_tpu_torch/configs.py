@@ -177,6 +177,59 @@ class BridgeConfig:
 
 
 @dataclass(frozen=True)
+class Gemma2MoEConfig(Gemma2Config):
+    """The port's decoder block with a routed feed-forward in every layer
+    (this port only; the JAX package has no sparse decoder). Each token's
+    pre-FFN-normed row h picks `experts_per_token` of `num_experts` GeGLU
+    experts of width `moe_intermediate_size`: p = softmax(h @ router) in f32,
+    the top k by p (ties to the lower index), weights p_sel / sum(p_sel)
+    with `norm_topk_prob` (else p_sel), y = sum of the weighted experts.
+    `intermediate_size` is the published dense width, which no layer uses.
+    `full_every` > 0: layer i attends fully where (i + 1) % full_every == 0
+    and through the window elsewhere (0: Gemma-2's alternation)."""
+
+    num_experts: int = 64
+    experts_per_token: int = 8
+    moe_intermediate_size: int = 896
+    norm_topk_prob: bool = True
+    full_every: int = 0
+
+    def layer_is_sliding(self, layer_idx: int) -> bool:
+        if self.full_every:
+            return (layer_idx + 1) % self.full_every != 0
+        return super().layer_is_sliding(layer_idx)
+
+    @staticmethod
+    def mellum2_12b() -> "Gemma2MoEConfig":
+        """JetBrains/Mellum2-12B-A2.5B's widths on the port's block: 28
+        layers, hidden 2304, 32 query over 4 KV heads of 128, 64 experts of
+        width 896, 8 a token, a 1024-row window on three layers of four,
+        rope theta 500,000, vocabulary 98,304 (portbench's configuration file
+        lists the departures)."""
+        return Gemma2MoEConfig(
+            vocab_size=98304, hidden_size=2304, intermediate_size=7168, num_layers=28,
+            num_heads=32, num_kv_heads=4, head_dim=128, max_position_embeddings=131072,
+            rms_norm_eps=1e-6, rope_theta=500000.0, query_pre_attn_scalar=128.0,
+            sliding_window=1024, num_experts=64, experts_per_token=8,
+            moe_intermediate_size=896, norm_topk_prob=True, full_every=4)
+
+    @staticmethod
+    def tiny_test(vocab_size: int = 512) -> "Gemma2MoEConfig":
+        """8 query heads over one KV head of 32, 8 experts of 64, 2 a token; a
+        64-row window, which the fused decode's cache rows fit."""
+        return Gemma2MoEConfig(
+            vocab_size=vocab_size, hidden_size=64, intermediate_size=128, num_layers=4,
+            num_heads=8, num_kv_heads=1, head_dim=32, sliding_window=64,
+            query_pre_attn_scalar=32.0, max_position_embeddings=128, num_experts=8,
+            experts_per_token=2, moe_intermediate_size=64, full_every=4)
+
+
+def num_experts(cfg: Gemma2Config) -> int:
+    """Routed experts a layer of this decoder has (0: a dense feed-forward)."""
+    return getattr(cfg, "num_experts", 0)
+
+
+@dataclass(frozen=True)
 class VLMConfig:
     """Full Encoder-Adapter-Decoder model configuration."""
 

@@ -47,8 +47,10 @@ constexpr int DG_SLOT = 64 * DG_BN;
 // threads of a cross-attention block (rows of the vision K a pass)
 constexpr int DG_XATTN_THREADS = 320;
 
-// heads of a kv head the stack's attention stage takes (the wrapper refuses more)
+// heads of a kv head the stack's attention stage takes (the wrapper refuses more),
+// and at head width 128
 constexpr int DG_GMAX = 4;
+constexpr int DG_GMAX_WIDE = 8;
 
 }  // namespace
 
@@ -89,6 +91,7 @@ enum DgKind {
   DG_NONE,         // Y stays in the slots for a kernel of its own (attn_kernel, self_attn_kernel)
   DG_GEGLU_BF16,   // out = bf16(gelu_tanh(gate) * up), one half (the per-layer MLP's hidden)
   DG_RMS_BF16,     // xo = bf16(xb + rms(Y) (1 + wb)): the per-layer steps' bf16 residual
+  DG_GEGLU_MOE,    // DG_GEGLU over the experts side by side, times route_w[m, expert]
 };
 
 struct DgStage {
@@ -114,6 +117,8 @@ struct DgStage {
   bf16* sv;
   int heads, kv_heads, D, S, t;
   float attn_scale, softcap;
+  const float* route_w;  // DG_GEGLU_MOE: each row's weight of each expert [M, experts]
+  int experts, expert_f; // ... and the experts' count and width (columns of out an expert)
 };
 
 namespace {
@@ -448,6 +453,27 @@ __device__ __noinline__ void stage_geglu_bf16(const DgStage& st, const float* sl
     *reinterpret_cast<uint2*>(st.out + (size_t)m * st.out_ld + f) =
         make_uint2(pack_bf16(gelu_tanh_f(g.x) * u.x, gelu_tanh_f(g.y) * u.y),
                    pack_bf16(gelu_tanh_f(g.z) * u.z, gelu_tanh_f(g.w) * u.w));
+  }
+}
+
+// DG_GEGLU_MOE (the stack step's routed experts, stack_step.cu): DG_GEGLU over
+// the gate|up columns of all experts side by side, each output times the
+// row's routing weight of its column's expert (zero where the row does not
+// route to it), split hi + lo for the down product (a function of its own, so
+// that the dense stages keep their code)
+__device__ __noinline__ void stage_geglu_moe(const DgStage& st, const float* slots, DgPlan p,
+                                             int M, int N) {
+  const int q4 = N / 8;
+  const long long total = (long long)M * q4;
+  for (long long i = (long long)blockIdx.x * DG_CONSUMERS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * DG_CONSUMERS) {
+    const int m = (int)(i / q4), f = 4 * (int)(i % q4);
+    const int col = 64 * (f / 32) + f % 32;   // run f / 32 of gate columns, then of up columns
+    const float4 g = product4(slots, p, m, col), u = product4(slots, p, m, col + 32);
+    const float w = st.route_w[(size_t)m * st.experts + f / st.expert_f];
+    store_split4(st.out, (size_t)M * st.out_ld, (size_t)m * st.out_ld + f,
+                 make_float4(gelu_tanh_f(g.x) * u.x * w, gelu_tanh_f(g.y) * u.y * w,
+                             gelu_tanh_f(g.z) * u.z * w, gelu_tanh_f(g.w) * u.w * w));
   }
 }
 
@@ -953,6 +979,10 @@ __device__ __noinline__ void dg_finish(const DgStage& st, DgWork ws, int M, int 
     stage_geglu_bf16(st, ws.slots, p, M, N);
     return;
   }
+  if (st.kind == DG_GEGLU_MOE) {
+    stage_geglu_moe(st, ws.slots, p, M, N);
+    return;
+  }
   stage_elementwise(st, ws.slots, p, M, N);
 }
 
@@ -1003,13 +1033,16 @@ __device__ __forceinline__ void widen_frags(const FragBytes<INT4>& b, uint32_t (
 // tensor cores (4: a stage; 2: int4 scale groups that end inside a stage).
 // HALVES: the activations' bf16 halves (2: hi + lo, 128 B-tile rows, an
 // m64n128k16 a k16 step; 1: one half, 64 rows, an m64n64k16: half the
-// tensor work and half the activation bytes).
-template <bool INT4, int KSUB, int HALVES>
-__global__ void __launch_bounds__(512, 1)
-decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wts,
-                   int layer, const float* __restrict__ scale, const float* __restrict__ bias,
-                   int group, int M, int N, int K, const DgWork ws,
-                   const __grid_constant__ DgStage stage) {
+// tensor work and half the activation bytes). GROUPED: scales per group of
+// `group` rows of K ([K / group, N]), each group's sums rescaled onto the
+// next one's scale where it ends (int4 always; int8 for the experts' down
+// product, whose groups are the experts). The body of decode_gemm_kernel and
+// moe_expert_kernel, which differ in their names alone.
+template <bool INT4, int KSUB, int HALVES, bool GROUPED>
+__device__ __forceinline__ void dg_body(const CUtensorMap& act, const CUtensorMap& wts, int layer,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias, int group, int M, int N,
+                                        int K, const DgWork& ws, const DgStage& stage) {
   using S = DgShape<INT4, HALVES>;
   constexpr int NACC = 32 * HALVES;   // accumulators a thread
   extern __shared__ unsigned char dg_smem[];
@@ -1068,7 +1101,7 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
   // ---- consumers: warpgroup wg holds the block's 64-column tile wg ----
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int n_groups = INT4 ? K / group : 1;
+  const int n_groups = GROUPED ? K / group : 1;
   // the hi and lo halves are the B tile's rows 0-63 and 64-127: [4 j + 2 h +
   // e] holds row m = 8 (j % 8) + 2 t + e of weight column col(h), of hi for
   // j < 8 and of lo for j >= 8 (one half: j < 8 only)
@@ -1076,8 +1109,14 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
 #pragma unroll
   for (int x = 0; x < NACC; ++x) acc[x] = 0.f;
   // per row of the accumulator (h): int8 the column's scale and bias; int4
-  // the scale of the current and the next group
+  // the scale of the current and the next group. LATE (int8 in groups: the
+  // experts' down product, a group every F rows, so a group ends only with a
+  // stage): no scale is held across the run, only its current group (gcur);
+  // a group's end and the run's end load the scales they need, which keeps
+  // the kernel's registers under its bound
+  constexpr bool LATE = GROUPED && !INT4;
   float sc[2], nx[2], bi[2];
+  int gcur = 0;
   const uint32_t wlane = S::ACT_BYTES + wg * S::SUB_BYTES + warp * 512 + lane * 16;
   // the unit in hand: its index in the block's run, its K slice, column tile
   // and row block, its stage and the stage's parity
@@ -1095,15 +1134,17 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
     if constexpr (INT4) widen_frags<INT4>(nb, a);
     const int n0 = nt * DG_BN;
     const bool last = i == n_units - 1 || c == chunks - 1;   // this run of the tile ends
+    const bool group_ends = LATE && !last && (c + 1) * DG_BK % group == 0;
     auto col = [&](int h) { return n0 + 64 * wg + 16 * warp + g + 8 * h; };
-    if (run_start) {   // its rows' scales (and the bias on a tile's first slice)
-      const int grp = INT4 ? c * DG_BK / group : 0;
+    if (LATE && run_start) gcur = c * DG_BK / group;
+    if (!LATE && run_start) {   // its rows' scales (and the bias on a tile's first slice)
+      const int grp = GROUPED ? c * DG_BK / group : 0;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int n = col(h);
         const bool in = n < N;
-        sc[h] = INT4 ? scale_or(scale + (size_t)grp * N + n, in) : (in ? scale[n] : 0.f);
-        nx[h] = scale_or(scale + (size_t)(grp + 1) * N + n, INT4 && in && grp + 1 < n_groups);
+        sc[h] = GROUPED ? scale_or(scale + (size_t)grp * N + n, in) : (in ? scale[n] : 0.f);
+        nx[h] = scale_or(scale + (size_t)(grp + 1) * N + n, GROUPED && in && grp + 1 < n_groups);
         bi[h] = (!INT4 && bias != nullptr && c == 0 && in) ? bias[n] : 0.f;
       }
     }
@@ -1134,7 +1175,25 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
       }
       wgmma_wait<0>();
       fence_acc(acc);
-      if constexpr (INT4) {
+      if constexpr (LATE) {
+        if (group_ends) {   // onto the next group's scale: sum_g P_g * scale[g], as below
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // the approximate quotient (2 ulp): an IEEE division's slow path is
+            // a call, whose saved registers spill at this point of the loop
+            const int n = col(h);
+            const float f = n < N ? __fdividef(scale[(size_t)gcur * N + n],
+                                               scale[(size_t)(gcur + 1) * N + n])
+                                  : 0.f;
+#pragma unroll
+            for (int j = 0; j < NACC / 4; ++j) {
+              acc[4 * j + 2 * h] *= f;
+              acc[4 * j + 2 * h + 1] *= f;
+            }
+          }
+          ++gcur;
+        }
+      } else if constexpr (GROUPED) {
         // a scale group ends here inside this run: the accumulator moves to
         // the next group's unit, sum_g P_g * scale[g] at one rounding a group
         const int k_next = c * DG_BK + (part + 1) * KSUB * 16;
@@ -1161,6 +1220,14 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
       // (hi + lo) * scale (+ bias) (one half: the half * scale), staged in
       // shared memory as rows of Y, half the rows at a time, then, a warp a
       // row segment of 256 bytes, stored into the run's slot
+      if constexpr (LATE) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = col(h);
+          sc[h] = scale_or(scale + (size_t)gcur * N + n, n < N);
+          bi[h] = 0.f;
+        }
+      }
       const int m0 = mb * 64;
       const int tw = threadIdx.x % 128, cc = 64 * wg + 4 * (tw % 16);   // 4 columns of the block
       float* dst = ws.slots + (size_t)(mb * n_tiles + nt + blockIdx.x) * DG_SLOT;
@@ -1218,6 +1285,29 @@ decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constan
   if (stage.kind != DG_NONE) dg_finish(stage, ws, M, N, K, dg_smem + (ring - smem_u32(dg_smem)));
 }
 
+template <bool INT4, int KSUB, int HALVES>
+__global__ void __launch_bounds__(512, 1)
+decode_gemm_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wts,
+                   int layer, const float* __restrict__ scale, const float* __restrict__ bias,
+                   int group, int M, int N, int K, const DgWork ws,
+                   const __grid_constant__ DgStage stage) {
+  dg_body<INT4, KSUB, HALVES, INT4>(act, wts, layer, scale, bias, group, M, N, K, ws, stage);
+}
+
+// The stack step's expert products (stack_step.cu): the core at int8 with hi +
+// lo halves over all experts of a layer at once, under a name of its own so
+// that a device trace tells them from the dense products. GROUPED false:
+// gate|up over the experts' columns side by side (DG_GEGLU_MOE); true: down
+// over their rows stacked along K, a scale group an expert (DG_RMS).
+template <bool GROUPED>
+__global__ void __launch_bounds__(512, 1)
+moe_expert_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wts,
+                  int layer, const float* __restrict__ scale, const float* __restrict__ bias,
+                  int group, int M, int N, int K, const DgWork ws,
+                  const __grid_constant__ DgStage stage) {
+  dg_body<false, 4, 2, GROUPED>(act, wts, layer, scale, bias, group, M, N, K, ws, stage);
+}
+
 // ---- host ----
 
 // A split activation [2, M, lda] bf16 (hi rows, then lo rows) as the GEMMs'
@@ -1272,11 +1362,12 @@ inline DgPlan dg_plan_host(int M, int N, int K, int min_units = 1) {
   return DgPlan{n_tiles, chunks, (M + 63) / 64 * n_tiles * chunks, dg_grid(M, N, K, min_units)};
 }
 
-// stack_attn_kernel takes G <= DG_GMAX query heads a kv head of D = 32, 64,
-// 128, 256 or 512 dims, at position t (its shared memory fits); cross_attn_kernel
-// heads of D = 32 k dims over S rows
+// stack_attn_kernel takes G <= DG_GMAX query heads a kv head (DG_GMAX_WIDE at
+// D = 128) of D = 32, 64, 128, 256 or 512 dims, at position t (its shared
+// memory fits); cross_attn_kernel heads of D = 32 k dims over S rows
 inline bool stack_attn_fits(int G, int D, int t) {
-  return G >= 1 && G <= DG_GMAX && (D == 32 || D == 64 || D == 128 || D == 256 || D == 512) &&
+  return G >= 1 && G <= (D == 128 ? DG_GMAX_WIDE : DG_GMAX) &&
+         (D == 32 || D == 64 || D == 128 || D == 256 || D == 512) &&
          (size_t)stack_attn_floats(G, D, t + 1) * 4 <= (size_t)DG_STAGE_SMEM;
 }
 inline bool cross_attn_fits(int D, int S) {
@@ -1319,16 +1410,19 @@ inline int launch_attn(const DgStage& st, const DgWork& ws, int M, int N, int K,
     const int G = st.heads / st.kv_heads;
     if (!stack_attn_fits(G, st.D, st.t)) return (int)cudaErrorInvalidValue;
     const int smem = stack_attn_floats(G, st.D, st.t + 1) * 4;
-    static bool done[3] = {false, false, false};   // one flag for each instantiation
+    static bool done[4] = {false, false, false, false};   // one flag for each instantiation
     if (G == 1) {
       VBT_CHECK((cudaError_t)allow_smem(stack_attn_kernel<1>, done[0]));
       stack_attn_kernel<1><<<items, 256, smem, s>>>(st, ws.slots, p, M);
     } else if (G == 2) {
       VBT_CHECK((cudaError_t)allow_smem(stack_attn_kernel<2>, done[1]));
       stack_attn_kernel<2><<<items, 256, smem, s>>>(st, ws.slots, p, M);
-    } else {
+    } else if (G <= DG_GMAX) {
       VBT_CHECK((cudaError_t)allow_smem(stack_attn_kernel<DG_GMAX>, done[2]));
       stack_attn_kernel<DG_GMAX><<<items, 256, smem, s>>>(st, ws.slots, p, M);
+    } else {
+      VBT_CHECK((cudaError_t)allow_smem(stack_attn_kernel<DG_GMAX_WIDE>, done[3]));
+      stack_attn_kernel<DG_GMAX_WIDE><<<items, 256, smem, s>>>(st, ws.slots, p, M);
     }
   }
   VBT_CHECK_LAUNCH();
@@ -1354,8 +1448,9 @@ inline int launch_self_attn(const DgStage& st, const DgWork& ws, int M, int N, i
 // The product of layer `layer` of the weights behind `wts`, then `stage`, over
 // one cooperative grid of min(SMs, units) blocks; `ws` must hold tiles + grid
 // - 1 slots and the barrier's two words (stream_k_workspace); `act` made with
-// HALVES halves
-template <bool INT4, int KSUB, int HALVES = 2>
+// HALVES halves. MOE: 0 decode_gemm_kernel; 1 and 2 moe_expert_kernel without
+// and with an int8 scale group (an expert) of `group` rows
+template <bool INT4, int KSUB, int HALVES = 2, int MOE = 0>
 int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
               const float* bias, int group, int M, int N, int K, const DgWork& ws,
               const DgStage& stage, cudaStream_t st) {
@@ -1370,10 +1465,13 @@ int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const f
     return (int)cudaErrorInvalidValue;
   if (stage.kind == DG_RMS_BF16 && (N % 8 != 0 || (size_t)(2 * N + 32) * 4 > (size_t)DG_STAGE_SMEM))
     return (int)cudaErrorInvalidValue;
+  auto kernel = decode_gemm_kernel<INT4, KSUB, HALVES>;
+  if constexpr (MOE == 1) kernel = moe_expert_kernel<false>;
+  if constexpr (MOE == 2) kernel = moe_expert_kernel<true>;
+  if (MOE == 2 && (group % DG_BK != 0 || K % group != 0)) return (int)cudaErrorInvalidValue;
   static bool allowed = false;   // one flag for each instantiation
   if (!allowed) {
-    VBT_CHECK(cudaFuncSetAttribute(decode_gemm_kernel<INT4, KSUB, HALVES>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM));
+    VBT_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM));
     allowed = true;
   }
   // cooperative: the grid is resident at once (one block a SM), which the
@@ -1390,8 +1488,8 @@ int dg_launch(const CUtensorMap& act, const CUtensorMap& wts, int layer, const f
   cfg.numAttrs = 1;
   DgWork w = ws;
   w.epoch = stage.kind == DG_NONE ? 0u : dg_next_epoch();
-  VBT_CHECK(cudaLaunchKernelEx(&cfg, decode_gemm_kernel<INT4, KSUB, HALVES>, act, wts, layer, scale, bias,
-                               group, M, N, K, w, stage));
+  VBT_CHECK(cudaLaunchKernelEx(&cfg, kernel, act, wts, layer, scale, bias, group, M, N, K, w,
+                               stage));
   VBT_CHECK_LAUNCH();
   return 0;
 }
@@ -1411,6 +1509,14 @@ int launch_i8_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, co
 int launch_i8_gemm_bf16(const CUtensorMap& act, const CUtensorMap& wts, int layer,
                         const float* scale, const float* bias, int M, int N, int K,
                         const DgWork& ws, const DgStage& stage, cudaStream_t stream);
+
+// The expert products of the stack step (moe_expert_kernel): as
+// launch_i8_gemm, over all experts of a layer side by side; group 0: one
+// scale a column (gate|up), else [K / group, N] scales, an expert's `group`
+// rows of K under its own (down). Defined in i8_gemm.cu.
+int launch_moe_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
+                    int group, int M, int N, int K, const DgWork& ws, const DgStage& stage,
+                    cudaStream_t stream);
 
 // The product sum over groups of (A[:, group rows] @ W4[group rows, :]) *
 // scale[group, N], W4 layer `layer` of the int4 weights behind `wts`

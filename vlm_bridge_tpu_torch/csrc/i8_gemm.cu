@@ -75,6 +75,15 @@ int launch_i8_gemm_bf16(const CUtensorMap& act, const CUtensorMap& wts, int laye
   return dg_launch<false, 4, 1>(act, wts, layer, scale, bias, 0, M, N, K, ws, stage, stream);
 }
 
+int launch_moe_gemm(const CUtensorMap& act, const CUtensorMap& wts, int layer, const float* scale,
+                    int group, int M, int N, int K, const DgWork& ws, const DgStage& stage,
+                    cudaStream_t stream) {
+  return group ? dg_launch<false, 4, 2, 2>(act, wts, layer, scale, nullptr, group, M, N, K, ws,
+                                           stage, stream)
+               : dg_launch<false, 4, 2, 1>(act, wts, layer, scale, nullptr, 0, M, N, K, ws, stage,
+                                           stream);
+}
+
 // The GEMM core alone (scripts/decode_gemm_torch.py, the cuda tests):
 // y[M, N] (f32, accumulated into) += ((a[0] + a[1]) @ W int8) * scale (+ bias),
 // a [2, M, K] bf16 (halves 2) or (a[0] @ W int8) * scale (+ bias), a [1, M, K]

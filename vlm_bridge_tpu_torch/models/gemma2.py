@@ -16,6 +16,15 @@ through ops.quant (`int8_matmul` by way of `linear`, `int8_mlp`,
 `int8_matmul_t`, or `int4_matmul_t` for an int4 table). The caches are
 updated in place.
 
+A sparse decoder (configs.Gemma2MoEConfig) replaces each layer's MLP by
+routed experts: the layer's "mlp" holds "router" [H, E] (f32, never
+quantized) and "gate" / "up" [E, H, F], "down" [E, F, H], float or int8 dicts
+with per-output-column scales [E, N] of each expert. `_mlp_block` runs them
+in plain ops (a gather of each expert's rows and a weighted index_add_), so
+training, exact mode and every CPU path take them; `stack_decode_params`
+lays them out for the fused stack step, which routes and runs them in its
+one C call (ops.decode_kernels). The per-layer fused decode refuses them.
+
 Tensor parallelism (parallel.shard_params over a mesh with model > 1): a
 float q / k / v / gate / up leaf may hold this rank's columns (whole heads)
 and o / down its rows. The per-layer paths then read their head counts from
@@ -35,7 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from vlm_bridge_tpu_torch.configs import Gemma2Config
+from vlm_bridge_tpu_torch.configs import Gemma2Config, num_experts
 from vlm_bridge_tpu_torch.ops import decode_kernels, quant
 from vlm_bridge_tpu_torch.ops.attention import decode_attention, dot_product_attention
 from vlm_bridge_tpu_torch.ops.layers import (apply_rope, gelu_tanh, linear, rms_norm, rope_table,
@@ -89,8 +98,9 @@ def fused_cache_rows(n_tokens: int) -> int:
 
 
 def supports_fused_decode(params: dict, cfg: Gemma2Config, max_len: int) -> bool:
-    """Fully int8 layers (fused qkv + o + mlp dicts) and a cache that fits
-    inside every sliding window (the kernels do not mask windows)."""
+    """Fully int8 layers (fused qkv + o + mlp dicts, or int8 experts beside
+    their router) and a cache that fits inside every sliding window (the
+    kernels do not mask windows)."""
     if fused_cache_rows(max_len) > cfg.sliding_window:
         return False
     for lp in params["layers"].values():
@@ -156,6 +166,9 @@ def decode_step_fused(params: dict, cfg: Gemma2Config, token_embeds: torch.Tenso
     device). The four cache writes of a layer stay here: `fused_attn_step`
     hands back the new K/V and scales and leaves the cache untouched. Returns
     (final-normed hidden [B, 1, H], cache updated in place)."""
+    if num_experts(cfg):
+        raise ValueError("decode_step_fused runs dense MLPs: a sparse decoder's fused decode "
+                         "is the stacked step (stack_decode_params, decode_step_stacked)")
     t = int(position)
     B = token_embeds.shape[0]
     KH, D = cfg.num_kv_heads, cfg.head_dim
@@ -225,6 +238,9 @@ def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
     def stk(get):
         return torch.stack([get(lp) for lp in lps]).contiguous()
 
+    if num_experts(cfg) and mlp_int4:
+        raise ValueError("mlp_int4: the stacked experts are served int8 only")
+
     mlp = lambda lp, k: lp["mlp"][k]  # noqa: E731
     out = {
         "wqkv": stk(lambda lp: frag(lp["attn"]["qkv"]["w_int8"])),
@@ -235,6 +251,20 @@ def stack_decode_params(params: dict, cfg: Gemma2Config, mlp_int4: bool = False,
             lp["input_norm"], lp["post_attn_norm"],
             lp["pre_ffn_norm"], lp["post_ffn_norm"]]).float()),
     }
+    if num_experts(cfg):
+        E, F, H = cfg.num_experts, cfg.moe_intermediate_size, cfg.hidden_size
+
+        def side_by_side(w):   # [E, K, N] -> [K, E N]: the experts' columns in turn
+            return w.permute(1, 0, 2).reshape(w.shape[1], -1)
+
+        out["router"] = stk(lambda lp: mlp(lp, "router").float())
+        out["ewgu"] = stk(lambda lp: frag(gate_up(side_by_side(mlp(lp, "gate")["w_int8"]),
+                                                  side_by_side(mlp(lp, "up")["w_int8"]))))
+        out["egu_scale"] = stk(lambda lp: gate_up(mlp(lp, "gate")["scale"].reshape(E * F),
+                                                  mlp(lp, "up")["scale"].reshape(E * F)).float())
+        out["ewd"] = stk(lambda lp: frag(mlp(lp, "down")["w_int8"].reshape(E * F, H)))
+        out["ed_scale"] = stk(lambda lp: mlp(lp, "down")["scale"].float())
+        return out
     if not mlp_int4:
         out["wgu"] = stk(lambda lp: frag(gate_up(mlp(lp, "gate")["w_int8"],
                                                  mlp(lp, "up")["w_int8"])))
@@ -309,7 +339,9 @@ def decode_step_stacked(params: dict, cfg: Gemma2Config, stacked: dict,
             rope[0][t], rope[1][t],
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, attn_scale=cfg.attn_scale,
-            softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps, graphs=graphs)
+            softcap=cfg.attn_logit_softcap, eps=cfg.rms_norm_eps,
+            experts_per_token=getattr(cfg, "experts_per_token", 0),
+            norm_topk_prob=getattr(cfg, "norm_topk_prob", True), graphs=graphs)
     hidden = rms_norm(x_out[:, None, :], params["final_norm"], cfg.rms_norm_eps)
     return hidden, cache
 
@@ -335,6 +367,18 @@ def init(cfg: Gemma2Config, *, generator: torch.Generator, dtype=torch.bfloat16,
     def zeros(n):
         return torch.zeros(n, dtype=dtype, device=device)
 
+    def experts(fan_in, fan_out):
+        return (torch.randn(cfg.num_experts, fan_in, fan_out, generator=generator,
+                            device=device) * 0.02).to(dtype)
+
+    def mlp():   # drawn after the layer's attention: the seeded init keeps its order
+        if num_experts(cfg):
+            f = cfg.moe_intermediate_size
+            return {"router": dense(h, cfg.num_experts).float(), "gate": experts(h, f),
+                    "up": experts(h, f), "down": experts(f, h)}
+        return {"gate": dense(h, cfg.intermediate_size), "up": dense(h, cfg.intermediate_size),
+                "down": dense(cfg.intermediate_size, h)}
+
     layers = {}
     for i in range(cfg.num_layers):
         layers[str(i)] = {
@@ -342,9 +386,7 @@ def init(cfg: Gemma2Config, *, generator: torch.Generator, dtype=torch.bfloat16,
             "pre_ffn_norm": zeros(h), "post_ffn_norm": zeros(h),
             "attn": {"q": dense(h, cfg.num_heads * hd), "k": dense(h, cfg.num_kv_heads * hd),
                      "v": dense(h, cfg.num_kv_heads * hd), "o": dense(cfg.num_heads * hd, h)},
-            "mlp": {"gate": dense(h, cfg.intermediate_size),
-                    "up": dense(h, cfg.intermediate_size),
-                    "down": dense(cfg.intermediate_size, h)},
+            "mlp": mlp(),
         }
     emb = (torch.randn(cfg.vocab_size, h, generator=generator, device=device) * 0.02).to(dtype)
     return {"embedding": emb, "final_norm": zeros(h), "layers": layers}
@@ -418,8 +460,37 @@ def _attention_block(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: in
     return (out, k, v) if return_kv else out
 
 
-def _mlp_block(lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _expert(mlp: dict, e: int, x: torch.Tensor) -> torch.Tensor:
+    """Expert e's GeGLU MLP over rows x [n, H] (in x.dtype, as the dense one)."""
+    gate, up, down = (mlp[k] for k in ("gate", "up", "down"))
+    if is_quantized(gate):
+        one = lambda wq: {"w_int8": wq["w_int8"][e], "scale": wq["scale"][e]}  # noqa: E731
+        return quant.int8_mlp(x, one(gate), one(up), one(down))
+    return linear(gelu_tanh(linear(x, gate[e])) * linear(x, up[e]), down[e])
+
+
+def _moe_block(mlp: dict, x: torch.Tensor, cfg: Gemma2Config) -> torch.Tensor:
+    """The routed feed-forward over rows x [..., H]: each row's k experts by
+    the router's f32 logits (decode_kernels.moe_route), each expert run once
+    over the rows routed to it, their outputs added into the rows with the
+    rows' weights (index_add in f32); returned in x.dtype."""
+    lead, H = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, H)
+    weights, experts = decode_kernels.moe_route(xf.float() @ mlp["router"].float(),
+                                                cfg.experts_per_token, cfg.norm_topk_prob)
+    out = torch.zeros(xf.shape[0], H, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        rows, slot = (experts == e).nonzero(as_tuple=True)
+        if rows.numel():
+            y = _expert(mlp, e, xf[rows].contiguous())
+            out = out.index_add(0, rows, y.float() * weights[rows, slot, None])
+    return out.to(x.dtype).reshape(*lead, H)
+
+
+def _mlp_block(lp: dict, x: torch.Tensor, cfg: Optional[Gemma2Config] = None) -> torch.Tensor:
     mlp = lp["mlp"]
+    if "router" in mlp:
+        return _moe_block(mlp, x, cfg)
     if is_quantized(mlp["gate"]):
         lead = x.shape[:-1]
         y = quant.int8_mlp(x.reshape(-1, x.shape[-1]).contiguous(), mlp["gate"], mlp["up"],
@@ -443,7 +514,7 @@ def _layer(lp: dict, cfg: Gemma2Config, x: torch.Tensor, layer_idx: int, cos, si
         h, k, v = h
     x = x + rms_norm(h, lp["post_attn_norm"], eps)
     h = rms_norm(x, lp["pre_ffn_norm"], eps)
-    h = _mlp_block(lp, h)
+    h = _mlp_block(lp, h, cfg)
     x = x + rms_norm(h, lp["post_ffn_norm"], eps)
     return (x, k, v) if return_kv else x
 
@@ -563,8 +634,14 @@ def quantize_layer(lp: dict, parts: Tuple[str, ...]) -> dict:
                        "o": quantize_int8(lp["attn"]["o"], axis=0)}
     else:
         out["attn"] = lp["attn"]
-    out["mlp"] = ({k: quantize_int8(v, axis=0) for k, v in lp["mlp"].items()}
-                  if "mlp" in parts else lp["mlp"])
+    if "mlp" not in parts:
+        out["mlp"] = lp["mlp"]
+    elif "router" in lp["mlp"]:
+        # each expert per output column ([E, K, N]: over K); the router stays f32
+        out["mlp"] = {k: v.float() if k == "router" else quantize_int8(v, axis=1)
+                      for k, v in lp["mlp"].items()}
+    else:
+        out["mlp"] = {k: quantize_int8(v, axis=0) for k, v in lp["mlp"].items()}
     return out
 
 
@@ -690,7 +767,7 @@ def decode_step(params: dict, cfg: Gemma2Config, token_embeds: torch.Tensor, cac
         h = _out_proj(lp["attn"], attn)
         x = x + rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
         h = rms_norm(x, lp["pre_ffn_norm"], cfg.rms_norm_eps)
-        h = _mlp_block(lp, h)
+        h = _mlp_block(lp, h, cfg)
         x = x + rms_norm(h, lp["post_ffn_norm"], cfg.rms_norm_eps)
 
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

@@ -44,6 +44,11 @@ there):
     `interleave_gate_up`, so that every 64-column tile of the kernel holds
     both halves of its 32 features), wd [L, *frag(F, H)] + d_scale [L, H],
     norms [L, 4, H] f32 (input / post-attn / pre-FFN / post-FFN).
+  with routed experts (a Gemma2MoEConfig decoder) the MLP fields are instead
+    router [L, H, E] f32, ewgu [L, *frag(H, E 2F)] + egu_scale [L, E 2F] (each
+    expert's gate|up interleaved as wgu, the experts side by side), ewd
+    [L, *frag(E F, H)] (the experts' down weights stacked along the
+    contraction) + ed_scale [L, E, H] (each expert's own per-column scales).
   with int4 MLP weights (stack_decode_params(mlp_int4=True)) the MLP fields
     are instead wgu4 [L, *frag4(H, 2F)] + gu_scale4 [L, H/g, 2F] (interleaved
     as wgu) and wd4 [L, *frag4(F, H)] + d_scale4 [L, F/g, H]: nibbles in the packed fragment
@@ -66,6 +71,23 @@ runs its C call from a CUDA graph of its position: captured on the first
 call, after the validation, and replayed on the later ones (the counters
 `captures` and `replays` beside `launches`).
 
+With routed experts the MLP half of a layer is three launches: the routing
+(`moe_route_kernel`: router logits in f32 from the pre-FFN-normed row,
+softmax, the top k with ties to the lower index, the weights renormalized
+where the config says so; written as a dense [B, E] weight matrix, zero
+where a row does not route), then gate|up of all experts as one product
+over their side-by-side columns with GeGLU times each row's weight for the
+column's expert as its stage (`moe_expert_kernel<false>`), then down of all
+experts as one product over their stacked rows, each expert's rows under
+its own scales (`moe_expert_kernel<true>`), with the post-FFN stage. A row
+that does not route to an expert feeds it zeros, so the sum over the
+contraction is the weighted sum of the row's k experts, in expert order.
+Every expert's weights are read once a step; the products compute all B
+rows against each expert (`moe_slot_rows` of them): 1 + 6 L launches a
+step. With no host synchronisation, the routing kernel adds the rows routed
+to each (layer, expert) into a device counter (`moe_counters`) and writes
+the weights of position t into a routing log (`moe_route_log`).
+
 Each step launches one kernel for each product, which also runs the stage
 that consumes it (csrc/decode_gemm.cuh: the residual norms, GeGLU, GELU),
 the attentions as kernels of their own that read the q|k|v (or q) product
@@ -77,13 +99,15 @@ residual). The norms hold a row, up to ROW_MAX wide (every configuration of
 configs.py). The attention kernels keep each head's logits and the rows'
 scales in shared memory: the wrappers refuse a position or a head layout
 whose logits do not fit (`_stack_attn_bytes`, `_cross_attn_bytes`,
-`_layer_attn_bytes`), more than DG_GMAX query heads a kv head, stack heads
+`_layer_attn_bytes`), more query heads a kv head than `stack_attn_heads` allows, stack heads
 other than 32, 64, 128, 256 or 512 wide, bridge self-attention heads other
 than 32, 64, 128 or 256 wide, and per-layer heads whose width is not a
 multiple of 32 up to 1024, or with more than D / 32 query heads a kv head.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -226,9 +250,16 @@ DG_BN, DG_BK = 192, 64    # a block's weight columns; K rows a work unit
 DG_SLOT = 64 * DG_BN      # f32 values a workspace slot: one run's partial tile
 DG_XATTN_THREADS = 320    # threads of a cross-attention block
 DG_GMAX = 4               # query heads a kv head the stack's attention kernel takes
+DG_GMAX_WIDE = 8          # ... at head width 128
 # the stages' shared memory: the int8 instantiation's ring of 7 stages and its
 # epilogue staging
 DG_STAGE_SMEM = 7 * (2 * 64 * DG_BK * 2 + 3 * 64 * DG_BK) + 32 * (DG_BN + 4) * 4
+
+
+def stack_attn_heads(D: int) -> int:
+    """The most query heads a kv head the stack's attention kernel takes at
+    head width D (csrc/decode_gemm.cuh:stack_attn_fits)."""
+    return DG_GMAX_WIDE if D == 128 else min(D // 32, DG_GMAX)
 
 
 def _stack_attn_bytes(G: int, D: int, t: int) -> int:
@@ -314,11 +345,12 @@ def _workspace(dev: torch.device, shapes) -> tuple:
 _SCRATCH: dict = {}
 
 
-def _scratch(dev: torch.device, name: str, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+def _scratch(dev: torch.device, name: str, shape: tuple, dtype: torch.dtype,
+             zero: bool = False) -> torch.Tensor:
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, name, shape, dtype)
     buf = _SCRATCH.get(key)
     if buf is None:
-        buf = _SCRATCH[key] = torch.empty(shape, dtype=dtype, device=dev)
+        buf = _SCRATCH[key] = (torch.zeros if zero else torch.empty)(shape, dtype=dtype, device=dev)
     return buf
 
 
@@ -515,11 +547,115 @@ decode_gemm4.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def moe_route(logits: torch.Tensor, k: int, norm: bool) -> tuple:
+    """Routing of rows by their router logits [N, E]: p = softmax in f32,
+    the k largest p in order (ties to the lower index), their weights
+    p_sel / sum(p_sel) where `norm` (else p_sel). Returns (weights [N, k]
+    f32, experts [N, k] int64). The plain version of the routing kernel's
+    choice (csrc/stack_step.cu:moe_route_kernel) and the eager model's."""
+    p = torch.softmax(logits.float(), dim=-1)
+    experts = torch.sort(p, dim=-1, descending=True, stable=True).indices[:, :k]
+    sel = p.gather(-1, experts)
+    return (sel / sel.sum(dim=-1, keepdim=True) if norm else sel), experts
+
+
+def moe_dense_weights(weights: torch.Tensor, experts: torch.Tensor, E: int) -> torch.Tensor:
+    """[N, k] weights of experts [N, k] -> [N, E], zero where a row does not
+    route (what the routing kernel writes)."""
+    return torch.zeros(weights.shape[0], E, dtype=torch.float32,
+                       device=weights.device).scatter_(1, experts, weights.float())
+
+
+def moe_slot_rows(B: int) -> int:
+    """Rows the expert products compute against each expert of a step of B
+    rows: every row, in tiles of 64."""
+    return -(-B // 64) * 64
+
+
+# the routing counters and logs of eager calls (graphs=None): a counter for each
+# (device, L, E), a log for each (device, S, L, B, E), the latest call's last
+_MOE_COUNTERS: dict = {}
+_MOE_LOGS: dict = {}
+
+
+def _moe_buffers(graphs, dev: torch.device, S: int, L: int, B: int, E: int) -> tuple:
+    """(rows routed [L, E] int64, routing log [S, L, B, E] f32) on the
+    device: the step graphs' own, or those of eager calls."""
+    if graphs is not None:
+        return (graphs.buffer("moe_rows", (L, E), torch.int64, zero=True),
+                graphs.buffer("moe_log", (S, L, B, E), torch.float32, zero=True))
+    rows = _MOE_COUNTERS.get((str(dev), L, E))
+    if rows is None:
+        rows = _MOE_COUNTERS[(str(dev), L, E)] = torch.zeros(L, E, dtype=torch.int64, device=dev)
+    key = (str(dev), S, L, B, E)
+    log = _MOE_LOGS.pop(key, None)
+    _MOE_LOGS[key] = log = log if log is not None else torch.zeros(S, L, B, E, device=dev)
+    return rows, log
+
+
+def moe_counters(graphs=None, reset: bool = False) -> dict:
+    """The routing counter on the host: {"rows": [L, E] rows routed to each
+    (layer, expert)}, summed since it was last reset, of `graphs` (a decode
+    session's stack StepGraphs) or of the eager calls (summed over their
+    shapes; empty where nothing was routed). Reading it waits for the
+    device: call it after a batch's tokens are on the host. reset: zero it
+    after the read. (The row slots the products compute are known on the
+    host: `moe_slot_rows` a step, layer and expert.)"""
+    if graphs is not None:
+        bufs = [b for (name, _, _), b in graphs._buffers.items() if name == "moe_rows"]
+    else:
+        bufs = list(_MOE_COUNTERS.values())
+    out = {}
+    for buf in bufs:
+        host = buf.to("cpu", copy=True)
+        same = "rows" in out and out["rows"].shape == host.shape
+        out["rows"] = out["rows"] + host if same else host
+        if reset:
+            buf.zero_()
+    return out
+
+
+def moe_route_log(graphs=None):
+    """The routing log on the device, [S, L, B, E] f32: at [t, l] the weight
+    each row gave each expert in layer l at position t (zero where it did not
+    route), as the latest step at t wrote it; of `graphs` (a decode
+    session's stack StepGraphs) or of the latest eager call's shape. None
+    where nothing was routed. The device writes it with no host
+    synchronisation: a copy taken after a batch's steps holds that batch's
+    routing."""
+    if graphs is not None:
+        logs = [b for (name, _, _), b in graphs._buffers.items() if name == "moe_log"]
+        return logs[-1] if logs else None
+    return next(reversed(_MOE_LOGS.values()), None)
+
+
+def _moe_mlp_plain(t: int, i: int, h: torch.Tensor, stacked: dict, k: int, norm: bool,
+                   bufs: tuple) -> torch.Tensor:
+    """One layer's routed feed-forward of the plain stack step at position t:
+    f32 h [B, H] -> [B, H] (the experts' weighted sum, before the post-FFN
+    norm); bufs: the counter and the log (`_moe_buffers`)."""
+    B = h.shape[0]
+    E = stacked["router"].shape[2]
+    F = 32 * stacked["ewd"].shape[2] // E
+    # the routing kernel reads h as the products do: its bf16 hi + lo halves
+    weights, experts = moe_route(split_halves(h).float().sum(0) @ stacked["router"][i], k, norm)
+    w = moe_dense_weights(weights, experts, E)
+    bufs[0][i] += torch.bincount(experts.flatten(), minlength=E).to(bufs[0].device)
+    bufs[1][t, i] = w
+    gate, up = split_gate_up(_mm(h, stacked["ewgu"][i], stacked["egu_scale"][i]))
+    a = (gelu_tanh(gate) * up).reshape(B, E, F) * w[:, :, None]
+    wd = from_fragments(stacked["ewd"][i]).float().reshape(E, F, -1)
+    return (torch.einsum("bef,efh->beh", a, wd) * stacked["ed_scale"][i][None]).sum(1)
+
+
 def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
                            num_heads: int, num_kv_heads: int, head_dim: int,
-                           attn_scale: float, softcap: float, eps: float, graphs=None):
+                           attn_scale: float, softcap: float, eps: float,
+                           experts_per_token: int = 0, norm_topk_prob: bool = True,
+                           graphs=None):
     """Plain version of `fused_stack_step` (same arguments and effects;
-    `graphs` is taken and left unused: the result is a new tensor)."""
+    `graphs` is taken and left unused: the result is a new tensor; the
+    routing counter and log of a stack with experts are the eager calls')."""
     from vlm_bridge_tpu_torch.models.gemma2 import quantize_kv
 
     act = x.dtype
@@ -528,7 +664,12 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
     NH, KH, D = num_heads, num_kv_heads, head_dim
     G, QHD, KHD = NH // KH, NH * head_dim, KH * head_dim
     mlp4 = "wgu4" in stacked
-    if mlp4:
+    moe = "router" in stacked
+    bufs = (_moe_buffers(None, x.device, kc.shape[3], L, B, stacked["router"].shape[2])
+            if moe else None)
+    if moe:
+        gu = gus = wd = ds = mm = None
+    elif mlp4:
         gu, gus, wd, ds = (stacked[k] for k in ("wgu4", "gu_scale4", "wd4", "d_scale4"))
         mm, F = _mm4, 64 * wd.shape[2]
     else:
@@ -553,9 +694,12 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
         o = _mm(attn.reshape(B, QHD), stacked["wo"][i], stacked["o_scale"][i])
         xf = xf + _rms(o, nl[1], eps)
         h = _rms(xf, nl[2], eps)
-        gate, up = split_gate_up(mm(h, gu[i], gus[i]))
-        a = gelu_tanh(gate) * up
-        y = mm(a, wd[i], ds[i])
+        if moe:
+            y = _moe_mlp_plain(t, i, h, stacked, experts_per_token, norm_topk_prob, bufs)
+        else:
+            gate, up = split_gate_up(mm(h, gu[i], gus[i]))
+            a = gelu_tanh(gate) * up
+            y = mm(a, wd[i], ds[i])
         xf = xf + _rms(y, nl[3], eps)
     return xf.to(act)
 
@@ -563,6 +707,7 @@ def fused_stack_step_plain(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *
 def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
                      num_heads: int, num_kv_heads: int, head_dim: int,
                      attn_scale: float, softcap: float, eps: float,
+                     experts_per_token: int = 0, norm_topk_prob: bool = True,
                      graphs: StepGraphs | None = None):
     """One lockstep decode step (position t) through all decoder layers.
 
@@ -572,7 +717,9 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     (before the final norm) in x.dtype. CUDA tensors run
     csrc/stack_step.cu (x bf16) or raise; CPU tensors run the plain version.
     A stacked dict with "wgu4" runs the int4 MLP stage (csrc/i4_gemm.cu); one
-    with neither "wgu" nor "wgu4" is refused. graphs (CUDA, x = graphs.x):
+    with "router" the routed experts (experts_per_token of them a row, their
+    weights renormalized where norm_topk_prob; `moe_counters`); one with none
+    of "wgu", "wgu4" and "router" is refused. graphs (CUDA, x = graphs.x):
     the step runs from position t's graph (`StepGraphs`), captured on the
     first such call and replayed after; the output is then the graphs'
     buffer, overwritten by the next call.
@@ -580,29 +727,39 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               attn_scale=attn_scale, softcap=softcap, eps=eps)
     mlp4 = "wgu4" in stacked
-    if not mlp4 and "wgu" not in stacked:
-        raise ValueError("stacked weights carry neither int8 (wgu) nor int4 (wgu4) MLP fields")
+    moe = "router" in stacked
+    if not mlp4 and not moe and "wgu" not in stacked:
+        raise ValueError("stacked weights carry neither int8 (wgu) nor int4 (wgu4) MLP fields, "
+                         "nor experts (router)")
+    if moe:
+        kw.update(experts_per_token=experts_per_token, norm_topk_prob=norm_topk_prob)
     if not x.is_cuda:
         return fused_stack_step_plain(t, x, stacked, kc, vc, ks, vs, cos, sin, **kw)
     sig = None
     if graphs is not None:
         sig = graphs.signature((x, kc, vc, ks, vs, cos, sin), stacked, num_heads, num_kv_heads,
-                               head_dim, attn_scale, softcap, eps)
+                               head_dim, attn_scale, softcap, eps, experts_per_token,
+                               bool(norm_topk_prob))
         out = graphs.replay(t, sig)
         if out is not None:
             fused_stack_step.launches += 1
             _STACK_STEP.replays += 1
+            _STACK_STEP.moe_calls += moe
             return out
     B, H = x.shape
     L = stacked["wqkv"].shape[0]
     NQKV = 64 * stacked["wqkv"].shape[1]
-    F = (64 if mlp4 else 32) * stacked["wd4" if mlp4 else "wd"].shape[2]
+    E = stacked["router"].shape[2] if moe else 0
+    if moe:
+        F = 32 * stacked["ewd"].shape[2] // E   # an expert's width
+    else:
+        F = (64 if mlp4 else 32) * stacked["wd4" if mlp4 else "wd"].shape[2]
     NH, KH, D = num_heads, num_kv_heads, head_dim
     QHD, KHD = NH * D, KH * D
     S = kc.shape[3]
     if not 0 <= t < S:
         raise ValueError(f"position {t} outside the {S}-row cache")
-    if D not in (32, 64, 128, 256, 512) or NH % KH or NH // KH > min(D // 32, DG_GMAX):
+    if D not in (32, 64, 128, 256, 512) or NH % KH or NH // KH > stack_attn_heads(D):
         raise ValueError(f"unsupported head layout NH={NH} KH={KH} D={D}")
     if _stack_attn_bytes(NH // KH, D, t) > DG_STAGE_SMEM:
         raise ValueError(f"position {t}: {NH // KH} heads' logits over {t + 1} rows do not "
@@ -615,7 +772,18 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     _check_row_width(H)
     c = cuda_lib.check
     c(x, "x", torch.bfloat16, (B, H))
-    if mlp4:
+    if moe:
+        if not 0 < experts_per_token <= E or E > MOE_MAX_EXPERTS or E % 4 or F % 64:
+            raise ValueError(f"{experts_per_token} of {E} experts of width {F}: the routing "
+                             f"takes k <= E <= {MOE_MAX_EXPERTS}, E a multiple of 4, the "
+                             "products experts of a multiple of 64")
+        group = None
+        mlp = (("ewgu", (L, *frag_shape(H, 2 * E * F)), torch.int8),
+               ("egu_scale", (L, 2 * E * F), torch.float32),
+               ("ewd", (L, *frag_shape(E * F, H)), torch.int8),
+               ("ed_scale", (L, E, H), torch.float32))
+        c(stacked["router"], "router", torch.float32, (L, H, E))
+    elif mlp4:
         group = _mlp4_group(stacked, H)
         if group is not None and (group % 32 or H % group or F % group):
             raise ValueError(f"int4 scale group {group} must be a multiple of 32 that divides "
@@ -648,10 +816,22 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
     x32 = new("x32", (B, H), torch.float32)
     hbuf = new("hbuf", (2, B, H), torch.bfloat16)  # split hi | lo
     abuf = new("abuf", (2, B, max(QHD, F)), torch.bfloat16)
-    shapes = [(B, NQKV, H), (B, H, QHD), (B, 2 * F, H), (B, H, F)]
+    shapes = [(B, NQKV, H), (B, H, QHD)]
+    shapes += [(B, 2 * E * F, H), (B, H, E * F)] if moe else [(B, 2 * F, H), (B, H, F)]
     ws, slots, counters = _workspace(dev, shapes) if graphs is None else graphs.workspace(shapes)
     s = stacked
     p = cuda_lib.ptr
+    route = ()
+    if moe:
+        # the routing's logits, weights and per-row arrival counts (zero between
+        # launches), the counter and the log, and the experts' hidden [2, B, E F]; held
+        # here until the call has been queued
+        route = (s["router"], new("route_logits", (B, E), torch.float32),
+                 new("route_w", (B, E), torch.float32),
+                 (graphs.buffer if graphs is not None else partial(_scratch, dev))(
+                     "route_arrive", (B,), torch.int32, zero=True),
+                 *_moe_buffers(graphs, dev, S, L, B, E),
+                 new("ebuf", (2, B, E * F), torch.bfloat16))
     _run_step(graphs, t, sig, _STACK_STEP, "vbt_fused_stack_step", (
         p(x), p(x_out),
         p(s["wqkv"]), p(s["qkv_scale"]), p(s["wo"]), p(s["o_scale"]),
@@ -659,8 +839,12 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
         p(cos), p(sin), p(kc), p(vc), p(ks), p(vs),
         p(x32), p(hbuf), p(abuf), p(ws), slots, counters,
         L, B, H, NH, KH, D, F, S, int(t), int(mlp4), group or 0,
-        float(attn_scale), float(softcap), float(eps)), x_out)
+        float(attn_scale), float(softcap), float(eps),
+        *(map(p, route) if moe else (0,) * 7), E, int(experts_per_token) if moe else 0,
+        int(bool(norm_topk_prob))), x_out)
     fused_stack_step.launches += 1
+    if moe:
+        _STACK_STEP.moe_calls += 1
     return x_out
 
 
@@ -669,7 +853,11 @@ def fused_stack_step(t: int, x, stacked: dict, kc, vc, ks, vs, cos, sin, *,
 # counters are kept on this function object (_STACK_STEP) also while a caller
 # has wrapped the module attribute.
 fused_stack_step.launches = fused_stack_step.captures = fused_stack_step.replays = 0
+# of the calls that ran the kernels (replays included), those of a stack with experts
+fused_stack_step.moe_calls = 0
 _STACK_STEP = fused_stack_step
+
+MOE_MAX_EXPERTS = 256   # csrc/stack_step.cu: the routing kernel's experts a row
 
 
 # ---------------------------------------------------------------------------
